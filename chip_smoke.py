@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on an H100.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, `nvcc` and `nvidia-smi`; exits non-zero on the first
+failed phase, with no phase caught.
+
+1. Device and build: prints the card's name and power limit, builds the
+   CUDA kernels of `ray_tpu_torch/csrc/` and prints the build time.
+2. Kernels: holds each kernel (flash forward, dQ, dK/dV) against its plain
+   PyTorch version on the card, at GPT-2-small's attention shape (bf16,
+   causal and not) and on small float32 and ragged cases, element by
+   element, printing each error beside its limit; shows that the same check
+   rejects planted faults (a skipped tile, P left unnormalised) at the main
+   shape; times each kernel, its plain version and
+   `scaled_dot_product_attention` (a yardstick the port never calls).
+3. Model check: a small GPT-2 with the flash kernels against the same model
+   with plain attention, logits and gradients, on the card.
+4. Main path: `TorchTrainer(...).fit()` trains GPT-2-small at full width
+   (12 layers, 768 wide, 12 heads, vocab 50304, seq 1024, batch 24, bf16)
+   for 2 warm-up and 10 timed steps; the loss must be finite and fall, and
+   each step must launch each kernel once per layer.
+5. Prints the `{"kernels": [...]}` line, then the device line last.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
+              torch.float32: 67e12}     # CUDA cores, no TF32
+
+# Tolerances, element by element: |kernel - plain| <= tol * (typical +
+# |plain|), where typical is the rms of the plain tensor's row (see
+# `mismatch`). The rms term stands in for an absolute tolerance, so elements
+# near zero are held to a share of their row's size, not of the largest
+# value. It is taken per row because a row's size follows its position: row
+# i of the causal output averages i + 1 values, so early rows of dQ are ~30x
+# the late ones, and one rms for the tensor would be too tight for the early
+# rows and too loose for the late ones. Its floor, a tenth of the tensor's
+# rms, holds a row that is 0 in exact arithmetic (row 0 of dQ, where dP and
+# delta cancel) to float32 noise rather than to 0.
+# bf16: the kernels round P and dS to bf16 (8 significant bits, up to 2^-9
+# relative) to feed the tensor cores where the plain version keeps float32;
+# that error is random across a row's terms and a small share of the row's
+# size. Both round the result once to bf16, so they may differ by one ulp,
+# up to 2^-7 of |plain|. 2e-2 covers both with room.
+# float32: both run in float32 and differ only in summation order over up
+# to 1024 terms: 1e-4 for the forward; the gradients go through one more
+# product with cancelling terms (dP - delta), so 5e-4.
+TOL = {(torch.bfloat16, "fwd"): 2e-2, (torch.bfloat16, "bwd"): 2e-2,
+       (torch.float32, "fwd"): 1e-4, (torch.float32, "bwd"): 5e-4}
+
+MAIN = dict(bh=24 * 12, seq=1024, d=64, dtype=torch.bfloat16, causal=True)
+CASES = [
+    MAIN,
+    dict(MAIN, causal=False),
+    dict(bh=4, seq=256, d=64, dtype=torch.float32, causal=True),
+    dict(bh=3, seq=200, d=128, dtype=torch.float32, causal=False),
+    dict(bh=5, seq=130, d=32, dtype=torch.bfloat16, causal=True),
+]
+REPLACES = {
+    "flash_fwd": "ray_tpu/ops/attention.py:60",
+    "flash_bwd_dq": "ray_tpu/ops/attention.py:173",
+    "flash_bwd_dkv": "ray_tpu/ops/attention.py:220",
+}
+SOURCES = {
+    "flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_dq": "ray_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_bwd.cu",
+}
+WARMUP_STEPS, TIMED_STEPS, BATCH, SEQ = 2, 10, 24, 1024
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+    """Median over `rounds` of the mean time of `reps` back-to-back calls,
+    from CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def mismatch(got, want, tol: float) -> float:
+    """max |got - want| / (tol * (typical + |want|)), element by element:
+    the check holds at <= 1. `typical` is the rms of the element's row (its
+    last dimension), and at least a tenth of the whole tensor's rms."""
+    g, w = got.float(), want.float()
+    typical = torch.maximum(w.square().mean(dim=-1, keepdim=True).sqrt(),
+                            w.square().mean().sqrt() / 10)
+    limit = tol * (typical + w.abs())
+    return ((g - w).abs() / limit.clamp_min(1e-30)).max().item()
+
+
+def bound(case, n_products: int, tensors):
+    """(ms, "bytes" or "operations"): the least time for the work, the
+    larger of the bytes of every input read once and every output written
+    once over the HBM rate, and the products' FLOPs over the peak rate of
+    the type, counting only the (q, k) pairs the mask keeps."""
+    s = case["seq"]
+    pairs = s * (s + 1) // 2 if case["causal"] else s * s
+    flops = 2.0 * case["bh"] * pairs * case["d"] * n_products
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    byte_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    op_ms = 1e3 * flops / PEAK_FLOPS[case["dtype"]]
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def check_kernels(attn) -> dict:
+    """Phase 2. Returns the main-shape record of each kernel."""
+    records = {}
+    for i, case in enumerate(CASES):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        shape = (case["bh"], case["seq"], case["d"])
+
+        def randn():
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=case["dtype"])
+
+        q, k, v, do = randn(), randn(), randn(), randn()
+        causal, scale = case["causal"], 1.0 / math.sqrt(case["d"])
+        out, lse = attn._flash_forward(q, k, v, causal, scale)
+        out_p, lse_p = attn.flash_forward_reference(q, k, v, causal, scale)
+        delta = attn.bwd_delta(out, do)
+        dq = attn._bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = attn._bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        dq_p = attn.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                           scale)
+        dk_p, dv_p = attn.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                  causal, scale)
+        torch.cuda.synchronize()
+        tol_f, tol_b = TOL[case["dtype"], "fwd"], TOL[case["dtype"], "bwd"]
+        errs = {
+            "flash_fwd": (max(mismatch(out, out_p, tol_f),
+                              mismatch(lse, lse_p, tol_f)),
+                          max(max_err(out, out_p), max_err(lse, lse_p)),
+                          tol_f),
+            "flash_bwd_dq": (mismatch(dq, dq_p, tol_b), max_err(dq, dq_p),
+                             tol_b),
+            "flash_bwd_dkv": (max(mismatch(dk, dk_p, tol_b),
+                                  mismatch(dv, dv_p, tol_b)),
+                              max(max_err(dk, dk_p), max_err(dv, dv_p)),
+                              tol_b),
+        }
+        label = (f"bh={case['bh']} seq={case['seq']} d={case['d']} "
+                 f"{str(case['dtype']).split('.')[-1]} causal={causal}")
+        for name, (ratio, abs_err, tol) in errs.items():
+            ok = math.isfinite(ratio) and ratio <= 1.0
+            print(f"  {name:14s} {label}: max_abs_err={abs_err:.3e} "
+                  f"mismatch={ratio:.4f} of its limit (tol={tol:.0e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {label}")
+        if case is not MAIN:
+            continue
+        check_planted_faults(
+            attn, q, k, v, do, lse, delta, scale,
+            {"out": out, "dq": dq, "dk": dk, "dv": dv},
+            {"out": out_p, "dq": dq_p, "dk": dk_p, "dv": dv_p}, errs)
+        lib_fwd = _sdpa(q, k, v, causal, scale, backward=False)
+        lib_fwd_bwd = _sdpa(q, k, v, causal, scale, backward=True)
+        timings = {
+            "flash_fwd": (
+                lambda: attn._flash_forward(q, k, v, causal, scale),
+                lambda: attn.flash_forward_reference(q, k, v, causal, scale),
+                2, [q, k, v, out, lse], lib_fwd),
+            "flash_bwd_dq": (
+                lambda: attn._bwd_dq(q, k, v, do, lse, delta, causal, scale),
+                lambda: attn.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                    causal, scale),
+                3, [q, k, v, do, lse, delta, dq], None),
+            "flash_bwd_dkv": (
+                lambda: attn._bwd_dkv(q, k, v, do, lse, delta, causal, scale),
+                lambda: attn.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                     causal, scale),
+                4, [q, k, v, do, lse, delta, dk, dv], None),
+        }
+        for name, (kern, plain, n_prod, tensors, lib_ms) in timings.items():
+            b_ms, b_by = bound(case, n_prod, tensors)
+            records[name] = b = {
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": None,
+                "max_abs_err": errs[name][1], "ms": time_ms(kern),
+                "plain_ms": time_ms(plain, reps=3, rounds=3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            }
+            print(f"  {name:14s} main shape: {b['ms']:.4f} ms, plain "
+                  f"{b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}), library {lib_ms}")
+        ours = records["flash_fwd"]["ms"] + records["flash_bwd_dq"]["ms"] + \
+            records["flash_bwd_dkv"]["ms"]
+        print(f"  attention fwd+bwd at the main shape: kernels {ours:.4f} ms "
+              f"(plus delta), scaled_dot_product_attention {lib_fwd_bwd:.4f} "
+              f"ms")
+    return records
+
+
+def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
+                         errs) -> None:
+    """The checks above must reject a kernel that is wrong in a small part
+    of its output. At the main shape (causal), this plants into the
+    kernel's own result the rows that a tiled kernel with one of these
+    faults would give, computed by the plain math with the fault, and
+    requires a mismatch above 1 for each:
+      - forward, the last q-block skips one k-tile in the middle;
+      - forward, the last q-block leaves P unnormalised (acc, not acc / l);
+      - dQ, the last q-block skips the same k-tile;
+      - dK and dV, the first k-block skips one q-tile in the middle.
+    The last q-block averages the most keys, and the first k-block takes
+    rows from every q-block, so one tile is the smallest share there."""
+    blk, s = attn.KERNEL_BLOCK, q.shape[1]
+    last, first = slice(s - blk, s), slice(0, blk)
+    mid_k, mid_q = slice(s // 2 - blk, s // 2), slice(s // 2, s // 2 + blk)
+    tol_f, tol_b = TOL[q.dtype, "fwd"], TOL[q.dtype, "bwd"]
+
+    def planted(t, rows, value):
+        t = t.clone()
+        t[:, rows] = value
+        return t
+
+    def last_rows_forward(drop, normalise):
+        sc = torch.matmul(q[:, last].float(), k.float().transpose(1, 2))
+        keep = (torch.arange(s, device=q.device)[None, :]
+                <= torch.arange(s - blk, s, device=q.device)[:, None])
+        keep[:, drop] = False
+        sc = (sc * scale).masked_fill(~keep, float("-inf"))
+        p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+        o = torch.matmul(p, v.float())
+        return (o / p.sum(dim=-1, keepdim=True) if normalise else o
+                ).to(q.dtype)
+
+    # Keys whose k and v are 0 add nothing to dQ (dS * k = 0); queries whose
+    # dO and delta are 0 add nothing to dK and dV (dS = 0, P^T dO = 0).
+    dq_drop = attn.flash_bwd_dq_reference(
+        q, planted(k, mid_k, 0), planted(v, mid_k, 0), do, lse, delta, True,
+        scale)
+    dk_drop, dv_drop = attn.flash_bwd_dkv_reference(
+        q, k, v, planted(do, mid_q, 0), lse, planted(delta, mid_q, 0), True,
+        scale)
+    keys = f"keys {mid_k.start}..{mid_k.stop - 1}"
+    queries = f"queries {mid_q.start}..{mid_q.stop - 1}"
+    faults = [
+        ("flash_fwd", f"out: last q-block skips {keys}", "out", tol_f,
+         planted(got["out"], last, last_rows_forward(mid_k, True))),
+        ("flash_fwd", "out: last q-block leaves P unnormalised", "out", tol_f,
+         planted(got["out"], last, last_rows_forward(slice(0, 0), False))),
+        ("flash_bwd_dq", f"dQ: last q-block skips {keys}", "dq", tol_b,
+         planted(got["dq"], last, dq_drop[:, last])),
+        ("flash_bwd_dkv", f"dK: first k-block skips {queries}", "dk", tol_b,
+         planted(got["dk"], first, dk_drop[:, first])),
+        ("flash_bwd_dkv", f"dV: first k-block skips {queries}", "dv", tol_b,
+         planted(got["dv"], first, dv_drop[:, first])),
+    ]
+    for name, what, key, tol, bad in faults:
+        ratio = mismatch(bad, want[key], tol)
+        print(f"  planted fault, {what}: mismatch={ratio:.4f} of its limit "
+              f"(sound {name}: {errs[name][0]:.4f}) "
+              f"{'rejected' if ratio > 1.0 else 'NOT REJECTED'}")
+        if not ratio > 1.0:
+            raise AssertionError(f"the check of {name} passes a planted "
+                                 f"fault ({what})")
+
+
+def _sdpa(q, k, v, causal, scale, backward: bool) -> float:
+    """Time torch's fused attention on the same inputs, as [b, h, s, d]."""
+    import torch.nn.functional as F
+
+    shape = (BATCH, -1, q.shape[1], q.shape[2])
+    q4, k4, v4 = (t.view(shape).detach().requires_grad_(backward)
+                  for t in (q, k, v))
+
+    def run():
+        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                           scale=scale)
+        if backward:
+            q4.grad = k4.grad = v4.grad = None
+            o.backward(torch.ones_like(o))
+
+    return time_ms(run)
+
+
+def check_model(gpt2) -> None:
+    """Phase 3: flash kernels against plain attention in a small GPT-2 on
+    the card, float32 (tolerances as for the float32 kernels)."""
+    import dataclasses
+
+    cfg = gpt2.GPT2Config(vocab_size=512, n_positions=256, n_embd=128,
+                          n_layer=2, n_head=2, dtype=torch.float32)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256),
+                        generator=torch.Generator().manual_seed(3)).cuda()
+    results = []
+    for use_flash in (True, False):
+        model = gpt2.GPT2(dataclasses.replace(cfg, use_flash=use_flash),
+                          device="cuda", seed=0)
+        logits = model(ids)
+        gpt2.next_token_loss(logits, ids).backward()
+        results.append((logits.detach(), [p.grad for p in model.parameters()]))
+    (lf, gf), (lr, gr) = results
+    err_logits = mismatch(lf, lr, 1e-4)
+    err_grads = max(mismatch(a, b, 5e-4) for a, b in zip(gf, gr))
+    print(f"  small GPT-2 flash vs plain attention, mismatch of its limit: "
+          f"logits {err_logits:.4f} (tol 1e-4), grads {err_grads:.4f} "
+          f"(tol 5e-4)")
+    if not (err_logits <= 1.0 and err_grads <= 1.0):
+        raise AssertionError("GPT-2 with the kernels disagrees with plain "
+                             "attention")
+
+
+def train_loop(config):
+    """The user's loop: GPT-2 from a seed, AdamW, a fixed random batch."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import session
+
+    device = session.get_device()
+    cfg = gpt2.GPT2Config.small()
+    model = gpt2.GPT2(cfg, device=device, seed=0)
+    step = gpt2.make_train_step(model, gpt2.adamw(model))
+    ids = torch.randint(0, cfg.vocab_size, (config["batch"], config["seq"]),
+                        generator=torch.Generator().manual_seed(0)).to(device)
+    batch = {"input_ids": ids, "labels": ids}
+    losses = [step(batch) for _ in range(config["warmup"])]
+    losses[-1].item()  # waits for the device
+    t0 = time.perf_counter()
+    losses += [step(batch) for _ in range(config["steps"])]
+    losses[-1].item()
+    dt = time.perf_counter() - t0
+    tokens = config["batch"] * config["seq"] * config["steps"]
+    for i, loss in enumerate(losses):
+        session.report({"step": i, "loss": loss.item()})
+    session.report({
+        "step": len(losses), "loss": losses[-1].item(),
+        "tokens_per_sec": tokens / dt, "ms_per_step": 1e3 * dt /
+        config["steps"],
+        "mfu": gpt2.flops_per_token(cfg, config["seq"]) * tokens / dt
+        / PEAK_FLOPS[torch.bfloat16],
+        "n_params": gpt2.count_params(model)})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    print("== 1. device and build")
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(logs) or 'cached'})")
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {src}: {line.strip()}")
+
+    print("== 2. kernels against their plain versions")
+    records = check_kernels(attn)
+
+    print("== 3. small GPT-2, kernels against plain attention")
+    check_model(gpt2)
+
+    print("== 4. main path: TorchTrainer.fit, GPT-2-small")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.reset_kernel_launches()
+    result = TorchTrainer(
+        train_loop, train_loop_config={"batch": BATCH, "seq": SEQ,
+                                       "warmup": WARMUP_STEPS,
+                                       "steps": TIMED_STEPS},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+    torch.cuda.synchronize()
+    launches = attn.kernel_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = result.metrics
+    losses = [r["loss"] for r in result.metrics_history[:-1]]
+    print("losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"tokens/s {m['tokens_per_sec']:.1f}, ms/step {m['ms_per_step']:.3f}"
+          f", MFU {m['mfu']:.4f} (989 TFLOP/s bf16 dense), peak memory "
+          f"{peak_gib:.2f} GiB, params {m['n_params']}, card {card}")
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    n_layer = gpt2.GPT2Config.small().n_layer
+    print(f"launches in {n_steps} steps: {launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    if launches != {name: n_layer * n_steps for name in launches}:
+        raise AssertionError(f"expected {n_layer} launches of each kernel "
+                             f"per step, got {launches} in {n_steps} steps")
+
+    print("== 5. results")
+    for name, rec in records.items():
+        rec["launches"] = launches[name]
+    print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

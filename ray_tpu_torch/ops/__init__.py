@@ -1,0 +1,1 @@
+"""Kernels of the PyTorch port (counterpart of `ray_tpu.ops`)."""

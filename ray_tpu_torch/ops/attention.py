@@ -1,0 +1,314 @@
+"""Flash attention, forward and backward, on hand-written CUDA kernels.
+
+Counterpart of `ray_tpu/ops/attention.py`, whose three Pallas TPU kernels
+become the CUDA C++ kernels in `ray_tpu_torch/csrc/` (flash_fwd.cu,
+flash_bwd.cu): blocked online softmax that never writes the seq x seq score
+matrix to device memory and saves the row logsumexp, and two backward
+kernels (dQ streaming K/V; dK/dV streaming Q/dO) that recompute the
+probabilities from it.
+
+Public layout as in the JAX package: q, k, v are [batch, heads, seq,
+head_dim]. The kernels and their plain PyTorch versions work on
+[batch * heads, seq, head_dim]. Each wrapper launches its kernel for a
+CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
+for the other.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ray_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+KERNEL_BLOCK = 64          # rows of every tile (csrc/flash_common.cuh BLOCK)
+HEAD_DIMS = (32, 64, 128)  # head dims the kernels are compiled for
+SMEM_LIMIT = 232448        # shared memory one block may use on Hopper
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """How many times each kernel was launched on the card so far."""
+    return dict(_launches)
+
+
+def reset_kernel_launches() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def mha_reference(q, k, v, causal: bool = True,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Plain attention. q,k,v: [batch, heads, seq, head_dim].
+
+    The causal mask aligns sequence ends (tril(k=ks-qs)); probabilities are
+    cast to v's dtype before the PV product."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    if causal:
+        qs, ks = q.shape[2], k.shape[2]
+        mask = torch.ones(qs, ks, dtype=torch.bool,
+                          device=q.device).tril(ks - qs)
+        logits = logits.masked_fill(~mask, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions of the kernels: [bh, seq, d], float32 arithmetic
+# --------------------------------------------------------------------------- #
+
+
+def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    """Scaled, masked float32 scores [bh, sq, sk]; the causal mask starts
+    both positions at 0, as the kernels' does."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~mask, _NEG_INF)
+    return s
+
+
+def flash_forward_reference(q, k, v, causal: bool, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [bh, sq, d] in q's dtype, lse [bh, sq] float32)."""
+    s = _scores(q, k, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.matmul(p, v.float()) / denom
+    return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool,
+                           scale: float) -> torch.Tensor:
+    """dQ = (p * (dO V^T - delta) * scale) K with p = exp(s - lse)."""
+    p = torch.exp(_scores(q, k, causal, scale) - lse.unsqueeze(-1))
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool,
+                            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK = dS^T Q and dV = p^T dO."""
+    p = torch.exp(_scores(q, k, causal, scale) - lse.unsqueeze(-1))
+    dv = torch.matmul(p.transpose(1, 2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
+    dk = torch.matmul(ds.transpose(1, 2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------------- #
+
+
+def _check_inputs(q, k, v, do=None, lse=None, delta=None) -> bool:
+    """Validate kernel inputs; True when they lie on the card."""
+    mats = [q, k, v] + ([do] if do is not None else [])
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
+    for t in mats:
+        if t.device != dev:
+            raise ValueError("flash attention inputs lie on different devices")
+        if t.dtype != q.dtype:
+            raise ValueError("flash attention inputs differ in dtype")
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError("flash attention takes contiguous [bh, seq, d]")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash attention takes float32 or bfloat16, "
+                         f"not {q.dtype}")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (bh, sk, d) or v.shape != k.shape or sq == 0 or sk == 0:
+        raise ValueError(f"flash attention shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
+    if bh * -(-max(sq, sk) // KERNEL_BLOCK) >= 2 ** 31:
+        raise ValueError(f"{bh} x {max(sq, sk)} rows exceed one launch grid")
+    if do is not None and do.shape != q.shape:
+        raise ValueError("dO must have q's shape")
+    for stat in (lse, delta):
+        if stat is not None and (
+                stat.shape != (bh, sq) or stat.dtype != torch.float32
+                or stat.device != dev or not stat.is_contiguous()):
+            raise ValueError("lse and delta must be contiguous float32 "
+                             "[bh, seq_q]")
+    on_card = dev.type == "cuda"
+    if on_card and any(t.data_ptr() % 16 for t in mats):
+        raise ValueError("the kernels need 16-byte aligned inputs")
+    return on_card
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _flash_forward(q, k, v, causal: bool, scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: (out [bh, sq, d], lse [bh, sq] float32)."""
+    if not _check_inputs(q, k, v):
+        return flash_forward_reference(q, k, v, causal, scale)
+    bh, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_fwd.cu")
+    with torch.cuda.device(q.device):
+        code = lib.flash_fwd(*_ptrs(q, k, v, out, lse), bh, sq, k.shape[1],
+                             d, int(causal), float(scale),
+                             _DTYPE_CODES[q.dtype], _stream())
+    _build.check(lib, "flash_fwd", code)
+    _launches["flash_fwd"] += 1
+    return out, lse
+
+
+def _bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float
+            ) -> torch.Tensor:
+    """K2: dq [bh, sq, d]."""
+    if not _check_inputs(q, k, v, do, lse, delta):
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    bh, sq, d = q.shape
+    dq = torch.empty_like(q)
+    lib = _build.load("flash_bwd.cu")
+    with torch.cuda.device(q.device):
+        code = lib.flash_bwd_dq(*_ptrs(q, k, v, do, lse, delta, dq), bh, sq,
+                                k.shape[1], d, int(causal), float(scale),
+                                _DTYPE_CODES[q.dtype], _stream())
+    _build.check(lib, "flash_bwd_dq", code)
+    _launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def _bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dk, dv), each [bh, sk, d]."""
+    if not _check_inputs(q, k, v, do, lse, delta):
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
+    bh, sq, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.load("flash_bwd.cu")
+    with torch.cuda.device(q.device):
+        code = lib.flash_bwd_dkv(*_ptrs(q, k, v, do, lse, delta, dk, dv), bh,
+                                 sq, k.shape[1], d, int(causal), float(scale),
+                                 _DTYPE_CODES[q.dtype], _stream())
+    _build.check(lib, "flash_bwd_dkv", code)
+    _launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def bwd_delta(out, do) -> torch.Tensor:
+    """delta_i = rowsum(dO * O), the softmax-jacobian diagonal term
+    (float32 [bh, sq]); computed before the backward kernels."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def _flash_backward(q, k, v, out, lse, do, causal: bool, scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 and K3: (dq, dk, dv), each in its input's shape and dtype."""
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError("out must match q")
+    delta = bwd_delta(out, do)
+    dq = _bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+# --------------------------------------------------------------------------- #
+# Block sizes and the differentiable entry point
+# --------------------------------------------------------------------------- #
+
+
+def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16
+                      ) -> Dict[str, int]:
+    """Shared memory each kernel's block uses (the formulas in csrc/)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    row = d + 16 // size          # padded tile row, elements
+    p_tile = KERNEL_BLOCK * (KERNEL_BLOCK + 16 // size) * size
+    tile = KERNEL_BLOCK * row * size
+    return {"flash_fwd": 3 * tile + p_tile,
+            "flash_bwd_dq": 4 * tile + p_tile,
+            "flash_bwd_dkv": 4 * tile + p_tile + 2 * KERNEL_BLOCK * 4}
+
+
+def pick_block_sizes(seq: int, d: int,
+                     dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """(block_q, block_k) for the Hopper kernels.
+
+    The kernels are compiled for 64-row tiles of every head dim they take:
+    4 warps of 16 rows each, every tile in shared memory. The largest case
+    (float32, d = 128, the dK/dV kernel) needs about 150 KB of the 227 KB a
+    block may use; bf16 at d = 64 needs under 50 KB, so several blocks share
+    an SM. The kernels mask a ragged last tile, so any `seq` takes the same
+    tiles."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
+    if seq < 1:
+        raise ValueError(f"seq must be positive, got {seq}")
+    worst = max(kernel_smem_bytes(d, dtype).values())
+    if worst > SMEM_LIMIT:
+        raise ValueError(f"tiles need {worst} B of shared memory")
+    return KERNEL_BLOCK, KERNEL_BLOCK
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel forward; kernel backward from the saved (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        q3 = q.contiguous().view(b * h, sq, d)
+        k3 = k.contiguous().view(b * h, sk, d)
+        v3 = v.contiguous().view(b * h, sk, d)
+        out3, lse = _flash_forward(q3, k3, v3, causal, scale)
+        ctx.save_for_backward(q3, k3, v3, out3, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out3.view(b, h, sq, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        q3, k3, v3, out3, lse = ctx.saved_tensors
+        b, h = g.shape[:2]
+        do3 = g.contiguous().view(out3.shape)
+        dq, dk, dv = _flash_backward(q3, k3, v3, out3, lse, do3, ctx.causal,
+                                     ctx.scale)
+        return (dq.view(b, h, *dq.shape[1:]), dk.view(b, h, *dk.shape[1:]),
+                dv.view(b, h, *dv.shape[1:]), None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None,
+                    block_q: int = 0, block_k: int = 0) -> torch.Tensor:
+    """Blocked attention. q,k,v: [batch, heads, seq, head_dim].
+
+    Runs the flash kernels (forward and backward) on the card, their plain
+    versions on the CPU. seq_q != seq_k is answered by `mha_reference`,
+    whose causal mask aligns sequence ends while the kernels' starts both
+    at 0 (the JAX package's definition). Block sizes 0 mean
+    `pick_block_sizes`; the kernels take only its tiles."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.shape[2] != k.shape[2]:
+        return mha_reference(q, k, v, causal=causal, scale=scale)
+    tiles = pick_block_sizes(q.shape[2], q.shape[-1], q.dtype)
+    if (block_q or tiles[0], block_k or tiles[1]) != tiles:
+        raise ValueError(f"block sizes ({block_q}, {block_k}): the kernels "
+                         f"are compiled for {tiles}")
+    return FlashAttention.apply(q, k, v, causal, float(scale))

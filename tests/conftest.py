@@ -142,3 +142,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running perf comparisons excluded from the tier-1 "
         "budget (run explicitly or via bench.py)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels have no CPU mode); "
+        "skips elsewhere")
