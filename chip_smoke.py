@@ -7,14 +7,20 @@ Needs one CUDA card, `nvcc` and `nvidia-smi`; exits non-zero on the first
 failed phase, with no phase caught.
 
 1. Device and build: prints the card's name and power limit, builds the
-   CUDA kernels of `ray_tpu_torch/csrc/` and prints the build time.
+   CUDA kernels of `ray_tpu_torch/csrc/`, prints the build time and each
+   kernel's registers and spills, and checks that the shared memory each C
+   entry point asks for is what `attention.kernel_smem_bytes` computes
+   from the tile table.
 2. Kernels: holds each kernel (flash forward, dQ, dK/dV) against its plain
    PyTorch version on the card, at GPT-2-small's attention shape (bf16,
-   causal and not) and on small float32 and ragged cases, element by
-   element, printing each error beside its limit; shows that the same check
-   rejects planted faults (a skipped tile, P left unnormalised) at the main
-   shape; times each kernel, its plain version and
-   `scaled_dot_product_attention` (a yardstick the port never calls).
+   causal and not), at Llama's head dim 128 (bf16), on a ragged bf16 case
+   whose last tile ends inside the head in several heads, and on small
+   float32 and ragged cases, element by element, printing each error
+   beside its limit; shows that the same check rejects planted faults (a
+   skipped tile, P left unnormalised, each sized from the kernel's own
+   tiles) at the main shape; times each kernel, its plain version and
+   `scaled_dot_product_attention` (a yardstick the port never calls),
+   forward and backward alone.
 3. Model check: a small GPT-2 with the flash kernels against the same model
    with plain attention, logits and gradients, on the card.
 4. Main path: `TorchTrainer(...).fit()` trains GPT-2-small at full width
@@ -64,6 +70,8 @@ MAIN = dict(bh=24 * 12, seq=1024, d=64, dtype=torch.bfloat16, causal=True)
 CASES = [
     MAIN,
     dict(MAIN, causal=False),
+    dict(bh=64, seq=1024, d=128, dtype=torch.bfloat16, causal=True),
+    dict(bh=6, seq=200, d=64, dtype=torch.bfloat16, causal=True),
     dict(bh=4, seq=256, d=64, dtype=torch.float32, causal=True),
     dict(bh=3, seq=200, d=128, dtype=torch.float32, causal=False),
     dict(bh=5, seq=130, d=32, dtype=torch.bfloat16, causal=True),
@@ -135,6 +143,46 @@ def bound(case, n_products: int, tensors):
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
 
 
+def ptxas_usage(log: str):
+    """(kernel, registers, spill line) for each kernel in `nvcc -Xptxas -v`
+    output; the kernel is named with its template arguments, read from the
+    mangled name (e.g. `bwd_dq_kernel<bf16, 64>`)."""
+    import re
+
+    types = {"": "", "f": "float, ", "13__nv_bfloat16": "bf16, "}
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '_Z\d+(\w+?)I(\w*?)Li(\d+)EEv", line)
+        if m:
+            fn = f"{m[1]}<{types[m[2]]}{m[3]}>"
+        elif "spill" in line:
+            spill = line.strip()
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out.append((fn, int(m[1]), spill))
+            fn = None
+    return out
+
+
+def check_smem(attn, build) -> None:
+    """The shared memory each C entry point asks for must be what the tile
+    table gives (`attention.kernel_smem_bytes`)."""
+    fwd, bwd = build.load("flash_fwd.cu"), build.load("flash_bwd.cu")
+    for d in attn.HEAD_DIMS:
+        for dtype, code in attn._DTYPE_CODES.items():
+            got = {"flash_fwd": fwd.flash_fwd_smem(d, code),
+                   "flash_bwd_dq": bwd.flash_bwd_smem(0, d, code),
+                   "flash_bwd_dkv": bwd.flash_bwd_smem(1, d, code)}
+            want = attn.kernel_smem_bytes(d, dtype)
+            if got != want:
+                raise AssertionError(f"shared memory at d={d} {dtype}: the "
+                                     f"kernels ask for {got}, the tile table "
+                                     f"gives {want}")
+    largest = max(max(attn.kernel_smem_bytes(d, t).values())
+                  for d in attn.HEAD_DIMS for t in attn._DTYPE_CODES)
+    print(f"  shared memory of every kernel, dtype and head dim matches the "
+          f"tile table (largest {largest} B)")
+
+
 def check_kernels(attn) -> dict:
     """Phase 2. Returns the main-shape record of each kernel."""
     records = {}
@@ -187,8 +235,9 @@ def check_kernels(attn) -> dict:
             attn, q, k, v, do, lse, delta, scale,
             {"out": out, "dq": dq, "dk": dk, "dv": dv},
             {"out": out_p, "dq": dq_p, "dk": dk_p, "dv": dv_p}, errs)
-        lib_fwd = _sdpa(q, k, v, causal, scale, backward=False)
-        lib_fwd_bwd = _sdpa(q, k, v, causal, scale, backward=True)
+        lib_fwd = _sdpa(q, k, v, causal, scale, "forward")
+        lib_bwd = _sdpa(q, k, v, causal, scale, "backward")
+        lib_fwd_bwd = _sdpa(q, k, v, causal, scale, "both")
         timings = {
             "flash_fwd": (
                 lambda: attn._flash_forward(q, k, v, causal, scale),
@@ -217,11 +266,15 @@ def check_kernels(attn) -> dict:
             print(f"  {name:14s} main shape: {b['ms']:.4f} ms, plain "
                   f"{b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']}), library {lib_ms}")
-        ours = records["flash_fwd"]["ms"] + records["flash_bwd_dq"]["ms"] + \
-            records["flash_bwd_dkv"]["ms"]
-        print(f"  attention fwd+bwd at the main shape: kernels {ours:.4f} ms "
-              f"(plus delta), scaled_dot_product_attention {lib_fwd_bwd:.4f} "
-              f"ms")
+        delta_ms = time_ms(lambda: attn.bwd_delta(out, do))
+        bwd = records["flash_bwd_dq"]["ms"] + records["flash_bwd_dkv"]["ms"] \
+            + delta_ms
+        print(f"  attention backward at the main shape: K2 + K3 + delta "
+              f"{bwd:.4f} ms (delta {delta_ms:.4f} ms), "
+              f"scaled_dot_product_attention backward {lib_bwd:.4f} ms")
+        print(f"  attention fwd+bwd at the main shape: kernels "
+              f"{records['flash_fwd']['ms'] + bwd:.4f} ms, "
+              f"scaled_dot_product_attention {lib_fwd_bwd:.4f} ms")
     return records
 
 
@@ -231,27 +284,30 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
     of its output. At the main shape (causal), this plants into the
     kernel's own result the rows that a tiled kernel with one of these
     faults would give, computed by the plain math with the fault, and
-    requires a mismatch above 1 for each:
-      - forward, the last q-block skips one k-tile in the middle;
+    requires a mismatch above 1 for each. Each fault is one of the kernel's
+    own tiles (`attention.TILES`):
+      - forward, the last q-block skips one K/V tile in the middle;
       - forward, the last q-block leaves P unnormalised (acc, not acc / l);
-      - dQ, the last q-block skips the same k-tile;
-      - dK and dV, the first k-block skips one q-tile in the middle.
-    The last q-block averages the most keys, and the first k-block takes
+      - dQ, the last q-block skips one K/V tile in the middle;
+      - dK and dV, the first key block skips one Q/dO tile in the middle.
+    The last q-block averages the most keys, and the first key block takes
     rows from every q-block, so one tile is the smallest share there."""
-    blk, s = attn.KERNEL_BLOCK, q.shape[1]
-    last, first = slice(s - blk, s), slice(0, blk)
-    mid_k, mid_q = slice(s // 2 - blk, s // 2), slice(s // 2, s // 2 + blk)
+    s, d = q.shape[1], q.shape[2]
+    fwd, dq_t, dkv = (attn.TILES[name, q.dtype][d] for name in attn.KERNELS)
     tol_f, tol_b = TOL[q.dtype, "fwd"], TOL[q.dtype, "bwd"]
+
+    def mid(n):  # the tile of n rows that ends at the middle
+        return slice(s // 2 - n, s // 2)
 
     def planted(t, rows, value):
         t = t.clone()
         t[:, rows] = value
         return t
 
-    def last_rows_forward(drop, normalise):
-        sc = torch.matmul(q[:, last].float(), k.float().transpose(1, 2))
+    def last_rows_forward(rows, drop, normalise):
+        sc = torch.matmul(q[:, rows].float(), k.float().transpose(1, 2))
         keep = (torch.arange(s, device=q.device)[None, :]
-                <= torch.arange(s - blk, s, device=q.device)[:, None])
+                <= torch.arange(s, device=q.device)[rows][:, None])
         keep[:, drop] = False
         sc = (sc * scale).masked_fill(~keep, float("-inf"))
         p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
@@ -261,25 +317,35 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
 
     # Keys whose k and v are 0 add nothing to dQ (dS * k = 0); queries whose
     # dO and delta are 0 add nothing to dK and dV (dS = 0, P^T dO = 0).
+    last_f, last_q = slice(s - fwd.rows, s), slice(s - dq_t.rows, s)
+    first_k = slice(0, dkv.rows)
+    drop_f, drop_q = mid(fwd.stream), mid(dq_t.stream)
+    drop_k = slice(s // 2, s // 2 + dkv.stream)
     dq_drop = attn.flash_bwd_dq_reference(
-        q, planted(k, mid_k, 0), planted(v, mid_k, 0), do, lse, delta, True,
+        q, planted(k, drop_q, 0), planted(v, drop_q, 0), do, lse, delta, True,
         scale)
     dk_drop, dv_drop = attn.flash_bwd_dkv_reference(
-        q, k, v, planted(do, mid_q, 0), lse, planted(delta, mid_q, 0), True,
+        q, k, v, planted(do, drop_k, 0), lse, planted(delta, drop_k, 0), True,
         scale)
-    keys = f"keys {mid_k.start}..{mid_k.stop - 1}"
-    queries = f"queries {mid_q.start}..{mid_q.stop - 1}"
+
+    def rows(r):
+        return f"{r.start}..{r.stop - 1}"
+
     faults = [
-        ("flash_fwd", f"out: last q-block skips {keys}", "out", tol_f,
-         planted(got["out"], last, last_rows_forward(mid_k, True))),
+        ("flash_fwd", f"out: last q-block skips keys {rows(drop_f)}", "out",
+         tol_f, planted(got["out"], last_f,
+                        last_rows_forward(last_f, drop_f, True))),
         ("flash_fwd", "out: last q-block leaves P unnormalised", "out", tol_f,
-         planted(got["out"], last, last_rows_forward(slice(0, 0), False))),
-        ("flash_bwd_dq", f"dQ: last q-block skips {keys}", "dq", tol_b,
-         planted(got["dq"], last, dq_drop[:, last])),
-        ("flash_bwd_dkv", f"dK: first k-block skips {queries}", "dk", tol_b,
-         planted(got["dk"], first, dk_drop[:, first])),
-        ("flash_bwd_dkv", f"dV: first k-block skips {queries}", "dv", tol_b,
-         planted(got["dv"], first, dv_drop[:, first])),
+         planted(got["out"], last_f,
+                 last_rows_forward(last_f, slice(0, 0), False))),
+        ("flash_bwd_dq", f"dQ: last q-block skips keys {rows(drop_q)}", "dq",
+         tol_b, planted(got["dq"], last_q, dq_drop[:, last_q])),
+        ("flash_bwd_dkv", f"dK: first key block skips queries "
+         f"{rows(drop_k)}", "dk", tol_b,
+         planted(got["dk"], first_k, dk_drop[:, first_k])),
+        ("flash_bwd_dkv", f"dV: first key block skips queries "
+         f"{rows(drop_k)}", "dv", tol_b,
+         planted(got["dv"], first_k, dv_drop[:, first_k])),
     ]
     for name, what, key, tol, bad in faults:
         ratio = mismatch(bad, want[key], tol)
@@ -291,21 +357,34 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
                                  f"fault ({what})")
 
 
-def _sdpa(q, k, v, causal, scale, backward: bool) -> float:
-    """Time torch's fused attention on the same inputs, as [b, h, s, d]."""
+def _sdpa(q, k, v, causal, scale, part: str) -> float:
+    """Time torch's fused attention on the same inputs, as [b, h, s, d]:
+    `part` is "forward", "backward" (one backward of a recorded forward) or
+    "both"."""
     import torch.nn.functional as F
 
     shape = (BATCH, -1, q.shape[1], q.shape[2])
-    q4, k4, v4 = (t.view(shape).detach().requires_grad_(backward)
+    grad = part != "forward"
+    q4, k4, v4 = (t.view(shape).detach().requires_grad_(grad)
                   for t in (q, k, v))
 
-    def run():
-        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                           scale=scale)
-        if backward:
-            q4.grad = k4.grad = v4.grad = None
-            o.backward(torch.ones_like(o))
+    def forward():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=scale)
 
+    if part == "forward":
+        return time_ms(forward)
+    if part == "both":
+        def run():
+            q4.grad = k4.grad = v4.grad = None
+            forward().backward(torch.ones_like(q4))
+        return time_ms(run)
+    o = forward()
+    g = torch.ones_like(o)
+
+    def run():
+        q4.grad = k4.grad = v4.grad = None
+        o.backward(g, retain_graph=True)
     return time_ms(run)
 
 
@@ -386,9 +465,9 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+        for fn, regs, spill in ptxas_usage(log):
+            print(f"  {src}: {fn}: {regs} registers, {spill}")
+    check_smem(attn, _build)
 
     print("== 2. kernels against their plain versions")
     records = check_kernels(attn)

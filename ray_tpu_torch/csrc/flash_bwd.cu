@@ -16,19 +16,30 @@
 //   dK/dV: 4 products, about 77 GFLOP (78 us); about 229 MB (68 us): bound
 //          by operations.
 //
-// Design: the TPU grid's sequential dimension becomes a loop inside the
-// block, so nothing is carried between blocks and no atomics are needed.
-// The dQ kernel holds 64 query rows (4 warps of 16) and streams K/V tiles
-// up to the diagonal; the dK/dV kernel holds 64 key rows and streams Q/dO
-// tiles from the diagonal down, computing the transposed products
-// (S^T = K Q^T, dP^T = V dO^T) so that each warp's rows are its own keys and
-// dK, dV accumulate in registers. Every tile is read from device memory
-// once per block into shared memory and shared by four warps; the bf16
-// products run on the tensor cores through mma.sync with float32
-// accumulation, and dS goes through shared memory in the input type to
-// feed the next product. Not yet used: wgmma, TMA, pipelining, and a single
-// fused kernel that would share the recomputed probabilities between dQ and
-// dK/dV.
+// The TPU grid's sequential dimension becomes a loop inside the block, so
+// nothing is carried between blocks and no atomics are needed.
+//
+// dK/dV, bf16 (bwd_dkv_kernel_sm90): one block per 128 keys, two consumer
+// warpgroups of 64 keys and a producer warpgroup, whose first warp loads K
+// and V once by TMA (they stay in shared memory) and streams Q and dO tiles,
+// with their lse and delta slices, through a ring of slots from the
+// diagonal down, ordered by full/empty mbarriers. Each warpgroup computes
+// the transposed products S^T = K Q^T and dP^T = V dO^T on wgmma from shared
+// memory (both K-major as stored), forms P^T = exp2(S^T scale log2 e - lse
+// log2 e) and dS^T = P^T (dP^T - delta) scale in registers, and adds
+// dV += P^T dO and dK += dS^T Q with register-A wgmma that read dO and Q
+// MN-major from shared memory. P^T and dS^T never leave the registers; dK
+// and dV accumulate in registers across the q loop and are written once.
+// The two warpgroups take turns on the tensor cores, so that one's
+// elementwise step overlaps the other's products.
+//
+// dQ (both types) and dK/dV in float32 (bwd_dq_kernel, bwd_dkv_kernel): 64
+// rows and 4 warps of 16 per block; dQ streams K/V tiles up to the diagonal,
+// dK/dV streams Q/dO tiles from the diagonal down with the same transposed
+// products. Each tile is copied into shared memory between two barriers and
+// shared by four warps; bf16 products run on mma.sync with float32
+// accumulation, float32 ones on the CUDA cores (flash_common.cuh says why),
+// and dS goes through shared memory to feed the next product.
 
 #include "flash_common.cuh"
 
@@ -112,6 +123,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_acc<T>(dq + (size_t)w0 * D, D, acc, sq - w0);
 }
 
+// The float32 body, on the CUDA cores.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -198,15 +210,249 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_acc<T>(dv + (size_t)w0 * D, D, dv_acc, sk - w0);
 }
 
+template <int D>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                    int causal, float scale) {
+  using namespace sm90;
+  constexpr int BKEY = DkvTiles<D>::ROWS, BQ = DkvTiles<D>::TILE;
+  constexpr int STAGES = DkvTiles<D>::STAGES;
+  constexpr uint32_t KV_BYTES = tile_bytes<BKEY, D>();
+  constexpr uint32_t Q_BYTES = tile_bytes<BQ, D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* sk_tile = aligned_smem(smem_raw);
+  uint8_t* sv_tile = sk_tile + KV_BYTES;
+  uint8_t* ring = sv_tile + KV_BYTES;  // slot s: Q at 2s, dO at 2s + 1
+  float* lse_s = reinterpret_cast<float*>(ring + STAGES * 2 * Q_BYTES);
+  float* delta_s = lse_s + STAGES * BQ;  // [STAGES][BQ] each
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + STAGES * BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int nkb = (sk + BKEY - 1) / BKEY;
+  const int bh = blockIdx.x / nkb;
+  const int k0 = (blockIdx.x % nkb) * BKEY;  // low k-blocks: most work
+  // Causal: q-tiles that end before this block's first key add nothing.
+  const int qb0 = causal ? k0 / BQ : 0;
+  const int n_iter = max(0, (sq + BQ - 1) / BQ - qb0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);              // every producer lane arrives
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= PRODUCER_WARP) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (warp > PRODUCER_WARP) return;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * KV_BYTES);
+      tma_tile<BKEY, D>(sk_tile, &map_k, kv_full, k0, bh);
+      tma_tile<BKEY, D>(sv_tile, &map_v, kv_full, k0, bh);
+    }
+    for (int i = 0; i < n_iter; ++i) {
+      const int s = i % STAGES, q0 = (qb0 + i) * BQ;
+      if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+      // lse (pre-multiplied by log2 e) and delta of the tile's queries;
+      // rows past the end are masked by the consumers.
+      for (int c = lane; c < BQ; c += 32) {
+        const bool in = q0 + c < sq;
+        lse_s[s * BQ + c] = in ? lse[q0 + c] * LOG2E : 0.f;
+        delta_s[s * BQ + c] = in ? delta[q0 + c] : 0.f;
+      }
+      if (lane == 0) {
+        uint8_t* slot = ring + s * 2 * Q_BYTES;
+        mbar_expect_tx(&full[s], 2 * Q_BYTES);
+        tma_tile<BQ, D>(slot, &map_q, &full[s], q0, bh);
+        tma_tile<BQ, D>(slot + Q_BYTES, &map_do, &full[s], q0, bh);
+      } else {
+        mbar_arrive(&full[s]);  // after this lane's lse and delta stores
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg owns keys k0 + 64 wg ..; each warp 16 of them.
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_key0 = k0 + wg * 64;
+  const int w0 = wg_key0 + (warp % 4) * 16;  // this warp's first key row
+  const int keys[2] = {w0 + g, w0 + g + 8};
+  const uint32_t k_addr = smem_u32(sk_tile) + wg * 64 * row_bytes<D>();
+  const uint32_t v_addr = smem_u32(sv_tile) + wg * 64 * row_bytes<D>();
+  const float c2 = scale * LOG2E;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T, [64 keys x BQ queries]
+  // P^T and dS^T of the previous tile, as bf16 A fragments.
+  uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+
+  auto slot = [&](int i) {
+    return smem_u32(ring + (i % STAGES) * 2 * Q_BYTES);
+  };
+  auto issue_s = [&](int i) {  // S^T = K Q^T, dP^T = V dO^T, all K-major
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<BQ>::ss(st, k_major<BKEY, D>(k_addr, kk),
+                    k_major<BQ, D>(slot(i), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<BQ>::ss(dpt, k_major<BKEY, D>(v_addr, kk),
+                    k_major<BQ, D>(slot(i) + Q_BYTES, kk), kk > 0);
+    wg_commit();
+  };
+  auto issue_grads = [&](int i) {  // dV += P^T dO, dK += dS^T Q, MN-major B
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      Wgmma<D>::rs(dv_acc, pa[kk], mn_major<BQ, D>(slot(i) + Q_BYTES, kk),
+                   1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      Wgmma<D>::rs(dk_acc, dsa[kk], mn_major<BQ, D>(slot(i), kk), 1);
+    wg_commit();
+  };
+  auto release = [&](int i) {  // this warp is done with tile i's slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % STAGES]);
+  };
+  // P^T = 2^(S^T c2 - lse log2 e) and dS^T = P^T (dP^T - delta) scale, in
+  // registers. Only tiles that cross the diagonal or either sequence's end
+  // are masked, in a branch of their own: a masked score becomes -1e30,
+  // whose probability is 0.
+  auto grads_in = [&](int i) {
+    const int q0 = (qb0 + i) * BQ;
+    const float* lse2 = lse_s + (i % STAGES) * BQ;
+    const float* dlt = delta_s + (i % STAGES) * BQ;
+    if (q0 + BQ > sq || k0 + BKEY > sk || (causal && q0 < wg_key0 + 63)) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + 8 * j + 2 * t + (e & 1), key = keys[e >> 1];
+          if (!(q < sq && key < sk && (!causal || key <= q)))
+            st[4 * j + e] = NEG_INF;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        const float p = fast_exp2(fmaf(st[4 * j + e], c2, -lse2[c]));
+        st[4 * j + e] = p;                                       // P^T
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[c]) * scale;  // dS^T
+      }
+  };
+
+  // The warpgroups take turns on the tensor cores, as in flash_fwd.cu: turn
+  // i issues S^T_i and dP^T_i and the previous tile's dV and dK products,
+  // then forms P^T_i and dS^T_i while the other warpgroup's turn runs.
+  // Causal: the first tiles, whose every query precedes this warpgroup's
+  // keys, add nothing; their turns issue no product.
+  const int first = min(n_iter, causal ? max(0, wg_key0 / BQ - qb0) : 0);
+  if (wg == 1) named_arrive(1);
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < first; ++i) {
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    named_sync(1 + wg);
+    named_arrive(2 - wg);
+    release(i);
+  }
+  if (first < n_iter) {
+    mbar_wait(&full[first % STAGES], (first / STAGES) & 1);
+    named_sync(1 + wg);
+    wg_fence();
+    issue_s(first);
+    named_arrive(2 - wg);
+    wg_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    grads_in(first);
+    to_a_frags<BQ>(pa, st);
+    to_a_frags<BQ>(dsa, dpt);
+    for (int i = first + 1; i < n_iter; ++i) {
+      mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+      named_sync(1 + wg);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wg_fence();
+      issue_s(i);
+      issue_grads(i - 1);
+      named_arrive(2 - wg);
+      wg_wait<1>();  // S^T_i and dP^T_i are in registers
+      fence_regs(st);
+      fence_regs(dpt);
+      grads_in(i);
+      wg_wait<0>();  // tile i - 1's products are done
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      release(i - 1);
+      to_a_frags<BQ>(pa, st);
+      to_a_frags<BQ>(dsa, dpt);
+    }
+    named_sync(1 + wg);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wg_fence();
+    issue_grads(n_iter - 1);
+    if (wg == 0) named_arrive(2);
+    wg_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    release(n_iter - 1);
+  } else {
+    named_sync(1 + wg);
+    if (wg == 0) named_arrive(2);
+  }
+  store_rows<D>(dk + ((size_t)bh * sk + w0) * D, dk_acc, sk - w0);
+  store_rows<D>(dv + ((size_t)bh * sk + w0) * D, dv_acc, sk - w0);
+}
+
+// Shared memory of each body (ray_tpu_torch/ops/attention.py's
+// kernel_smem_bytes mirrors these).
+template <typename T, int D>
+static size_t dq_smem() {
+  return (4 * BLOCK * ld<T, D>() + BLOCK * ld<T, BLOCK>()) * sizeof(T);
+}
+
+template <typename T, int D>
+static size_t dkv_smem() {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using Tl = sm90::DkvTiles<D>;
+    return 2 * sm90::tile_bytes<Tl::ROWS, D>() +
+           Tl::STAGES * (2 * sm90::tile_bytes<Tl::TILE, D>() +
+                         2 * Tl::TILE * sizeof(float)) +
+           (1 + 2 * Tl::STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
+  } else {
+    return (4 * BLOCK * ld<T, D>() + BLOCK * ld<T, BLOCK>()) * sizeof(T) +
+           2 * BLOCK * sizeof(float);
+  }
+}
+
 template <typename T, int D>
 static int bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, int bh, int sq, int sk, int causal, float scale,
                   cudaStream_t stream) {
-  const size_t smem =
-      (4 * BLOCK * ld<T, D>() + BLOCK * ld<T, BLOCK>()) * sizeof(T);
   const dim3 grid(bh * ((sq + BLOCK - 1) / BLOCK));
-  return launch(bwd_dq_kernel<T, D>, grid, smem, stream,
+  return launch(bwd_dq_kernel<T, D>, grid, THREADS, dq_smem<T, D>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse),
@@ -219,16 +465,30 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int bh, int sq, int sk, int causal,
                    float scale, cudaStream_t stream) {
-  const size_t smem =
-      (4 * BLOCK * ld<T, D>() + BLOCK * ld<T, BLOCK>()) * sizeof(T) +
-      2 * BLOCK * sizeof(float);
-  const dim3 grid(bh * ((sk + BLOCK - 1) / BLOCK));
-  return launch(bwd_dkv_kernel<T, D>, grid, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dk),
-                static_cast<T*>(dv), sq, sk, causal, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using Tl = sm90::DkvTiles<D>;
+    CUtensorMap mq, mk, mv, mdo;
+    int err = sm90::make_map<D>(&mq, q, bh, sq, Tl::TILE);
+    if (!err) err = sm90::make_map<D>(&mk, k, bh, sk, Tl::ROWS);
+    if (!err) err = sm90::make_map<D>(&mv, v, bh, sk, Tl::ROWS);
+    if (!err) err = sm90::make_map<D>(&mdo, dout, bh, sq, Tl::TILE);
+    if (err) return err;
+    const dim3 grid(bh * ((sk + Tl::ROWS - 1) / Tl::ROWS));
+    return launch(bwd_dkv_kernel_sm90<D>, grid, sm90::THREADS,
+                  dkv_smem<T, D>(), stream, mq, mk, mv, mdo,
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<__nv_bfloat16*>(dk),
+                  static_cast<__nv_bfloat16*>(dv), sq, sk, causal, scale);
+  } else {
+    const dim3 grid(bh * ((sk + BLOCK - 1) / BLOCK));
+    return launch(bwd_dkv_kernel<T, D>, grid, THREADS, dkv_smem<T, D>(),
+                  stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dk),
+                  static_cast<T*>(dv), sq, sk, causal, scale);
+  }
 }
 
 // q, dout [bh, sq, d]; k, v [bh, sk, d]; lse, delta [bh, sq] float32
@@ -250,4 +510,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int dtype, void* stream) {
   FLASH_DISPATCH(bwd_dkv, dtype, d, q, k, v, dout, lse, delta, dk, dv, bh, sq,
                  sk, causal, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory one block of flash_bwd_dq (kernel 0) or flash_bwd_dkv
+// (kernel 1) takes at this head dim and dtype.
+extern "C" int flash_bwd_smem(int kernel, int d, int dtype) {
+  if (kernel == 0) FLASH_DISPATCH(dq_smem, dtype, d, );
+  FLASH_DISPATCH(dkv_smem, dtype, d, );
 }

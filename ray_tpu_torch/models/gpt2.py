@@ -34,8 +34,6 @@ class GPT2Config:
     use_flash: bool = True
     use_ring: bool = False           # sequence parallelism: a later slice
     remat: bool = False              # activation checkpointing: a later slice
-    flash_block_q: int = 0           # 0 = pick_block_sizes
-    flash_block_k: int = 0
 
     @staticmethod
     def small() -> "GPT2Config":
@@ -95,8 +93,7 @@ class Block(nn.Module):
         q, k, v = qkv.view(b, s, 3, cfg.n_head, e // cfg.n_head).permute(
             2, 0, 3, 1, 4).unbind(0)
         if cfg.use_flash:
-            attn = flash_attention(q, k, v, True, None, cfg.flash_block_q,
-                                   cfg.flash_block_k)
+            attn = flash_attention(q, k, v, True)
         else:
             attn = mha_reference(q, k, v, causal=True)
         attn = attn.transpose(1, 2).reshape(b, s, e)

@@ -2,6 +2,9 @@
 
 Each source under `ray_tpu_torch/csrc/` is compiled by `nvcc` for `sm_90a`
 into a shared library with a plain C interface and loaded with `ctypes`.
+The libraries link against the CUDA runtime only: libcuda's
+`cuTensorMapEncodeTiled`, which the bf16 kernels need for their TMA maps, is
+fetched at run time through `cudaGetDriverEntryPoint`, so no `-lcuda`.
 Libraries are named by a hash of their sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded from the build directory.
 All sources are compiled together, one `nvcc` process each.
@@ -31,12 +34,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_fwd.cu": {
         "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "flash_fwd_smem": [_I, _I],
     },
     "flash_bwd.cu": {
         "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _F, _I, _P],
         "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _I, _P],
+        "flash_bwd_smem": [_I, _I, _I],
     },
 }
 
@@ -106,7 +111,8 @@ def load(source: str) -> ctypes.CDLL:
 
 
 def check(lib: ctypes.CDLL, fn: str, code: int) -> None:
-    """Raise when a C entry point returned a CUDA error."""
+    """Raise when a C entry point returned an error: CUDA's, or one of the
+    sources' own codes (an unsupported shape, a refused tensor map)."""
     if code != 0:
         msg = lib.flash_error_string(code).decode()
-        raise RuntimeError(f"{fn} failed with CUDA error {code}: {msg}")
+        raise RuntimeError(f"{fn} failed with error {code}: {msg}")

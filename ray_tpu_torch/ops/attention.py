@@ -11,26 +11,52 @@ Public layout as in the JAX package: q, k, v are [batch, heads, seq,
 head_dim]. The kernels and their plain PyTorch versions work on
 [batch * heads, seq, head_dim]. Each wrapper launches its kernel for a
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
-for the other.
+for the other. On the card the body is chosen by type: bf16 forward and
+dK/dV run the Hopper bodies (TMA ring, wgmma), float32 and dQ the mma.sync
+or CUDA-core bodies (`TILES` lists each one's tiles).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-KERNEL_BLOCK = 64          # rows of every tile (csrc/flash_common.cuh BLOCK)
 HEAD_DIMS = (32, 64, 128)  # head dims the kernels are compiled for
 SMEM_LIMIT = 232448        # shared memory one block may use on Hopper
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
-_launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                             "flash_bwd_dkv": 0}
+
+class Tile(NamedTuple):
+    """Tiles of one kernel body, as its source fixes them."""
+    rows: int     # rows one block owns (queries; keys for dK/dV)
+    stream: int   # rows of each tile the block streams past them
+    stages: int   # slots of the ring the streamed tiles pass through
+    ring: bool    # TMA ring + wgmma (Hopper body), or mma.sync/CUDA cores
+
+
+_PLAIN = Tile(64, 64, 1, False)  # csrc/flash_common.cuh BLOCK
+# (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: the bf16 forward and
+# dK/dV are the Hopper bodies (flash_common.cuh FwdTiles, DkvTiles); dK/dV
+# streams a smaller tile at d = 128, where its two accumulators take the
+# most registers. The float32 bodies and dQ keep 64-row tiles.
+TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
+    ("flash_fwd", torch.bfloat16): dict.fromkeys(HEAD_DIMS,
+                                                 Tile(128, 128, 3, True)),
+    ("flash_bwd_dkv", torch.bfloat16): {32: Tile(128, 64, 3, True),
+                                        64: Tile(128, 64, 3, True),
+                                        128: Tile(128, 32, 3, True)},
+    ("flash_bwd_dq", torch.bfloat16): dict.fromkeys(HEAD_DIMS, _PLAIN),
+    **{(name, torch.float32): dict.fromkeys(HEAD_DIMS, _PLAIN)
+       for name in KERNELS},
+}
+
+_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -136,7 +162,8 @@ def _check_inputs(q, k, v, do=None, lse=None, delta=None) -> bool:
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
-    if bh * -(-max(sq, sk) // KERNEL_BLOCK) >= 2 ** 31:
+    rows = min(TILES[name, q.dtype][d].rows for name in KERNELS)
+    if bh * -(-max(sq, sk) // rows) >= 2 ** 31:
         raise ValueError(f"{bh} x {max(sq, sk)} rows exceed one launch grid")
     if do is not None and do.shape != q.shape:
         raise ValueError("dO must have q's shape")
@@ -231,40 +258,40 @@ def _flash_backward(q, k, v, out, lse, do, causal: bool, scale: float
 
 
 # --------------------------------------------------------------------------- #
-# Block sizes and the differentiable entry point
+# Shared memory and the differentiable entry point
 # --------------------------------------------------------------------------- #
 
 
 def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16
                       ) -> Dict[str, int]:
-    """Shared memory each kernel's block uses (the formulas in csrc/)."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    row = d + 16 // size          # padded tile row, elements
-    p_tile = KERNEL_BLOCK * (KERNEL_BLOCK + 16 // size) * size
-    tile = KERNEL_BLOCK * row * size
-    return {"flash_fwd": 3 * tile + p_tile,
-            "flash_bwd_dq": 4 * tile + p_tile,
-            "flash_bwd_dkv": 4 * tile + p_tile + 2 * KERNEL_BLOCK * 4}
-
-
-def pick_block_sizes(seq: int, d: int,
-                     dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
-    """(block_q, block_k) for the Hopper kernels.
-
-    The kernels are compiled for 64-row tiles of every head dim they take:
-    4 warps of 16 rows each, every tile in shared memory. The largest case
-    (float32, d = 128, the dK/dV kernel) needs about 150 KB of the 227 KB a
-    block may use; bf16 at d = 64 needs under 50 KB, so several blocks share
-    an SM. The kernels mask a ragged last tile, so any `seq` takes the same
-    tiles."""
+    """Shared memory each kernel's block takes, from `TILES` (the formulas
+    of csrc/: fwd_smem, dq_smem, dkv_smem, which the C entry points
+    flash_fwd_smem and flash_bwd_smem report on the card)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
-    if seq < 1:
-        raise ValueError(f"seq must be positive, got {seq}")
-    worst = max(kernel_smem_bytes(d, dtype).values())
-    if worst > SMEM_LIMIT:
-        raise ValueError(f"tiles need {worst} B of shared memory")
-    return KERNEL_BLOCK, KERNEL_BLOCK
+    size = torch.tensor([], dtype=dtype).element_size()
+    out = {}
+    for name in KERNELS:
+        t = TILES[name, dtype][d]
+        if t.ring:
+            # Tiles are unpadded (TMA swizzles them); one 8-byte mbarrier per
+            # resident load and two per slot; 1024 bytes to align the
+            # swizzle pattern.
+            owned = (1 if name == "flash_fwd" else 2) * t.rows * d * size
+            slot = 2 * t.stream * d * size
+            if name == "flash_bwd_dkv":
+                slot += 2 * t.stream * 4       # lse and delta
+            out[name] = owned + t.stages * slot + 8 * (1 + 2 * t.stages) \
+                + 1024
+        else:
+            # Rows padded by 16 bytes; P or dS gets its own tile; dK/dV
+            # keeps lse and delta beside its tiles.
+            tile = t.rows * (d + 16 // size) * size
+            p_tile = t.rows * (t.rows + 16 // size) * size
+            out[name] = (3 if name == "flash_fwd" else 4) * tile + p_tile
+            if name == "flash_bwd_dkv":
+                out[name] += 2 * t.rows * 4
+    return out
 
 
 class FlashAttention(torch.autograd.Function):
@@ -294,21 +321,17 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, causal: bool = True,
-                    scale: Optional[float] = None,
-                    block_q: int = 0, block_k: int = 0) -> torch.Tensor:
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Blocked attention. q,k,v: [batch, heads, seq, head_dim].
 
     Runs the flash kernels (forward and backward) on the card, their plain
     versions on the CPU. seq_q != seq_k is answered by `mha_reference`,
     whose causal mask aligns sequence ends while the kernels' starts both
-    at 0 (the JAX package's definition). Block sizes 0 mean
-    `pick_block_sizes`; the kernels take only its tiles."""
+    at 0 (the JAX package's definition). Each kernel's tiles are fixed by
+    its source for each type and head dim (`TILES`); the kernels mask a
+    ragged last tile, so any sequence length takes them."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.shape[2] != k.shape[2]:
         return mha_reference(q, k, v, causal=causal, scale=scale)
-    tiles = pick_block_sizes(q.shape[2], q.shape[-1], q.dtype)
-    if (block_q or tiles[0], block_k or tiles[1]) != tiles:
-        raise ValueError(f"block sizes ({block_q}, {block_k}): the kernels "
-                         f"are compiled for {tiles}")
     return FlashAttention.apply(q, k, v, causal, float(scale))

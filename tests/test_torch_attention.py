@@ -148,14 +148,56 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
 
 
 def test_pick_block_sizes_fit_hopper_shared_memory():
-    assert tattn.pick_block_sizes(1024, 64) == (64, 64)
-    assert tattn.pick_block_sizes(200, 128, torch.float32) == (64, 64)
+    # Each kernel's tiles come from one table (`TILES`, one entry per
+    # kernel, dtype and head dim); every block fits Hopper's 227 KB, and the
+    # head dims the kernels are not compiled for are refused.
+    for (name, dtype), by_d in tattn.TILES.items():
+        assert name in tattn.KERNELS and set(by_d) == set(tattn.HEAD_DIMS)
+        for t in by_d.values():
+            # wgmma's M is 64 rows per warpgroup, and the dK/dV kernel starts
+            # its causal q loop at key0 / stream: both must divide evenly.
+            assert t.rows % (64 if t.ring else 16) == 0
+            assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
+    assert len(tattn.TILES) == 2 * len(tattn.KERNELS)
     for d in tattn.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
-            assert max(tattn.kernel_smem_bytes(d, dtype).values()) \
-                <= tattn.SMEM_LIMIT
+            smem = tattn.kernel_smem_bytes(d, dtype)
+            assert set(smem) == set(tattn.KERNELS)
+            assert max(smem.values()) <= tattn.SMEM_LIMIT
     with pytest.raises(ValueError):
-        tattn.pick_block_sizes(1024, 96)
-    q = torch.randn(1, 2, 128, D)
+        tattn.kernel_smem_bytes(96)
+    q = torch.randn(1, 2, 128, 96)
     with pytest.raises(ValueError):
-        tattn.flash_attention(q, q, q, True, None, 128, 128)
+        tattn.flash_attention(q, q, q, True)
+
+
+def test_tile_table_mirrors_the_cuda_sources():
+    # The bf16 Hopper bodies fix their tiles in flash_common.cuh (FwdTiles,
+    # DkvTiles); the table the wrappers and chip_smoke.py read must agree.
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tattn.__file__), os.pardir,
+                            "csrc", "flash_common.cuh")).read()
+    for struct, name in (("FwdTiles", "flash_fwd"),
+                         ("DkvTiles", "flash_bwd_dkv")):
+        # TILE is one number, or "D == 128 ? a : b".
+        body = re.search(struct + r" \{[^}]*ROWS = (\d+), TILE = "
+                         r"(?:D == 128 \? (\d+) : )?(\d+), STAGES = (\d+);",
+                         src)
+        rows, tile128, tile, stages = body.groups()
+        for d, t in tattn.TILES[name, torch.bfloat16].items():
+            want = tile128 if d == 128 and tile128 else tile
+            assert t == tattn.Tile(int(rows), int(want), int(stages), True)
+    block = int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1))
+    assert tattn.TILES["flash_bwd_dq", torch.bfloat16][64].rows == block
+
+
+def test_time_attention_needs_the_card():
+    # The timing script measures the card only: without CUDA it exits 2
+    # and prints no result.
+    from ray_tpu_torch import time_attention
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour where CUDA is absent")
+    assert time_attention.main(["--d", "64"]) == 2

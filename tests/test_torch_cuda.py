@@ -32,15 +32,21 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,seq,d", [
-    (torch.float32, True, 256, 64), (torch.float32, False, 200, 128),
-    (torch.bfloat16, True, 130, 32), (torch.bfloat16, False, 1024, 64)])
-def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d):
+@pytest.mark.parametrize("dtype,causal,seq,d,bh", [
+    (torch.float32, True, 256, 64, 3), (torch.float32, False, 200, 128, 3),
+    (torch.bfloat16, True, 130, 32, 3), (torch.bfloat16, False, 1024, 64, 3),
+    # Llama's head dim on the Hopper bodies (two 64-column TMA boxes a row).
+    (torch.bfloat16, True, 1024, 128, 3),
+    # A ragged last tile in several heads: a tensor map that ran across
+    # heads would read the next head's rows there.
+    (torch.bfloat16, True, 200, 64, 6)])
+def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d,
+                                              bh):
     # float32: summation order only (1e-4 forward, 5e-4 gradients); bf16:
     # the kernels round P and dS to bf16 for the tensor cores (2e-2).
     tol = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2)}[dtype]
     gen = torch.Generator(device=card).manual_seed(0)
-    q, k, v, do = (torch.randn(3, seq, d, generator=gen, device=card,
+    q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device=card,
                                dtype=dtype) for _ in range(4))
     scale = d ** -0.5
     before = tattn.kernel_launches()
