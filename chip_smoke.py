@@ -11,14 +11,15 @@ failed phase, with no phase caught.
    kernel's registers and spills, and checks that the shared memory each C
    entry point asks for is what `attention.kernel_smem_bytes` computes
    from the tile table.
-2. Kernels: holds each kernel (flash forward, dQ, dK/dV) against its plain
-   PyTorch version on the card, at GPT-2-small's attention shape (bf16,
-   causal and not), at Llama's head dim 128 (bf16), on a ragged bf16 case
-   whose last tile ends inside the head in several heads, and on small
-   float32 and ragged cases, element by element, printing each error
-   beside its limit; shows that the same check rejects planted faults (a
-   skipped tile, P left unnormalised, each sized from the kernel's own
-   tiles) at the main shape; times each kernel, its plain version and
+2. Kernels: holds each kernel (flash forward, dQ with the delta it writes,
+   dK/dV reading that delta) against its plain PyTorch version on the
+   card, at GPT-2-small's attention shape (bf16, causal and not), at
+   Llama's head dim 128 (bf16), on a ragged bf16 case whose last tile ends
+   inside the head in several heads, and on small float32 and ragged
+   cases, element by element, printing each error beside its limit; shows
+   that the same check rejects planted faults (a skipped tile, P left
+   unnormalised, delta left at 0, each sized from the kernel's own tiles)
+   at the main shape; times each kernel, its plain version and
    `scaled_dot_product_attention` (a yardstick the port never calls),
    forward and backward alone.
 3. Model check: a small GPT-2 with the flash kernels against the same model
@@ -198,43 +199,51 @@ def check_kernels(attn) -> dict:
         causal, scale = case["causal"], 1.0 / math.sqrt(case["d"])
         out, lse = attn._flash_forward(q, k, v, causal, scale)
         out_p, lse_p = attn.flash_forward_reference(q, k, v, causal, scale)
+        # As on the main path: K2 writes delta, K3 reads it.
+        dq, delta_k = attn._bwd_dq(q, k, v, do, out, lse, causal, scale)
+        dk, dv = attn._bwd_dkv(q, k, v, do, lse, delta_k, causal, scale)
         delta = attn.bwd_delta(out, do)
-        dq = attn._bwd_dq(q, k, v, do, lse, delta, causal, scale)
-        dk, dv = attn._bwd_dkv(q, k, v, do, lse, delta, causal, scale)
         dq_p = attn.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
                                            scale)
         dk_p, dv_p = attn.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                   causal, scale)
         torch.cuda.synchronize()
         tol_f, tol_b = TOL[case["dtype"], "fwd"], TOL[case["dtype"], "bwd"]
-        errs = {
-            "flash_fwd": (max(mismatch(out, out_p, tol_f),
-                              mismatch(lse, lse_p, tol_f)),
-                          max(max_err(out, out_p), max_err(lse, lse_p)),
-                          tol_f),
-            "flash_bwd_dq": (mismatch(dq, dq_p, tol_b), max_err(dq, dq_p),
-                             tol_b),
-            "flash_bwd_dkv": (max(mismatch(dk, dk_p, tol_b),
-                                  mismatch(dv, dv_p, tol_b)),
-                              max(max_err(dk, dk_p), max_err(dv, dv_p)),
-                              tol_b),
-        }
+        tol_d = TOL[torch.float32, "fwd"]  # delta: a float32 sum in both
+        checks = [  # (kernel, output, ratio, max abs error, tol)
+            ("flash_fwd", "out", mismatch(out, out_p, tol_f),
+             max_err(out, out_p), tol_f),
+            ("flash_fwd", "lse", mismatch(lse, lse_p, tol_f),
+             max_err(lse, lse_p), tol_f),
+            ("flash_bwd_dq", "dq", mismatch(dq, dq_p, tol_b),
+             max_err(dq, dq_p), tol_b),
+            ("flash_bwd_dq", "delta", mismatch(delta_k, delta, tol_d),
+             max_err(delta_k, delta), tol_d),
+            ("flash_bwd_dkv", "dk", mismatch(dk, dk_p, tol_b),
+             max_err(dk, dk_p), tol_b),
+            ("flash_bwd_dkv", "dv", mismatch(dv, dv_p, tol_b),
+             max_err(dv, dv_p), tol_b),
+        ]
         label = (f"bh={case['bh']} seq={case['seq']} d={case['d']} "
                  f"{str(case['dtype']).split('.')[-1]} causal={causal}")
-        for name, (ratio, abs_err, tol) in errs.items():
+        errs = {}  # kernel -> (worst ratio, worst abs error) over its outputs
+        for name, what, ratio, abs_err, tol in checks:
             ok = math.isfinite(ratio) and ratio <= 1.0
-            print(f"  {name:14s} {label}: max_abs_err={abs_err:.3e} "
-                  f"mismatch={ratio:.4f} of its limit (tol={tol:.0e}) "
+            print(f"  {name:14s} {what:5s} {label}: max_abs_err={abs_err:.3e}"
+                  f" mismatch={ratio:.4f} of its limit (tol={tol:.0e}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at {label}")
+                raise AssertionError(f"{name} ({what}) disagrees with its "
+                                     f"plain version at {label}")
+            worst = errs.get(name, (0.0, 0.0))
+            errs[name] = (max(worst[0], ratio), max(worst[1], abs_err))
         if case is not MAIN:
             continue
         check_planted_faults(
             attn, q, k, v, do, lse, delta, scale,
-            {"out": out, "dq": dq, "dk": dk, "dv": dv},
-            {"out": out_p, "dq": dq_p, "dk": dk_p, "dv": dv_p}, errs)
+            {"out": out, "dq": dq, "delta": delta_k, "dk": dk, "dv": dv},
+            {"out": out_p, "dq": dq_p, "delta": delta, "dk": dk_p,
+             "dv": dv_p}, errs)
         lib_fwd = _sdpa(q, k, v, causal, scale, "forward")
         lib_bwd = _sdpa(q, k, v, causal, scale, "backward")
         lib_fwd_bwd = _sdpa(q, k, v, causal, scale, "both")
@@ -243,16 +252,18 @@ def check_kernels(attn) -> dict:
                 lambda: attn._flash_forward(q, k, v, causal, scale),
                 lambda: attn.flash_forward_reference(q, k, v, causal, scale),
                 2, [q, k, v, out, lse], lib_fwd),
+            # K2's plain version includes delta, which the kernel computes.
             "flash_bwd_dq": (
-                lambda: attn._bwd_dq(q, k, v, do, lse, delta, causal, scale),
-                lambda: attn.flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                    causal, scale),
-                3, [q, k, v, do, lse, delta, dq], None),
+                lambda: attn._bwd_dq(q, k, v, do, out, lse, causal, scale),
+                lambda: attn.flash_bwd_dq_reference(
+                    q, k, v, do, lse, attn.bwd_delta(out, do), causal, scale),
+                3, [q, k, v, do, out, lse, dq, delta_k], None),
             "flash_bwd_dkv": (
-                lambda: attn._bwd_dkv(q, k, v, do, lse, delta, causal, scale),
+                lambda: attn._bwd_dkv(q, k, v, do, lse, delta_k, causal,
+                                      scale),
                 lambda: attn.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                      causal, scale),
-                4, [q, k, v, do, lse, delta, dk, dv], None),
+                4, [q, k, v, do, lse, delta_k, dk, dv], None),
         }
         for name, (kern, plain, n_prod, tensors, lib_ms) in timings.items():
             b_ms, b_by = bound(case, n_prod, tensors)
@@ -266,12 +277,13 @@ def check_kernels(attn) -> dict:
             print(f"  {name:14s} main shape: {b['ms']:.4f} ms, plain "
                   f"{b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']}), library {lib_ms}")
+        # The plain delta is on no card path now; timed for comparison with
+        # the backward before K2 computed it.
         delta_ms = time_ms(lambda: attn.bwd_delta(out, do))
-        bwd = records["flash_bwd_dq"]["ms"] + records["flash_bwd_dkv"]["ms"] \
-            + delta_ms
-        print(f"  attention backward at the main shape: K2 + K3 + delta "
-              f"{bwd:.4f} ms (delta {delta_ms:.4f} ms), "
-              f"scaled_dot_product_attention backward {lib_bwd:.4f} ms")
+        bwd = records["flash_bwd_dq"]["ms"] + records["flash_bwd_dkv"]["ms"]
+        print(f"  attention backward at the main shape: K2 (with delta) + K3 "
+              f"{bwd:.4f} ms, scaled_dot_product_attention backward "
+              f"{lib_bwd:.4f} ms (plain delta alone {delta_ms:.4f} ms)")
         print(f"  attention fwd+bwd at the main shape: kernels "
               f"{records['flash_fwd']['ms'] + bwd:.4f} ms, "
               f"scaled_dot_product_attention {lib_fwd_bwd:.4f} ms")
@@ -289,12 +301,14 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
       - forward, the last q-block skips one K/V tile in the middle;
       - forward, the last q-block leaves P unnormalised (acc, not acc / l);
       - dQ, the last q-block skips one K/V tile in the middle;
+      - delta, the last q-block leaves its rows at 0;
       - dK and dV, the first key block skips one Q/dO tile in the middle.
     The last q-block averages the most keys, and the first key block takes
     rows from every q-block, so one tile is the smallest share there."""
     s, d = q.shape[1], q.shape[2]
     fwd, dq_t, dkv = (attn.TILES[name, q.dtype][d] for name in attn.KERNELS)
     tol_f, tol_b = TOL[q.dtype, "fwd"], TOL[q.dtype, "bwd"]
+    tol_d = TOL[torch.float32, "fwd"]
 
     def mid(n):  # the tile of n rows that ends at the middle
         return slice(s // 2 - n, s // 2)
@@ -340,6 +354,8 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
                  last_rows_forward(last_f, slice(0, 0), False))),
         ("flash_bwd_dq", f"dQ: last q-block skips keys {rows(drop_q)}", "dq",
          tol_b, planted(got["dq"], last_q, dq_drop[:, last_q])),
+        ("flash_bwd_dq", f"delta: last q-block's rows {rows(last_q)} left "
+         "at 0", "delta", tol_d, planted(got["delta"], last_q, 0)),
         ("flash_bwd_dkv", f"dK: first key block skips queries "
          f"{rows(drop_k)}", "dk", tol_b,
          planted(got["dk"], first_k, dk_drop[:, first_k])),
@@ -467,6 +483,9 @@ def main() -> int:
     for src, log in logs.items():
         for fn, regs, spill in ptxas_usage(log):
             print(f"  {src}: {fn}: {regs} registers, {spill}")
+        for line in log.splitlines():  # e.g. wgmma serialised by ptxas
+            if "warning" in line.lower() or "Performance Loss" in line:
+                print(f"  {src}: {line.strip()}")
     check_smem(attn, _build)
 
     print("== 2. kernels against their plain versions")

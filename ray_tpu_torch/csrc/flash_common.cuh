@@ -6,16 +6,15 @@
 //
 // Two families of kernel bodies live on these pieces:
 //
-// - The Hopper bodies (namespace flash::sm90 below): the bf16 forward and
-//   dK/dV kernels. One warp of a producer warpgroup streams tiles into a
-//   ring in shared memory with TMA, ordered by mbarriers; two consumer
+// - The Hopper bodies (namespace flash::sm90 below): the bf16 forward, dQ
+//   and dK/dV kernels. One warp of a producer warpgroup streams tiles into
+//   a ring in shared memory with TMA, ordered by mbarriers; two consumer
 //   warpgroups take turns to run every tile product on wgmma and keep
 //   probabilities and dS in registers.
-// - The mma.sync bodies: the dQ kernel (both types) and the float32 forward
-//   and dK/dV kernels. Tiles are BLOCK x D with BLOCK = 64 rows, 4 warps of
-//   16 rows, and every operand of a tile product is read from shared memory
-//   by `warp_gemm`: for bf16 it feeds mma.sync.m16n8k16; for float32 it runs
-//   the same 16x8 accumulator layout on the CUDA cores in full float32.
+// - The float32 bodies of the three kernels. Tiles are BLOCK x D with
+//   BLOCK = 64 rows, 4 warps of 16 rows, and every operand of a tile
+//   product is read from shared memory by `warp_gemm`, which runs the
+//   16x8 mma.sync accumulator layout on the CUDA cores in full float32.
 //   wgmma has no float32 type, and TF32 keeps about three decimal digits,
 //   too few for the 1e-4 the float32 instances are held to, so those stay
 //   on the CUDA cores.
@@ -63,71 +62,28 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp: C[16 x 8*NT] += A[16 x K] * B[K x 8*NT].
+// One warp, in float32 on the CUDA cores: C[16 x 8*NT] += A[16 x K] *
+// B[K x 8*NT], in the 16x8 mma.sync accumulator layout.
 // A is row-major in shared memory (A(m, k) = A[m * lda + k]).
 // B_NK: B(k, n) = B[n * ldb + k] (B stored as N x K, e.g. K for Q.K^T);
 // otherwise B(k, n) = B[k * ldb + n] (stored as K x N, e.g. V for P.V).
-template <typename T, bool B_NK, int NT, int K>
-__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const T* A,
-                                          int lda, const T* B, int ldb) {
+template <bool B_NK, int NT, int K>
+__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const float* A,
+                                          int lda, const float* B, int ldb) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t a[4];
-      a[0] = ld_u32(A + g * lda + k0 + 2 * t);
-      a[1] = ld_u32(A + (g + 8) * lda + k0 + 2 * t);
-      a[2] = ld_u32(A + g * lda + k0 + 8 + 2 * t);
-      a[3] = ld_u32(A + (g + 8) * lda + k0 + 8 + 2 * t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = nt * 8 + g;
-        uint32_t b0, b1;
-        if constexpr (B_NK) {
-          b0 = ld_u32(B + n * ldb + k0 + 2 * t);
-          b1 = ld_u32(B + n * ldb + k0 + 8 + 2 * t);
-        } else {
-          b0 = pack_bf16(B[(k0 + 2 * t) * ldb + n], B[(k0 + 2 * t + 1) * ldb + n]);
-          b1 = pack_bf16(B[(k0 + 8 + 2 * t) * ldb + n],
-                         B[(k0 + 9 + 2 * t) * ldb + n]);
-        }
-        mma_bf16(c[nt], a, b0, b1);
-      }
-    }
-  } else {
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = A[g * lda + k], a1 = A[(g + 8) * lda + k];
+  for (int k = 0; k < K; ++k) {
+    const float a0 = A[g * lda + k], a1 = A[(g + 8) * lda + k];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = nt * 8 + 2 * t;
-        const float b0 = B_NK ? B[n * ldb + k] : B[k * ldb + n];
-        const float b1 = B_NK ? B[(n + 1) * ldb + k] : B[k * ldb + n + 1];
-        c[nt][0] = fmaf(a0, b0, c[nt][0]);
-        c[nt][1] = fmaf(a0, b1, c[nt][1]);
-        c[nt][2] = fmaf(a1, b0, c[nt][2]);
-        c[nt][3] = fmaf(a1, b1, c[nt][3]);
-      }
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = nt * 8 + 2 * t;
+      const float b0 = B_NK ? B[n * ldb + k] : B[k * ldb + n];
+      const float b1 = B_NK ? B[(n + 1) * ldb + k] : B[k * ldb + n + 1];
+      c[nt][0] = fmaf(a0, b0, c[nt][0]);
+      c[nt][1] = fmaf(a0, b1, c[nt][1]);
+      c[nt][2] = fmaf(a1, b0, c[nt][2]);
+      c[nt][3] = fmaf(a1, b1, c[nt][3]);
     }
   }
 }
@@ -212,12 +168,18 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Tiles of the bf16 kernels (mirrored by TILES in ray_tpu_torch/ops/
 // attention.py). Every block owns 128 rows, 64 per consumer warpgroup (the M
-// of wgmma), and streams tiles through a ring of STAGES slots. dK/dV streams
-// a smaller tile at d = 128, where its two accumulators take D floats of
-// each thread's registers.
+// of wgmma), and streams tiles through a ring of STAGES slots. dQ and dK/dV
+// stream a smaller tile at d = 128: dQ holds S, dP and dS of a tile beside
+// its D / 2 floats of dQ in each thread's registers, dK/dV two
+// accumulators of D / 2. dQ keeps a slot two turns (S_i, then dS_i K_i in
+// the next turn), so it gets a fourth slot.
 template <int D>
 struct FwdTiles {  // forward: owns query rows, streams K and V
   static constexpr int ROWS = 128, TILE = 128, STAGES = 3;
+};
+template <int D>
+struct DqTiles {  // dQ: owns query rows (Q, dO and O), streams K and V
+  static constexpr int ROWS = 128, TILE = D == 128 ? 64 : 128, STAGES = 4;
 };
 template <int D>
 struct DkvTiles {  // dK/dV: owns key rows, streams Q, dO, lse and delta
@@ -553,6 +515,19 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4],
     a[kk][2] = pack_rn(c[8 * kk + 4], c[8 * kk + 5]);  // row g,   cols 8+2t..
     a[kk][3] = pack_rn(c[8 * kk + 6], c[8 * kk + 7]);  // row g+8, cols 8+2t..
   }
+}
+
+// acc + the dot product of two vectors of 8 bf16 each, in float32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    acc = fmaf(fx.x, fy.x, acc);
+    acc = fmaf(fx.y, fy.y, acc);
+  }
+  return acc;
 }
 
 // Write a warp's 16 rows of a [64 x D] accumulator as bf16 rows of a

@@ -89,7 +89,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float s[NTK][4];
     zero(s);
-    warp_gemm<T, true, NTK, D>(s, Qw, LD, Ks, LD);  // S = Q K^T
+    warp_gemm<true, NTK, D>(s, Qw, LD, Ks, LD);  // S = Q K^T
 
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -126,7 +126,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     store_acc<T>(Pw, LDP, s, 16);
     __syncwarp();
-    warp_gemm<T, false, NTD, BLOCK>(acc, Pw, LDP, Vs, LD);  // O += P V
+    warp_gemm<false, NTD, BLOCK>(acc, Pw, LDP, Vs, LD);  // O += P V
     __syncwarp();  // P is read by all lanes before the next write
   }
 

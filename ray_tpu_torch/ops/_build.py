@@ -37,7 +37,7 @@ SIGNATURES = {
         "flash_fwd_smem": [_I, _I],
     },
     "flash_bwd.cu": {
-        "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P,
+        "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _F, _I, _P],
         "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _I, _P],

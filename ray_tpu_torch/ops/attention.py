@@ -11,9 +11,10 @@ Public layout as in the JAX package: q, k, v are [batch, heads, seq,
 head_dim]. The kernels and their plain PyTorch versions work on
 [batch * heads, seq, head_dim]. Each wrapper launches its kernel for a
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
-for the other. On the card the body is chosen by type: bf16 forward and
-dK/dV run the Hopper bodies (TMA ring, wgmma), float32 and dQ the mma.sync
-or CUDA-core bodies (`TILES` lists each one's tiles).
+for the other. On the card the body is chosen by type: bf16 runs the
+Hopper bodies (TMA ring, wgmma), float32 the CUDA-core bodies (`TILES`
+lists each one's tiles). The dQ kernel runs first in the backward and also
+writes delta = rowsum(dO * O), which the dK/dV kernel reads.
 """
 
 from __future__ import annotations
@@ -37,21 +38,23 @@ class Tile(NamedTuple):
     rows: int     # rows one block owns (queries; keys for dK/dV)
     stream: int   # rows of each tile the block streams past them
     stages: int   # slots of the ring the streamed tiles pass through
-    ring: bool    # TMA ring + wgmma (Hopper body), or mma.sync/CUDA cores
+    ring: bool    # TMA ring + wgmma (Hopper body), or the CUDA cores
 
 
 _PLAIN = Tile(64, 64, 1, False)  # csrc/flash_common.cuh BLOCK
-# (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: the bf16 forward and
-# dK/dV are the Hopper bodies (flash_common.cuh FwdTiles, DkvTiles); dK/dV
-# streams a smaller tile at d = 128, where its two accumulators take the
-# most registers. The float32 bodies and dQ keep 64-row tiles.
+# (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: the bf16 kernels are
+# the Hopper bodies (flash_common.cuh FwdTiles, DqTiles, DkvTiles); dQ and
+# dK/dV stream a smaller tile at d = 128, where their accumulators take the
+# most registers, and dQ has 4 slots. The float32 bodies keep 64-row tiles.
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
     ("flash_fwd", torch.bfloat16): dict.fromkeys(HEAD_DIMS,
                                                  Tile(128, 128, 3, True)),
     ("flash_bwd_dkv", torch.bfloat16): {32: Tile(128, 64, 3, True),
                                         64: Tile(128, 64, 3, True),
                                         128: Tile(128, 32, 3, True)},
-    ("flash_bwd_dq", torch.bfloat16): dict.fromkeys(HEAD_DIMS, _PLAIN),
+    ("flash_bwd_dq", torch.bfloat16): {32: Tile(128, 128, 4, True),
+                                       64: Tile(128, 128, 4, True),
+                                       128: Tile(128, 64, 4, True)},
     **{(name, torch.float32): dict.fromkeys(HEAD_DIMS, _PLAIN)
        for name in KERNELS},
 }
@@ -139,9 +142,10 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool,
 # --------------------------------------------------------------------------- #
 
 
-def _check_inputs(q, k, v, do=None, lse=None, delta=None) -> bool:
+def _check_inputs(q, k, v, do=None, lse=None, delta=None, out=None) -> bool:
     """Validate kernel inputs; True when they lie on the card."""
-    mats = [q, k, v] + ([do] if do is not None else [])
+    q_like = [t for t in (do, out) if t is not None]
+    mats = [q, k, v] + q_like
     dev = q.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
@@ -165,8 +169,8 @@ def _check_inputs(q, k, v, do=None, lse=None, delta=None) -> bool:
     rows = min(TILES[name, q.dtype][d].rows for name in KERNELS)
     if bh * -(-max(sq, sk) // rows) >= 2 ** 31:
         raise ValueError(f"{bh} x {max(sq, sk)} rows exceed one launch grid")
-    if do is not None and do.shape != q.shape:
-        raise ValueError("dO must have q's shape")
+    if any(t.shape != q.shape for t in q_like):
+        raise ValueError("dO and out must have q's shape")
     for stat in (lse, delta):
         if stat is not None and (
                 stat.shape != (bh, sq) or stat.dtype != torch.float32
@@ -205,21 +209,25 @@ def _flash_forward(q, k, v, causal: bool, scale: float
     return out, lse
 
 
-def _bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float
-            ) -> torch.Tensor:
-    """K2: dq [bh, sq, d]."""
-    if not _check_inputs(q, k, v, do, lse, delta):
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
+def _bwd_dq(q, k, v, do, out, lse, causal: bool, scale: float
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: (dq [bh, sq, d], delta [bh, sq] float32). The kernel sums delta =
+    rowsum(dO * O) of its rows in its prologue and writes it for K3."""
+    if not _check_inputs(q, k, v, do, lse, out=out):
+        delta = bwd_delta(out, do)
+        return (flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                       scale), delta)
     bh, sq, d = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
     lib = _build.load("flash_bwd.cu")
     with torch.cuda.device(q.device):
-        code = lib.flash_bwd_dq(*_ptrs(q, k, v, do, lse, delta, dq), bh, sq,
-                                k.shape[1], d, int(causal), float(scale),
+        code = lib.flash_bwd_dq(*_ptrs(q, k, v, do, out, lse, delta, dq), bh,
+                                sq, k.shape[1], d, int(causal), float(scale),
                                 _DTYPE_CODES[q.dtype], _stream())
     _build.check(lib, "flash_bwd_dq", code)
     _launches["flash_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
 def _bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
@@ -242,17 +250,15 @@ def _bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
 
 def bwd_delta(out, do) -> torch.Tensor:
     """delta_i = rowsum(dO * O), the softmax-jacobian diagonal term
-    (float32 [bh, sq]); computed before the backward kernels."""
+    (float32 [bh, sq]): the plain version of what K2 computes on the card."""
     return (do.float() * out.float()).sum(dim=-1)
 
 
 def _flash_backward(q, k, v, out, lse, do, causal: bool, scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2 and K3: (dq, dk, dv), each in its input's shape and dtype."""
-    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
-        raise ValueError("out must match q")
-    delta = bwd_delta(out, do)
-    dq = _bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    """K2, then K3 with K2's delta: (dq, dk, dv), each in its input's shape
+    and dtype."""
+    dq, delta = _bwd_dq(q, k, v, do, out, lse, causal, scale)
     dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
 
@@ -276,8 +282,10 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16
         if t.ring:
             # Tiles are unpadded (TMA swizzles them); one 8-byte mbarrier per
             # resident load and two per slot; 1024 bytes to align the
-            # swizzle pattern.
-            owned = (1 if name == "flash_fwd" else 2) * t.rows * d * size
+            # swizzle pattern. Resident: Q (forward); Q, dO and O (dQ); K
+            # and V (dK/dV).
+            owned = {"flash_fwd": 1, "flash_bwd_dq": 3,
+                     "flash_bwd_dkv": 2}[name] * t.rows * d * size
             slot = 2 * t.stream * d * size
             if name == "flash_bwd_dkv":
                 slot += 2 * t.stream * 4       # lse and delta

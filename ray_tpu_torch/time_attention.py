@@ -6,9 +6,11 @@ CUDA card.
 
 Builds the kernels of the checkout it is run from, launches each on random
 bf16 inputs from a fixed seed (seq 1024; bh 288 is GPT-2-small's batch 24
-times 12 heads) and prints one JSON line: each kernel's time in ms (the
-median over five rounds of the mean of ten back-to-back launches, from CUDA
-events), the shape, and the card's name and power limit. To compare two
+times 12 heads), as well as the plain PyTorch delta = rowsum(dO * O) that
+the dQ kernel computes (`bwd_delta`), and prints one JSON line: each time
+in ms (the median over five rounds of the mean of ten back-to-back
+launches, from CUDA events), the shape, and the card's name and power
+limit. To compare two
 versions of a kernel, run this from each checkout in one call to the card,
 in turns. Exits non-zero where there is no card.
 """
@@ -50,7 +52,7 @@ def main(argv=None) -> int:
     parser.add_argument("--d", type=int, default=64)
     parser.add_argument("--bh", type=int, default=288)
     parser.add_argument("--only", default="flash_fwd,flash_bwd_dq,"
-                        "flash_bwd_dkv")
+                        "flash_bwd_dkv,bwd_delta")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_attention: CUDA is not available", file=sys.stderr)
@@ -64,12 +66,15 @@ def main(argv=None) -> int:
                    for _ in range(4))
     causal, scale = bool(args.causal), args.d ** -0.5
     out, lse = attn._flash_forward(q, k, v, causal, scale)
-    delta = attn.bwd_delta(out, do)
-    grads = (q, k, v, do, lse, delta, causal, scale)
+    _, delta = attn._bwd_dq(q, k, v, do, out, lse, causal, scale)
     calls = {
         "flash_fwd": lambda: attn._flash_forward(q, k, v, causal, scale),
-        "flash_bwd_dq": lambda: attn._bwd_dq(*grads),
-        "flash_bwd_dkv": lambda: attn._bwd_dkv(*grads),
+        "flash_bwd_dq": lambda: attn._bwd_dq(q, k, v, do, out, lse, causal,
+                                             scale),
+        "flash_bwd_dkv": lambda: attn._bwd_dkv(q, k, v, do, lse, delta,
+                                               causal, scale),
+        # The plain delta, which the backward ran before K2 computed it.
+        "bwd_delta": lambda: attn.bwd_delta(out, do),
     }
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

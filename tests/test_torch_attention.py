@@ -68,9 +68,17 @@ def test_backward_plain_versions_match_jax_kernels(interpret, causal):
     args = (_t3(q), _t3(k), _t3(v), do, lse, delta, causal, SCALE)
     dq = tattn.flash_bwd_dq_reference(*args)
     dk, dv = tattn.flash_bwd_dkv_reference(*args)
-    assert torch.equal(tattn._bwd_dq(*args), dq)
+    # K2's wrapper on the CPU: the plain dQ and the plain delta it computes.
+    dq_w, delta_w = tattn._bwd_dq(_t3(q), _t3(k), _t3(v), do, out, lse,
+                                  causal, SCALE)
+    assert torch.equal(dq_w, dq) and torch.equal(delta_w, delta)
     assert all(torch.equal(a, b) for a, b in zip(tattn._bwd_dkv(*args),
                                                  (dk, dv)))
+    # delta as the JAX package's _flash_backward computes it (:289-291).
+    delta_j = jnp.sum(jg.astype(jnp.float32) * out_j.astype(jnp.float32),
+                      axis=-1)
+    np.testing.assert_allclose(delta.reshape(B, H, S).numpy(),
+                               np.asarray(delta_j), **GRAD_TOL)
     for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
         np.testing.assert_allclose(got.reshape(B, H, S, D).numpy(),
                                    np.asarray(want), **GRAD_TOL)
@@ -147,7 +155,20 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
         tattn._flash_forward(q, k, v, True, SCALE)
 
 
-def test_pick_block_sizes_fit_hopper_shared_memory():
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided"])
+def test_bwd_dq_rejects_an_out_unlike_q(bad):
+    # K2 reads O beside dO to sum delta: it must be q's shape, dtype and
+    # layout, as dO must.
+    q, k, v, do = (torch.randn(2, 64, D) for _ in range(4))
+    lse = torch.zeros(2, 64)
+    out = {"shape": torch.randn(2, 32, D),
+           "dtype": torch.randn(2, 64, D).bfloat16(),
+           "strided": torch.randn(2, D, 64).transpose(1, 2)}[bad]
+    with pytest.raises(ValueError):
+        tattn._bwd_dq(q, k, v, do, out, lse, True, SCALE)
+
+
+def test_tile_table_fits_hopper_shared_memory():
     # Each kernel's tiles come from one table (`TILES`, one entry per
     # kernel, dtype and head dim); every block fits Hopper's 227 KB, and the
     # head dims the kernels are not compiled for are refused.
@@ -173,13 +194,15 @@ def test_pick_block_sizes_fit_hopper_shared_memory():
 
 def test_tile_table_mirrors_the_cuda_sources():
     # The bf16 Hopper bodies fix their tiles in flash_common.cuh (FwdTiles,
-    # DkvTiles); the table the wrappers and chip_smoke.py read must agree.
+    # DqTiles, DkvTiles); the table the wrappers and chip_smoke.py read must
+    # agree. The float32 bodies keep BLOCK-row tiles.
     import os
     import re
 
     src = open(os.path.join(os.path.dirname(tattn.__file__), os.pardir,
                             "csrc", "flash_common.cuh")).read()
     for struct, name in (("FwdTiles", "flash_fwd"),
+                         ("DqTiles", "flash_bwd_dq"),
                          ("DkvTiles", "flash_bwd_dkv")):
         # TILE is one number, or "D == 128 ? a : b".
         body = re.search(struct + r" \{[^}]*ROWS = (\d+), TILE = "
@@ -190,7 +213,22 @@ def test_tile_table_mirrors_the_cuda_sources():
             want = tile128 if d == 128 and tile128 else tile
             assert t == tattn.Tile(int(rows), int(want), int(stages), True)
     block = int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1))
-    assert tattn.TILES["flash_bwd_dq", torch.bfloat16][64].rows == block
+    for d, t in tattn.TILES["flash_bwd_dq", torch.float32].items():
+        assert t == tattn.Tile(block, block, 1, False)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_dq_ring_shared_memory(d):
+    # The bf16 dQ block keeps Q, dO and O (128 rows each) and streams K and
+    # V through 4 slots, with no lse or delta in the slots (each thread
+    # reads its rows' own); one mbarrier for the resident tiles and two per
+    # slot; 1024 bytes to align the swizzle. chip_smoke.py checks these
+    # against what flash_bwd_smem asks for on the card.
+    t = tattn.TILES["flash_bwd_dq", torch.bfloat16][d]
+    assert t.ring and (t.rows, t.stages) == (128, 4)
+    want = 3 * 128 * d * 2 + 4 * 2 * t.stream * d * 2 + 8 * 9 + 1024
+    assert tattn.kernel_smem_bytes(d)["flash_bwd_dq"] == want
+    assert want <= tattn.SMEM_LIMIT
 
 
 def test_time_attention_needs_the_card():

@@ -43,7 +43,8 @@ def card():
 def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d,
                                               bh):
     # float32: summation order only (1e-4 forward, 5e-4 gradients); bf16:
-    # the kernels round P and dS to bf16 for the tensor cores (2e-2).
+    # the kernels round P and dS to bf16 for the tensor cores (2e-2). delta
+    # is a float32 sum of the same products in both: 1e-4.
     tol = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2)}[dtype]
     gen = torch.Generator(device=card).manual_seed(0)
     q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device=card,
@@ -51,17 +52,20 @@ def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d,
     scale = d ** -0.5
     before = tattn.kernel_launches()
     out, lse = tattn._flash_forward(q, k, v, causal, scale)
+    dq, delta_k = tattn._bwd_dq(q, k, v, do, out, lse, causal, scale)
+    dk, dv = tattn._bwd_dkv(q, k, v, do, lse, delta_k, causal, scale)
     delta = tattn.bwd_delta(out, do)
     args = (q, k, v, do, lse, delta, causal, scale)
-    got = [out, lse, tattn._bwd_dq(*args), *tattn._bwd_dkv(*args)]
+    got = [out, lse, dq, dk, dv, delta_k]
     want = [*tattn.flash_forward_reference(q, k, v, causal, scale),
             tattn.flash_bwd_dq_reference(*args),
-            *tattn.flash_bwd_dkv_reference(*args)]
+            *tattn.flash_bwd_dkv_reference(*args), delta]
+    tols = [tol[0], tol[0], tol[1], tol[1], tol[1], 1e-4]
     torch.cuda.synchronize()
     after = tattn.kernel_launches()
     assert all(after[name] == before[name] + 1 for name in after)
-    for i, (a, b) in enumerate(zip(got, want)):
-        assert _within(a, b, tol[i >= 2]), i
+    for i, (a, b, t) in enumerate(zip(got, want, tols)):
+        assert _within(a, b, t), i
 
 
 @pytest.mark.cuda
