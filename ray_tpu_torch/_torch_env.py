@@ -35,3 +35,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def same_device(asked: torch.device, actual: torch.device) -> bool:
+    """Whether a tensor on `actual` lies on `asked` (`cuda` matches any card,
+    `cuda:1` only the second)."""
+    return asked.type == actual.type and asked.index in (None, actual.index)

@@ -1,0 +1,436 @@
+"""Paged KV-cache block manager (vLLM/PagedAttention-shaped).
+
+The port's own copy of `ray_tpu/inference/kv_cache.py`, which imports no
+JAX: host bookkeeping only, the same code.
+
+The cache arena is a preallocated pool of fixed-size blocks shared by every
+sequence (`models/llama.py:make_paged_arena` holds the actual K/V tensors);
+this module owns the bookkeeping: which physical blocks belong to which
+sequence, in logical order, with refcounts so a fork shares its parent's
+blocks copy-on-write. The manager never touches device memory — it hands
+out indices, and the engine's step programs read/write the arena through
+per-row block tables.
+
+Physical block 0 is reserved as the trash block: the model's scatter sends
+masked-off writes (batch padding, prefill-chunk padding) there, so it must
+never be allocated to a sequence.
+
+Invariants (asserted by tests):
+- a block is free XOR referenced; refcounts are exact across fork/free;
+- `blocks_in_use == 0` once every sequence is freed (no leaks);
+- allocation never raises on exhaustion — it returns False and the engine
+  degrades (preempts a victim) instead of OOMing.
+"""
+
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+TRASH_BLOCK = 0
+
+
+class BlockManager:
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("need at least 2 blocks (block 0 is reserved)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self._free: deque = deque(range(1, num_blocks))
+        self._ref: Dict[int, int] = {}            # physical block -> refcount
+        self._tables: Dict[str, List[int]] = {}   # seq id -> logical order
+        self._peak_in_use = 0
+
+    # ------------------------------------------------------------- queries
+
+    @property
+    def capacity(self) -> int:
+        """Allocatable blocks (total minus the trash block)."""
+        return self.num_blocks - 1
+
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def blocks_in_use(self) -> int:
+        return self.capacity - len(self._free)
+
+    def peak_in_use(self) -> int:
+        return self._peak_in_use
+
+    def num_seqs(self) -> int:
+        return len(self._tables)
+
+    def blocks_for_tokens(self, num_tokens: int) -> int:
+        return max(0, -(-num_tokens // self.block_size))
+
+    def fits(self, num_tokens: int) -> bool:
+        """Whether a sequence of num_tokens can EVER be resident (engine
+        rejects oversized requests at submit time instead of preempting
+        forever)."""
+        return self.blocks_for_tokens(num_tokens) <= self.capacity
+
+    def block_table(self, seq_id: str) -> List[int]:
+        return list(self._tables[seq_id])
+
+    def registered(self, seq_id: str) -> bool:
+        return seq_id in self._tables
+
+    # ---------------------------------------------------------- lifecycle
+
+    def register(self, seq_id: str) -> None:
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id!r} already registered")
+        self._tables[seq_id] = []
+
+    def register_with_blocks(self, seq_id: str, blocks: List[int]) -> None:
+        """Register seq_id with an incref'd copy of `blocks` (all must be
+        live) — how a radix-cache hit adopts a cached prefix and how cache
+        nodes themselves hold their segments. The adopter shares the
+        blocks read-only; appends past them land in fresh blocks, so no
+        copy-on-write is ever needed on the shared span."""
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id!r} already registered")
+        for blk in blocks:
+            if blk not in self._ref:
+                raise ValueError(f"block {blk} is not live")
+        for blk in blocks:
+            self._ref[blk] += 1
+        self._tables[seq_id] = list(blocks)
+
+    def ensure(self, seq_id: str, num_tokens: int) -> bool:
+        """Grow seq_id's table to cover num_tokens. False (and no change)
+        when the pool can't supply the missing blocks — caller preempts."""
+        table = self._tables[seq_id]
+        need = self.blocks_for_tokens(num_tokens) - len(table)
+        if need <= 0:
+            return True
+        if need > len(self._free):
+            return False
+        for _ in range(need):
+            blk = self._free.popleft()
+            self._ref[blk] = 1
+            table.append(blk)
+        self._peak_in_use = max(self._peak_in_use, self.blocks_in_use())
+        return True
+
+    def free(self, seq_id: str) -> int:
+        """Release a sequence: decref every block, return how many went
+        back to the pool (shared blocks stay with the other holder)."""
+        table = self._tables.pop(seq_id, None)
+        if table is None:
+            return 0
+        released = 0
+        for blk in table:
+            self._ref[blk] -= 1
+            if self._ref[blk] == 0:
+                del self._ref[blk]
+                self._free.append(blk)
+                released += 1
+        return released
+
+    def fork(self, parent_id: str, child_id: str) -> None:
+        """Child shares the parent's blocks (refcount++, no copies) —
+        beam/parallel sampling shape. Appends by either party must go
+        through ensure_appendable first (copy-on-write)."""
+        if child_id in self._tables:
+            raise ValueError(f"sequence {child_id!r} already registered")
+        table = self._tables[parent_id]
+        for blk in table:
+            self._ref[blk] += 1
+        self._tables[child_id] = list(table)
+
+    def ensure_appendable(self, seq_id: str
+                          ) -> Optional[Tuple[int, int]]:
+        """Copy-on-write for the last block: if it is shared (refcount >
+        1), claim a fresh block in its place and return (src, dst) so the
+        caller copies the arena contents; None when nothing to do. Returns
+        (src, -1) without changes when the pool is exhausted — caller
+        preempts and retries."""
+        table = self._tables[seq_id]
+        if not table:
+            return None
+        last = table[-1]
+        if self._ref[last] == 1:
+            return None
+        if not self._free:
+            return (last, -1)
+        dst = self._free.popleft()
+        self._ref[dst] = 1
+        self._ref[last] -= 1
+        table[-1] = dst
+        self._peak_in_use = max(self._peak_in_use, self.blocks_in_use())
+        return (last, dst)
+
+    def check_consistency(self) -> None:
+        """Every block is free XOR referenced, refcounts match the tables
+        (test hook; cheap enough to run after every scenario)."""
+        counts: Dict[int, int] = {}
+        for table in self._tables.values():
+            for blk in table:
+                counts[blk] = counts.get(blk, 0) + 1
+        assert counts == self._ref, (counts, self._ref)
+        free = set(self._free)
+        assert len(free) == len(self._free), "duplicate free blocks"
+        assert not (free & set(self._ref)), "block both free and referenced"
+        assert TRASH_BLOCK not in free and TRASH_BLOCK not in self._ref
+        assert len(free) + len(self._ref) == self.capacity
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "num_blocks": self.num_blocks,
+            "block_size": self.block_size,
+            "blocks_in_use": self.blocks_in_use(),
+            "blocks_free": self.num_free(),
+            "peak_blocks_in_use": self._peak_in_use,
+            "sequences": self.num_seqs(),
+        }
+
+
+# --------------------------------------------------------------------------- #
+# Radix prefix cache: shared-prefix KV reuse at block granularity
+# --------------------------------------------------------------------------- #
+
+
+class _RadixNode:
+    """One edge of the radix tree. `key` is a tuple of block-symbols
+    (each symbol = one full block's token ids), `blocks` the physical
+    blocks holding that segment's KV, `seq_id` the synthetic BlockManager
+    table that owns the cache's refcounts on them."""
+
+    __slots__ = ("key", "blocks", "seq_id", "children", "parent",
+                 "last_used", "pins")
+
+    def __init__(self, key, blocks, parent):
+        self.key = key                  # tuple of block-symbol tuples
+        self.blocks = blocks            # list of physical block ids
+        self.seq_id: Optional[str] = None
+        self.children: Dict[tuple, "_RadixNode"] = {}
+        self.parent: Optional["_RadixNode"] = parent
+        self.last_used = 0
+        self.pins = 0
+
+
+class RadixPrefixCache:
+    """Radix tree over token-id paths mapping shared prefixes to
+    refcounted block-table segments (the vLLM automatic-prefix-caching
+    shape, at block granularity).
+
+    The alphabet is FULL BLOCKS: a symbol is the tuple of `block_size`
+    token ids that fill one block, so a match is always block-aligned and
+    a matched block's KV can be adopted verbatim — partial blocks cannot
+    be shared (their tail would need a rewrite) and never enter the tree.
+
+    Ownership: every node registers a synthetic sequence in the
+    BlockManager (`~radixN`) holding one reference per cached block, so
+    `check_consistency()` audits the cache exactly like live sequences
+    and `blocks_in_use == cached_blocks()` is the idle-engine no-leak
+    invariant. A hit adopts the matched blocks via
+    `register_with_blocks` (refcount++), making eviction safe at any
+    moment: freeing a node only drops the CACHE's reference, adopters
+    keep theirs.
+
+    Pinning: a live sequence pins the deepest node of its matched path;
+    eviction only ever removes unpinned LEAF nodes (LRU by a
+    deterministic logical clock), so a pinned node's ancestors are
+    structurally protected without their own pins.
+
+    The cache stores bookkeeping only — device KV stays in the arena; on
+    an arena rebuild (`engine.fail_all`) the tree must be `clear()`ed
+    because every cached block's contents are gone."""
+
+    def __init__(self, bm: BlockManager):
+        self._bm = bm
+        self._root = _RadixNode((), [], None)
+        self._clock = itertools.count(1)
+        self._ids = itertools.count()
+        self._cached_blocks = 0
+        # Counters (exported via stats()).
+        self.lookups = 0
+        self.hits = 0
+        self.hit_tokens = 0
+        self.inserted_blocks = 0
+        self.evicted_blocks = 0
+
+    # ------------------------------------------------------------- helpers
+
+    def _symbols(self, tokens: List[int]) -> List[tuple]:
+        bs = self._bm.block_size
+        return [tuple(tokens[i * bs:(i + 1) * bs])
+                for i in range(len(tokens) // bs)]
+
+    def _new_node(self, key, blocks, parent) -> _RadixNode:
+        node = _RadixNode(tuple(key), list(blocks), parent)
+        node.seq_id = f"~radix{next(self._ids)}"
+        self._bm.register_with_blocks(node.seq_id, node.blocks)
+        node.last_used = next(self._clock)
+        parent.children[node.key[0]] = node
+        self._cached_blocks += len(node.blocks)
+        return node
+
+    def _split(self, child: _RadixNode, m: int) -> _RadixNode:
+        """Split `child` after its first m symbols; returns the new top
+        node (covering exactly the matched part). The original node
+        object keeps its pins/children and becomes the bottom part. New
+        tables register BEFORE the old one frees, so no refcount ever
+        touches zero mid-split."""
+        assert 0 < m < len(child.key)
+        parent = child.parent
+        top = _RadixNode(child.key[:m], child.blocks[:m], parent)
+        top.seq_id = f"~radix{next(self._ids)}"
+        self._bm.register_with_blocks(top.seq_id, top.blocks)
+        bottom_id = f"~radix{next(self._ids)}"
+        self._bm.register_with_blocks(bottom_id, child.blocks[m:])
+        self._bm.free(child.seq_id)   # top+bottom hold refs: releases 0
+        parent.children[top.key[0]] = top
+        child.key = child.key[m:]
+        child.blocks = child.blocks[m:]
+        child.seq_id = bottom_id
+        child.parent = top
+        top.children = {child.key[0]: child}
+        top.last_used = next(self._clock)
+        return top
+
+    def _nodes(self) -> List[_RadixNode]:
+        out, stack = [], [self._root]
+        while stack:
+            n = stack.pop()
+            if n is not self._root:
+                out.append(n)
+            stack.extend(n.children.values())
+        return out
+
+    # ----------------------------------------------------------- interface
+
+    def match(self, tokens: List[int]):
+        """Longest cached prefix of `tokens` (full blocks only). Returns
+        (blocks, deepest_node) — the caller adopts `blocks` via
+        `register_with_blocks` and pins `deepest_node` for the life of
+        the sequence (None on a miss). Splits mid-edge matches so the
+        pinned node covers exactly the matched span."""
+        syms = self._symbols(tokens)
+        self.lookups += 1
+        node, blocks, i = self._root, [], 0
+        while i < len(syms):
+            child = node.children.get(syms[i])
+            if child is None:
+                break
+            m = 0
+            while (m < len(child.key) and i + m < len(syms)
+                   and child.key[m] == syms[i + m]):
+                m += 1
+            if m < len(child.key):
+                child = self._split(child, m)
+            blocks.extend(child.blocks)
+            child.last_used = next(self._clock)
+            node = child
+            i += len(child.key)
+        if node is self._root:
+            return [], None
+        self.hits += 1
+        self.hit_tokens += len(blocks) * self._bm.block_size
+        return blocks, node
+
+    def pin(self, node: Optional[_RadixNode]) -> None:
+        if node is not None:
+            node.pins += 1
+
+    def unpin(self, node: Optional[_RadixNode]) -> None:
+        if node is not None and node.pins > 0:
+            node.pins -= 1
+
+    def insert(self, tokens: List[int], blocks: List[int]) -> int:
+        """Record a finished sequence's full-block prefix. Walks existing
+        edges (shared spans dedupe onto the tree's blocks — the donor's
+        duplicates go back to the pool when it frees) and registers only
+        the novel suffix. Returns how many blocks the cache newly
+        references."""
+        syms = self._symbols(tokens)
+        assert len(syms) == len(blocks), (len(syms), len(blocks))
+        node, i = self._root, 0
+        while i < len(syms):
+            child = node.children.get(syms[i])
+            if child is None:
+                new = self._new_node(syms[i:], blocks[i:], node)
+                self.inserted_blocks += len(new.blocks)
+                return len(new.blocks)
+            m = 0
+            while (m < len(child.key) and i + m < len(syms)
+                   and child.key[m] == syms[i + m]):
+                m += 1
+            if m < len(child.key):
+                child = self._split(child, m)
+            child.last_used = next(self._clock)
+            node = child
+            i += len(child.key)
+        return 0
+
+    def evict_for(self, need_blocks: int) -> int:
+        """Free least-recently-used unpinned leaves until `need_blocks`
+        pool blocks were actually released (adopters may keep a freed
+        node's blocks alive — those count for the cache but not for the
+        pool). Returns blocks released to the pool; 0 means nothing was
+        evictable."""
+        freed = 0
+        while freed < need_blocks:
+            leaves = [n for n in self._nodes()
+                      if not n.children and n.pins == 0]
+            if not leaves:
+                break
+            victim = min(leaves, key=lambda n: n.last_used)
+            freed += self._remove(victim)
+        return freed
+
+    def _remove(self, node: _RadixNode) -> int:
+        released = self._bm.free(node.seq_id)
+        del node.parent.children[node.key[0]]
+        self._cached_blocks -= len(node.blocks)
+        self.evicted_blocks += len(node.blocks)
+        node.parent = None
+        return released
+
+    def clear(self) -> int:
+        """Drop every cached segment (arena rebuild / test drain). Safe
+        with live adopters: they hold their own refs and never write the
+        shared span. Returns blocks released to the pool."""
+        released = 0
+        for node in self._nodes():
+            released += self._bm.free(node.seq_id)
+        self._root.children = {}
+        self._cached_blocks = 0
+        return released
+
+    def cached_blocks(self) -> int:
+        return self._cached_blocks
+
+    def total_pins(self) -> int:
+        return sum(n.pins for n in self._nodes())
+
+    def check_consistency(self) -> None:
+        """Tree bookkeeping matches the BlockManager's tables exactly."""
+        total = 0
+        for node in self._nodes():
+            assert node.seq_id is not None and node.key, node
+            assert len(node.key) == len(node.blocks), node
+            assert self._bm.block_table(node.seq_id) == node.blocks
+            assert node.parent is not None
+            assert node.parent.children.get(node.key[0]) is node
+            total += len(node.blocks)
+        assert total == self._cached_blocks, (total, self._cached_blocks)
+
+    def stats(self) -> Dict[str, Any]:
+        nodes = self._nodes()
+        return {
+            "enabled": True,
+            "nodes": len(nodes),
+            "cached_blocks": self._cached_blocks,
+            "pinned_nodes": sum(1 for n in nodes if n.pins),
+            "lookups": self.lookups,
+            "hits": self.hits,
+            "hit_rate": (self.hits / self.lookups) if self.lookups else 0.0,
+            "hit_tokens": self.hit_tokens,
+            "inserted_blocks": self.inserted_blocks,
+            "evicted_blocks": self.evicted_blocks,
+        }
