@@ -15,8 +15,10 @@ failed phase, with no phase caught.
    dK/dV reading that delta) against its plain PyTorch version on the
    card, at GPT-2-small's attention shape (bf16, causal and not), at
    Llama's head dim 128 (bf16), on a ragged bf16 case whose last tile ends
-   inside the head in several heads, and on small float32 and ragged
-   cases, element by element, printing each error beside its limit; shows
+   inside the head in several heads, on small float32 and ragged cases, at
+   seq 8192 (bh 4) and at the attention shapes of phases 10 and 11 (bh 96
+   and 64, seq 2048, d 64, bf16, causal), element by element, printing
+   each error beside its limit; shows
    that the same check rejects planted faults (a skipped tile, P left
    unnormalised, delta left at 0, each sized from the kernel's own tiles)
    at the main shape; times each kernel, its plain version and
@@ -50,14 +52,44 @@ failed phase, with no phase caught.
    of 128 and 2 of 64) against a dense-cache greedy loop through
    `Llama.decode`, and the speculative engine's against the plain one's,
    each up to the reference's first near tie.
-8. Results (phase 5 before phases 6 and 7 came): prints the serving
-   numbers, the `{"kernels": [...]}` line (launches summed over the main
-   paths of phases 4, 6 and 7; K1's record also holds its time at the
+8. Long context (`bench.py` bench_gpt2_long's first rung): `TorchTrainer.
+   fit` trains GPT-2-small at full width and depth at seq 8192 with
+   per-block remat, batch 4, for 2 warm-up and 5 timed steps; the loss must
+   be finite and fall, and each step launch K1 24 times (12 forwards, 12
+   recomputes), K2 and K3 12 times. Then runs K1, K2 and K3 at the leg's
+   attention shape (bh 48, seq 8192, d 64, bf16, causal), holds them
+   element by element against their plain versions four heads at a time,
+   and times them beside their bounds and `scaled_dot_product_attention`'s
+   forward and forward + backward. Last, the leg's model at batch 1
+   through 3 AdamW steps with the kernels and with plain attention: in
+   float32 the losses and first-step gradients agree within the float32
+   kernels' limits; in bf16 the losses within 2e-2 and the gradients no
+   further from the float32 model's than plain attention's.
+9. Remat on the card: the phase-3 GPT-2 in float32 with remat on and off,
+   with dropout 0 and 0.1 (the checkpoint restores the generators, so the
+   recompute draws the same masks): the loss and every gradient must agree
+   within the float32 kernels' 5e-4, and remat launch K1 twice a layer.
+   Prints whether the two are bit-equal.
+10. Llama-small training (`LlamaConfig.small()`, GQA 12/4 heads):
+   `TorchTrainer.fit`, batch 8, seq 2048, 2 + 10 steps; falling loss, K1,
+   K2 and K3 12 times a step.
+11. MoE-small training (`MoEConfig.small()`, 8 experts, top-2, capacity
+   1.25): `TorchTrainer.fit` with `make_moe_train_step`, batch 4, seq
+   2048, 2 + 5 steps; falling cross-entropy, a finite router loss, K1, K2
+   and K3 8 times a step; prints layer 0's slots used per expert and the
+   share of routing choices dropped at capacity in the last step.
+12. Results (phase 5 before phases 6 and 7 came): prints the serving and
+   training numbers, the `{"kernels": [...]}` line (launches summed over
+   the paths of phases 4, 6, 7, 8, 10 and 11; each record also holds its
+   time at the long-context shape under `gpt2_long`, and K1's at the
    Llama-7B shape under `llama7b_prefill`), then the device line last.
+
+Each phase frees what it allocated before the next starts.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -104,7 +136,30 @@ CASES = [
     dict(bh=4, seq=256, d=64, dtype=torch.float32, causal=True),
     dict(bh=3, seq=200, d=128, dtype=torch.float32, causal=False),
     dict(bh=5, seq=130, d=32, dtype=torch.bfloat16, causal=True),
+    # The long-context length (phase 8), at bh 4: the plain version's
+    # float32 scores take bh x 8192^2 x 4 bytes, 1 GiB here. Phase 8 holds
+    # the kernels at the leg's bh 48 four heads at a time.
+    dict(bh=4, seq=8192, d=64, dtype=torch.bfloat16, causal=True),
+    # The attention shapes of phases 10 and 11: Llama-small at batch 8 x 12
+    # heads and MoE-small at batch 4 x 16 heads (after the GQA repeat); the
+    # plain scores take 1.5 and 1 GiB.
+    dict(bh=96, seq=2048, d=64, dtype=torch.bfloat16, causal=True),
+    dict(bh=64, seq=2048, d=64, dtype=torch.bfloat16, causal=True),
 ]
+# (kernel, output, tolerance) of each output held against its plain
+# version; delta is a float32 sum in both, held to the float32 forward's.
+OUTPUTS = [("flash_fwd", "out", "fwd"), ("flash_fwd", "lse", "fwd"),
+           ("flash_bwd_dq", "dq", "bwd"), ("flash_bwd_dq", "delta", "delta"),
+           ("flash_bwd_dkv", "dk", "bwd"), ("flash_bwd_dkv", "dv", "bwd")]
+# Phase 8's attention shape: batch 4 x GPT-2-small's 12 heads, held against
+# the plain version LONG_CHUNK heads at a time.
+LONG_BATCH, LONG_CHUNK = 4, 4
+LONG_SHAPE = dict(bh=LONG_BATCH * 12, seq=8192, d=64, dtype=torch.bfloat16,
+                  causal=True)
+# Phase 8's model check: the leg's GPT-2 at batch 1 (plain float32
+# attention keeps [12, 8192, 8192] float32 scores, 3 GiB, a layer), through
+# this many AdamW steps.
+LONG_CHECK_BATCH, LONG_CHECK_STEPS = 1, 3
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:60",
     "flash_bwd_dq": "ray_tpu/ops/attention.py:173",
@@ -115,7 +170,7 @@ SOURCES = {
     "flash_bwd_dq": "ray_tpu_torch/csrc/flash_bwd.cu",
     "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_bwd.cu",
 }
-WARMUP_STEPS, TIMED_STEPS, BATCH, SEQ = 2, 10, 24, 1024
+BATCH = 24  # phase 4's batch; MAIN is its attention shape
 LLAMA_SEQ = 2048                 # phase 6: Llama-7B prefill, batch 1
 # Phase 7: the serving configuration. 8 x 128 blocks of 16 tokens, plus the
 # trash block: every slot can hold a full 2,048-token context at once.
@@ -242,6 +297,61 @@ def check_smem(attn, build) -> None:
           f"tile table (largest {largest} B)")
 
 
+def run_kernels(attn, q, k, v, do, causal: bool, scale: float) -> dict:
+    """K1, then K2 writing delta, then K3 reading it, as on the main path."""
+    out, lse = attn._flash_forward(q, k, v, causal, scale)
+    dq, delta = attn._bwd_dq(q, k, v, do, out, lse, causal, scale)
+    dk, dv = attn._bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return {"out": out, "lse": lse, "dq": dq, "delta": delta, "dk": dk,
+            "dv": dv}
+
+
+def run_plain(attn, q, k, v, do, got, causal: bool, scale: float) -> dict:
+    """The plain versions on the same inputs; the backward ones take the
+    kernel's out and lse, as K2 and K3 do."""
+    out, lse = attn.flash_forward_reference(q, k, v, causal, scale)
+    delta = attn.bwd_delta(got["out"], do)
+    dq = attn.flash_bwd_dq_reference(q, k, v, do, got["lse"], delta, causal,
+                                     scale)
+    dk, dv = attn.flash_bwd_dkv_reference(q, k, v, do, got["lse"], delta,
+                                          causal, scale)
+    return {"out": out, "lse": lse, "dq": dq, "delta": delta, "dk": dk,
+            "dv": dv}
+
+
+def compare(got, want, dtype) -> dict:
+    """(kernel, output) -> (mismatch, max abs error, tol) for OUTPUTS."""
+    res = {}
+    for name, what, kind in OUTPUTS:
+        tol = (TOL[torch.float32, "fwd"] if kind == "delta"
+               else TOL[dtype, kind])
+        res[name, what] = (mismatch(got[what], want[what], tol),
+                           max_err(got[what], want[what]), tol)
+    return res
+
+
+def worst(values) -> float:
+    """The largest value, NaN above all."""
+    return max(values, key=lambda x: math.inf if math.isnan(x) else x)
+
+
+def report(res, label: str) -> dict:
+    """Prints each output's error beside its limit and raises on the first
+    above it. Returns kernel -> (worst mismatch, worst abs error)."""
+    errs = {}
+    for (name, what), (ratio, abs_err, tol) in res.items():
+        ok = math.isfinite(ratio) and ratio <= 1.0
+        print(f"  {name:14s} {what:5s} {label}: max_abs_err={abs_err:.3e}"
+              f" mismatch={ratio:.4f} of its limit (tol={tol:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} ({what}) disagrees with its "
+                                 f"plain version at {label}")
+        w = errs.get(name, (0.0, 0.0))
+        errs[name] = (max(w[0], ratio), max(w[1], abs_err))
+    return errs
+
+
 def check_kernels(attn) -> dict:
     """Phase 2. Returns the main-shape record of each kernel."""
     records = {}
@@ -255,53 +365,19 @@ def check_kernels(attn) -> dict:
 
         q, k, v, do = randn(), randn(), randn(), randn()
         causal, scale = case["causal"], 1.0 / math.sqrt(case["d"])
-        out, lse = attn._flash_forward(q, k, v, causal, scale)
-        out_p, lse_p = attn.flash_forward_reference(q, k, v, causal, scale)
-        # As on the main path: K2 writes delta, K3 reads it.
-        dq, delta_k = attn._bwd_dq(q, k, v, do, out, lse, causal, scale)
-        dk, dv = attn._bwd_dkv(q, k, v, do, lse, delta_k, causal, scale)
-        delta = attn.bwd_delta(out, do)
-        dq_p = attn.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
-                                           scale)
-        dk_p, dv_p = attn.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                  causal, scale)
+        got = run_kernels(attn, q, k, v, do, causal, scale)
+        want = run_plain(attn, q, k, v, do, got, causal, scale)
         torch.cuda.synchronize()
-        tol_f, tol_b = TOL[case["dtype"], "fwd"], TOL[case["dtype"], "bwd"]
-        tol_d = TOL[torch.float32, "fwd"]  # delta: a float32 sum in both
-        checks = [  # (kernel, output, ratio, max abs error, tol)
-            ("flash_fwd", "out", mismatch(out, out_p, tol_f),
-             max_err(out, out_p), tol_f),
-            ("flash_fwd", "lse", mismatch(lse, lse_p, tol_f),
-             max_err(lse, lse_p), tol_f),
-            ("flash_bwd_dq", "dq", mismatch(dq, dq_p, tol_b),
-             max_err(dq, dq_p), tol_b),
-            ("flash_bwd_dq", "delta", mismatch(delta_k, delta, tol_d),
-             max_err(delta_k, delta), tol_d),
-            ("flash_bwd_dkv", "dk", mismatch(dk, dk_p, tol_b),
-             max_err(dk, dk_p), tol_b),
-            ("flash_bwd_dkv", "dv", mismatch(dv, dv_p, tol_b),
-             max_err(dv, dv_p), tol_b),
-        ]
         label = (f"bh={case['bh']} seq={case['seq']} d={case['d']} "
                  f"{str(case['dtype']).split('.')[-1]} causal={causal}")
-        errs = {}  # kernel -> (worst ratio, worst abs error) over its outputs
-        for name, what, ratio, abs_err, tol in checks:
-            ok = math.isfinite(ratio) and ratio <= 1.0
-            print(f"  {name:14s} {what:5s} {label}: max_abs_err={abs_err:.3e}"
-                  f" mismatch={ratio:.4f} of its limit (tol={tol:.0e}) "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} ({what}) disagrees with its "
-                                     f"plain version at {label}")
-            worst = errs.get(name, (0.0, 0.0))
-            errs[name] = (max(worst[0], ratio), max(worst[1], abs_err))
+        errs = report(compare(got, want, case["dtype"]), label)
         if case is not MAIN:
             continue
-        check_planted_faults(
-            attn, q, k, v, do, lse, delta, scale,
-            {"out": out, "dq": dq, "delta": delta_k, "dk": dk, "dv": dv},
-            {"out": out_p, "dq": dq_p, "delta": delta, "dk": dk_p,
-             "dv": dv_p}, errs)
+        check_planted_faults(attn, q, k, v, do, got["lse"], want["delta"],
+                             scale, got, want, errs)
+        out, lse, dq, delta_k, dk, dv = (got[key] for key in (
+            "out", "lse", "dq", "delta", "dk", "dv"))
+        delta = want["delta"]
         lib_fwd = _sdpa(q, k, v, causal, scale, "forward")
         lib_bwd = _sdpa(q, k, v, causal, scale, "backward")
         lib_fwd_bwd = _sdpa(q, k, v, causal, scale, "both")
@@ -490,33 +566,296 @@ def check_model(gpt2) -> None:
 
 
 def train_loop(config):
-    """The user's loop: GPT-2 from a seed, AdamW, a fixed random batch."""
+    """The user's loop: a named training configuration built from seed 0
+    (`profile_train_step.build`: the model, AdamW(3e-4, wd 0.1), a fixed
+    random batch), its warm-up steps, then its timed ones
+    (`profile_train_step.MODELS`). For MoE, forward hooks keep each step's
+    router loss per layer, and in the last step layer 0's slots used per
+    expert (a reduction over its dispatch tensor); the last step's are
+    reported."""
     from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.moe import MoE, expert_capacity
+    from ray_tpu_torch.profile_train_step import MODELS, build
     from ray_tpu_torch.train import session
 
     device = session.get_device()
-    cfg = gpt2.GPT2Config.small()
-    model = gpt2.GPT2(cfg, device=device, seed=0)
-    step = gpt2.make_train_step(model, gpt2.adamw(model))
-    ids = torch.randint(0, cfg.vocab_size, (config["batch"], config["seq"]),
-                        generator=torch.Generator().manual_seed(0)).to(device)
-    batch = {"input_ids": ids, "labels": ids}
-    losses = [step(batch) for _ in range(config["warmup"])]
+    leg = MODELS[config["model"]]
+    model, step, flops_per_token, batch = build(config["model"], device)
+    routing = {"last_step": False}
+    if isinstance(model, MoE):
+        def keep(i):
+            def hook(module, inputs, out):
+                routing[i] = out[1].detach()
+                if i == 0 and routing["last_step"]:
+                    routing["slots_used"] = out[2].sum(dim=(0, 2))
+            return hook
+        for i, blk in enumerate(model.layers):
+            blk.moe.register_forward_hook(keep(i))
+    b, s = batch["input_ids"].shape
+    losses = [step(batch) for _ in range(leg.warmup)]
     losses[-1].item()  # waits for the device
     t0 = time.perf_counter()
-    losses += [step(batch) for _ in range(config["steps"])]
+    losses += [step(batch) for _ in range(leg.steps - 1)]
+    routing["last_step"] = True
+    losses.append(step(batch))
     losses[-1].item()
     dt = time.perf_counter() - t0
-    tokens = config["batch"] * config["seq"] * config["steps"]
+    tokens = b * s * leg.steps
     for i, loss in enumerate(losses):
         session.report({"step": i, "loss": loss.item()})
-    session.report({
+    final = {
         "step": len(losses), "loss": losses[-1].item(),
-        "tokens_per_sec": tokens / dt, "ms_per_step": 1e3 * dt /
-        config["steps"],
-        "mfu": gpt2.flops_per_token(cfg, config["seq"]) * tokens / dt
-        / PEAK_FLOPS[torch.bfloat16],
-        "n_params": gpt2.count_params(model)})
+        "batch": b, "seq": s,
+        "tokens_per_sec": tokens / dt, "ms_per_step": 1e3 * dt / leg.steps,
+        "mfu": flops_per_token * tokens / dt / PEAK_FLOPS[torch.bfloat16],
+        "n_params": gpt2.count_params(model)}
+    if "slots_used" in routing:
+        cfg = model.config
+        used = routing["slots_used"]
+        final.update(
+            router_loss=sum(routing[i] for i in range(cfg.n_layer)).item(),
+            capacity=expert_capacity(cfg, b * s),
+            layer0_slots_used=used.tolist(),
+            layer0_dropped_share=1 - used.sum().item() / (b * s * cfg.top_k))
+    session.report(final)
+
+
+def train_phase(attn, name: str, per_step: dict, card: str,
+                mfu_note: str = "") -> dict:
+    """`TorchTrainer(train_loop).fit()` on the named configuration, on the
+    card: the loss must be finite and fall, and each kernel launch
+    `per_step[kernel]` times a step. Returns the final metrics, with the
+    launches and the peak memory."""
+    from ray_tpu_torch.profile_train_step import MODELS
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.reset_kernel_launches()
+    result = TorchTrainer(
+        train_loop, train_loop_config={"model": name},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+    torch.cuda.synchronize()
+    launches = attn.kernel_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = dict(result.metrics, launches=launches, peak_gib=peak_gib,
+             card=card)
+    losses = [r["loss"] for r in result.metrics_history[:-1]]
+    print("losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"batch {m['batch']}, seq {m['seq']}: tokens/s "
+          f"{m['tokens_per_sec']:.1f}, ms/step {m['ms_per_step']:.3f}, MFU "
+          f"{m['mfu']:.4f} (989 TFLOP/s bf16 dense{mfu_note}), peak memory "
+          f"{peak_gib:.2f} GiB, params {m['n_params']}, card {card}")
+    n_steps = MODELS[name].warmup + MODELS[name].steps
+    print(f"launches in {n_steps} steps: {launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss not finite and falling: {losses}")
+    want = {k: per_step[k] * n_steps for k in launches}
+    if launches != want:
+        raise AssertionError(f"{name}: expected {per_step} launches a step, "
+                             f"got {launches} in {n_steps} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return m
+
+
+def time_long_shape(attn) -> dict:
+    """Phase 8: K1, K2 and K3 at the long-context shape, run once at the
+    whole bh 48 and held element by element against their plain versions
+    LONG_CHUNK heads at a time (heads are independent; the plain float32
+    scores of all 48 would take 12 GiB), then timed alone, each beside its
+    bound and scaled_dot_product_attention's times on the same inputs.
+    Returns each kernel's record."""
+    case = LONG_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    q, k, v, do = (torch.randn(case["bh"], case["seq"], case["d"],
+                               generator=gen, device="cuda",
+                               dtype=case["dtype"]) for _ in range(4))
+    scale = 1.0 / math.sqrt(case["d"])
+    got = run_kernels(attn, q, k, v, do, True, scale)
+    res = collections.defaultdict(list)
+    for c in range(0, case["bh"], LONG_CHUNK):
+        h = slice(c, c + LONG_CHUNK)
+        part = {key: t[h] for key, t in got.items()}
+        want = run_plain(attn, q[h], k[h], v[h], do[h], part, True, scale)
+        for key, r in compare(part, want, case["dtype"]).items():
+            res[key].append(r)
+        del want
+    errs = report({key: (worst([r[0] for r in rs]), max(r[1] for r in rs),
+                         rs[0][2]) for key, rs in res.items()},
+                  f"bh={case['bh']} seq={case['seq']} d={case['d']} "
+                  f"{str(case['dtype']).split('.')[-1]} causal=True (plain "
+                  f"{LONG_CHUNK} heads at a time)")
+    out, lse, dq, delta, dk, dv = (got[key] for key in (
+        "out", "lse", "dq", "delta", "dk", "dv"))
+    torch.cuda.synchronize()
+    sdpa = {part: _sdpa(q, k, v, True, scale, part, batch=LONG_BATCH)
+            for part in ("forward", "backward", "both")}
+    shape = (f"bh {case['bh']}, seq {case['seq']}, d {case['d']}, bf16, "
+             "causal")
+    runs = {
+        "flash_fwd": (lambda: attn._flash_forward(q, k, v, True, scale), 2,
+                      [q, k, v, out, lse], sdpa["forward"]),
+        "flash_bwd_dq": (lambda: attn._bwd_dq(q, k, v, do, out, lse, True,
+                                              scale), 3,
+                         [q, k, v, do, out, lse, dq, delta], None),
+        "flash_bwd_dkv": (lambda: attn._bwd_dkv(q, k, v, do, lse, delta,
+                                                True, scale), 4,
+                          [q, k, v, do, lse, delta, dk, dv], None),
+    }
+    recs = {}
+    for name, (fn, n_prod, tensors, lib_ms) in runs.items():
+        b_ms, b_by = bound(case, n_prod, tensors)
+        recs[name] = {"shape": shape, "max_abs_err": errs[name][1],
+                      "ms": time_ms(fn), "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib_ms,
+                      "sdpa_fwd_bwd_ms": sdpa["both"]}
+        print(f"  {name:14s} at {shape}: {recs[name]['ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / recs[name]['ms']:.2%} of it")
+    fwd, bwd = recs["flash_fwd"]["ms"], (recs["flash_bwd_dq"]["ms"]
+                                         + recs["flash_bwd_dkv"]["ms"])
+    print(f"  scaled_dot_product_attention at that shape: forward "
+          f"{sdpa['forward']:.4f} ms (K1 {fwd / sdpa['forward']:.3f}x), "
+          f"backward {sdpa['backward']:.4f} ms (K2 + K3 {bwd:.4f} ms), "
+          f"forward + backward {sdpa['both']:.4f} ms (kernels "
+          f"{fwd + bwd:.4f} ms)")
+    del q, k, v, do, got, out, lse, dq, delta, dk, dv
+    torch.cuda.empty_cache()
+    return recs
+
+
+def check_long_model(attn, gpt2) -> dict:
+    """Phase 8: the leg's GPT-2 (full width and depth, seq 8192, remat) at
+    batch LONG_CHECK_BATCH, from seed 0, through LONG_CHECK_STEPS AdamW
+    steps with the kernels and with plain attention, on the same weights
+    and tokens; each flash run must launch K1 twice a layer a step, K2 and
+    K3 once.
+    - float32, where the two differ only in summation order: each step's
+      loss within 1e-4 of plain attention's (relative), and every
+      first-step gradient within 5e-4 element by element (`mismatch`): the
+      float32 kernels' limits.
+    - bf16, the leg's kernels: each step's loss within the bf16 kernels'
+      2e-2 of plain attention's (relative), and the first-step gradients
+      no further from the float32 plain model's than plain attention's in
+      bf16 are, within MODEL_ERR_RATIO (over all parameters as one vector).
+    Returns the losses and distances."""
+    seq = LONG_SHAPE["seq"]
+    cfg = gpt2.GPT2Config(n_positions=seq, remat=True)
+    ids = torch.randint(0, cfg.vocab_size, (LONG_CHECK_BATCH, seq),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"input_ids": ids, "labels": ids}
+    n = cfg.n_layer
+    want_launches = {"flash_fwd": 2 * n * LONG_CHECK_STEPS,
+                     "flash_bwd_dq": n * LONG_CHECK_STEPS,
+                     "flash_bwd_dkv": n * LONG_CHECK_STEPS}
+
+    def train(dtype, use_flash: bool):
+        model = gpt2.GPT2(dataclasses.replace(cfg, dtype=dtype,
+                                              use_flash=use_flash),
+                          device="cuda", seed=0)
+        step = gpt2.make_train_step(model, gpt2.adamw(model))
+        attn.reset_kernel_launches()
+        losses = [step(batch)]
+        grads = [p.grad.clone() for p in model.parameters()]
+        losses += [step(batch) for _ in range(LONG_CHECK_STEPS - 1)]
+        losses = [x.item() for x in losses]
+        launches = attn.kernel_launches()
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if use_flash and launches != want_launches:
+            raise AssertionError(f"long model check: expected "
+                                 f"{want_launches} launches, got {launches}")
+        return losses, grads
+
+    out = {}
+    runs = {}
+    for dtype, tol in ((torch.float32, 1e-4),
+                       (torch.bfloat16, TOL[torch.bfloat16, "fwd"])):
+        kind = str(dtype).split(".")[-1]
+        runs[kind] = (train(dtype, True), train(dtype, False))
+        (lf, _), (lp, _) = runs[kind]
+        loss_err = worst([abs(a - b) / abs(b) for a, b in zip(lf, lp)])
+        out[kind] = {"losses_flash": lf, "losses_plain": lp,
+                     "loss_rel_err": loss_err}
+        print(f"  {kind}, batch {LONG_CHECK_BATCH}, seq {seq}, remat: losses "
+              f"with the kernels {[round(x, 6) for x in lf]}, with plain "
+              f"attention {[round(x, 6) for x in lp]}; largest relative "
+              f"difference {loss_err:.3e} (tol {tol:.0e})")
+        if not loss_err <= tol:
+            raise AssertionError(f"long model check, {kind}: the losses "
+                                 "with the kernels and with plain attention "
+                                 "part")
+    (_, g_f32), (_, truth) = runs["float32"]
+    grad_err = worst([mismatch(a, b, 5e-4) for a, b in zip(g_f32, truth)])
+    (_, g_flash), (_, g_plain) = runs["bfloat16"]
+    flat = [torch.cat([g.flatten() for g in grads])
+            for grads in (g_flash, g_plain, truth)]
+    d_flash, d_plain = (rel_err(g, flat[2]) for g in flat[:2])
+    out.update(grad_mismatch_float32=grad_err, bf16_grad_dist_flash=d_flash,
+               bf16_grad_dist_plain=d_plain)
+    print(f"  float32 first-step gradients, kernels against plain attention: "
+          f"mismatch={grad_err:.4f} of its limit (tol 5e-4); bf16 "
+          f"first-step gradients' distance to the float32 plain model's "
+          f"(rms of the difference over rms): with the kernels "
+          f"{d_flash:.5f}, with plain attention {d_plain:.5f} (limit "
+          f"{MODEL_ERR_RATIO} x the plain one)")
+    del runs, g_f32, truth, g_flash, g_plain, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not grad_err <= 1.0:
+        raise AssertionError("long model check: float32 gradients with the "
+                             "kernels disagree with plain attention's")
+    if not d_flash <= MODEL_ERR_RATIO * d_plain:
+        raise AssertionError("long model check: bf16 gradients with the "
+                             "kernels are further from the float32 model's "
+                             "than plain attention's")
+    return out
+
+
+def check_remat(attn, gpt2) -> dict:
+    """Phase 9: the phase-3 GPT-2 (float32) with remat on and off, with
+    dropout 0 and 0.1: loss and every gradient within the float32 kernels'
+    5e-4, K1 twice a layer under remat. Returns, per dropout, whether the
+    two runs are bit-equal."""
+    cfg = gpt2.GPT2Config(vocab_size=512, n_positions=256, n_embd=128,
+                          n_layer=2, n_head=2, dtype=torch.float32)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256),
+                        generator=torch.Generator().manual_seed(3)).cuda()
+    n = cfg.n_layer
+    bit_equal = {}
+    for dropout in (0.0, 0.1):
+        runs = []
+        for remat in (False, True):
+            model = gpt2.GPT2(dataclasses.replace(cfg, dropout=dropout,
+                                                  remat=remat),
+                              device="cuda", seed=0)
+            torch.manual_seed(0)  # the CPU's and every card's generator
+            attn.reset_kernel_launches()
+            loss = gpt2.next_token_loss(model(ids, deterministic=False), ids)
+            loss.backward()
+            torch.cuda.synchronize()
+            runs.append((loss.detach(), [p.grad for p in model.parameters()],
+                         attn.kernel_launches()))
+        (loss_p, grads_p, launches_p), (loss_r, grads_r, launches_r) = runs
+        err_loss = mismatch(loss_r.view(1), loss_p.view(1), 5e-4)
+        err_grads = max(mismatch(a, b, 5e-4)
+                        for a, b in zip(grads_r, grads_p))
+        bit_equal[dropout] = bool(torch.equal(loss_r, loss_p) and all(
+            torch.equal(a, b) for a, b in zip(grads_r, grads_p)))
+        want_p = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        want_r = dict(want_p, flash_fwd=2 * n)
+        print(f"  dropout {dropout}: remat against no remat, mismatch of "
+              f"its limit: loss {err_loss:.4f}, grads {err_grads:.4f} (tol "
+              f"5e-4); bit-equal {bit_equal[dropout]}; launches "
+              f"{launches_r} with remat, {launches_p} without")
+        if not (err_loss <= 1.0 and err_grads <= 1.0):
+            raise AssertionError(f"remat changes the loss or gradients at "
+                                 f"dropout {dropout}")
+        if launches_p != want_p or launches_r != want_r:
+            raise AssertionError(f"expected {want_p} launches without remat "
+                                 f"and {want_r} with it")
+    return bit_equal
 
 
 def llama_forward(attn, llama):
@@ -877,7 +1216,6 @@ def main() -> int:
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as attn
-    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
 
     print("== 1. device and build")
     card = card_line()
@@ -903,31 +1241,10 @@ def main() -> int:
     check_model(gpt2)
 
     print("== 4. main path: TorchTrainer.fit, GPT-2-small")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    attn.reset_kernel_launches()
-    result = TorchTrainer(
-        train_loop, train_loop_config={"batch": BATCH, "seq": SEQ,
-                                       "warmup": WARMUP_STEPS,
-                                       "steps": TIMED_STEPS},
-        scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
-    torch.cuda.synchronize()
-    launches = attn.kernel_launches()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    m = result.metrics
-    losses = [r["loss"] for r in result.metrics_history[:-1]]
-    print("losses: " + ", ".join(f"{x:.4f}" for x in losses))
-    print(f"tokens/s {m['tokens_per_sec']:.1f}, ms/step {m['ms_per_step']:.3f}"
-          f", MFU {m['mfu']:.4f} (989 TFLOP/s bf16 dense), peak memory "
-          f"{peak_gib:.2f} GiB, params {m['n_params']}, card {card}")
-    n_steps = WARMUP_STEPS + TIMED_STEPS
     n_layer = gpt2.GPT2Config.small().n_layer
-    print(f"launches in {n_steps} steps: {launches}")
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"loss not finite and falling: {losses}")
-    if launches != {name: n_layer * n_steps for name in launches}:
-        raise AssertionError(f"expected {n_layer} launches of each kernel "
-                             f"per step, got {launches} in {n_steps} steps")
+    launches = train_phase(attn, "gpt2",
+                           dict.fromkeys(attn.KERNELS, n_layer),
+                           card)["launches"]
 
     print("== 6. Llama-7B forward, flash kernel against plain attention")
     from ray_tpu_torch import inference
@@ -946,11 +1263,49 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("== 8. results")
+    print("== 8. long context: TorchTrainer.fit, GPT-2-small at seq 8192, "
+          "remat")
+    legs = {"gpt2-long": train_phase(
+        attn, "gpt2-long",
+        {"flash_fwd": 2 * n_layer, "flash_bwd_dq": n_layer,
+         "flash_bwd_dkv": n_layer}, card,
+        ", not counting the recompute, as bench.py")}
+    for name, rec in time_long_shape(attn).items():
+        records[name]["gpt2_long"] = rec
+    long_check = check_long_model(attn, gpt2)
+
+    print("== 9. remat on the card: small GPT-2, float32, remat on and off")
+    remat_bit_equal = check_remat(attn, gpt2)
+
+    print("== 10. Llama-small training: TorchTrainer.fit")
+    from ray_tpu_torch.models import moe
+
+    n = llama.LlamaConfig.small().n_layer
+    legs["llama-small"] = train_phase(
+        attn, "llama-small",
+        dict.fromkeys(attn.KERNELS, n), card)
+
+    print("== 11. MoE-small training: TorchTrainer.fit, make_moe_train_step")
+    cfg = moe.MoEConfig.small()
+    m = legs["moe-small"] = train_phase(
+        attn, "moe-small",
+        dict.fromkeys(attn.KERNELS, cfg.n_layer), card)
+    print(f"  last step: router loss {m['router_loss']:.6f} (summed over "
+          f"layers); layer 0 slots used per expert {m['layer0_slots_used']}"
+          f" of {m['capacity']}; routing choices dropped at capacity "
+          f"{m['layer0_dropped_share']:.4f}")
+    if not math.isfinite(m["router_loss"]):
+        raise AssertionError(f"router loss not finite: {m['router_loss']}")
+
+    print("== 12. results")
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": legs, "long_model_check": long_check,
+                      "remat_bit_equal": {
+                          str(k): v for k, v in remat_bit_equal.items()}}))
+    paths = [launches, llama_launches, serve_launches] + [
+        leg["launches"] for leg in legs.values()]
     for name, rec in records.items():
-        rec["launches"] = (launches[name] + llama_launches[name]
-                           + serve_launches[name])
+        rec["launches"] = sum(p[name] for p in paths)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

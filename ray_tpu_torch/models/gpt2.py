@@ -4,7 +4,10 @@ bfloat16 compute on float32 parameters. flax's defaults are pinned:
 LayerNorm eps 1e-6 with its statistics in float32, the tanh GELU, normal(0.02)
 init for dense kernels and `wte`, normal(0.01) for `wpe`, zero biases. The
 output head is tied to `wte`. Attention goes through the flash kernels
-(`ray_tpu_torch.ops.attention.flash_attention`).
+(`ray_tpu_torch.ops.attention.flash_attention`). With `remat`, each block
+runs under `torch.utils.checkpoint` (the counterpart of `nn.remat(Block)`):
+its activations are dropped after the forward and recomputed in the
+backward, flash forward included.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._torch_env import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
@@ -33,7 +37,7 @@ class GPT2Config:
     param_dtype: torch.dtype = torch.float32
     use_flash: bool = True
     use_ring: bool = False           # sequence parallelism: a later slice
-    remat: bool = False              # activation checkpointing: a later slice
+    remat: bool = False              # recompute each block in the backward
 
     @staticmethod
     def small() -> "GPT2Config":
@@ -115,10 +119,6 @@ class GPT2(nn.Module):
             raise NotImplementedError(
                 "use_ring: sequence parallelism is the ROADMAP's multi-axis "
                 "parallelism item, not yet ported")
-        if config.remat:
-            raise NotImplementedError(
-                "remat: activation checkpointing is the ROADMAP's "
-                "long-context item, not yet ported")
         dev = resolve_device(device)
         self.config = config
         self.wte = nn.Parameter(torch.empty(config.vocab_size, config.n_embd))
@@ -147,7 +147,12 @@ class GPT2(nn.Module):
         wte = self.wte.to(cfg.dtype)
         x = wte[input_ids] + self.wpe.to(cfg.dtype)[None, :s]
         for block in self.h:
-            x = block(x, deterministic)
+            if cfg.remat:
+                # Dropout draws from the global generators, which the
+                # checkpoint restores for the recompute: the same masks.
+                x = checkpoint(block, x, deterministic, use_reentrant=False)
+            else:
+                x = block(x, deterministic)
         x = self.ln_f(x)
         return torch.matmul(x, wte.t())  # tied head: einsum("bse,ve->bsv")
 
@@ -205,19 +210,28 @@ def adamw(model: nn.Module, lr: float = 3e-4, weight_decay: float = 0.1
                              eps=1e-8, weight_decay=weight_decay)
 
 
-def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                    loss_fn: Optional[Callable] = None
                     ) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
-    """step(batch) -> loss (a 0-dim tensor, not synchronised).
+    """step(batch) -> the shown loss (a 0-dim tensor, not synchronised).
 
-    Parameters and optimizer state are updated in place, the counterpart of
-    the JAX step's donate_argnums=(0, 1): no second copy of either is made."""
+    `loss_fn(model, batch) -> (objective, shown)` sets the training
+    objective (MoE adds its router losses to the cross-entropy); the step
+    descends the objective and returns the shown loss. The default is
+    next-token cross-entropy for both. Parameters and optimizer state are
+    updated in place, the counterpart of the JAX step's donate_argnums=(0,
+    1): no second copy of either is made."""
+    if loss_fn is None:
+        def loss_fn(model, batch):
+            ce = next_token_loss(model(batch["input_ids"]), batch["labels"])
+            return ce, ce
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
-        loss = next_token_loss(model(batch["input_ids"]), batch["labels"])
-        loss.backward()
+        objective, shown = loss_fn(model, batch)
+        objective.backward()
         optimizer.step()
-        return loss.detach()
+        return shown.detach()
 
     return step
 

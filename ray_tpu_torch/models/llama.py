@@ -7,9 +7,12 @@ RMSNorm eps 1e-5 with its statistics and scale in float32; RoPE in float32;
 normal(0.02) for dense kernels and the embedding, ones for norm scales.
 
 Three forward paths share the parameters:
-- `forward(input_ids)`: full causal forward; attention goes through the
-  flash kernels (`ray_tpu_torch.ops.attention.flash_attention`) after the
-  GQA repeat of K/V.
+- `forward(input_ids)`: full causal forward, the training forward;
+  attention goes through the flash kernels
+  (`ray_tpu_torch.ops.attention.flash_attention`) after the GQA repeat of
+  K/V, so the backward runs the dQ and dK/dV kernels at the query heads'
+  width and autograd sums dK/dV over each KV head's query group. With
+  `remat`, each block runs under `torch.utils.checkpoint`.
 - `decode(input_ids, cache, row_pos)`: incremental forward against a dense
   per-row KV cache.
 - `decode_paged(input_ids, arenas, block_tables, row_pos, write_mask)`: the
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._torch_env import resolve_device, same_device
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
@@ -52,7 +56,7 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     use_flash: bool = True
-    remat: bool = False              # activation checkpointing: ROADMAP M5
+    remat: bool = False              # recompute each block in the backward
     sp_mesh: Any = None              # sequence parallelism: ROADMAP M8
 
     @staticmethod
@@ -121,6 +125,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def qkv_heads(blk: nn.Module, h, positions):
+    """q [b, heads, s, d] and k, v [b, kv_heads, s, d] of a block's
+    attention input `h` [b, s, e], q and k rotated to `positions`. `blk`
+    holds a config `cfg` and the dense layers `wq`, `wk`, `wv`."""
+    cfg = blk.cfg
+    hd = cfg.head_dim
+    b, s, _ = h.shape
+    q = blk.wq(h).view(b, s, cfg.n_head, hd).transpose(1, 2)
+    k = blk.wk(h).view(b, s, cfg.n_kv_head, hd).transpose(1, 2)
+    v = blk.wv(h).view(b, s, cfg.n_kv_head, hd).transpose(1, 2)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def causal_attention(q, k, v, use_flash: bool):
+    """Full causal attention of q over k, v after the GQA repeat (query
+    head h reads KV head h // groups, as `jnp.repeat(k, groups, axis=1)`;
+    autograd sums dK and dV over each group): the flash kernels, or plain
+    attention."""
+    groups = q.shape[1] // k.shape[1]
+    kf = k.repeat_interleave(groups, dim=1)
+    vf = v.repeat_interleave(groups, dim=1)
+    if use_flash:
+        return flash_attention(q, kf, vf, True)
+    return mha_reference(q, kf, vf, causal=True)
 
 
 def _masked_attention(q, kf, vf, positions, hd: int, dtype):
@@ -217,20 +248,10 @@ class LlamaBlock(nn.Module):
         hd = cfg.head_dim
         b, s, _ = x.shape
         h = self.attn_norm(x)
-        q = self.wq(h).view(b, s, cfg.n_head, hd).transpose(1, 2)
-        k = self.wk(h).view(b, s, cfg.n_kv_head, hd).transpose(1, 2)
-        v = self.wv(h).view(b, s, cfg.n_kv_head, hd).transpose(1, 2)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-
+        q, k, v = qkv_heads(self, h, positions)
         groups = cfg.n_head // cfg.n_kv_head
         if cache is None:
-            kf = k.repeat_interleave(groups, dim=1)
-            vf = v.repeat_interleave(groups, dim=1)
-            if cfg.use_flash:
-                attn = flash_attention(q, kf, vf, True)
-            else:
-                attn = mha_reference(q, kf, vf, causal=True)
+            attn = causal_attention(q, k, v, cfg.use_flash)
         elif len(cache) == 4:
             k_arena, v_arena, block_tables, write_mask = cache
             attn = _paged_attention(q, k, v, positions, k_arena, v_arena,
@@ -276,10 +297,6 @@ class Llama(nn.Module):
                  seed: int = 0,
                  state: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
-        if config.remat:
-            raise NotImplementedError(
-                "remat: activation checkpointing is ROADMAP M5, not yet "
-                "ported")
         if config.sp_mesh is not None:
             raise NotImplementedError(
                 "sp_mesh: sequence parallelism is ROADMAP M8, not yet "
@@ -338,7 +355,10 @@ class Llama(nn.Module):
         x = self._embed(input_ids)
         positions = torch.arange(s, device=input_ids.device)
         for blk in self.layers:
-            x, _, _ = blk(x, positions)
+            if self.config.remat:
+                x, _, _ = checkpoint(blk, x, positions, use_reentrant=False)
+            else:
+                x, _, _ = blk(x, positions)
         return self.lm_head(self.final_norm(x))
 
     @torch.no_grad()

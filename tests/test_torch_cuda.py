@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, and Llama
-and the serving engine, on a card.
+(its GQA training backward too) and the serving engine, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -136,6 +136,47 @@ def test_llama_forward_runs_the_flash_kernel_at_head_dim_128(card):
 
     assert rel_err(got) <= 1.25 * rel_err(want), (rel_err(got),
                                                   rel_err(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_head,remat", [(4, False), (6, True)])
+def test_llama_gqa_training_on_card_matches_plain_attention(card, n_head,
+                                                            remat):
+    # float32 at d 64 with 2 KV heads: the backward runs K2 and K3 at the
+    # query heads' width and autograd sums dK/dV over each KV head's 2 or 3
+    # query heads. Against plain attention on the same weights: summation
+    # order only (1e-4 logits, 5e-4 gradients). Under remat each layer's
+    # K1 runs twice.
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt2, llama
+
+    flash = _tiny_llama(card, n_embd=64 * n_head, n_head=n_head,
+                        n_kv_head=2, dtype=torch.float32, use_flash=True,
+                        remat=remat)
+    plain = llama.Llama(
+        dataclasses.replace(flash.config, use_flash=False, remat=False),
+        device=card, state={name: t.clone()
+                            for name, t in flash.state_dict().items()})
+    ids = torch.randint(0, 512, (2, 256), generator=torch.Generator(
+        ).manual_seed(1)).to(card)
+    results = []
+    for model in (flash, plain):
+        before = tattn.kernel_launches()
+        logits = model(ids)
+        gpt2.next_token_loss(logits, ids).backward()
+        torch.cuda.synchronize()
+        after = tattn.kernel_launches()
+        results.append((logits.detach(), [p.grad for p in model.parameters()],
+                        {n: after[n] - before[n] for n in after}))
+    (lf, gf, launches), (lp, gp, none) = results
+    n = flash.config.n_layer
+    assert launches == {"flash_fwd": n * (2 if remat else 1),
+                        "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    assert none == dict.fromkeys(launches, 0)
+    assert _within(lf, lp, 1e-4)
+    for a, b in zip(gf, gp):
+        assert _within(a, b, 5e-4)
 
 
 @pytest.mark.cuda
