@@ -11,6 +11,12 @@ failed phase, with no phase caught.
    kernel's registers and spills, and checks that the shared memory each C
    entry point asks for is what `attention.kernel_smem_bytes` computes
    from the tile table.
+1b. Runtime: `ray_tpu_torch.init()` must advertise the card (`GPU: 1`);
+   runs 16 tasks and an actor, moves a 256 MiB numpy array through
+   `put`/`get` in a worker and back (MB/s printed), checks that a CPU task
+   sees `CUDA_VISIBLE_DEVICES=""` and a `num_gpus=1` task `"0"` and one
+   card, and prints the cold-spawn time of a GPU worker actor. The runtime
+   stays up for the training phases.
 2. Kernels: holds each kernel (flash forward, dQ with the delta it writes,
    dK/dV reading that delta) against its plain PyTorch version on the
    card, at GPT-2-small's attention shape (bf16, causal and not), at
@@ -18,7 +24,11 @@ failed phase, with no phase caught.
    inside the head in several heads, on small float32 and ragged cases, at
    seq 8192 (bh 4) and at the attention shapes of phases 10 and 11 (bh 96
    and 64, seq 2048, d 64, bf16, causal), element by element, printing
-   each error beside its limit; shows
+   each error beside its limit; then the instances that take head dims
+   192 and 256 and float16 (bf16 and float16 at d 192 and 256, bh 24, seq
+   2048, causal; float16 at d 64 and 128 at the main shape; float32 at
+   d 256, small), each held the same way and timed beside its bound, its
+   plain version and `scaled_dot_product_attention`; shows
    that the same check rejects planted faults (a skipped tile, P left
    unnormalised, delta left at 0, each sized from the kernel's own tiles)
    at the main shape; times each kernel, its plain version and
@@ -28,8 +38,13 @@ failed phase, with no phase caught.
    with plain attention, logits and gradients, on the card.
 4. Main path: `TorchTrainer(...).fit()` trains GPT-2-small at full width
    (12 layers, 768 wide, 12 heads, vocab 50304, seq 1024, batch 24, bf16)
-   for 2 warm-up and 10 timed steps; the loss must be finite and fall, and
-   each step must launch each kernel once per layer.
+   for 2 warm-up and 10 timed steps in a worker actor that the runtime
+   granted the card; the loss must be finite and fall, the worker must be
+   another process seeing card "0", and each step must launch each kernel
+   once per layer (counted in the worker, which reports its counts). The
+   same steps run in this process (`profile_train_step.build`, no
+   trainer) before and after, as the yardstick for tokens/s through the
+   actor.
 6. Llama-7B forward: `LlamaConfig.llama7b()` at full width and depth
    (5,933,109,248 float32 parameters from seed 0, bf16 compute), batch 1,
    seq 2048, through the flash kernel, through plain attention and in
@@ -81,10 +96,13 @@ failed phase, with no phase caught.
 12. Results (phase 5 before phases 6 and 7 came): prints the serving and
    training numbers, the `{"kernels": [...]}` line (launches summed over
    the paths of phases 4, 6, 7, 8, 10 and 11; each record also holds its
-   time at the long-context shape under `gpt2_long`, and K1's at the
-   Llama-7B shape under `llama7b_prefill`), then the device line last.
+   time at the long-context shape under `gpt2_long`, K1's at the Llama-7B
+   shape under `llama7b_prefill`, and each head-dim and float16 instance
+   of phase 2 under `instances`), then the device line last.
 
-Each phase frees what it allocated before the next starts.
+Phases 8, 10 and 11 also train in worker actors through `TorchTrainer.fit`.
+Each phase frees what it allocated before the next starts, and the script
+shuts the runtime and its worker template down before it exits.
 """
 
 from __future__ import annotations
@@ -94,6 +112,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -104,6 +123,7 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
+              torch.float16: 989e12,
               torch.float32: 67e12}     # CUDA cores, no TF32
 
 # Tolerances, element by element: |kernel - plain| <= tol * (typical +
@@ -124,7 +144,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
 # float32: both run in float32 and differ only in summation order over up
 # to 1024 terms: 1e-4 for the forward; the gradients go through one more
 # product with cancelling terms (dP - delta), so 5e-4.
+# float16: the same rounding of P and dS as bf16, to 11 significant bits
+# (2^-12 relative) instead of 8, and one rounding of the result (2^-11):
+# 5e-3 covers both with the same room as bf16's 2e-2.
 TOL = {(torch.bfloat16, "fwd"): 2e-2, (torch.bfloat16, "bwd"): 2e-2,
+       (torch.float16, "fwd"): 5e-3, (torch.float16, "bwd"): 5e-3,
        (torch.float32, "fwd"): 1e-4, (torch.float32, "bwd"): 5e-4}
 
 MAIN = dict(bh=24 * 12, seq=1024, d=64, dtype=torch.bfloat16, causal=True)
@@ -145,6 +169,16 @@ CASES = [
     # plain scores take 1.5 and 1 GiB.
     dict(bh=96, seq=2048, d=64, dtype=torch.bfloat16, causal=True),
     dict(bh=64, seq=2048, d=64, dtype=torch.bfloat16, causal=True),
+]
+# The instances that take the head dims 192 and 256 and float16 (the JAX
+# package's kernels take any d % 64 == 0 in any float type): each is held
+# as CASES are and timed.
+F1_CASES = [
+    *(dict(bh=24, seq=2048, d=d, dtype=t, causal=True)
+      for d in (192, 256) for t in (torch.bfloat16, torch.float16)),
+    dict(MAIN, dtype=torch.float16),
+    dict(MAIN, d=128, dtype=torch.float16),
+    dict(bh=4, seq=256, d=256, dtype=torch.float32, causal=True),
 ]
 # (kernel, output, tolerance) of each output held against its plain
 # version; delta is a float32 sum in both, held to the float32 forward's.
@@ -263,7 +297,8 @@ def ptxas_usage(log: str):
     mangled name (e.g. `bwd_dq_kernel<bf16, 64>`)."""
     import re
 
-    types = {"": "", "f": "float, ", "13__nv_bfloat16": "bf16, "}
+    types = {"": "", "f": "float, ", "13__nv_bfloat16": "bf16, ",
+             "6__half": "f16, "}
     out, fn, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"entry function '_Z\d+(\w+?)I(\w*?)Li(\d+)EEv", line)
@@ -368,8 +403,7 @@ def check_kernels(attn) -> dict:
         got = run_kernels(attn, q, k, v, do, causal, scale)
         want = run_plain(attn, q, k, v, do, got, causal, scale)
         torch.cuda.synchronize()
-        label = (f"bh={case['bh']} seq={case['seq']} d={case['d']} "
-                 f"{str(case['dtype']).split('.')[-1]} causal={causal}")
+        label = case_label(case)
         errs = report(compare(got, want, case["dtype"]), label)
         if case is not MAIN:
             continue
@@ -422,6 +456,69 @@ def check_kernels(attn) -> dict:
               f"{records['flash_fwd']['ms'] + bwd:.4f} ms, "
               f"scaled_dot_product_attention {lib_fwd_bwd:.4f} ms")
     return records
+
+
+def case_label(case) -> str:
+    return (f"bh={case['bh']} seq={case['seq']} d={case['d']} "
+            f"{str(case['dtype']).split('.')[-1]} causal={case['causal']}")
+
+
+def check_f1_instances(attn, records) -> None:
+    """Phase 2, the head-dim and float16 instances (F1_CASES): each kernel
+    held element by element against its plain version, then timed beside
+    its bound, its plain version and scaled_dot_product_attention (forward
+    for K1; forward + backward beside K1 + K2 + K3). Adds one entry per
+    case to each kernel's record under `instances`."""
+    for i, case in enumerate(F1_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        shape = (case["bh"], case["seq"], case["d"])
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=case["dtype"]) for _ in range(4))
+        causal, scale = case["causal"], 1.0 / math.sqrt(case["d"])
+        got = run_kernels(attn, q, k, v, do, causal, scale)
+        want = run_plain(attn, q, k, v, do, got, causal, scale)
+        torch.cuda.synchronize()
+        label = case_label(case)
+        errs = report(compare(got, want, case["dtype"]), label)
+        out, lse, dq, delta, dk, dv = (got[key] for key in (
+            "out", "lse", "dq", "delta", "dk", "dv"))
+        sdpa_fwd = _sdpa(q, k, v, causal, scale, "forward", batch=1)
+        sdpa_both = _sdpa(q, k, v, causal, scale, "both", batch=1)
+        work = {
+            "flash_fwd": (
+                lambda: attn._flash_forward(q, k, v, causal, scale),
+                lambda: attn.flash_forward_reference(q, k, v, causal, scale),
+                2, [q, k, v, out, lse], sdpa_fwd),
+            "flash_bwd_dq": (
+                lambda: attn._bwd_dq(q, k, v, do, out, lse, causal, scale),
+                lambda: attn.flash_bwd_dq_reference(
+                    q, k, v, do, lse, attn.bwd_delta(out, do), causal, scale),
+                3, [q, k, v, do, out, lse, dq, delta], None),
+            "flash_bwd_dkv": (
+                lambda: attn._bwd_dkv(q, k, v, do, lse, delta, causal,
+                                      scale),
+                lambda: attn.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                     causal, scale),
+                4, [q, k, v, do, lse, delta, dk, dv], None),
+        }
+        total = 0.0
+        for name, (kern, plain, n_prod, tensors, lib_ms) in work.items():
+            b_ms, b_by = bound(case, n_prod, tensors)
+            inst = {"shape": label, "max_abs_err": errs[name][1],
+                    "ms": time_ms(kern, reps=5, rounds=3),
+                    "plain_ms": time_ms(plain, reps=2, rounds=2),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            total += inst["ms"]
+            records[name].setdefault("instances", []).append(inst)
+            print(f"  {name:14s} {label}: {inst['ms']:.4f} ms, plain "
+                  f"{inst['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+                  + (f", sdpa forward {lib_ms:.4f} ms" if lib_ms else ""))
+        print(f"  {label}: K1 + K2 + K3 {total:.4f} ms, "
+              f"scaled_dot_product_attention forward + backward "
+              f"{sdpa_both:.4f} ms")
+        del q, k, v, do, got, want, out, lse, dq, delta, dk, dv, work
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
@@ -566,19 +663,25 @@ def check_model(gpt2) -> None:
 
 
 def train_loop(config):
-    """The user's loop: a named training configuration built from seed 0
-    (`profile_train_step.build`: the model, AdamW(3e-4, wd 0.1), a fixed
-    random batch), its warm-up steps, then its timed ones
-    (`profile_train_step.MODELS`). For MoE, forward hooks keep each step's
-    router loss per layer, and in the last step layer 0's slots used per
-    expert (a reduction over its dispatch tensor); the last step's are
-    reported."""
+    """The user's loop, run in a worker actor: a named training
+    configuration built from seed 0 (`profile_train_step.build`: the model,
+    AdamW(3e-4, wd 0.1), a fixed random batch), its warm-up steps, then its
+    timed ones (`profile_train_step.MODELS`). For MoE, forward hooks keep
+    each step's router loss per layer, and in the last step layer 0's slots
+    used per expert (a reduction over its dispatch tensor); the last step's
+    are reported. The driver cannot see this process's kernel counters or
+    memory, so the last report also holds the kernel launches of the run
+    (counted from 0 at the loop's start), this process's pid, its
+    CUDA_VISIBLE_DEVICES and its peak memory."""
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.moe import MoE, expert_capacity
+    from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.profile_train_step import MODELS, build
     from ray_tpu_torch.train import session
 
     device = session.get_device()
+    torch.cuda.reset_peak_memory_stats()
+    attn.reset_kernel_launches()
     leg = MODELS[config["model"]]
     model, step, flops_per_token, batch = build(config["model"], device)
     routing = {"last_step": False}
@@ -608,7 +711,10 @@ def train_loop(config):
         "batch": b, "seq": s,
         "tokens_per_sec": tokens / dt, "ms_per_step": 1e3 * dt / leg.steps,
         "mfu": flops_per_token * tokens / dt / PEAK_FLOPS[torch.bfloat16],
-        "n_params": gpt2.count_params(model)}
+        "n_params": gpt2.count_params(model),
+        "launches": attn.kernel_launches(), "pid": os.getpid(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if "slots_used" in routing:
         cfg = model.config
         used = routing["slots_used"]
@@ -622,24 +728,36 @@ def train_loop(config):
 
 def train_phase(attn, name: str, per_step: dict, card: str,
                 mfu_note: str = "") -> dict:
-    """`TorchTrainer(train_loop).fit()` on the named configuration, on the
-    card: the loss must be finite and fall, and each kernel launch
-    `per_step[kernel]` times a step. Returns the final metrics, with the
-    launches and the peak memory."""
+    """`TorchTrainer(train_loop).fit()` on the named configuration, in a
+    worker actor granted the card: the run must not fail, the worker must
+    be another process that sees card "0", the loss must be finite and
+    fall, and each kernel launch `per_step[kernel]` times a step in the
+    worker. Returns the final metrics, with the worker's launches and peak
+    memory."""
     from ray_tpu_torch.profile_train_step import MODELS
     from ray_tpu_torch.train import ScalingConfig, TorchTrainer
 
+    # The worker shares the card with this process: hand back the cache.
+    gc.collect()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    attn.reset_kernel_launches()
+    torch.cuda.empty_cache()
+    driver_launches = attn.kernel_launches()
     result = TorchTrainer(
         train_loop, train_loop_config={"model": name},
         scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
-    torch.cuda.synchronize()
-    launches = attn.kernel_launches()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    m = dict(result.metrics, launches=launches, peak_gib=peak_gib,
-             card=card)
+    if result.error is not None:
+        raise AssertionError(f"{name}: the training run failed") \
+            from result.error
+    if attn.kernel_launches() != driver_launches:
+        raise AssertionError(f"{name}: this process launched kernels "
+                             "while the worker trained")
+    m = dict(result.metrics, card=card)
+    launches, peak_gib = m["launches"], m["peak_gib"]
+    print(f"worker pid {m['pid']} (this process {os.getpid()}), "
+          f"CUDA_VISIBLE_DEVICES={m['cuda_visible_devices']!r}")
+    if m["pid"] == os.getpid() or m["cuda_visible_devices"] != "0":
+        raise AssertionError(f"{name}: the loop did not run in a worker "
+                             "granted card 0")
     losses = [r["loss"] for r in result.metrics_history[:-1]]
     print("losses: " + ", ".join(f"{x:.4f}" for x in losses))
     print(f"batch {m['batch']}, seq {m['seq']}: tokens/s "
@@ -657,6 +775,150 @@ def train_phase(attn, name: str, per_step: dict, card: str,
     gc.collect()
     torch.cuda.empty_cache()
     return m
+
+
+def in_driver_steps(name: str) -> float:
+    """Phase 4's yardstick: the named configuration's warm-up and timed
+    steps in this process (`profile_train_step.build` and its step, no
+    trainer, no actor), timed as `train_loop` times them. Returns
+    tokens/s."""
+    from ray_tpu_torch.profile_train_step import MODELS, build
+
+    leg = MODELS[name]
+    model, step, _, batch = build(name, torch.device("cuda"))
+    b, s = batch["input_ids"].shape
+    losses = [step(batch) for _ in range(leg.warmup)]
+    losses[-1].item()
+    t0 = time.perf_counter()
+    losses = [step(batch) for _ in range(leg.steps)]
+    losses[-1].item()
+    dt = time.perf_counter() - t0
+    del model, step, batch, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return b * s * leg.steps / dt
+
+
+def runtime_phase() -> dict:
+    """Phase 1b: the port's runtime on this machine. `init()` must
+    advertise this process's cards as `GPU`; 16 tasks and an actor run; a
+    256 MiB array goes to a worker through the object store and another
+    comes back; a CPU task sees no card and a `num_gpus=1` task exactly
+    card 0, alone. Returns the numbers printed."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    rt.init()
+    init_s = time.perf_counter() - t0
+    res = rt.cluster_resources()
+    print(f"  init {init_s:.2f} s, cluster resources {res}")
+    if res.get("GPU") != torch.cuda.device_count():
+        raise AssertionError(f"the runtime advertises GPU {res.get('GPU')}, "
+                             f"this process sees "
+                             f"{torch.cuda.device_count()} cards")
+
+    @rt.remote
+    def square(x):
+        return x * x
+
+    @rt.remote
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def inc(self):
+            self.n += 1
+            return self.n
+
+    t0 = time.perf_counter()
+    got = rt.get([square.remote(i) for i in range(16)])
+    tasks_s = time.perf_counter() - t0
+    counter = Counter.remote()
+    counts = rt.get([counter.inc.remote() for _ in range(3)])
+    if got != [i * i for i in range(16)] or counts != [1, 2, 3]:
+        raise AssertionError(f"tasks gave {got}, the actor {counts}")
+    rt.kill(counter)
+    print(f"  16 tasks in {tasks_s:.3f} s (first ones start workers); an "
+          f"actor counted {counts}")
+
+    @rt.remote
+    def checksum(arr):
+        t0 = time.perf_counter()
+        total = int(arr[::4096].sum())
+        return total, time.perf_counter() - t0
+
+    @rt.remote
+    def make(n):
+        return np.full(n, 7, dtype=np.uint8)
+
+    n = 256 << 20
+    arr = np.arange(n, dtype=np.uint8)
+    rt.get(checksum.remote(rt.put(np.zeros(1 << 20, np.uint8))))  # warm
+    t0 = time.perf_counter()
+    ref = rt.put(arr)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    total, _ = rt.get(checksum.remote(ref))
+    task_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = rt.get(make.remote(n))
+    back_s = time.perf_counter() - t0
+    if total != int(arr[::4096].sum()) or back.nbytes != n \
+            or int(back[::4096].sum()) != 7 * (n // 4096):
+        raise AssertionError("a 256 MiB array came through changed")
+    mib = n / 2 ** 20
+    numbers = {"init_s": init_s, "put_mb_s": mib / put_s,
+               "to_worker_mb_s": mib / task_s,
+               "from_worker_mb_s": mib / back_s}
+    print(f"  256 MiB: put {numbers['put_mb_s']:.0f} MiB/s; to a worker "
+          f"task and its reply {numbers['to_worker_mb_s']:.0f} MiB/s; made "
+          f"in a worker and got here {numbers['from_worker_mb_s']:.0f} MiB/s")
+    del arr, back, ref
+
+    @rt.remote
+    def visible():
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    @rt.remote(num_gpus=1)
+    def gpu_visible():
+        return os.environ.get("CUDA_VISIBLE_DEVICES"), \
+            torch.cuda.device_count(), os.getpid()
+
+    @rt.remote(num_gpus=1)
+    class GpuWorker:
+        def ready(self):
+            return os.environ.get("CUDA_VISIBLE_DEVICES"), os.getpid()
+
+    cpu_sees = rt.get(visible.remote())
+    gpu_sees, n_cards, gpu_pid = rt.get(gpu_visible.remote())
+    print(f"  a CPU task sees CUDA_VISIBLE_DEVICES={cpu_sees!r}; a "
+          f"num_gpus=1 task {gpu_sees!r} and {n_cards} card (pid {gpu_pid})")
+    if cpu_sees != "" or gpu_sees != "0" or n_cards != 1:
+        raise AssertionError("a worker saw cards it was not granted")
+    t0 = time.perf_counter()
+    actor = GpuWorker.remote()
+    actor_sees, actor_pid = rt.get(actor.ready.remote())
+    numbers["gpu_actor_cold_spawn_s"] = time.perf_counter() - t0
+    rt.kill(actor)
+    print(f"  GPU worker actor: cold spawn to first reply "
+          f"{numbers['gpu_actor_cold_spawn_s']:.2f} s, sees "
+          f"{actor_sees!r} (pid {actor_pid})")
+    if actor_sees != "0":
+        raise AssertionError(f"the GPU actor sees {actor_sees!r}")
+    return numbers
+
+
+def stop_runtime() -> None:
+    """Shut the runtime down and stop its worker template."""
+    import ray_tpu_torch as rt
+
+    node = rt._global_node
+    forge = node.worker_forge if node is not None else None
+    proc = forge.proc if forge is not None else None
+    rt.shutdown()
+    if proc is not None and proc.poll() is None:
+        proc.terminate()
+        proc.wait(timeout=30)
 
 
 def time_long_shape(attn) -> dict:
@@ -1209,6 +1471,7 @@ def check_float32(inference, llama, model, prompts) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1234,17 +1497,32 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     check_smem(attn, _build)
 
+    print("== 1b. runtime: ray_tpu_torch.init, tasks, objects, GPU grants")
+    runtime = runtime_phase()
+
     print("== 2. kernels against their plain versions")
     records = check_kernels(attn)
+    print("  head dims 192 and 256, float16:")
+    check_f1_instances(attn, records)
 
     print("== 3. small GPT-2, kernels against plain attention")
     check_model(gpt2)
 
-    print("== 4. main path: TorchTrainer.fit, GPT-2-small")
+    print("== 4. main path: TorchTrainer.fit, GPT-2-small, in a worker "
+          "actor")
     n_layer = gpt2.GPT2Config.small().n_layer
-    launches = train_phase(attn, "gpt2",
-                           dict.fromkeys(attn.KERNELS, n_layer),
-                           card)["launches"]
+    yardstick = [in_driver_steps("gpt2")]
+    main_leg = train_phase(attn, "gpt2",
+                           dict.fromkeys(attn.KERNELS, n_layer), card)
+    launches = main_leg["launches"]
+    yardstick.append(in_driver_steps("gpt2"))
+    ratio = main_leg["tokens_per_sec"] / statistics.mean(yardstick)
+    print(f"  tokens/s through the worker actor "
+          f"{main_leg['tokens_per_sec']:.1f}; the same steps in this "
+          f"process before and after: {yardstick[0]:.1f}, "
+          f"{yardstick[1]:.1f} (actor / mean {ratio:.4f})")
+    runtime.update(actor_tokens_per_sec=main_leg["tokens_per_sec"],
+                   in_driver_tokens_per_sec=yardstick, actor_ratio=ratio)
 
     print("== 6. Llama-7B forward, flash kernel against plain attention")
     from ray_tpu_torch import inference
@@ -1297,9 +1575,14 @@ def main() -> int:
     if not math.isfinite(m["router_loss"]):
         raise AssertionError(f"router loss not finite: {m['router_loss']}")
 
+    stop_runtime()
+
     print("== 12. results")
+    print(f"all phases in {time.perf_counter() - started:.1f} s")
+    print(json.dumps({"runtime": runtime}))
     print(json.dumps({"serving": serving}))
-    print(json.dumps({"training": legs, "long_model_check": long_check,
+    print(json.dumps({"training": dict(gpt2=main_leg, **legs),
+                      "long_model_check": long_check,
                       "remat_bit_equal": {
                           str(k): v for k, v in remat_bit_equal.items()}}))
     paths = [launches, llama_launches, serve_launches] + [

@@ -23,45 +23,50 @@
 // The TPU grid's sequential dimension becomes a loop inside the block, so
 // nothing is carried between blocks and no atomics are needed.
 //
-// dQ, bf16 (bwd_dq_kernel_sm90): the dK/dV design below with the roles of
-// queries and keys swapped back. One block per 128 queries, two consumer
-// warpgroups of 64 and a producer warpgroup, whose first warp loads Q, dO
-// and O once by TMA and streams K and V tiles through a ring of slots from
-// key 0 up to the diagonal. Each warp first sums delta for its 16 rows from
-// the resident dO and O tiles (the same swizzle permutes both tiles' rows
-// alike, so the sum needs no unswizzling). Each warpgroup then computes
+// dQ, bf16 and float16 at d <= 128 (bwd_dq_kernel_sm90): the dK/dV design
+// below with the roles of queries and keys swapped back. One block per 128
+// queries, two consumer warpgroups of 64 and a producer warpgroup, whose
+// first warp loads Q, dO and O once by TMA and streams K and V tiles
+// through a ring of slots from key 0 up to the diagonal. Each warp first
+// sums delta for its 16 rows from the resident dO and O tiles (the same
+// swizzle permutes both tiles' rows alike, so the sum needs no
+// unswizzling). Each warpgroup then computes
 // S = Q K^T and dP = dO V^T on wgmma from shared memory, forms P = exp2(S
 // scale log2 e - lse log2 e) and dS = P (dP - delta) in registers, and adds
 // dQ += dS K with a register-A wgmma that reads K MN-major from its slot;
 // dS never leaves the registers, and scale is applied once to dQ.
 //
-// dK/dV, bf16 (bwd_dkv_kernel_sm90): one block per 128 keys, two consumer
-// warpgroups of 64 keys and a producer warpgroup, whose first warp loads K
-// and V once by TMA (they stay in shared memory) and streams Q and dO tiles,
-// with their lse and delta slices, through a ring of slots from the
-// diagonal down, ordered by full/empty mbarriers. Each warpgroup computes
-// the transposed products S^T = K Q^T and dP^T = V dO^T on wgmma from shared
-// memory (both K-major as stored), forms P^T = exp2(S^T scale log2 e - lse
-// log2 e) and dS^T = P^T (dP^T - delta) scale in registers, and adds
+// dK/dV, bf16 and float16 at d <= 128 (bwd_dkv_kernel_sm90): one block per
+// 128 keys, two consumer warpgroups of 64 keys and a producer warpgroup,
+// whose first warp loads K and V once by TMA (they stay in shared memory)
+// and streams Q and dO tiles, with their lse and delta slices, through a
+// ring of slots from the diagonal down, ordered by full/empty mbarriers.
+// Each warpgroup computes the transposed products S^T = K Q^T and
+// dP^T = V dO^T on wgmma from shared memory (both K-major as stored),
+// forms P^T = exp2(S^T scale log2 e - lse log2 e) and
+// dS^T = P^T (dP^T - delta) scale in registers, and adds
 // dV += P^T dO and dK += dS^T Q with register-A wgmma that read dO and Q
 // MN-major from shared memory. P^T and dS^T never leave the registers; dK
 // and dV accumulate in registers across the q loop and are written once.
 // The two warpgroups take turns on the tensor cores, so that one's
 // elementwise step overlaps the other's products.
 //
-// float32 (bwd_dq_kernel, bwd_dkv_kernel): 64 rows and 4 warps of 16 per
-// block; dQ streams K/V tiles up to the diagonal (and sums delta first, as
-// the bf16 body does), dK/dV streams Q/dO tiles from the diagonal down with
-// the same transposed products. Each tile is copied into shared memory
-// between two barriers and shared by four warps; the products run on the
-// CUDA cores (flash_common.cuh says why), and dS goes through shared memory
-// to feed the next product.
+// float32, and 16-bit at d 192 and 256 (bwd_dq_kernel, bwd_dkv_kernel): 64
+// rows and 4 warps of 16 per block; dQ streams K/V tiles up to the diagonal
+// (and sums delta first, as the Hopper body does), dK/dV streams Q/dO tiles
+// from the diagonal down with the same transposed products. Each tile of
+// PlainTiles<D>::STREAM rows is copied into shared memory between two
+// barriers and shared by the block's warps; the products run on the CUDA
+// cores in float32 (flash_common.cuh says why), and dS goes through shared
+// memory, in the input type, to feed the next product. Above d = 128 the
+// dK/dV block runs two warps per 16 keys, each accumulating half of dK's
+// and dV's columns (PlainTiles::SPLIT).
 
 #include "flash_common.cuh"
 
 using namespace flash;
 
-// The float32 body, on the CUDA cores.
+// The CUDA-core body.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -69,16 +74,17 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ o, const float* __restrict__ lse,
               float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
               int causal, float scale) {
+  constexpr int BS = PlainTiles<D>::STREAM;  // keys a streamed tile
   constexpr int LD = ld<T, D>();
-  constexpr int LDP = ld<T, BLOCK>();
+  constexpr int LDP = ld<T, BS>();
   constexpr int NTD = D / 8;
-  constexpr int NTK = BLOCK / 8;
+  constexpr int NTK = BS / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* dOs = Qs + BLOCK * LD;
   T* Ks = dOs + BLOCK * LD;
-  T* Vs = Ks + BLOCK * LD;
-  T* Ss = Vs + BLOCK * LD;  // [BLOCK][LDP]: dS, each warp its own 16 rows
+  T* Vs = Ks + BS * LD;
+  T* Ss = Vs + BS * LD;  // [BLOCK][LDP]: dS, each warp its own 16 rows
 
   const int nqb = (sq + BLOCK - 1) / BLOCK;  // grid as in flash_fwd.cu
   const int bh = blockIdx.x / nqb;
@@ -111,8 +117,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float sum = 0.f;
     if (rows[i] < sq)
       for (int c = t; c < D; c += 4)
-        sum = fmaf(dOw[(g + 8 * i) * LD + c], o[(size_t)rows[i] * D + c],
-                   sum);
+        sum = fmaf(to_float(dOw[(g + 8 * i) * LD + c]),
+                   to_float(o[(size_t)rows[i] * D + c]), sum);
     row_delta[i] = quad_sum(sum);
     row_lse[i] = rows[i] < sq ? lse[rows[i]] : 0.f;
     if (t == 0 && rows[i] < sq) delta[rows[i]] = row_delta[i];
@@ -120,13 +126,13 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float acc[NTD][4];
   zero(acc);
-  int nkb = (sk + BLOCK - 1) / BLOCK;
-  if (causal) nkb = min(nkb, (q0 + BLOCK - 1) / BLOCK + 1);
+  int nkb = (sk + BS - 1) / BS;
+  if (causal) nkb = min(nkb, (q0 + BLOCK - 1) / BS + 1);
   for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BLOCK;
+    const int k0 = kb * BS;
     __syncthreads();
-    load_tile<T, D>(Ks, k, k0, sk);
-    load_tile<T, D>(Vs, v, k0, sk);
+    load_tile<T, D, BS>(Ks, k, k0, sk);
+    load_tile<T, D, BS>(Vs, v, k0, sk);
     __syncthreads();
 
     float s[NTK][4], dp[NTK][4];
@@ -146,13 +152,13 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     store_acc<T>(Sw, LDP, s, 16);
     __syncwarp();
-    warp_gemm<false, NTD, BLOCK>(acc, Sw, LDP, Ks, LD);  // dQ += dS K
+    warp_gemm<false, NTD, BS>(acc, Sw, LDP, Ks, LD);  // dQ += dS K
     __syncwarp();
   }
   store_acc<T>(dq + (size_t)w0 * D, D, acc, sq - w0);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -160,7 +166,7 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_do,
                    const __grid_constant__ CUtensorMap map_o,
                    const float* __restrict__ lse, float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int sq, int sk, int causal,
+                   T* __restrict__ dq, int sq, int sk, int causal,
                    float scale) {
   using namespace sm90;
   constexpr int BQ = DqTiles<D>::ROWS, BK = DqTiles<D>::TILE;
@@ -251,7 +257,7 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
         const int off = c * BQ * RB + (r0 + g + 8 * h) * RB + t * PART;
 #pragma unroll
         for (int b = 0; b < PART; b += 16)
-          sum = dot8(*reinterpret_cast<const uint4*>(sdo_tile + off + b),
+          sum = dot8<T>(*reinterpret_cast<const uint4*>(sdo_tile + off + b),
                      *reinterpret_cast<const uint4*>(so_tile + off + b), sum);
       }
       dlt[h] = quad_sum(sum);
@@ -271,18 +277,18 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   auto issue_s = [&](int i) {  // S = Q K^T, dP = dO V^T, all K-major
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BK>::ss(s, k_major<BQ, D>(q_addr, kk), k_major<BK, D>(slot(i), kk),
-                    kk > 0);
+      Wgmma<BK, T>::ss(s, k_major<BQ, D>(q_addr, kk),
+                       k_major<BK, D>(slot(i), kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BK>::ss(dp, k_major<BQ, D>(do_addr, kk),
-                    k_major<BK, D>(slot(i) + KV_BYTES, kk), kk > 0);
+      Wgmma<BK, T>::ss(dp, k_major<BQ, D>(do_addr, kk),
+                       k_major<BK, D>(slot(i) + KV_BYTES, kk), kk > 0);
     wg_commit();
   };
   auto issue_dq = [&](int i) {  // dQ += dS K, K read MN-major
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<D>::rs(acc, dsa[kk], mn_major<BK, D>(slot(i), kk), 1);
+      Wgmma<D, T>::rs(acc, dsa[kk], mn_major<BK, D>(slot(i), kk), 1);
     wg_commit();
   };
   auto release = [&](int i) {  // this warp is done with tile i's slot
@@ -330,7 +336,7 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   fence_regs(s);
   fence_regs(dp);
   grads(0);
-  to_a_frags<BK>(dsa, s);
+  to_a_frags<BK, T>(dsa, s);
   for (int i = 1; i < n_wg; ++i) {
     mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
     named_sync(1 + wg);
@@ -346,7 +352,7 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
     wg_wait<0>();  // tile i - 1's dS K is done
     fence_regs(acc);
     release(i - 1);
-    to_a_frags<BK>(dsa, s);
+    to_a_frags<BK, T>(dsa, s);
   }
   named_sync(1 + wg);
   fence_regs(acc);
@@ -365,29 +371,34 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
 
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] *= scale;
-  store_rows<D>(dq + ((size_t)bh * sq + w0) * D, acc, sq - w0);
+  store_rows<D, T>(dq + ((size_t)bh * sq + w0) * D, acc, sq - w0);
 }
 
-// The float32 body, on the CUDA cores.
+// The CUDA-core body: warp w holds keys 16 (w % WARPS).. and, of dK and dV,
+// the columns of group w / WARPS.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS * PlainTiles<D>::SPLIT)
 bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
                int causal, float scale) {
+  constexpr int BS = PlainTiles<D>::STREAM;  // queries a streamed tile
+  constexpr int SPLIT = PlainTiles<D>::SPLIT;
+  constexpr int NT = THREADS * SPLIT;
+  constexpr int DC = D / SPLIT;  // dK and dV columns of one warp
   constexpr int LD = ld<T, D>();
-  constexpr int LDP = ld<T, BLOCK>();
-  constexpr int NTD = D / 8;
-  constexpr int NTQ = BLOCK / 8;  // accumulator tiles across a query block
+  constexpr int LDP = ld<T, BS>();
+  constexpr int NTD = DC / 8;
+  constexpr int NTQ = BS / 8;  // accumulator tiles across a query tile
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + BLOCK * LD;
   T* Qs = Vs + BLOCK * LD;
-  T* dOs = Qs + BLOCK * LD;
-  T* Ps = dOs + BLOCK * LD;  // [BLOCK][LDP]: P^T then dS^T, per warp
-  float* lse_s = reinterpret_cast<float*>(Ps + BLOCK * LDP);
-  float* delta_s = lse_s + BLOCK;
+  T* dOs = Qs + BS * LD;
+  T* Ps = dOs + BS * LD;  // [SPLIT * BLOCK][LDP]: P^T then dS^T, per warp
+  float* lse_s = reinterpret_cast<float*>(Ps + SPLIT * BLOCK * LDP);
+  float* delta_s = lse_s + BS;
 
   const int nkb = (sk + BLOCK - 1) / BLOCK;
   const int bh = blockIdx.x / nkb;
@@ -403,25 +414,26 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   lse += (size_t)bh * sq;
   delta += (size_t)bh * sq;
 
-  load_tile<T, D>(Ks, k, k0, sk);
-  load_tile<T, D>(Vs, v, k0, sk);
-  const int w0 = k0 + warp * 16;  // this warp's first key row
+  load_tile<T, D, BLOCK, NT>(Ks, k, k0, sk);
+  load_tile<T, D, BLOCK, NT>(Vs, v, k0, sk);
+  const int rw = warp % WARPS, c0 = (warp / WARPS) * DC;
+  const int w0 = k0 + rw * 16;  // this warp's first key row
   const int keys[2] = {w0 + g, w0 + g + 8};
-  const T* Kw = Ks + warp * 16 * LD;
-  const T* Vw = Vs + warp * 16 * LD;
+  const T* Kw = Ks + rw * 16 * LD;
+  const T* Vw = Vs + rw * 16 * LD;
   T* Pw = Ps + warp * 16 * LDP;
 
   float dk_acc[NTD][4], dv_acc[NTD][4];
   zero(dk_acc);
   zero(dv_acc);
-  const int nqb = (sq + BLOCK - 1) / BLOCK;
-  // Causal: q-blocks that end before this block's first key add nothing.
-  for (int qb = causal ? k0 / BLOCK : 0; qb < nqb; ++qb) {
-    const int q0 = qb * BLOCK;
+  const int nqb = (sq + BS - 1) / BS;
+  // Causal: q-tiles that end before this block's first key add nothing.
+  for (int qb = causal ? k0 / BS : 0; qb < nqb; ++qb) {
+    const int q0 = qb * BS;
     __syncthreads();
-    load_tile<T, D>(Qs, q, q0, sq);
-    load_tile<T, D>(dOs, dout, q0, sq);
-    for (int i = threadIdx.x; i < BLOCK; i += THREADS) {
+    load_tile<T, D, BS, NT>(Qs, q, q0, sq);
+    load_tile<T, D, BS, NT>(dOs, dout, q0, sq);
+    for (int i = threadIdx.x; i < BS; i += NT) {
       lse_s[i] = q0 + i < sq ? lse[q0 + i] : 0.f;
       delta_s[i] = q0 + i < sq ? delta[q0 + i] : 0.f;
     }
@@ -444,18 +456,19 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     store_acc<T>(Pw, LDP, s, 16);
     __syncwarp();
-    warp_gemm<false, NTD, BLOCK>(dv_acc, Pw, LDP, dOs, LD);  // dV += P^T dO
+    // dV += P^T dO and dK += dS^T Q, this warp's columns c0..
+    warp_gemm<false, NTD, BS>(dv_acc, Pw, LDP, dOs + c0, LD);
     __syncwarp();
     store_acc<T>(Pw, LDP, dp, 16);
     __syncwarp();
-    warp_gemm<false, NTD, BLOCK>(dk_acc, Pw, LDP, Qs, LD);  // dK += dS^T Q
+    warp_gemm<false, NTD, BS>(dk_acc, Pw, LDP, Qs + c0, LD);
     __syncwarp();
   }
-  store_acc<T>(dk + (size_t)w0 * D, D, dk_acc, sk - w0);
-  store_acc<T>(dv + (size_t)w0 * D, D, dv_acc, sk - w0);
+  store_acc<T>(dk + (size_t)w0 * D + c0, D, dk_acc, sk - w0);
+  store_acc<T>(dv + (size_t)w0 * D + c0, D, dv_acc, sk - w0);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -463,8 +476,7 @@ bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_do,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                    T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
                     int causal, float scale) {
   using namespace sm90;
   constexpr int BKEY = DkvTiles<D>::ROWS, BQ = DkvTiles<D>::TILE;
@@ -546,7 +558,7 @@ bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T, [64 keys x BQ queries]
-  // P^T and dS^T of the previous tile, as bf16 A fragments.
+  // P^T and dS^T of the previous tile, as A fragments.
   uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
 
   auto slot = [&](int i) {
@@ -555,22 +567,22 @@ bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   auto issue_s = [&](int i) {  // S^T = K Q^T, dP^T = V dO^T, all K-major
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BQ>::ss(st, k_major<BKEY, D>(k_addr, kk),
+      Wgmma<BQ, T>::ss(st, k_major<BKEY, D>(k_addr, kk),
                     k_major<BQ, D>(slot(i), kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BQ>::ss(dpt, k_major<BKEY, D>(v_addr, kk),
+      Wgmma<BQ, T>::ss(dpt, k_major<BKEY, D>(v_addr, kk),
                     k_major<BQ, D>(slot(i) + Q_BYTES, kk), kk > 0);
     wg_commit();
   };
   auto issue_grads = [&](int i) {  // dV += P^T dO, dK += dS^T Q, MN-major B
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      Wgmma<D>::rs(dv_acc, pa[kk], mn_major<BQ, D>(slot(i) + Q_BYTES, kk),
+      Wgmma<D, T>::rs(dv_acc, pa[kk], mn_major<BQ, D>(slot(i) + Q_BYTES, kk),
                    1);
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      Wgmma<D>::rs(dk_acc, dsa[kk], mn_major<BQ, D>(slot(i), kk), 1);
+      Wgmma<D, T>::rs(dk_acc, dsa[kk], mn_major<BQ, D>(slot(i), kk), 1);
     wg_commit();
   };
   auto release = [&](int i) {  // this warp is done with tile i's slot
@@ -630,8 +642,8 @@ bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
     fence_regs(st);
     fence_regs(dpt);
     grads_in(first);
-    to_a_frags<BQ>(pa, st);
-    to_a_frags<BQ>(dsa, dpt);
+    to_a_frags<BQ, T>(pa, st);
+    to_a_frags<BQ, T>(dsa, dpt);
     for (int i = first + 1; i < n_iter; ++i) {
       mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
       named_sync(1 + wg);
@@ -649,8 +661,8 @@ bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       release(i - 1);
-      to_a_frags<BQ>(pa, st);
-      to_a_frags<BQ>(dsa, dpt);
+      to_a_frags<BQ, T>(pa, st);
+      to_a_frags<BQ, T>(dsa, dpt);
     }
     named_sync(1 + wg);
     fence_regs(dv_acc);
@@ -666,35 +678,39 @@ bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
     named_sync(1 + wg);
     if (wg == 0) named_arrive(2);
   }
-  store_rows<D>(dk + ((size_t)bh * sk + w0) * D, dk_acc, sk - w0);
-  store_rows<D>(dv + ((size_t)bh * sk + w0) * D, dv_acc, sk - w0);
+  store_rows<D, T>(dk + ((size_t)bh * sk + w0) * D, dk_acc, sk - w0);
+  store_rows<D, T>(dv + ((size_t)bh * sk + w0) * D, dv_acc, sk - w0);
 }
 
 // Shared memory of each body (ray_tpu_torch/ops/attention.py's
 // kernel_smem_bytes mirrors these).
 template <typename T, int D>
 static size_t dq_smem() {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::DqTiles<D>;
     return 3 * sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * 2 * sm90::tile_bytes<Tl::TILE, D>() +
            (1 + 2 * Tl::STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
   } else {
-    return (4 * BLOCK * ld<T, D>() + BLOCK * ld<T, BLOCK>()) * sizeof(T);
+    constexpr int BS = PlainTiles<D>::STREAM;
+    return ((2 * BLOCK + 2 * BS) * ld<T, D>() + BLOCK * ld<T, BS>()) *
+           sizeof(T);
   }
 }
 
 template <typename T, int D>
 static size_t dkv_smem() {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::DkvTiles<D>;
     return 2 * sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * (2 * sm90::tile_bytes<Tl::TILE, D>() +
                          2 * Tl::TILE * sizeof(float)) +
            (1 + 2 * Tl::STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
   } else {
-    return (4 * BLOCK * ld<T, D>() + BLOCK * ld<T, BLOCK>()) * sizeof(T) +
-           2 * BLOCK * sizeof(float);
+    using Tl = PlainTiles<D>;
+    return ((2 * BLOCK + 2 * Tl::STREAM) * ld<T, D>() +
+            Tl::SPLIT * BLOCK * ld<T, Tl::STREAM>()) * sizeof(T) +
+           2 * Tl::STREAM * sizeof(float);
   }
 }
 
@@ -703,20 +719,20 @@ static int bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* out, const void* lse,
                   void* delta, void* dq, int bh, int sq, int sk, int causal,
                   float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::DqTiles<D>;
     CUtensorMap mq, mk, mv, mdo, mo;
-    int err = sm90::make_map<D>(&mq, q, bh, sq, Tl::ROWS);
-    if (!err) err = sm90::make_map<D>(&mk, k, bh, sk, Tl::TILE);
-    if (!err) err = sm90::make_map<D>(&mv, v, bh, sk, Tl::TILE);
-    if (!err) err = sm90::make_map<D>(&mdo, dout, bh, sq, Tl::ROWS);
-    if (!err) err = sm90::make_map<D>(&mo, out, bh, sq, Tl::ROWS);
+    int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::ROWS);
+    if (!err) err = sm90::make_map<T, D>(&mk, k, bh, sk, Tl::TILE);
+    if (!err) err = sm90::make_map<T, D>(&mv, v, bh, sk, Tl::TILE);
+    if (!err) err = sm90::make_map<T, D>(&mdo, dout, bh, sq, Tl::ROWS);
+    if (!err) err = sm90::make_map<T, D>(&mo, out, bh, sq, Tl::ROWS);
     if (err) return err;
     const dim3 grid(bh * ((sq + Tl::ROWS - 1) / Tl::ROWS));
-    return launch(bwd_dq_kernel_sm90<D>, grid, sm90::THREADS,
+    return launch(bwd_dq_kernel_sm90<T, D>, grid, sm90::THREADS,
                   dq_smem<T, D>(), stream, mq, mk, mv, mdo, mo,
                   static_cast<const float*>(lse), static_cast<float*>(delta),
-                  static_cast<__nv_bfloat16*>(dq), sq, sk, causal, scale);
+                  static_cast<T*>(dq), sq, sk, causal, scale);
   } else {
     const dim3 grid(bh * ((sq + BLOCK - 1) / BLOCK));
     return launch(bwd_dq_kernel<T, D>, grid, THREADS, dq_smem<T, D>(), stream,
@@ -733,24 +749,24 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int bh, int sq, int sk, int causal,
                    float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::DkvTiles<D>;
     CUtensorMap mq, mk, mv, mdo;
-    int err = sm90::make_map<D>(&mq, q, bh, sq, Tl::TILE);
-    if (!err) err = sm90::make_map<D>(&mk, k, bh, sk, Tl::ROWS);
-    if (!err) err = sm90::make_map<D>(&mv, v, bh, sk, Tl::ROWS);
-    if (!err) err = sm90::make_map<D>(&mdo, dout, bh, sq, Tl::TILE);
+    int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::TILE);
+    if (!err) err = sm90::make_map<T, D>(&mk, k, bh, sk, Tl::ROWS);
+    if (!err) err = sm90::make_map<T, D>(&mv, v, bh, sk, Tl::ROWS);
+    if (!err) err = sm90::make_map<T, D>(&mdo, dout, bh, sq, Tl::TILE);
     if (err) return err;
     const dim3 grid(bh * ((sk + Tl::ROWS - 1) / Tl::ROWS));
-    return launch(bwd_dkv_kernel_sm90<D>, grid, sm90::THREADS,
+    return launch(bwd_dkv_kernel_sm90<T, D>, grid, sm90::THREADS,
                   dkv_smem<T, D>(), stream, mq, mk, mv, mdo,
                   static_cast<const float*>(lse),
-                  static_cast<const float*>(delta),
-                  static_cast<__nv_bfloat16*>(dk),
-                  static_cast<__nv_bfloat16*>(dv), sq, sk, causal, scale);
+                  static_cast<const float*>(delta), static_cast<T*>(dk),
+                  static_cast<T*>(dv), sq, sk, causal, scale);
   } else {
     const dim3 grid(bh * ((sk + BLOCK - 1) / BLOCK));
-    return launch(bwd_dkv_kernel<T, D>, grid, THREADS, dkv_smem<T, D>(),
+    return launch(bwd_dkv_kernel<T, D>, grid,
+                  THREADS * PlainTiles<D>::SPLIT, dkv_smem<T, D>(),
                   stream, static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), static_cast<const T*>(dout),
                   static_cast<const float*>(lse),

@@ -1,23 +1,25 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
 //
 // Layout: q, k, v, o and their gradients are [bh, seq, D] row-major and
-// contiguous; lse and delta are [bh, seq] float32. Inputs are bf16 or
-// float32; every product accumulates in float32.
+// contiguous; lse and delta are [bh, seq] float32. Inputs are bf16, float16
+// or float32; every product accumulates in float32.
 //
 // Two families of kernel bodies live on these pieces:
 //
-// - The Hopper bodies (namespace flash::sm90 below): the bf16 forward, dQ
-//   and dK/dV kernels. One warp of a producer warpgroup streams tiles into
-//   a ring in shared memory with TMA, ordered by mbarriers; two consumer
-//   warpgroups take turns to run every tile product on wgmma and keep
-//   probabilities and dS in registers.
-// - The float32 bodies of the three kernels. Tiles are BLOCK x D with
-//   BLOCK = 64 rows, 4 warps of 16 rows, and every operand of a tile
-//   product is read from shared memory by `warp_gemm`, which runs the
-//   16x8 mma.sync accumulator layout on the CUDA cores in full float32.
-//   wgmma has no float32 type, and TF32 keeps about three decimal digits,
-//   too few for the 1e-4 the float32 instances are held to, so those stay
-//   on the CUDA cores.
+// - The Hopper bodies (namespace flash::sm90 below): the 16-bit (bf16 and
+//   float16) forward, dQ and dK/dV kernels at D <= 128. One warp of a
+//   producer warpgroup streams tiles into a ring in shared memory with TMA,
+//   ordered by mbarriers; two consumer warpgroups take turns to run every
+//   tile product on wgmma and keep probabilities and dS in registers.
+// - The CUDA-core bodies of the three kernels: every float32 instance, and
+//   the 16-bit ones at D 192 and 256. A block owns BLOCK = 64 rows, 4 warps
+//   of 16 rows, and streams tiles of PlainTiles<D>::STREAM rows past them;
+//   every operand of a tile product is read from shared memory by
+//   `warp_gemm`, which runs the 16x8 mma.sync accumulator layout on the
+//   CUDA cores in float32. wgmma has no float32 type, and TF32 keeps about
+//   three decimal digits, too few for the 1e-4 the float32 instances are
+//   held to, so those stay on the CUDA cores. The 16-bit instances at
+//   D > 128 use these bodies until they get a Hopper design of their own.
 //
 // Accumulator layout (the mma.sync C fragment, which is also the layout of
 // each warp's 16 rows of a wgmma accumulator), lane = 4 * g + t:
@@ -29,6 +31,7 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,19 +44,40 @@ constexpr int WARPS = 4;           // 16 rows per warp
 constexpr int THREADS = WARPS * 32;
 constexpr float NEG_INF = -1e30f;  // mask fill, as in the TPU kernels
 
+// Tiles of the CUDA-core bodies (mirrored by TILES in ray_tpu_torch/ops/
+// attention.py): a block owns BLOCK rows and streams STREAM rows a tile.
+// Above D = 128 the streamed tile halves, so that the tiles fit in shared
+// memory and S, dP and the D-wide accumulators in registers, and the dK/dV
+// block runs SPLIT = 2 warps per 16 keys, each holding the dK and dV
+// accumulators of half the columns: at D = 256 the two accumulators of
+// all D columns would take 256 floats a thread, more than a thread's 255
+// registers.
+template <int D>
+struct PlainTiles {
+  static constexpr int STREAM = D > 128 ? 32 : 64, SPLIT = D > 128 ? 2 : 1;
+};
+
+// One element as float32.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
 // Shared-memory row stride in elements: 16 bytes of padding per row keeps
 // the fragment loads below free of bank conflicts.
 template <typename T, int D>
 __host__ __device__ constexpr int ld() { return D + 16 / (int)sizeof(T); }
 
-// Copy rows [row0, row0 + BLOCK) of a [seq, D] matrix into shared memory
-// with 16-byte vectors; rows at or past `seq` are zero-filled.
-template <typename T, int D>
+// Copy rows [row0, row0 + ROWS) of a [seq, D] matrix into shared memory
+// with 16-byte vectors, NT threads taking turns; rows at or past `seq` are
+// zero-filled.
+template <typename T, int D, int ROWS = BLOCK, int NT = THREADS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           int seq) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < BLOCK * PER_ROW; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NT) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row0 + r < seq)
@@ -63,23 +87,26 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
 }
 
 // One warp, in float32 on the CUDA cores: C[16 x 8*NT] += A[16 x K] *
-// B[K x 8*NT], in the 16x8 mma.sync accumulator layout.
+// B[K x 8*NT], in the 16x8 mma.sync accumulator layout; 16-bit operands are
+// widened to float32 as they are read.
 // A is row-major in shared memory (A(m, k) = A[m * lda + k]).
 // B_NK: B(k, n) = B[n * ldb + k] (B stored as N x K, e.g. K for Q.K^T);
 // otherwise B(k, n) = B[k * ldb + n] (stored as K x N, e.g. V for P.V).
-template <bool B_NK, int NT, int K>
-__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const float* A,
-                                          int lda, const float* B, int ldb) {
+template <bool B_NK, int NT, int K, typename T>
+__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const T* A,
+                                          int lda, const T* B, int ldb) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
-    const float a0 = A[g * lda + k], a1 = A[(g + 8) * lda + k];
+    const float a0 = to_float(A[g * lda + k]);
+    const float a1 = to_float(A[(g + 8) * lda + k]);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int n = nt * 8 + 2 * t;
-      const float b0 = B_NK ? B[n * ldb + k] : B[k * ldb + n];
-      const float b1 = B_NK ? B[(n + 1) * ldb + k] : B[k * ldb + n + 1];
+      const float b0 = to_float(B_NK ? B[n * ldb + k] : B[k * ldb + n]);
+      const float b1 =
+          to_float(B_NK ? B[(n + 1) * ldb + k] : B[k * ldb + n + 1]);
       c[nt][0] = fmaf(a0, b0, c[nt][0]);
       c[nt][1] = fmaf(a0, b1, c[nt][1]);
       c[nt][2] = fmaf(a1, b0, c[nt][2]);
@@ -98,6 +125,9 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 // Two neighbouring elements (p even-aligned) in one store.
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -166,7 +196,7 @@ constexpr int PRODUCER_WARP = CONSUMERS * 4;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 65,536 in all
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Tiles of the bf16 kernels (mirrored by TILES in ray_tpu_torch/ops/
+// Tiles of the 16-bit Hopper kernels (mirrored by TILES in ray_tpu_torch/ops/
 // attention.py). Every block owns 128 rows, 64 per consumer warpgroup (the M
 // of wgmma), and streams tiles through a ring of STAGES slots. dQ and dK/dV
 // stream a smaller tile at d = 128: dQ holds S, dP and dS of a tile beside
@@ -186,7 +216,7 @@ struct DkvTiles {  // dK/dV: owns key rows, streams Q, dO, lse and delta
   static constexpr int ROWS = 128, TILE = D == 128 ? 32 : 64, STAGES = 3;
 };
 
-// A tile of R rows x D bf16 columns lies in shared memory as D / C chunks
+// A tile of R rows x D 16-bit columns lies in shared memory as D / C chunks
 // of R rows x C columns, one TMA box each, swizzled by TMA as wgmma reads
 // it: C = 64 (128-byte rows, 128B swizzle) or, at d = 32, C = 32 (64-byte
 // rows, 64B swizzle). A chunk is a multiple of 1024 bytes, so each stays
@@ -351,19 +381,71 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-template <int N>
+// wgmma for either 16-bit type: TEXT(ty) spells the instruction with `ty`
+// as the type of A and B (f16 or bf16); the operands follow.
+#define FLASH_WGMMA(T, TEXT, ...)                       \
+  if constexpr (std::is_same<T, __half>::value)         \
+    asm volatile(TEXT("f16") __VA_ARGS__);              \
+  else                                                  \
+    asm volatile(TEXT("bf16") __VA_ARGS__)
+
+template <int N, typename T>
 struct Wgmma;
 
-template <>
-struct Wgmma<32> {
+#define FLASH_WG_N32_SS(ty) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." ty "." ty " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+  "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+
+#define FLASH_WG_N32_RS(ty) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." ty "." ty " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+  "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+
+#define FLASH_WG_N64_SS(ty) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31" \
+  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+
+#define FLASH_WG_N64_RS(ty) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31" \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+
+#define FLASH_WG_N128_SS(ty) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63" \
+  "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+
+#define FLASH_WG_N128_RS(ty) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63" \
+  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+
+template <typename T>
+struct Wgmma<32, T> {
   // d[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory.
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+    FLASH_WGMMA(T, FLASH_WG_N32_SS,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -375,11 +457,7 @@ struct Wgmma<32> {
   static __device__ __forceinline__ void rs(float (&d)[16],
                                             const uint32_t (&a)[4],
                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+    FLASH_WGMMA(T, FLASH_WG_N32_RS,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -389,18 +467,12 @@ struct Wgmma<32> {
   }
 };
 
-template <>
-struct Wgmma<64> {
+template <typename T>
+struct Wgmma<64, T> {
   // d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory.
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+    FLASH_WGMMA(T, FLASH_WG_N64_SS,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -415,13 +487,7 @@ struct Wgmma<64> {
   static __device__ __forceinline__ void rs(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+    FLASH_WGMMA(T, FLASH_WG_N64_RS,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -434,20 +500,12 @@ struct Wgmma<64> {
   }
 };
 
-template <>
-struct Wgmma<128> {
+template <typename T>
+struct Wgmma<128, T> {
   // d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory.
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-        "%58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+    FLASH_WGMMA(T, FLASH_WG_N128_SS,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -468,15 +526,7 @@ struct Wgmma<128> {
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-        "%58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+    FLASH_WGMMA(T, FLASH_WG_N128_RS,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -495,46 +545,50 @@ struct Wgmma<128> {
   }
 };
 
-// Two floats as the bf16 pair of an A fragment register (lower column in
+// Two floats as the 16-bit pair of an A fragment register (lower column in
 // the low half).
+template <typename T>
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // The A fragments of a P (or dS) accumulator [64 x N] for a product that
 // contracts over its N columns: k-step kk takes columns 16kk..16kk+15, which
 // are the accumulator's 8-column tiles 2kk and 2kk+1.
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4],
                                            const float (&c)[N / 2]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_rn(c[8 * kk + 0], c[8 * kk + 1]);  // row g,   cols 2t..
-    a[kk][1] = pack_rn(c[8 * kk + 2], c[8 * kk + 3]);  // row g+8, cols 2t..
-    a[kk][2] = pack_rn(c[8 * kk + 4], c[8 * kk + 5]);  // row g,   cols 8+2t..
-    a[kk][3] = pack_rn(c[8 * kk + 6], c[8 * kk + 7]);  // row g+8, cols 8+2t..
+    a[kk][0] = pack_rn<T>(c[8 * kk + 0], c[8 * kk + 1]);  // row g,   cols 2t..
+    a[kk][1] = pack_rn<T>(c[8 * kk + 2], c[8 * kk + 3]);  // row g+8, cols 2t..
+    a[kk][2] = pack_rn<T>(c[8 * kk + 4], c[8 * kk + 5]);  // row g, cols 8+2t..
+    a[kk][3] = pack_rn<T>(c[8 * kk + 6], c[8 * kk + 7]);  // row g+8, 8+2t..
   }
 }
 
-// acc + the dot product of two vectors of 8 bf16 each, in float32.
+// acc + the dot product of two vectors of 8 16-bit elements each, in
+// float32.
+template <typename T>
 __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  const T* x = reinterpret_cast<const T*>(&a);
+  const T* y = reinterpret_cast<const T*>(&b);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
-    acc = fmaf(fx.x, fy.x, acc);
-    acc = fmaf(fx.y, fy.y, acc);
-  }
+  for (int i = 0; i < 8; ++i) acc = fmaf(to_float(x[i]), to_float(y[i]), acc);
   return acc;
 }
 
-// Write a warp's 16 rows of a [64 x D] accumulator as bf16 rows of a
+// Write a warp's 16 rows of a [64 x D] accumulator as 16-bit rows of a
 // row-major [*, D] matrix whose row 0 is the warp's first row; rows at or
 // past `rows` are dropped.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* dst,
                                            const float (&c)[D / 2], int rows) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -567,11 +621,11 @@ static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The TMA map of a contiguous bf16 [bh, seq, D] tensor, one box = `rows`
+// The TMA map of a contiguous 16-bit [bh, seq, D] tensor, one box = `rows`
 // rows x one chunk of columns. Three dimensions, so that a box that runs
 // past `seq` is zero-filled instead of reading the next head's rows.
 // Returns 0 or a FLASH_ERR_ code.
-template <int D>
+template <typename T, int D>
 static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
                     int rows) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
@@ -581,7 +635,10 @@ static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
   const cuuint32_t box[3] = {(cuuint32_t)chunk_cols<D>(), (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -598,10 +655,10 @@ __device__ __forceinline__ uint8_t* aligned_smem(unsigned char* p) {
 }  // namespace sm90
 }  // namespace flash
 
-// The C entry points take dtype 0 = float32, 1 = bfloat16, and a head
-// dimension of 32, 64 or 128; anything else returns FLASH_ERR_UNSUPPORTED.
-// Each shared library built from a source that includes this header exports
-// its own copy.
+// The C entry points take dtype 0 = float32, 1 = bfloat16, 2 = float16,
+// and a head dimension of 32, 64, 128, 192 or 256; anything else returns
+// FLASH_ERR_UNSUPPORTED. Each shared library built from a source that
+// includes this header exports its own copy.
 extern "C" const char* flash_error_string(int code) {
   if (code == FLASH_ERR_UNSUPPORTED)
     return "unsupported dtype or head dimension";
@@ -614,16 +671,26 @@ extern "C" const char* flash_error_string(int code) {
 
 // Expands to the body of a C entry point: calls `fn<T, D>(args...)` for the
 // requested dtype and head dimension.
+#define FLASH_DISPATCH_D(fn, T, d, ...)                                   \
+  do {                                                                     \
+    if (d == 32) return fn<T, 32>(__VA_ARGS__);                            \
+    if (d == 64) return fn<T, 64>(__VA_ARGS__);                            \
+    if (d == 128) return fn<T, 128>(__VA_ARGS__);                          \
+    if (d == 192) return fn<T, 192>(__VA_ARGS__);                          \
+    if (d == 256) return fn<T, 256>(__VA_ARGS__);                          \
+  } while (0)
 #define FLASH_DISPATCH(fn, dtype, d, ...)                                  \
   do {                                                                     \
-    if (dtype == 1) {                                                      \
-      if (d == 32) return fn<__nv_bfloat16, 32>(__VA_ARGS__);              \
-      if (d == 64) return fn<__nv_bfloat16, 64>(__VA_ARGS__);              \
-      if (d == 128) return fn<__nv_bfloat16, 128>(__VA_ARGS__);            \
-    } else if (dtype == 0) {                                               \
-      if (d == 32) return fn<float, 32>(__VA_ARGS__);                      \
-      if (d == 64) return fn<float, 64>(__VA_ARGS__);                      \
-      if (d == 128) return fn<float, 128>(__VA_ARGS__);                    \
-    }                                                                      \
+    if (dtype == 0) FLASH_DISPATCH_D(fn, float, d, __VA_ARGS__);           \
+    if (dtype == 1) FLASH_DISPATCH_D(fn, __nv_bfloat16, d, __VA_ARGS__);   \
+    if (dtype == 2) FLASH_DISPATCH_D(fn, __half, d, __VA_ARGS__);          \
     return FLASH_ERR_UNSUPPORTED;                                          \
   } while (0)
+
+namespace flash {
+// Whether the instance <T, D> runs a Hopper body (sm90) or a CUDA-core one.
+template <typename T, int D>
+constexpr bool hopper_body() {
+  return sizeof(T) == 2 && D <= 128;
+}
+}  // namespace flash

@@ -11,25 +11,27 @@
 // FLOPs, about 39 GFLOP (39 us at 989 TFLOP/s bf16 dense): it sits near the
 // ridge, bound by bytes at d = 64.
 //
-// Two bodies, chosen by type:
+// Two bodies, chosen by type and head dim:
 //
-// bf16 (fwd_kernel_sm90): one block per 128 query rows, two consumer
+// bf16 and float16 at d <= 128 (fwd_kernel_sm90): one block per 128 query
+// rows, two consumer
 // warpgroups of 64 rows and a producer warpgroup. Its first warp loads the Q
 // tile once and streams K and V tiles through a ring of shared-memory slots
 // with TMA, ordered by full/empty mbarriers, so the next tiles are in flight
 // while the current ones are multiplied. Each warpgroup computes S = Q K^T
 // on wgmma from shared memory, runs the online softmax on the accumulator in
 // base 2 (scale * log2 e folded into one multiply-add before ex2), converts
-// P to bf16 A fragments in registers and adds P V with a register-A wgmma
+// P to 16-bit A fragments in registers and adds P V with a register-A wgmma
 // that reads V MN-major (transposed) from shared memory: P never leaves the
 // registers. At d = 64 the ex2 unit is as busy as the tensor cores (one
 // exponential per 4 d flops), so the two warpgroups take turns: one runs its
 // products while the other runs its softmax. lse is written in natural-log
 // units, as the dQ kernel reads it.
 //
-// float32 (fwd_kernel): on the CUDA cores, in full float32 (flash_common.cuh
-// says why): 64-row tiles, 4 warps of 16 rows, K and V copied into shared
-// memory between two barriers, P through shared memory.
+// float32, and 16-bit at d 192 and 256 (fwd_kernel): on the CUDA cores, in
+// float32 arithmetic (flash_common.cuh says why): 64 query rows, 4 warps of
+// 16 rows, K and V tiles of PlainTiles<D>::STREAM rows copied into shared
+// memory between two barriers, P through shared memory in the input type.
 //
 // Both skip causal tiles above the diagonal, mask only the tiles that cross
 // it or the end of the sequence, and issue the heaviest q-blocks first.
@@ -38,21 +40,22 @@
 
 using namespace flash;
 
-// The float32 body, on the CUDA cores.
+// The CUDA-core body.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ o,
            float* __restrict__ lse, int sq, int sk, int causal, float scale) {
+  constexpr int BS = PlainTiles<D>::STREAM;  // keys a streamed tile
   constexpr int LD = ld<T, D>();
-  constexpr int LDP = ld<T, BLOCK>();
-  constexpr int NTD = D / 8;      // accumulator tiles across the head dim
-  constexpr int NTK = BLOCK / 8;  // accumulator tiles across a key block
+  constexpr int LDP = ld<T, BS>();
+  constexpr int NTD = D / 8;   // accumulator tiles across the head dim
+  constexpr int NTK = BS / 8;  // accumulator tiles across a key tile
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + BLOCK * LD;
-  T* Vs = Ks + BLOCK * LD;
-  T* Ps = Vs + BLOCK * LD;  // [BLOCK][LDP]: each warp its own 16 rows
+  T* Vs = Ks + BS * LD;
+  T* Ps = Vs + BS * LD;  // [BLOCK][LDP]: each warp its own 16 rows
 
   // One block per (bh, q-block); the q-blocks of one bh are neighbours, so
   // they share its K/V tiles in L2, and the last one, with the most causal
@@ -78,13 +81,13 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[NTD][4];
   zero(acc);
 
-  int nkb = (sk + BLOCK - 1) / BLOCK;
-  if (causal) nkb = min(nkb, (q0 + BLOCK - 1) / BLOCK + 1);
+  int nkb = (sk + BS - 1) / BS;
+  if (causal) nkb = min(nkb, (q0 + BLOCK - 1) / BS + 1);
   for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BLOCK;
+    const int k0 = kb * BS;
     __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<T, D>(Ks, k, k0, sk);
-    load_tile<T, D>(Vs, v, k0, sk);
+    load_tile<T, D, BS>(Ks, k, k0, sk);
+    load_tile<T, D, BS>(Vs, v, k0, sk);
     __syncthreads();
 
     float s[NTK][4];
@@ -126,7 +129,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     store_acc<T>(Pw, LDP, s, 16);
     __syncwarp();
-    warp_gemm<false, NTD, BLOCK>(acc, Pw, LDP, Vs, LD);  // O += P V
+    warp_gemm<false, NTD, BS>(acc, Pw, LDP, Vs, LD);  // O += P V
     __syncwarp();  // P is read by all lanes before the next write
   }
 
@@ -148,12 +151,12 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                T* __restrict__ o, float* __restrict__ lse,
                 int sq, int sk, int causal, float scale) {
   using namespace sm90;
   constexpr int BQ = FwdTiles<D>::ROWS, BK = FwdTiles<D>::TILE;
@@ -219,7 +222,7 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float sc[BK / 2];         // S_i = Q K_i^T, [64 x BK] across the warpgroup
-  uint32_t pa[BK / 16][4];  // P of the previous tile, as bf16 A fragments
+  uint32_t pa[BK / 16][4];  // P of the previous tile, as A fragments
   float corr[2];
 
   auto slot = [&](int i) {
@@ -228,14 +231,14 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   auto issue_s = [&](int i) {  // S_i = Q K_i^T, both K-major in shared memory
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BK>::ss(sc, k_major<BQ, D>(q_addr, kk),
+      Wgmma<BK, T>::ss(sc, k_major<BQ, D>(q_addr, kk),
                     k_major<BK, D>(slot(i), kk), kk > 0);
     wg_commit();
   };
   auto issue_pv = [&](int i) {  // O += P_i V_i, V read MN-major
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<D>::rs(acc, pa[kk], mn_major<BK, D>(slot(i) + KV_BYTES, kk), 1);
+      Wgmma<D, T>::rs(acc, pa[kk], mn_major<BK, D>(slot(i) + KV_BYTES, kk), 1);
     wg_commit();
   };
   auto release = [&](int i) {  // this warp is done with tile i's slot
@@ -297,7 +300,7 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   wg_wait<0>();
   fence_regs(sc);
   softmax(0);
-  to_a_frags<BK>(pa, sc);
+  to_a_frags<BK, T>(pa, sc);
   for (int i = 1; i < nkb; ++i) {
     mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
     named_sync(1 + wg);
@@ -319,7 +322,7 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
       acc[4 * j + 2] *= corr[1];
       acc[4 * j + 3] *= corr[1];
     }
-    to_a_frags<BK>(pa, sc);
+    to_a_frags<BK, T>(pa, sc);
   }
   named_sync(1 + wg);
   fence_regs(acc);
@@ -340,7 +343,7 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
     acc[4 * j + 2] /= den[1];
     acc[4 * j + 3] /= den[1];
   }
-  store_rows<D>(o + ((size_t)bh * sq + w0) * D, acc, sq - w0);
+  store_rows<D, T>(o + ((size_t)bh * sq + w0) * D, acc, sq - w0);
   if (t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -353,13 +356,14 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
 // kernel_smem_bytes mirrors these).
 template <typename T, int D>
 static size_t fwd_smem() {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::FwdTiles<D>;
     return sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * 2 * sm90::tile_bytes<Tl::TILE, D>() +
            (1 + 2 * Tl::STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
   } else {
-    return (3 * BLOCK * ld<T, D>() + BLOCK * ld<T, BLOCK>()) * sizeof(T);
+    constexpr int BS = PlainTiles<D>::STREAM;
+    return ((BLOCK + 2 * BS) * ld<T, D>() + BLOCK * ld<T, BS>()) * sizeof(T);
   }
 }
 
@@ -367,16 +371,16 @@ template <typename T, int D>
 static int fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int sq, int sk, int causal, float scale,
                cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::FwdTiles<D>;
     CUtensorMap mq, mk, mv;
-    int err = sm90::make_map<D>(&mq, q, bh, sq, Tl::ROWS);
-    if (!err) err = sm90::make_map<D>(&mk, k, bh, sk, Tl::TILE);
-    if (!err) err = sm90::make_map<D>(&mv, v, bh, sk, Tl::TILE);
+    int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::ROWS);
+    if (!err) err = sm90::make_map<T, D>(&mk, k, bh, sk, Tl::TILE);
+    if (!err) err = sm90::make_map<T, D>(&mv, v, bh, sk, Tl::TILE);
     if (err) return err;
     const dim3 grid(bh * ((sq + Tl::ROWS - 1) / Tl::ROWS));
-    return launch(fwd_kernel_sm90<D>, grid, sm90::THREADS, fwd_smem<T, D>(),
-                  stream, mq, mk, mv, static_cast<__nv_bfloat16*>(o),
+    return launch(fwd_kernel_sm90<T, D>, grid, sm90::THREADS,
+                  fwd_smem<T, D>(), stream, mq, mk, mv, static_cast<T*>(o),
                   static_cast<float*>(lse), sq, sk, causal, scale);
   } else {
     const dim3 grid(bh * ((sq + BLOCK - 1) / BLOCK));

@@ -11,9 +11,10 @@ Public layout as in the JAX package: q, k, v are [batch, heads, seq,
 head_dim]. The kernels and their plain PyTorch versions work on
 [batch * heads, seq, head_dim]. Each wrapper launches its kernel for a
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
-for the other. On the card the body is chosen by type: bf16 runs the
-Hopper bodies (TMA ring, wgmma), float32 the CUDA-core bodies (`TILES`
-lists each one's tiles). The dQ kernel runs first in the backward and also
+for the other. On the card the body is chosen by type and head dim: bf16
+and float16 at d <= 128 run the Hopper bodies (TMA ring, wgmma), float32
+and the 16-bit types at d 192 and 256 the CUDA-core bodies (`TILES` lists
+each one's tiles). The dQ kernel runs first in the backward and also
 writes delta = rowsum(dO * O), which the dK/dV kernel reads.
 """
 
@@ -27,9 +28,10 @@ import torch
 from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)  # head dims the kernels are compiled for
+HEAD_DIMS = (32, 64, 128, 192, 256)  # head dims the kernels are compiled for
 SMEM_LIMIT = 232448        # shared memory one block may use on Hopper
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)  # the types wgmma takes
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -39,24 +41,36 @@ class Tile(NamedTuple):
     stream: int   # rows of each tile the block streams past them
     stages: int   # slots of the ring the streamed tiles pass through
     ring: bool    # TMA ring + wgmma (Hopper body), or the CUDA cores
+    split: int = 1  # warps per 16 owned rows, each with its share of columns
 
 
-_PLAIN = Tile(64, 64, 1, False)  # csrc/flash_common.cuh BLOCK
-# (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: the bf16 kernels are
-# the Hopper bodies (flash_common.cuh FwdTiles, DqTiles, DkvTiles); dQ and
-# dK/dV stream a smaller tile at d = 128, where their accumulators take the
-# most registers, and dQ has 4 slots. The float32 bodies keep 64-row tiles.
+def _plain(name: str, d: int) -> Tile:
+    """A CUDA-core body's tiles (csrc/flash_common.cuh BLOCK, PlainTiles):
+    above d = 128 it streams 32-row tiles, and the dK/dV block splits dK's
+    and dV's columns between two warps per 16 keys."""
+    if d <= 128:
+        return Tile(64, 64, 1, False)
+    return Tile(64, 32, 1, False, 2 if name == "flash_bwd_dkv" else 1)
+
+
+# The Hopper bodies' tiles (flash_common.cuh FwdTiles, DqTiles, DkvTiles):
+# dQ and dK/dV stream a smaller tile at d = 128, where their accumulators
+# take the most registers, and dQ has 4 slots.
+_RING = {
+    "flash_fwd": dict.fromkeys((32, 64, 128), Tile(128, 128, 3, True)),
+    "flash_bwd_dkv": {32: Tile(128, 64, 3, True), 64: Tile(128, 64, 3, True),
+                      128: Tile(128, 32, 3, True)},
+    "flash_bwd_dq": {32: Tile(128, 128, 4, True),
+                     64: Tile(128, 128, 4, True),
+                     128: Tile(128, 64, 4, True)},
+}
+# (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: bf16 and float16 run
+# the Hopper bodies at d <= 128 and the CUDA-core bodies above; float32
+# runs the CUDA-core bodies at every head dim.
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
-    ("flash_fwd", torch.bfloat16): dict.fromkeys(HEAD_DIMS,
-                                                 Tile(128, 128, 3, True)),
-    ("flash_bwd_dkv", torch.bfloat16): {32: Tile(128, 64, 3, True),
-                                        64: Tile(128, 64, 3, True),
-                                        128: Tile(128, 32, 3, True)},
-    ("flash_bwd_dq", torch.bfloat16): {32: Tile(128, 128, 4, True),
-                                       64: Tile(128, 128, 4, True),
-                                       128: Tile(128, 64, 4, True)},
-    **{(name, torch.float32): dict.fromkeys(HEAD_DIMS, _PLAIN)
-       for name in KERNELS},
+    (name, dtype): {d: (_RING[name][d] if dtype in _HALF and d in _RING[name]
+                        else _plain(name, d)) for d in HEAD_DIMS}
+    for name in KERNELS for dtype in _DTYPE_CODES
 }
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -157,8 +171,8 @@ def _check_inputs(q, k, v, do=None, lse=None, delta=None, out=None) -> bool:
         if t.dim() != 3 or not t.is_contiguous():
             raise ValueError("flash attention takes contiguous [bh, seq, d]")
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash attention takes float32 or bfloat16, "
-                         f"not {q.dtype}")
+        raise ValueError(f"flash attention takes float32, bfloat16 or "
+                         f"float16, not {q.dtype}")
     bh, sq, d = q.shape
     sk = k.shape[1]
     if k.shape != (bh, sk, d) or v.shape != k.shape or sq == 0 or sk == 0:
@@ -292,13 +306,15 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16
             out[name] = owned + t.stages * slot + 8 * (1 + 2 * t.stages) \
                 + 1024
         else:
-            # Rows padded by 16 bytes; P or dS gets its own tile; dK/dV
-            # keeps lse and delta beside its tiles.
-            tile = t.rows * (d + 16 // size) * size
-            p_tile = t.rows * (t.rows + 16 // size) * size
-            out[name] = (3 if name == "flash_fwd" else 4) * tile + p_tile
+            # Rows padded by 16 bytes; each warp's rows of P or dS get a
+            # tile of their own; dK/dV keeps lse and delta beside its tiles.
+            # Owned: Q (forward); Q and dO (dQ); K and V (dK/dV).
+            row = (d + 16 // size) * size
+            owned = 1 if name == "flash_fwd" else 2
+            p_tile = t.split * t.rows * (t.stream + 16 // size) * size
+            out[name] = (owned * t.rows + 2 * t.stream) * row + p_tile
             if name == "flash_bwd_dkv":
-                out[name] += 2 * t.rows * 4
+                out[name] += 2 * t.stream * 4
     return out
 
 
@@ -333,13 +349,23 @@ def flash_attention(q, k, v, causal: bool = True,
     """Blocked attention. q,k,v: [batch, heads, seq, head_dim].
 
     Runs the flash kernels (forward and backward) on the card, their plain
-    versions on the CPU. seq_q != seq_k is answered by `mha_reference`,
-    whose causal mask aligns sequence ends while the kernels' starts both
-    at 0 (the JAX package's definition). Each kernel's tiles are fixed by
-    its source for each type and head dim (`TILES`); the kernels mask a
+    versions on the CPU, when seq_q == seq_k and the head dim is one the
+    kernels are compiled for (`HEAD_DIMS`), in float32, bf16 or float16.
+    Where the JAX package's `_use_pallas` answers by shape with
+    `mha_reference`, so does this, on both devices: seq_q != seq_k (its
+    causal mask aligns sequence ends while the kernels' starts both at 0),
+    or a head dim that is not a multiple of 64 and has no kernel here (16,
+    48, 80, 96, ...). The choice depends on the shape alone, never on
+    whether a kernel built or launched, so it hides no kernel. A multiple
+    of 64 above 256 raises: the JAX package runs its kernels there, and
+    no kernel of the port is compiled for it. Each kernel's tiles are fixed
+    by its source for each type and head dim (`TILES`); the kernels mask a
     ragged last tile, so any sequence length takes them."""
+    d = q.shape[-1]
     if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.shape[2] != k.shape[2]:
+        scale = 1.0 / math.sqrt(d)
+    if q.shape[2] != k.shape[2] or (d % 64 and d not in HEAD_DIMS):
         return mha_reference(q, k, v, causal=causal, scale=scale)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
     return FlashAttention.apply(q, k, v, causal, float(scale))

@@ -1,0 +1,140 @@
+"""BackendExecutor: worker-group lifecycle + result streaming.
+
+The port's copy of `ray_tpu/train/backend_executor.py` (the reference's
+`python/ray/train/_internal/backend_executor.py:43`, `start` :94,
+`start_training` :332): starts the WorkerGroup, runs the backend's
+process-group setup, launches the per-worker loop, and streams reported
+results back; whole-group restart on failure (FailureConfig).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable, Dict, Iterator, List, Optional
+
+import ray_tpu_torch
+from ray_tpu_torch.core import serialization
+from ray_tpu_torch.exceptions import RayActorError
+from ray_tpu_torch.train.backend import Backend, BackendConfig
+from ray_tpu_torch.train.config import ScalingConfig
+from ray_tpu_torch.train.worker_group import WorkerGroup
+
+logger = logging.getLogger(__name__)
+
+
+class TrainingFailedError(RuntimeError):
+    pass
+
+
+class BackendExecutor:
+    def __init__(self, backend_config: BackendConfig,
+                 scaling_config: ScalingConfig,
+                 max_failures: int = 0):
+        self.backend_config = backend_config
+        self.backend: Backend = backend_config.backend_cls()()
+        self.scaling_config = scaling_config
+        self.max_failures = max_failures
+        self.worker_group: Optional[WorkerGroup] = None
+        # Latest checkpoint REPORTED by the run (rank 0), so a gang
+        # restart resumes at the last reported step — not from the
+        # checkpoint the run originally started from.
+        self.latest_checkpoint = None
+        # (restart_count, world_size) history for observability.
+        self.restarts: List[Dict[str, Any]] = []
+
+    def start(self):
+        sc = self.scaling_config
+        self.worker_group = WorkerGroup(
+            num_workers=sc.num_workers,
+            resources_per_worker=sc.worker_resources(),
+            placement_strategy=sc.placement_strategy,
+            use_placement_group=sc.num_workers > 1,
+        )
+        self.backend.on_start(self.worker_group, self.backend_config)
+
+    def run(self, train_fn: Callable, config: Dict[str, Any],
+            checkpoint=None, device: str = "cuda",
+            experiment_name: str = "") -> Iterator[List[Dict[str, Any]]]:
+        """Generator: yields one list of per-worker results per report round;
+        returns when all workers finish.
+
+        Failure semantics (gang restart): any rank's failure aborts the
+        whole gang, which restarts as a unit on a FRESH placement group,
+        and the loop resumes from the LATEST reported checkpoint (the
+        worker's session hands it to train_fn via session.get_checkpoint).
+        Up to max_failures."""
+        failures = 0
+        self.latest_checkpoint = checkpoint
+        while True:
+            try:
+                yield from self._run_once(train_fn, config,
+                                          self.latest_checkpoint, device,
+                                          experiment_name)
+                return
+            except (RayActorError, TrainingFailedError):
+                failures += 1
+                if failures > self.max_failures:
+                    raise
+                logger.warning("worker group failed; gang restart %d/%d "
+                               "(resuming from %s checkpoint)",
+                               failures, self.max_failures,
+                               "latest" if self.latest_checkpoint is not None
+                               else "no")
+                self._restart_group()
+
+    def _restart_group(self):
+        """Gang restart: abort + recreate as a unit (fresh pg), backend
+        re-setup on the new incarnation. Falls back to a cold start() when
+        no group exists."""
+        if self.worker_group is None:
+            self.start()
+            return
+        try:
+            self.backend.on_shutdown(self.worker_group, self.backend_config)
+        except Exception:  # noqa: BLE001 — dead ranks can't shut down
+            logger.debug("backend on_shutdown during restart failed",
+                         exc_info=True)
+        world = self.worker_group.restart()
+        self.restarts.append({"world_size": world,
+                              "incarnation": self.worker_group.incarnation})
+        self.backend.on_start(self.worker_group, self.backend_config)
+
+    def _run_once(self, train_fn, config, checkpoint, device,
+                  experiment_name):
+        wg = self.worker_group
+        self.backend.on_training_start(wg, self.backend_config)
+        ray_tpu_torch.get([w.start_training.remote(
+            train_fn, config, checkpoint, device, experiment_name)
+            for w in wg.workers])
+        done = [False] * len(wg.workers)
+        while not all(done):
+            refs = [w.next_result.remote()
+                    for w, d in zip(wg.workers, done) if not d]
+            alive = [i for i, d in enumerate(done) if not d]
+            results = ray_tpu_torch.get(refs)
+            round_results: List[Dict[str, Any]] = []
+            for idx, res in zip(alive, results):
+                if res.get("done"):
+                    done[idx] = True
+                    if res.get("error") is not None:
+                        err = serialization.deserialize_exception(res["error"])
+                        raise TrainingFailedError(
+                            f"worker {idx} train loop failed") from err
+                elif not res.get("timeout"):
+                    round_results.append({"rank": idx, **res})
+                    if idx == 0 and res.get("checkpoint") is not None:
+                        # Rank 0's reported checkpoint is the resume
+                        # point for a gang restart.
+                        self.latest_checkpoint = res["checkpoint"]
+            if round_results:
+                yield round_results
+
+    def shutdown(self):
+        if self.worker_group is not None:
+            try:
+                self.backend.on_shutdown(self.worker_group,
+                                         self.backend_config)
+            except Exception:
+                pass
+            self.worker_group.shutdown()
+            self.worker_group = None

@@ -1,28 +1,80 @@
 """Training configuration dataclasses.
 
-Counterpart of `ray_tpu/train/config.py`: ScalingConfig speaks GPUs where
-the JAX package's speaks TPU chips and meshes.
+The port's copy of `ray_tpu/train/config.py` (the reference's AIR configs,
+`python/ray/air/config.py`: RunConfig/ScalingConfig/FailureConfig/
+CheckpointConfig). ScalingConfig speaks GPUs where the JAX package's
+speaks TPU chips, pod slices and meshes.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 
 @dataclass
 class ScalingConfig:
-    """How many training workers, each with how many GPUs.
+    """How many training workers, with what resources.
 
-    This slice runs one worker on one card; more workers need the actor
-    runtime (ROADMAP, queue 1)."""
+    - `num_workers`: training worker processes (actors).
+    - `use_gpu` + `gpus_per_worker`: each worker is granted that many GPUs
+      and sees exactly those cards (`CUDA_VISIBLE_DEVICES`); with
+      `use_gpu=False` the workers run on the CPU and see no card.
+    - `placement_strategy`: how the workers' bundles are placed (PACK,
+      SPREAD, STRICT_PACK, STRICT_SPREAD).
+    """
 
     num_workers: int = 1
     use_gpu: bool = True
-    gpus_per_worker: int = 1
+    gpus_per_worker: float = 1
+    resources_per_worker: Optional[Dict[str, float]] = None
+    cpus_per_worker: float = 1.0
+    placement_strategy: str = "PACK"
+
+    def worker_resources(self) -> Dict[str, float]:
+        out = {"CPU": float(self.cpus_per_worker)}
+        if self.use_gpu and self.gpus_per_worker:
+            out["GPU"] = float(self.gpus_per_worker)
+        if self.resources_per_worker:
+            out.update(self.resources_per_worker)
+        return out
+
+    def as_placement_group_bundles(self) -> List[Dict[str, float]]:
+        return [self.worker_resources() for _ in range(self.num_workers)]
+
+    @property
+    def total_workers(self) -> int:
+        return self.num_workers
+
+
+@dataclass
+class FailureConfig:
+    """Retries for the whole worker group (the reference's Train-era
+    semantics: restart the group, not partial-elastic)."""
+
+    max_failures: int = 0
+
+
+@dataclass
+class CheckpointConfig:
+    num_to_keep: Optional[int] = None
+    checkpoint_score_attribute: Optional[str] = None
+    checkpoint_score_order: str = "max"
+    checkpoint_frequency: int = 0
 
 
 @dataclass
 class RunConfig:
     name: Optional[str] = None
     storage_path: Optional[str] = None
+    failure_config: FailureConfig = field(default_factory=FailureConfig)
+    checkpoint_config: CheckpointConfig = field(default_factory=CheckpointConfig)
+    stop: Optional[Dict[str, Any]] = None
+    verbose: int = 1
+    callbacks: Optional[List[Any]] = None
+
+    def resolved_storage_path(self) -> str:
+        base = self.storage_path or os.path.join(
+            os.path.expanduser("~"), "ray_tpu_torch_results")
+        return os.path.join(base, self.name) if self.name else base

@@ -1,46 +1,64 @@
-"""Per-worker training session: report(), the context, the device.
+"""Per-worker training session: report(), ranks, the device, and the
+torch.distributed group.
 
-Counterpart of `ray_tpu/train/session.py`; `get_device()` stands where the
-JAX package's `get_mesh()` does.
+The port's copy of `ray_tpu/train/session.py` (the reference's
+`session.report`, `python/ray/air/session.py:43`, and `_TrainSession`,
+`python/ray/train/_internal/session.py:63`). `get_device()` stands where
+the JAX package's `get_mesh()` does, and `sync_gradients` and
+`broadcast_params` run over the torch.distributed group that the backend
+formed (NCCL on the card, gloo on the CPU) where the JAX package uses its
+host collective plane.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+import queue
+import threading
+from typing import Any, Dict, Optional
 
-import torch
+from ray_tpu_torch.train.checkpoint import Checkpoint
 
 
-@dataclass
 class TrainContext:
-    world_rank: int = 0
-    world_size: int = 1
-    local_rank: int = 0
-    experiment_name: str = ""
+    def __init__(self, world_rank: int, world_size: int, local_rank: int = 0,
+                 local_world_size: int = 1, node_rank: int = 0,
+                 trial_name: str = "", experiment_name: str = ""):
+        self.world_rank = world_rank
+        self.world_size = world_size
+        self.local_rank = local_rank
+        self.local_world_size = local_world_size
+        self.node_rank = node_rank
+        self.trial_name = trial_name
+        self.experiment_name = experiment_name
 
 
-@dataclass
 class _TrainSession:
-    context: TrainContext
-    device: torch.device
-    reports: List[Dict[str, Any]] = field(default_factory=list)
+    """Lives inside each training worker while the user loop runs."""
 
-    def report(self, metrics: Dict[str, Any]):
-        self.reports.append(dict(metrics))
+    def __init__(self, context: TrainContext, device=None,
+                 checkpoint: Optional[Checkpoint] = None):
+        self.context = context
+        self.device = device
+        self.loaded_checkpoint = checkpoint
+        self.result_queue: "queue.Queue" = queue.Queue()
+        self.finished = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.final_return: Any = None
+
+    def report(self, metrics: Dict[str, Any],
+               checkpoint: Optional[Checkpoint] = None):
+        self.result_queue.put({"metrics": dict(metrics),
+                               "checkpoint": checkpoint})
 
 
 _session: Optional[_TrainSession] = None
+_session_lock = threading.Lock()
 
 
 def init_session(session: _TrainSession):
     global _session
-    _session = session
-
-
-def shutdown_session():
-    global _session
-    _session = None
+    with _session_lock:
+        _session = session
 
 
 def get_session() -> _TrainSession:
@@ -51,14 +69,85 @@ def get_session() -> _TrainSession:
     return _session
 
 
-def report(metrics: Dict[str, Any]):
-    get_session().report(metrics)
+# Public functional API ------------------------------------------------------
+
+
+def report(metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
+    get_session().report(metrics, checkpoint)
+
+
+def get_checkpoint() -> Optional[Checkpoint]:
+    return get_session().loaded_checkpoint
 
 
 def get_context() -> TrainContext:
     return get_session().context
 
 
-def get_device() -> torch.device:
-    """The device this worker trains on."""
+def get_world_rank() -> int:
+    return get_session().context.world_rank
+
+
+def get_world_size() -> int:
+    return get_session().context.world_size
+
+
+def get_local_rank() -> int:
+    return get_session().context.local_rank
+
+
+def get_device():
+    """The torch device this worker trains on: its granted card
+    (`cuda`, which is card 0 of its CUDA_VISIBLE_DEVICES) or the CPU."""
     return get_session().device
+
+
+def _tensors(tree):
+    """The tensors of a tensor, a (nested) list, tuple or dict of them, or
+    a module's state dict, in a fixed order."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.state_dict().values())
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in _tensors(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in _tensors(item)]
+    if tree is None:
+        return []
+    raise TypeError(f"expected tensors, got {type(tree).__name__}")
+
+
+def sync_gradients(grads, op: str = "mean"):
+    """Data-parallel gradient sync: all-reduce, in place, every tensor of
+    `grads` (a tensor, a nested list/tuple/dict of tensors, e.g.
+    `[p.grad for p in model.parameters()]`) across the training workers
+    over the torch.distributed group, and return `grads`. `op` is "mean"
+    or "sum". One worker has nothing to sync."""
+    import torch.distributed as dist
+
+    if op not in ("mean", "sum"):
+        raise ValueError(f"op must be 'mean' or 'sum', not {op!r}")
+    world = get_session().context.world_size
+    if world <= 1:
+        return grads
+    for t in _tensors(grads):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        if op == "mean":
+            t.div_(world)
+    return grads
+
+
+def broadcast_params(params, src_rank: int = 0):
+    """Broadcast, in place, every tensor of `params` (a module, whose state
+    dict is sent, or tensors as `sync_gradients` takes them) from worker
+    `src_rank` to all others, and return `params`."""
+    import torch.distributed as dist
+
+    if get_session().context.world_size <= 1:
+        return params
+    for t in _tensors(params):
+        dist.broadcast(t, src=src_rank)
+    return params

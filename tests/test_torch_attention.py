@@ -116,6 +116,79 @@ def test_seq_mismatch_is_mha_reference(causal):
         np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
 
 
+# F1: the head dims and the type the reference's kernels take beyond
+# d 32/64/128 and float32/bf16. In 16 bits the JAX kernel rounds P before
+# PV and both round the result: float16 keeps 11 significant bits (2^-11
+# relative each rounding), bf16 8.
+F16_TOL = dict(atol=5e-3, rtol=5e-3)
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # bf16 keeps 8 significant bits
+
+
+@pytest.mark.parametrize("d,dtype", [(192, "float32"), (256, "float32"),
+                                     (64, "float16"), (256, "float16"),
+                                     (192, "bfloat16")])
+def test_new_head_dims_and_float16_match_jax_kernels(interpret, d, dtype):
+    import jax
+
+    q, k, v, g = _inputs(7, shape=(1, 2, 128, d))
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
+    out_j, vjp = jax.vjp(lambda a, b, c: jattn.flash_attention(
+        a, b, c, True, None, BLOCK, BLOCK), jq, jk, jv)
+    grads_j = vjp(jg)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32)).to(tdt)
+                  .requires_grad_() for a in (jq, jk, jv))
+    out = tattn.flash_attention(tq, tk, tv, True)
+    grads = torch.autograd.grad(out, (tq, tk, tv),
+                                torch.from_numpy(np.array(
+                                    jg, np.float32)).to(tdt))
+    assert out.dtype == tdt and all(x.dtype == tdt for x in grads)
+    ftol, gtol = {"float32": (FWD_TOL, GRAD_TOL),
+                  "float16": (F16_TOL, F16_TOL),
+                  "bfloat16": (BF16_TOL, BF16_TOL)}[dtype]
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(out_j, np.float32), **ftol)
+    for got, want in zip(grads, grads_j):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **gtol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_96_is_answered_like_the_reference(interpret, causal):
+    # d % 64 != 0 with no kernel: the reference's _use_pallas sends it to
+    # mha_reference, and so does the port, forward and backward.
+    import jax
+
+    q, k, v, g = _inputs(8, shape=(1, 2, 128, 96))
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out_j, vjp = jax.vjp(lambda a, b, c: jattn.flash_attention(
+        a, b, c, causal, None, BLOCK, BLOCK), jq, jk, jv)
+    want_ref = jattn.mha_reference(jq, jk, jv, causal=causal)
+    np.testing.assert_array_equal(np.asarray(out_j), np.asarray(want_ref))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    before = tattn.kernel_launches()
+    out = tattn.flash_attention(tq, tk, tv, causal)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               **FWD_TOL)
+    for got, want in zip(grads, vjp(jg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+    assert tattn.kernel_launches() == before
+
+
+def test_wrapper_takes_float16():
+    # float16 has kernels now: the wrappers answer it (on the CPU, with the
+    # plain versions), in float16, as they answer float32.
+    q, k, v, do = (torch.randn(2, 64, D) for _ in range(4))
+    out, lse = tattn._flash_forward(*(t.half() for t in (q, k, v)), True,
+                                    SCALE)
+    want, want_lse = tattn.flash_forward_reference(q, k, v, True, SCALE)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(), want.numpy(), **F16_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **F16_TOL)
+
+
 def test_mha_reference_bf16_rounds_probs_like_jax():
     # Probabilities are cast to v's dtype before the PV product; bf16 keeps
     # 8 significant bits, so one bf16 rounding apart is 2^-8 relative.
@@ -137,14 +210,16 @@ def test_cpu_calls_are_not_kernel_launches():
     assert set(before) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
 
 
-@pytest.mark.parametrize("bad", ["meta", "float16", "strided", "head_dim",
+@pytest.mark.parametrize("bad", ["meta", "float64", "strided", "head_dim",
                                  "shape"])
 def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
+    # The kernel wrappers refuse what no kernel is compiled for: float64, a
+    # head dim without a kernel (48), other devices and layouts.
     q, k, v = (torch.randn(2, 64, D) for _ in range(3))
     if bad == "meta":
         q, k, v = (t.to("meta") for t in (q, k, v))
-    elif bad == "float16":
-        q, k, v = (t.half() for t in (q, k, v))
+    elif bad == "float64":
+        q, k, v = (t.double() for t in (q, k, v))
     elif bad == "strided":
         q = torch.randn(2, D, 64).transpose(1, 2)
     elif bad == "head_dim":
@@ -174,33 +249,47 @@ def test_tile_table_fits_hopper_shared_memory():
     # head dims the kernels are not compiled for are refused.
     for (name, dtype), by_d in tattn.TILES.items():
         assert name in tattn.KERNELS and set(by_d) == set(tattn.HEAD_DIMS)
-        for t in by_d.values():
+        for d, t in by_d.items():
             # wgmma's M is 64 rows per warpgroup, and the dK/dV kernel starts
             # its causal q loop at key0 / stream: both must divide evenly.
             assert t.rows % (64 if t.ring else 16) == 0
             assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
-    assert len(tattn.TILES) == 2 * len(tattn.KERNELS)
+            # The Hopper bodies take the 16-bit types up to d 128.
+            assert t.ring == (dtype != torch.float32 and d <= 128)
+            assert t.split == (2 if name == "flash_bwd_dkv" and d > 128
+                               else 1)
+    assert len(tattn.TILES) == 3 * len(tattn.KERNELS)
+    assert set(tattn.HEAD_DIMS) == {32, 64, 128, 192, 256}
     for d in tattn.HEAD_DIMS:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             smem = tattn.kernel_smem_bytes(d, dtype)
             assert set(smem) == set(tattn.KERNELS)
             assert max(smem.values()) <= tattn.SMEM_LIMIT
     with pytest.raises(ValueError):
         tattn.kernel_smem_bytes(96)
-    q = torch.randn(1, 2, 128, 96)
+    # A multiple of 64 above 256 is the one refusal left: the JAX package
+    # runs its kernels there and the port has none.
+    q = torch.randn(1, 2, 128, 320)
     with pytest.raises(ValueError):
         tattn.flash_attention(q, q, q, True)
 
 
 def test_tile_table_mirrors_the_cuda_sources():
-    # The bf16 Hopper bodies fix their tiles in flash_common.cuh (FwdTiles,
-    # DqTiles, DkvTiles); the table the wrappers and chip_smoke.py read must
-    # agree. The float32 bodies keep BLOCK-row tiles.
+    # The Hopper bodies (16-bit, d <= 128) fix their tiles in
+    # flash_common.cuh (FwdTiles, DqTiles, DkvTiles), the CUDA-core bodies
+    # in BLOCK and PlainTiles; the table the wrappers and chip_smoke.py read
+    # must agree.
     import os
     import re
 
     src = open(os.path.join(os.path.dirname(tattn.__file__), os.pardir,
                             "csrc", "flash_common.cuh")).read()
+    block = int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1))
+    # PlainTiles: STREAM = D > 128 ? a : b, SPLIT = D > 128 ? c : e.
+    plain = re.search(r"PlainTiles \{\s*static constexpr int STREAM = "
+                      r"D > 128 \? (\d+) : (\d+), SPLIT = D > 128 \? (\d+) "
+                      r": (\d+);", src)
+    s_big, s_small, split_big, split_small = map(int, plain.groups())
     for struct, name in (("FwdTiles", "flash_fwd"),
                          ("DqTiles", "flash_bwd_dq"),
                          ("DkvTiles", "flash_bwd_dkv")):
@@ -209,12 +298,17 @@ def test_tile_table_mirrors_the_cuda_sources():
                          r"(?:D == 128 \? (\d+) : )?(\d+), STAGES = (\d+);",
                          src)
         rows, tile128, tile, stages = body.groups()
-        for d, t in tattn.TILES[name, torch.bfloat16].items():
-            want = tile128 if d == 128 and tile128 else tile
-            assert t == tattn.Tile(int(rows), int(want), int(stages), True)
-    block = int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1))
-    for d, t in tattn.TILES["flash_bwd_dq", torch.float32].items():
-        assert t == tattn.Tile(block, block, 1, False)
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            for d, t in tattn.TILES[name, dtype].items():
+                if t.ring:
+                    want = tile128 if d == 128 and tile128 else tile
+                    assert t == tattn.Tile(int(rows), int(want), int(stages),
+                                           True)
+                else:
+                    split = split_big if d > 128 else split_small
+                    assert t == tattn.Tile(
+                        block, s_big if d > 128 else s_small, 1, False,
+                        split if name == "flash_bwd_dkv" else 1)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

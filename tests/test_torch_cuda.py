@@ -42,13 +42,21 @@ def card():
     # A ragged last tile in several heads: a tensor map that ran across
     # heads would read the next head's rows there; at d 128 too (Llama's
     # head dim, two boxes a row).
-    (torch.bfloat16, True, 200, 64, 6), (torch.bfloat16, True, 200, 128, 8)])
+    (torch.bfloat16, True, 200, 64, 6), (torch.bfloat16, True, 200, 128, 8),
+    # float16 on the Hopper bodies, and d 192 and 256 on the CUDA-core
+    # bodies in every type (two warps a key row in dK/dV, ragged tiles).
+    (torch.float16, True, 1024, 64, 3), (torch.float16, False, 200, 128, 3),
+    (torch.float16, True, 130, 32, 3), (torch.bfloat16, True, 300, 192, 3),
+    (torch.float16, True, 300, 256, 3), (torch.bfloat16, False, 256, 256, 2),
+    (torch.float32, True, 200, 256, 2), (torch.float32, False, 130, 192, 2)])
 def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d,
                                               bh):
-    # float32: summation order only (1e-4 forward, 5e-4 gradients); bf16:
-    # the kernels round P and dS to bf16 for the tensor cores (2e-2). delta
-    # is a float32 sum of the same products in both: 1e-4.
-    tol = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2)}[dtype]
+    # float32: summation order only (1e-4 forward, 5e-4 gradients); bf16
+    # and float16: the kernels round P and dS to the input type for the
+    # products (bf16 8 significant bits: 2e-2; float16 11: 5e-3). delta is
+    # a float32 sum of the same products in both: 1e-4.
+    tol = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2),
+           torch.float16: (5e-3, 5e-3)}[dtype]
     gen = torch.Generator(device=card).manual_seed(0)
     q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device=card,
                                dtype=dtype) for _ in range(4))

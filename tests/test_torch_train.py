@@ -1,17 +1,36 @@
-"""The PyTorch port's trainer, device rule and import rule, on the CPU."""
+"""The PyTorch port's trainer, device rule and import rule, on the CPU.
+
+`TorchTrainer.fit` runs its loop in worker actors of the port's runtime,
+which one module-scoped `ray_tpu_torch.init` starts; every loop below is a
+module-level function, so the workers import it from this file.
+"""
 
 import ast
+import dataclasses
 import os
 
+import numpy as np
 import pytest
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch import _torch_env, resolve_device
 from ray_tpu_torch.models import gpt2
-from ray_tpu_torch.train import (RunConfig, ScalingConfig, TorchTrainer,
-                                 session)
+from ray_tpu_torch.train import (Checkpoint, CheckpointConfig,
+                                 FailureConfig, RunConfig, ScalingConfig,
+                                 TorchTrainer, TrainingFailedError, session)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def runtime():
+    # The forge template preimports torch, so a forked worker starts with
+    # it loaded (the flag's documented use for torch-heavy workers).
+    ray_tpu_torch.init(num_cpus=4, _system_config={
+        "worker_forge_preimports": "ray_tpu_torch.core.worker,numpy,torch"})
+    yield
+    ray_tpu_torch.shutdown()
 
 
 def _loop(config):
@@ -40,10 +59,179 @@ def test_fit_on_cpu_reports_a_falling_loss(tmp_path):
         session.report({"loss": 0.0})  # the session ends with fit()
 
 
-def test_more_than_one_worker_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchTrainer(_loop, train_loop_config={"steps": 1}, device="cpu",
-                     scaling_config=ScalingConfig(num_workers=2)).fit()
+# float32 and SGD: one worker on the whole batch and two on its halves then
+# differ only in summation order (AdamW's first step turns such noise into
+# part of the step, ROADMAP "AdamW's first step"); so do a worker's threads
+# and the test process's.
+_DP_CFG = dataclasses.replace(gpt2.GPT2Config.tiny(seq=32),
+                              dtype=torch.float32)
+_DP_BATCH = torch.randint(0, _DP_CFG.vocab_size, (4, 32),
+                          generator=torch.Generator().manual_seed(1))
+
+
+def _sgd_steps(device, n):
+    model = gpt2.GPT2(_DP_CFG, device=device, seed=0)
+    step = gpt2.make_train_step(model, torch.optim.SGD(model.parameters(),
+                                                       lr=0.5))
+    batch = {"input_ids": _DP_BATCH, "labels": _DP_BATCH}
+    return [step(batch).item() for _ in range(n)]
+
+
+def _direct_loop(config):
+    for i, loss in enumerate(_sgd_steps(session.get_device(), 3)):
+        session.report({"step": i, "loss": loss})
+
+
+def test_one_worker_actor_losses_match_make_train_step():
+    result = TorchTrainer(_direct_loop, device="cpu").fit()
+    assert result.error is None
+    got = [m["loss"] for m in result.metrics_history]
+    np.testing.assert_allclose(got, _sgd_steps("cpu", 3), rtol=1e-6, atol=0)
+    assert got[2] < got[0]
+
+
+def _dp_loop(config):
+    rank = session.get_world_rank()
+    world = session.get_world_size()
+    model = gpt2.GPT2(_DP_CFG, device=session.get_device(), seed=0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.5)
+    ids = _DP_BATCH.chunk(world)[rank]
+    for i in range(2):
+        opt.zero_grad()
+        loss = gpt2.next_token_loss(model(ids), ids)
+        loss.backward()
+        session.sync_gradients([p.grad for p in model.parameters()])
+        opt.step()
+        session.report({"step": i, "loss": loss.item()})
+    if rank == 0:
+        session.report({"step": 2}, checkpoint=Checkpoint.from_state_dict(
+            model.state_dict()))
+
+
+def test_two_gloo_workers_with_sync_gradients_match_one_worker(tmp_path):
+    states = []
+    for n in (1, 2):
+        result = TorchTrainer(
+            _dp_loop, device="cpu",
+            scaling_config=ScalingConfig(num_workers=n),
+            run_config=RunConfig(name=f"dp{n}",
+                                 storage_path=str(tmp_path))).fit()
+        assert result.error is None, result.error
+        states.append(result.checkpoint.get_state_dict())
+    assert states[0].keys() == states[1].keys()
+    for key in states[0]:
+        np.testing.assert_allclose(states[1][key].numpy(),
+                                   states[0][key].numpy(), atol=1e-5,
+                                   rtol=0, err_msg=key)
+    before = gpt2.GPT2(_DP_CFG, device="cpu", seed=0).state_dict()
+    assert any(not torch.equal(before[k], states[0][k]) for k in before)
+
+
+def _broadcast_loop(config):
+    rank = session.get_world_rank()
+    model = gpt2.GPT2(_DP_CFG, device=session.get_device(), seed=rank)
+    session.broadcast_params(model, src_rank=0)
+    want = gpt2.GPT2(_DP_CFG, device="cpu", seed=0).state_dict()
+    got = model.state_dict()
+    if not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError(f"rank {rank} differs from rank 0 after "
+                             "broadcast_params")
+    session.report({"rank": rank, "equal": True})
+
+
+def test_broadcast_params_makes_rank_1_equal_rank_0():
+    # Rank 1 starts from other weights (seed 1) and raises unless the
+    # broadcast gave it rank 0's; its error would come back in Result.
+    assert not torch.equal(
+        gpt2.GPT2(_DP_CFG, device="cpu", seed=1).state_dict()["wte"],
+        gpt2.GPT2(_DP_CFG, device="cpu", seed=0).state_dict()["wte"])
+    result = TorchTrainer(_broadcast_loop, device="cpu",
+                          scaling_config=ScalingConfig(num_workers=2)).fit()
+    assert result.error is None, result.error
+    assert result.metrics == {"rank": 0, "equal": True}
+
+
+def _failing_loop(config):
+    session.report({"step": 0})
+    raise ValueError("the loop broke after one report")
+
+
+def test_loop_error_comes_back_in_the_result():
+    result = TorchTrainer(_failing_loop, device="cpu").fit()
+    assert isinstance(result.error, TrainingFailedError)
+    assert "broke after one report" in str(result.error.__cause__)
+    assert result.metrics == {"step": 0}
+    assert result.metrics_history == [{"step": 0}]
+    # Setup errors still raise, before any worker starts.
+    with pytest.raises(ValueError):
+        TorchTrainer(_failing_loop, device="cpu",
+                     scaling_config=ScalingConfig(num_workers=0)).fit()
+    with pytest.raises(ValueError):
+        TorchTrainer(_failing_loop, device="cuda:1").fit()
+
+
+def _ckpt_loop(config):
+    start = session.get_checkpoint()
+    first = 0 if start is None else start.to_dict()["step"] + 1
+    for step, score in zip(range(first, first + 4), config["scores"]):
+        session.report({"step": step, "score": score},
+                       checkpoint=Checkpoint.from_dict({"step": step}))
+
+
+def test_checkpoints_keep_n_best_by_score_and_restore(tmp_path):
+    run = RunConfig(name="ckpt", storage_path=str(tmp_path),
+                    checkpoint_config=CheckpointConfig(
+                        num_to_keep=2, checkpoint_score_attribute="score"))
+    result = TorchTrainer(_ckpt_loop, device="cpu", run_config=run,
+                          train_loop_config={"scores": [3, 9, 1, 5]}).fit()
+    assert result.error is None
+    kept = sorted(os.listdir(os.path.join(result.path, "checkpoints")))
+    assert kept == ["checkpoint_000002", "checkpoint_000004"]  # 9 and 5
+    assert result.best_checkpoint.to_dict() == {"step": 1}
+    assert result.checkpoint.to_dict() == {"step": 3}
+    # restore() resumes from the latest checkpoint kept under the run.
+    resumed = TorchTrainer.restore(result.path, _ckpt_loop, device="cpu",
+                                   train_loop_config={"scores": [0] * 4})
+    assert resumed.resume_from_checkpoint.to_dict() == {"step": 3}
+    again = resumed.fit()
+    assert [m["step"] for m in again.metrics_history] == [4, 5, 6, 7]
+
+
+def _flaky_loop(config):
+    # Fails once, after a checkpoint; the restarted gang resumes from it.
+    start = session.get_checkpoint()
+    if start is None:
+        session.report({"step": 0}, checkpoint=Checkpoint.from_dict(
+            {"step": 0}))
+        raise RuntimeError("the first attempt dies")
+    session.report({"step": start.to_dict()["step"] + 1})
+
+
+def test_gang_restart_resumes_from_the_last_checkpoint():
+    run = RunConfig(failure_config=FailureConfig(max_failures=1))
+    result = TorchTrainer(_flaky_loop, device="cpu", run_config=run).fit()
+    assert result.error is None, result.error
+    assert [m["step"] for m in result.metrics_history] == [0, 1]
+    # Without a retry the same loop's error comes back.
+    result = TorchTrainer(_flaky_loop, device="cpu").fit()
+    assert isinstance(result.error, TrainingFailedError)
+
+
+def test_as_trainable_returns_metrics_or_raises():
+    trainable = TorchTrainer(_direct_loop, device="cpu").as_trainable()
+    assert trainable({})["step"] == 2
+    with pytest.raises(TrainingFailedError):
+        TorchTrainer(_failing_loop, device="cpu").as_trainable()({})
+
+
+def test_stop_condition_and_callbacks():
+    seen = []
+    result = TorchTrainer(
+        _loop, device="cpu", train_loop_config={"steps": 5},
+        run_config=RunConfig(stop={"step": 1}, callbacks=[seen.append])).fit()
+    assert result.error is None
+    assert [m["step"] for m in result.metrics_history] == [0, 1]
+    assert seen == result.metrics_history
 
 
 def test_entry_points_default_to_the_card():
