@@ -28,10 +28,13 @@ failed phase, with no phase caught.
    192 and 256 and float16 (bf16 and float16 at d 192 and 256, bh 24, seq
    2048, causal; float16 at d 64 and 128 at the main shape; float32 at
    d 256, small), each held the same way and timed beside its bound, its
-   plain version and `scaled_dot_product_attention`; shows
+   plain version and `scaled_dot_product_attention`; then the wide
+   instances above d 256 (bf16 and float16 at d 320, 384 and 512, bh 8,
+   seq 1024, causal; float32 small), held and timed the same way; shows
    that the same check rejects planted faults (a skipped tile, P left
    unnormalised, delta left at 0, each sized from the kernel's own tiles)
-   at the main shape; times each kernel, its plain version and
+   at the main shape and at d 384 (bf16); times each kernel, its plain
+   version and
    `scaled_dot_product_attention` (a yardstick the port never calls),
    forward and backward alone.
 3. Model check: a small GPT-2 with the flash kernels against the same model
@@ -66,7 +69,31 @@ failed phase, with no phase caught.
    the same weights computing in float32, the engine's tokens (2 requests
    of 128 and 2 of 64) against a dense-cache greedy loop through
    `Llama.decode`, and the speculative engine's against the plain one's,
-   each up to the reference's first near tie.
+   each up to the reference's first near tie. First of all, on an engine of
+   its own (freed before the load's), one prompt of 640 tokens (seed 1) is
+   served alone.
+7b. Serve: `serve.run(LLMServer.options(num_replicas=1,
+   ray_actor_options={"num_gpus": 1}).bind(model_size="7b", ...))` with
+   phase 7's engine configuration, once phase 7 has freed the card. The
+   replica must be another process seeing card "0", with every GPU worker
+   retired for the card exited. Phase 7's solo prompt, served alone first,
+   must give exactly phase 7's tokens; then phase 7's 16 requests through
+   `handle.generate`, 2 of them again through a handle stream and 2 more
+   over HTTP (chunked JSON lines), all at once: all 20 must answer, every
+   request 128 tokens after its prompt, the streams equal to generate's, no
+   leaked block and one shape per program (read from `metrics()`). Prints
+   output tokens/s, TTFT p50/p99 over the 20 requests as the replica's
+   engine reports it (submit to first token) and, apart, the client's
+   submit-to-first-streamed-token of the 4 streamed ones, replica ready
+   time (serve.run to the first reply) and peak memory beside phase 7's;
+   the replica must exit after `serve.shutdown()`. Then `GPT2Sampler(
+   "small", max_seq=1024)` in a one-GPU replica answers 8 concurrent
+   requests of 64 tokens in one padded batch (mean batch size > 1) with
+   exactly the tokens of the same padded greedy loop run here, each as long
+   as its prompt and budget say and agreeing with a plain unpadded greedy
+   loop (one forward of the request's own sequence a token) up to that
+   loop's first near tie, and K1 launched in the replica 12 times a
+   forward.
 8. Long context (`bench.py` bench_gpt2_long's first rung): `TorchTrainer.
    fit` trains GPT-2-small at full width and depth at seq 8192 with
    per-block remat, batch 4, for 2 warm-up and 5 timed steps; the loss must
@@ -95,7 +122,7 @@ failed phase, with no phase caught.
    share of routing choices dropped at capacity in the last step.
 12. Results (phase 5 before phases 6 and 7 came): prints the serving and
    training numbers, the `{"kernels": [...]}` line (launches summed over
-   the paths of phases 4, 6, 7, 8, 10 and 11; each record also holds its
+   the paths of phases 4, 6, 7, 7b, 8, 10 and 11; each record also holds its
    time at the long-context shape under `gpt2_long`, K1's at the Llama-7B
    shape under `llama7b_prefill`, and each head-dim and float16 instance
    of phase 2 under `instances`), then the device line last.
@@ -180,6 +207,16 @@ F1_CASES = [
     dict(MAIN, d=128, dtype=torch.float16),
     dict(bh=4, seq=256, d=256, dtype=torch.float32, causal=True),
 ]
+# The wide instances (head dims above 256, d at run time): bf16 and
+# float16 at d 320, 384 and 512 (bh 8, seq 1024), float32 small; each held
+# and timed as F1_CASES are. The planted faults run again at F3_FAULTS.
+F3_CASES = [
+    *(dict(bh=8, seq=1024, d=d, dtype=t, causal=True)
+      for d in (320, 384, 512) for t in (torch.bfloat16, torch.float16)),
+    *(dict(bh=2, seq=256, d=d, dtype=torch.float32, causal=True)
+      for d in (320, 384, 512)),
+]
+F3_FAULTS = dict(bh=8, seq=1024, d=384, dtype=torch.bfloat16, causal=True)
 # (kernel, output, tolerance) of each output held against its plain
 # version; delta is a float32 sum in both, held to the float32 forward's.
 OUTPUTS = [("flash_fwd", "out", "fwd"), ("flash_fwd", "lse", "fwd"),
@@ -212,6 +249,16 @@ SERVE = dict(model_size="7b", batch_slots=8, block_size=16,
              max_blocks_per_seq=128, num_blocks=8 * 128 + 1,
              prefill_chunk=512)
 N_REQUESTS, NEW_TOKENS, SHARED_PREFIX = 16, 128, 512
+# Phases 7 and 7b first serve one fresh prompt alone (seed 1, no prefix
+# shared with the others): its tokens through Serve must equal the engine's
+# driven directly, exactly.
+SOLO_LEN = 640
+# Phase 7b: the load's requests that also go through a stream (their
+# twins through generate, in the same wave) and the ones over HTTP.
+STREAMED, OVER_HTTP = (1, 3), (5, 7)
+# Phase 7b's GPT2Sampler leg: requests of this many new tokens, prompts of
+# 16-256 tokens from seed 2.
+SAMPLER_REQUESTS, SAMPLER_NEW = 8, 64
 PROMPT_LEN = (256, 1024)
 N_COMPARED = 2                   # requests held against the dense loop
 SPEC_DRAFT_LEN, SPEC_REQUESTS, SPEC_TOKENS = 4, 4, 64
@@ -294,16 +341,17 @@ def bound(case, n_products: int, tensors):
 def ptxas_usage(log: str):
     """(kernel, registers, spill line) for each kernel in `nvcc -Xptxas -v`
     output; the kernel is named with its template arguments, read from the
-    mangled name (e.g. `bwd_dq_kernel<bf16, 64>`)."""
+    mangled name (e.g. `bwd_dq_kernel<bf16, 64>`; the wide bodies, whose d
+    is a run-time argument, `fwd_kernel_wide<bf16, d>`)."""
     import re
 
-    types = {"": "", "f": "float, ", "13__nv_bfloat16": "bf16, ",
-             "6__half": "f16, "}
+    types = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, fn, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)I(\w*?)Li(\d+)EEv", line)
+        m = re.search(r"entry function '_Z\d+(\w+?)I(f|13__nv_bfloat16|"
+                      r"6__half)(?:Li(\d+)E)?Ev", line)
         if m:
-            fn = f"{m[1]}<{types[m[2]]}{m[3]}>"
+            fn = f"{m[1]}<{types[m[2]]}, {m[3] or 'd'}>"
         elif "spill" in line:
             spill = line.strip()
         elif fn and (m := re.search(r"Used (\d+) registers", line)):
@@ -316,8 +364,8 @@ def check_smem(attn, build) -> None:
     """The shared memory each C entry point asks for must be what the tile
     table gives (`attention.kernel_smem_bytes`)."""
     fwd, bwd = build.load("flash_fwd.cu"), build.load("flash_bwd.cu")
-    for d in attn.HEAD_DIMS:
-        for dtype, code in attn._DTYPE_CODES.items():
+    for dtype, code in attn._DTYPE_CODES.items():
+        for d in attn.head_dims(dtype):
             got = {"flash_fwd": fwd.flash_fwd_smem(d, code),
                    "flash_bwd_dq": bwd.flash_bwd_smem(0, d, code),
                    "flash_bwd_dkv": bwd.flash_bwd_smem(1, d, code)}
@@ -327,9 +375,16 @@ def check_smem(attn, build) -> None:
                                      f"kernels ask for {got}, the tile table "
                                      f"gives {want}")
     largest = max(max(attn.kernel_smem_bytes(d, t).values())
-                  for d in attn.HEAD_DIMS for t in attn._DTYPE_CODES)
+                  for t in attn._DTYPE_CODES for d in attn.head_dims(t))
+    most = {str(t).split(".")[-1]: m for t, m in attn.WIDE_MAX_D.items()}
     print(f"  shared memory of every kernel, dtype and head dim matches the "
-          f"tile table (largest {largest} B)")
+          f"tile table (largest {largest} B; head dims up to {most})")
+    # One multiple of 64 past the largest: some block would not fit.
+    for dtype, code in attn._DTYPE_CODES.items():
+        d = attn.WIDE_MAX_D[dtype] + 64
+        if max(fwd.flash_fwd_smem(d, code), bwd.flash_bwd_smem(0, d, code),
+               bwd.flash_bwd_smem(1, d, code)) <= attn.SMEM_LIMIT:
+            raise AssertionError(f"d={d} {dtype} would fit a block")
 
 
 def run_kernels(attn, q, k, v, do, causal: bool, scale: float) -> dict:
@@ -463,14 +518,15 @@ def case_label(case) -> str:
             f"{str(case['dtype']).split('.')[-1]} causal={case['causal']}")
 
 
-def check_f1_instances(attn, records) -> None:
-    """Phase 2, the head-dim and float16 instances (F1_CASES): each kernel
-    held element by element against its plain version, then timed beside
-    its bound, its plain version and scaled_dot_product_attention (forward
-    for K1; forward + backward beside K1 + K2 + K3). Adds one entry per
-    case to each kernel's record under `instances`."""
-    for i, case in enumerate(F1_CASES):
-        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+def check_instances(attn, records, cases, seed: int) -> None:
+    """Phase 2, the head-dim and float16 instances (F1_CASES, F3_CASES):
+    each kernel held element by element against its plain version, then
+    timed beside its bound, its plain version and
+    scaled_dot_product_attention (forward for K1; forward + backward beside
+    K1 + K2 + K3). At F3_FAULTS the planted faults must be rejected too.
+    Adds one entry per case to each kernel's record under `instances`."""
+    for i, case in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
         shape = (case["bh"], case["seq"], case["d"])
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
                                    dtype=case["dtype"]) for _ in range(4))
@@ -480,6 +536,9 @@ def check_f1_instances(attn, records) -> None:
         torch.cuda.synchronize()
         label = case_label(case)
         errs = report(compare(got, want, case["dtype"]), label)
+        if case == F3_FAULTS:
+            check_planted_faults(attn, q, k, v, do, got["lse"],
+                                 want["delta"], scale, got, want, errs)
         out, lse, dq, delta, dk, dv = (got[key] for key in (
             "out", "lse", "dq", "delta", "dk", "dv"))
         sdpa_fwd = _sdpa(q, k, v, causal, scale, "forward", batch=1)
@@ -524,7 +583,8 @@ def check_f1_instances(attn, records) -> None:
 def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
                          errs) -> None:
     """The checks above must reject a kernel that is wrong in a small part
-    of its output. At the main shape (causal), this plants into the
+    of its output. At the main shape and at F3_FAULTS (causal), this plants
+    into the
     kernel's own result the rows that a tiled kernel with one of these
     faults would give, computed by the plain math with the fault, and
     requires a mismatch above 1 for each. Each fault is one of the kernel's
@@ -1219,6 +1279,10 @@ def serve_prompts(vocab: int):
     return prompts
 
 
+def solo_prompt(vocab: int):
+    return np.random.default_rng(1).integers(0, vocab, SOLO_LEN).tolist()
+
+
 def dense_greedy(llama, model, prompt, n: int):
     """Greedy tokens of a dense-cache loop through `Llama.decode`, each with
     whether the reference's logits were a near tie there (top-2 gap below
@@ -1287,6 +1351,24 @@ def serve_llama(inference, llama, model, card: str) -> dict:
     """Phase 7. Returns the serving numbers."""
     cfg = inference.EngineConfig(**SERVE)
     prompts = serve_prompts(model.config.vocab_size)
+    # The solo request, alone on an engine of its own (phase 7b repeats it
+    # through Serve), freed before the load's engine starts, so the load's
+    # stats, memory and timings are of the load alone.
+    t0 = time.perf_counter()
+    engine = inference.InferenceEngine(cfg, model=model)
+    solo = engine.add_request(solo_prompt(model.config.vocab_size),
+                              max_new_tokens=NEW_TOKENS)
+    engine.run_until_idle()
+    solo_s = time.perf_counter() - t0
+    engine.check_no_leaks()
+    if len(solo.generated) != NEW_TOKENS:
+        raise AssertionError("the solo request did not get its tokens")
+    solo_tokens = [int(t) for t in solo.generated]
+    print(f"  solo request ({SOLO_LEN} prompt tokens, {NEW_TOKENS} new) on "
+          f"an engine of its own: {solo_s:.2f} s")
+    del engine, solo
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = inference.InferenceEngine(cfg, model=model)
@@ -1339,6 +1421,7 @@ def serve_llama(inference, llama, model, card: str) -> dict:
         "prefill_chunk_ms": statistics.mean(
             t for t, n in ms["prefill"] if n == cfg.prefill_chunk),
         "peak_gib": peak_gib, "arena_gib": arena_gib, "card": card,
+        "solo_tokens": solo_tokens, "solo_s": solo_s,
     }
     print(f"  {len(reqs)} requests served in {wall:.2f} s over {len(steps)} "
           f"steps: "
@@ -1470,6 +1553,350 @@ def check_float32(inference, llama, model, prompts) -> dict:
             "spec_accept_rate": sd["accept_rate"]}
 
 
+def probed(dep):
+    """`dep` with one method more on its class, `probe()`: the replica's
+    pid, the CUDA_VISIBLE_DEVICES it sees, its peak card memory, its kernel
+    launch counts, for a sampler the forwards it ran, and for `LLMServer`
+    the engine steps it ran, their wall time and each request's TTFT as the
+    engine took it (submit to first token; None before it). The
+    deployment's own methods are untouched."""
+    from ray_tpu_torch import serve
+
+    base = dep._target
+
+    class Probed(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self._steps, self._reqs = [0, 0.0], []
+            engine = getattr(self, "_engine", None)
+            if engine is not None:
+                step, add = engine.step, engine.add_request
+
+                def timed_step():
+                    t0 = time.perf_counter()
+                    try:
+                        return step()
+                    finally:
+                        self._steps[0] += 1
+                        self._steps[1] += time.perf_counter() - t0
+
+                def recorded_add(*args, **kwargs):
+                    req = add(*args, **kwargs)
+                    self._reqs.append(req)
+                    return req
+
+                engine.step, engine.add_request = timed_step, recorded_add
+
+        def probe(self, _=None):
+            from ray_tpu_torch.ops import attention
+
+            return {"pid": os.getpid(),
+                    "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "launches": attention.kernel_launches(),
+                    "forwards": getattr(self, "forwards", None),
+                    "steps": self._steps[0], "step_s": self._steps[1],
+                    "ttft_ms": [None if r.first_token_at is None else
+                                1e3 * (r.first_token_at - r.submitted_at)
+                                for r in self._reqs]}
+
+    Probed.__name__ = Probed.__qualname__ = base.__name__
+    return serve.Deployment(Probed, dep.name, dep.config)
+
+
+def check_replica(rt, probe, what: str) -> None:
+    """The replica is another process that sees card "0", and every GPU
+    worker retired for its card has exited (not only been marked)."""
+    if probe["pid"] == os.getpid() or probe["cuda_visible"] != "0":
+        raise AssertionError(f"{what} replica: pid {probe['pid']}, sees "
+                             f"{probe['cuda_visible']!r}")
+    pool = rt._global_node.raylet.pool
+    with pool._lock:
+        handles = list(pool._workers.values())
+    live = [h.pid for h in handles if h.gpu_ids and h.state != "dead"]
+    lingering = [h.pid for h in handles if h.gpu_ids and h.state == "dead"
+                 and h.proc is not None and h.proc.poll() is None]
+    print(f"  {what} replica: pid {probe['pid']} (this process "
+          f"{os.getpid()}), CUDA_VISIBLE_DEVICES={probe['cuda_visible']!r}; "
+          f"live GPU workers {live}, retired ones still running "
+          f"{lingering}")
+    if lingering or live != [probe["pid"]]:
+        raise AssertionError(f"{what}: GPU workers {live} live and "
+                             f"{lingering} retired but running beside the "
+                             "replica")
+
+
+def wait_exited(pid: int, what: str, timeout_s: float = 60.0) -> float:
+    """Seconds until process `pid` is gone; raises past the timeout."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return time.perf_counter() - t0
+        time.sleep(0.1)
+    raise AssertionError(f"the {what} replica (pid {pid}) did not exit "
+                         f"within {timeout_s} s of serve.shutdown()")
+
+
+def _stream(events, submitted):
+    """Consume one token stream: (TTFT s, tokens, final event, end time).
+    Raises when the stream fails or ends with no token."""
+    first, toks, done = None, [], None
+    for ev in events:
+        if "token" in ev:
+            first = first or time.perf_counter()
+            toks.append(ev["token"])
+        else:
+            done = ev
+    if first is None:
+        raise AssertionError(f"a stream ended with no token: {done}")
+    return first - submitted, toks, done, time.perf_counter()
+
+
+def _http_events(port: int, payload: dict):
+    """The proxy's chunked JSON lines for one streamed request."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/LLMServer",
+        data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for line in resp:
+            if line.strip():
+                yield json.loads(line)
+
+
+def serve_llm(card: str, serving: dict) -> dict:
+    """Phase 7b, part 1: Llama-7B through `LLMServer` in a one-GPU replica.
+    Returns the numbers printed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.inference.api import LLMServer
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    vocab = LlamaConfig.llama7b().vocab_size
+    prompts, solo = serve_prompts(vocab), solo_prompt(vocab)
+    dep = probed(LLMServer.options(num_replicas=1,
+                                   ray_actor_options={"num_gpus": 1}))
+    t0 = time.perf_counter()
+    handle = serve.run(dep.bind(model_size="7b", engine_config=SERVE,
+                                default_new_tokens=NEW_TOKENS),
+                       timeout_s=900)
+    run_s = time.perf_counter() - t0
+    check_replica(rt, rt.get(handle.probe.remote()), "LLMServer")
+    out = rt.get(handle.generate.remote({"ids": solo,
+                                         "max_new_tokens": NEW_TOKENS}))
+    ready_s = time.perf_counter() - t0
+    if out["ids"][:SOLO_LEN] != solo \
+            or out["ids"][SOLO_LEN:] != serving["solo_tokens"]:
+        raise AssertionError("the solo request through Serve gave other "
+                             "tokens than the engine driven directly")
+    print(f"  serve.run {run_s:.2f} s; first reply (the solo request, "
+          f"{NEW_TOKENS} tokens) {ready_s:.2f} s after serve.run: its "
+          f"tokens equal phase 7's exactly")
+
+    port = serve.http_port()
+    before = rt.get(handle.probe.remote())
+    m0 = rt.get(handle.metrics.remote())["prefix_cache"]
+    n_req = len(prompts) + len(STREAMED) + len(OVER_HTTP)
+    # Each stream is read on a thread of its own; .result() raises what its
+    # thread raised, so a failed request fails the phase.
+    with ThreadPoolExecutor(len(STREAMED) + len(OVER_HTTP)) as pool:
+        submitted = time.perf_counter()
+        streams = {("stream", i): pool.submit(
+            _stream, handle.options(stream=True).stream.remote(
+                {"ids": prompts[i], "max_new_tokens": NEW_TOKENS}),
+            submitted) for i in STREAMED}
+        refs = [handle.generate.remote({"ids": p,
+                                        "max_new_tokens": NEW_TOKENS})
+                for p in prompts]
+        for i in OVER_HTTP:
+            streams["http", i] = pool.submit(
+                _stream, _http_events(port, {"ids": prompts[i],
+                                             "max_new_tokens": NEW_TOKENS}),
+                submitted)
+        outs = rt.get(refs)
+        results = {key: f.result() for key, f in streams.items()}
+    wall = max([time.perf_counter()] + [r[3] for r in results.values()]) \
+        - submitted
+    if len(outs) + len(results) != n_req:
+        raise AssertionError(f"{len(outs) + len(results)} of {n_req} "
+                             "requests answered")
+    for i, o in enumerate(outs):
+        if o["ids"][:len(prompts[i])] != prompts[i] \
+                or len(o["ids"]) != len(prompts[i]) + NEW_TOKENS:
+            raise AssertionError(f"request {i} through Serve: "
+                                 f"{len(o['ids'])} ids")
+    for (kind, i), (_, toks, done, _) in results.items():
+        if len(toks) != NEW_TOKENS or not done or not done.get("done") \
+                or done["ids"] != prompts[i] + toks:
+            raise AssertionError(f"{kind} request {i}: {len(toks)} tokens")
+        if kind == "stream" and toks != outs[i]["ids"][len(prompts[i]):]:
+            raise AssertionError(f"streamed request {i} gave other tokens "
+                                 "than generate for the same prompt")
+    m = rt.get(handle.metrics.remote())
+    probe = rt.get(handle.probe.remote())
+    leak = (m["running"], m["queue_depth"], m["kv"]["blocks_in_use"]
+            - m["prefix_cache"]["cached_blocks"],
+            m["prefix_cache"]["pinned_nodes"])
+    shapes = (m["prefill_compiles"], m["decode_compiles"])
+    if leak != (0, 0, 0, 0) or shapes != (1, 1):
+        raise AssertionError(f"after the drain: running, queued, leaked "
+                             f"blocks, pins {leak}; program shapes {shapes}")
+    # TTFT of all the load's requests as the replica's engine took it
+    # (its add_request to its first token), and apart, the client's submit
+    # to first streamed token of the streamed ones.
+    ttft = probe["ttft_ms"][len(before["ttft_ms"]):]
+    if len(ttft) != n_req or None in ttft:
+        raise AssertionError(f"the engine took {len(ttft)} of {n_req} "
+                             f"requests, TTFTs {ttft}")
+    ttft = np.asarray(ttft)
+    client_ttft = {f"{kind} {i}": 1e3 * r[0]
+                   for (kind, i), r in results.items()}
+    pc = m["prefix_cache"]
+    hit_rate = (pc["hits"] - m0["hits"]) / (pc["lookups"] - m0["lookups"])
+    steps = probe["steps"] - before["steps"]
+    step_s = probe["step_s"] - before["step_s"]
+    res = {
+        "requests": n_req, "new_tokens": NEW_TOKENS, "wall_s": wall,
+        "output_tokens_per_s": n_req * NEW_TOKENS / wall,
+        "ttft_p50_ms": float(np.percentile(ttft, 50)),
+        "ttft_p99_ms": float(np.percentile(ttft, 99)),
+        "ttft_ms": ttft.tolist(), "client_stream_ttft_ms": client_ttft,
+        "serve_run_s": run_s,
+        "replica_ready_s": ready_s, "replica_peak_gib": probe["peak_gib"],
+        "prefix_hit_rate": hit_rate,
+        "replica_launches": probe["launches"], "card": card,
+        "engine_steps": steps, "engine_step_ms": 1e3 * step_s / steps,
+        "engine_busy_share": step_s / wall,
+        "tokens_per_step": n_req * NEW_TOKENS / steps,
+    }
+    print(f"  {len(prompts)} requests through handle.generate, "
+          f"{len(STREAMED)} streamed through the handle and {len(OVER_HTTP)} "
+          f"over HTTP (chunked JSON lines), all at once: every one "
+          f"{NEW_TOKENS} tokens after its prompt; streams equal generate's "
+          f"tokens; no leaks; one shape per program; prefix hit rate "
+          f"{res['prefix_hit_rate']:.3f}; launches in the replica "
+          f"{probe['launches']} (the paged path runs no kernel of the port)")
+    print(f"  the replica's engine: {steps} steps, "
+          f"{res['engine_step_ms']:.3f} ms a step (wall), busy "
+          f"{res['engine_busy_share']:.4f} of the load's wall, "
+          f"{res['tokens_per_step']:.3f} tokens a step; phase 7: "
+          f"{serving['steps']} steps, "
+          f"{1e3 * serving['wall_s'] / serving['steps']:.3f} ms a step, "
+          f"{serving['requests'] * NEW_TOKENS / serving['steps']:.3f} "
+          "tokens a step")
+    print(f"  through Serve: {n_req} x {NEW_TOKENS} tokens in {wall:.2f} s, "
+          f"output {res['output_tokens_per_s']:.1f} tokens/s; TTFT in the "
+          f"replica's engine over the {n_req} requests p50 "
+          f"{res['ttft_p50_ms']:.1f} ms, p99 {res['ttft_p99_ms']:.1f} ms; "
+          f"client submit to first streamed token "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in client_ttft.items())
+          + f"; replica ready {ready_s:.2f} s; replica peak "
+          f"{probe['peak_gib']:.2f} GiB; card {card}")
+    print(f"  phase 7, the engine driven directly in this process: "
+          f"{serving['requests']} x {NEW_TOKENS} tokens in "
+          f"{serving['wall_s']:.2f} s, output "
+          f"{serving['output_tokens_per_s']:.1f} tokens/s; TTFT p50 "
+          f"{serving['ttft_p50_ms']:.1f} ms, p99 "
+          f"{serving['ttft_p99_ms']:.1f} ms; peak "
+          f"{serving['peak_gib']:.2f} GiB (Serve / direct tokens/s "
+          f"{res['output_tokens_per_s'] / serving['output_tokens_per_s']:.4f}"
+          ")")
+    serve.shutdown()
+    res["replica_exit_s"] = wait_exited(probe["pid"], "LLMServer")
+    print(f"  serve.shutdown(): the replica exited "
+          f"{res['replica_exit_s']:.2f} s later")
+    return res
+
+
+def serve_gpt2(gpt2, card: str) -> dict:
+    """Phase 7b, part 2: GPT2Sampler("small", max_seq=1024) in a one-GPU
+    replica, against a plain greedy loop in this process."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.examples import SAMPLER_BATCH, GPT2Sampler
+
+    cfg = gpt2.GPT2Config.small()
+    max_seq = 1024
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 257)))
+               .tolist() for _ in range(SAMPLER_REQUESTS)]
+    dep = probed(GPT2Sampler.options(num_replicas=1,
+                                     ray_actor_options={"num_gpus": 1}))
+    t0 = time.perf_counter()
+    handle = serve.run(dep.bind("small", max_seq, SAMPLER_NEW),
+                       timeout_s=600)
+    check_replica(rt, rt.get(handle.probe.remote()), "GPT2Sampler")
+    t1 = time.perf_counter()
+    payloads = [{"ids": p, "max_new_tokens": SAMPLER_NEW} for p in prompts]
+    outs = rt.get([handle.remote(p) for p in payloads])
+    wall = time.perf_counter() - t1
+    m = rt.get(handle.metrics.remote())
+    probe = rt.get(handle.probe.remote())
+    serve.shutdown()
+    exit_s = wait_exited(probe["pid"], "GPT2Sampler")
+    launches, forwards = probe["launches"], probe["forwards"]
+    want = {name: 0 for name in launches}
+    want["flash_fwd"] = cfg.n_layer * forwards
+    if launches != want or not m["mean_batch_size"] > 1:
+        raise AssertionError(f"GPT2Sampler: launches {launches} for "
+                             f"{forwards} forwards; mean batch size "
+                             f"{m['mean_batch_size']}")
+
+    # A plain greedy loop here on GPT-2-small from seed 0, one request at a
+    # time, one forward of the request's own sequence a token, its next
+    # token read at its own last position. None of the sampler's code runs
+    # in it. The sequence sits in row 0 of an otherwise zero [SAMPLER_BATCH,
+    # max_seq] batch only so that every product has the replica's shape
+    # and so sums in its order (a row's result does not depend on the other
+    # rows, nor, under the causal mask, on the positions after it): the
+    # tokens must then agree exactly.
+    model = gpt2.GPT2(cfg, device="cuda", seed=0).eval()
+    batch = torch.zeros(SAMPLER_BATCH, max_seq, dtype=torch.long,
+                        device="cuda")
+    ref = []
+    with torch.no_grad():
+        for p in prompts:
+            seq = list(p)
+            for _ in range(SAMPLER_NEW):
+                batch.zero_()
+                batch[0, :len(seq)] = torch.tensor(seq)
+                seq.append(int(model(batch)[0, len(seq) - 1].argmax()))
+            ref.append(seq)
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = [o["ids"] for o in outs]
+    if got != ref:
+        raise AssertionError(
+            "GPT2Sampler's tokens differ from the plain greedy loop run "
+            f"here: lengths {[len(g) for g in got]} vs "
+            f"{[len(r) for r in ref]}, first difference at "
+            f"{[leading_agreement(g, r) for g, r in zip(got, ref)]}")
+    res = {"requests": len(prompts), "new_tokens": SAMPLER_NEW,
+           "wall_s": wall, "serve_run_s": t1 - t0,
+           "output_tokens_per_s": len(prompts) * SAMPLER_NEW / wall,
+           "mean_batch_size": m["mean_batch_size"],
+           "batches": m["batches_served"], "forwards": forwards,
+           "launches": launches, "replica_peak_gib": probe["peak_gib"],
+           "replica_exit_s": exit_s, "card": card}
+    print(f"  GPT2Sampler small, max_seq {max_seq}: {len(prompts)} requests "
+          f"of {SAMPLER_NEW} tokens in {wall:.2f} s "
+          f"({res['output_tokens_per_s']:.1f} tokens/s) in "
+          f"{m['batches_served']} batches (mean size "
+          f"{m['mean_batch_size']:.2f}), {forwards} forwards; K1 launched "
+          f"{launches['flash_fwd']} times in the replica = {cfg.n_layer} x "
+          f"forwards; tokens equal the plain greedy loop here exactly; replica "
+          f"peak {probe['peak_gib']:.2f} GiB, exited {exit_s:.2f} s after "
+          f"serve.shutdown()")
+    return res
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1503,7 +1930,9 @@ def main() -> int:
     print("== 2. kernels against their plain versions")
     records = check_kernels(attn)
     print("  head dims 192 and 256, float16:")
-    check_f1_instances(attn, records)
+    check_instances(attn, records, F1_CASES, 200)
+    print("  head dims above 256 (the wide instances):")
+    check_instances(attn, records, F3_CASES, 300)
 
     print("== 3. small GPT-2, kernels against plain attention")
     check_model(gpt2)
@@ -1540,6 +1969,14 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+    print("== 7b. Serve: LLMServer (Llama-7B) and GPT2Sampler in one-GPU "
+          "replicas")
+    print(f"  this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+          f" GiB of the card before the replicas start")
+    served = {"llm_server": serve_llm(card, serving),
+              "gpt2_sampler": serve_gpt2(gpt2, card)}
+    serving.pop("solo_tokens")
 
     print("== 8. long context: TorchTrainer.fit, GPT-2-small at seq 8192, "
           "remat")
@@ -1580,12 +2017,14 @@ def main() -> int:
     print("== 12. results")
     print(f"all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"runtime": runtime}))
-    print(json.dumps({"serving": serving}))
+    print(json.dumps({"serving": serving, "serve": served}))
     print(json.dumps({"training": dict(gpt2=main_leg, **legs),
                       "long_model_check": long_check,
                       "remat_bit_equal": {
                           str(k): v for k, v in remat_bit_equal.items()}}))
-    paths = [launches, llama_launches, serve_launches] + [
+    paths = [launches, llama_launches, serve_launches,
+             served["llm_server"]["replica_launches"],
+             served["gpt2_sampler"]["launches"]] + [
         leg["launches"] for leg in legs.values()]
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths)

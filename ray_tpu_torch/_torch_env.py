@@ -37,6 +37,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def replica_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device a serving replica computes on: `device` when the caller
+    names it, else the card the raylet granted this process (it sees only
+    its own cards, as `CUDA_VISIBLE_DEVICES`). A replica with no card and
+    no `device="cpu"` raises: serving never drops to the CPU on its own."""
+    if device is not None:
+        return resolve_device(device)
+    if not os.environ.get("CUDA_VISIBLE_DEVICES", "").strip():
+        raise RuntimeError(
+            "this replica holds no GPU: deploy it with ray_actor_options="
+            "{'num_gpus': 1}, or pass device='cpu' to serve on the CPU")
+    return resolve_device("cuda")
+
+
 def same_device(asked: torch.device, actual: torch.device) -> bool:
     """Whether a tensor on `actual` lies on `asked` (`cuda` matches any card,
     `cuda:1` only the second)."""

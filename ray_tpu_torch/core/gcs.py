@@ -1238,9 +1238,11 @@ class GcsServer:
                 else:
                     entry["nodes"].add(data["node_id"])
                     entry.setdefault("partial", set()).discard(data["node_id"])
+                    entry["located"] = True
             entry["size"] = data.get("size", entry["size"])
             if data.get("inline") is not None:
                 entry["inline"] = data["inline"]
+                entry["located"] = True
             if data.get("owner") is not None:
                 entry["owner"] = data["owner"]
         self.pubsub.publish(CH_OBJECT, oid.binary(), self._object_entry_public(oid))
@@ -1293,6 +1295,9 @@ class GcsServer:
                 "size": entry["size"],
                 "inline": entry["inline"],
                 "owner": entry["owner"],
+                # False while only borrowers have registered: the object
+                # is not created yet, which is not the same as lost.
+                "located": bool(entry.get("located")),
             }
 
     def handle_free_objects(self, conn: Connection, data: Dict[str, Any]):

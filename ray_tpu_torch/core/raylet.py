@@ -481,6 +481,14 @@ class WorkerPool:
                     break
                 spare.state = "busy"  # reserve so nothing else leases it
             self._raylet.retire_worker(spare, "retired (cards needed)")
+            # Its cards go to the new worker only once the process has
+            # exited: until then its CUDA context still holds their memory.
+            if spare.proc is not None:
+                try:
+                    spare.proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    spare.proc.kill()
+                    spare.proc.wait()
         if want > len(ids):
             raise RaySystemError(f"a grant of {gpus} GPUs exceeds this "
                                  f"node's {len(ids)} cards")
@@ -3255,8 +3263,11 @@ class Raylet:
                         self._object_waiters.pop(oid, None)
             return {"status": "local"}
         # has_copies tells the owner whether reconstruction is needed: the
-        # entry exists but every holding node is gone.
-        return {"status": "pending", "known": bool(entry.get("known")),
+        # entry exists but every holding node is gone. An entry that only
+        # borrowers created (a nested ref whose task has not finished)
+        # was never located, so it is still pending, not lost.
+        return {"status": "pending",
+                "known": bool(entry.get("known") and entry.get("located")),
                 "has_copies": bool(entry.get("nodes"))}
 
     def _notify_object_waiters(self, oid: ObjectID, method: str):

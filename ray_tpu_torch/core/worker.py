@@ -539,13 +539,46 @@ class WorkerRuntime(CoreRuntime):
 
     def _dispatch_serve_raw(self, conn: Connection, payload: bytes,
                             method: str, hook_name: str):
-        """Shared core of the serve fast-lane raw handlers, which hand the
-        raw frame to a serve replica's dispatch hook: the serve data plane
-        (`serve/dataplane.py`) is not ported yet. Raised before DEFERRED,
-        the error becomes the reply, as the reference's pre-schedule
-        failures do."""
-        raise NotImplementedError(
-            "the serve data plane is not ported yet (ROADMAP M7b)")
+        """Shared core of the serve fast-lane raw handlers: hand the raw
+        frame to the actor instance's dispatch hook on its asyncio loop
+        and reply with the raw parts it returns.
+
+        Reply discipline (raylint RL001): pre-schedule failures raise
+        BEFORE the DEFERRED return — the server loop converts them to an
+        error reply (the fast lane reads that as provably-not-executed
+        and falls back). Once the coroutine is scheduled, IT owns the
+        reply: every exit path of `run` replies, errors included (an
+        error frame, not a transport error — user-code failures ride
+        inside the frame so one bad request cannot poison a coalesced
+        batch)."""
+        from ray_tpu_torch.serve import dataplane
+
+        mid = conn.current_msg_id
+        inst = self.actor_instance
+        loop = self._async_loop
+        hook = getattr(inst, hook_name, None) if inst is not None else None
+        if hook is None or loop is None:
+            raise RuntimeError(
+                f"actor is not a serve replica (no {hook_name})")
+        view = memoryview(payload)
+
+        async def run():
+            try:
+                parts = await hook(view)
+            except BaseException as e:  # noqa: BLE001 — delivered as error frame
+                try:
+                    conn.reply_raw(mid, method,
+                                   dataplane.encode_error_frame(e))
+                except Exception:  # noqa: BLE001 — caller gone; its client
+                    pass           # delivers the loss
+                return
+            try:
+                conn.reply_raw(mid, method, parts)
+            except Exception:  # noqa: BLE001 — caller gone mid-reply
+                pass
+
+        asyncio.run_coroutine_threadsafe(run(), loop)
+        return DEFERRED
 
     def _handle_serve_raw(self, conn: Connection, payload: bytes):
         """Serve fast-lane request frame: raw bytes end to end (no pickle

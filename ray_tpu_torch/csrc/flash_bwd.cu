@@ -61,6 +61,15 @@
 // memory, in the input type, to feed the next product. Above d = 128 the
 // dK/dV block runs two warps per 16 keys, each accumulating half of dK's
 // and dV's columns (PlainTiles::SPLIT).
+//
+// Every type at d > 256, a multiple of 64 (bwd_dq_kernel_wide,
+// bwd_dkv_kernel_wide): on the CUDA cores in float32, d a run-time
+// argument, 16 owned rows a block. dQ streams K/V tiles of 16 keys (delta
+// summed first by the 8 lanes of each query row); dK/dV streams Q/dO tiles
+// of 8 queries with their lse and delta. Each thread computes its entries
+// of S and dP, P and dS go through shared memory in float32, and the D-wide
+// accumulators (dQ; dK and dV) stay in shared memory, each thread adding
+// into its own columns with the streamed tile's column in registers.
 
 #include "flash_common.cuh"
 
@@ -682,6 +691,150 @@ bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   store_rows<D, T>(dv + ((size_t)bh * sk + w0) * D, dv_acc, sk - w0);
 }
 
+// The wide bodies (flash_common.cuh, namespace wide).
+template <typename T>
+__global__ void __launch_bounds__(wide::THREADS)
+bwd_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const T* __restrict__ o, const float* __restrict__ lse,
+                   float* __restrict__ delta, T* __restrict__ dq, int sq,
+                   int sk, int d, int causal, float scale) {
+  constexpr int R = wide::ROWS, BS = wide::DQ_STREAM;
+  const int LD = wide::ld<T>(d);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dQs = reinterpret_cast<float*>(smem);  // [R][d]
+  float* dSs = dQs + R * d;                      // [R][BS]
+  T* Qs = reinterpret_cast<T*>(dSs + R * BS);    // [R][LD]
+  T* dOs = Qs + R * LD;                          // [R][LD]
+  T* Ks = dOs + R * LD;                          // [BS][LD]
+  T* Vs = Ks + BS * LD;                          // [BS][LD]
+
+  const int nqb = (sq + R - 1) / R;
+  const int bh = blockIdx.x / nqb;
+  const int q0 = (nqb - 1 - blockIdx.x % nqb) * R;
+  q += (size_t)bh * sq * d;
+  k += (size_t)bh * sk * d;
+  v += (size_t)bh * sk * d;
+  dout += (size_t)bh * sq * d;
+  o += (size_t)bh * sq * d;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+  dq += (size_t)bh * sq * d;
+
+  wide::load_rows(Qs, q, q0, R, sq, d);
+  wide::load_rows(dOs, dout, q0, R, sq, d);
+  for (int i = threadIdx.x; i < R * d; i += wide::THREADS) dQs[i] = 0.f;
+  __syncthreads();
+  // This thread's query row and its two key columns of each tile; the 8
+  // lanes of the row sum its delta = rowsum(dO * O) first.
+  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, row = q0 + r;
+  float dl = 0.f, lr = 0.f;
+  if (row < sq) {
+    for (int j = c; j < d; j += 8)
+      dl = fmaf(to_float(dOs[r * LD + j]), to_float(o[(size_t)row * d + j]),
+                dl);
+    lr = lse[row];
+  }
+  dl = wide::oct_sum(dl);
+  if (c == 0 && row < sq) delta[row] = dl;
+
+  int nkb = (sk + BS - 1) / BS;
+  if (causal) nkb = min(nkb, (q0 + R - 1) / BS + 1);
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * BS;
+    __syncthreads();  // every thread is done with the previous tiles and dS
+    wide::load_rows(Ks, k, k0, BS, sk, d);
+    wide::load_rows(Vs, v, k0, BS, sk, d);
+    __syncthreads();
+
+    float s0 = 0.f, s1 = 0.f, dp0 = 0.f, dp1 = 0.f;
+    wide::dot2(Qs + r * LD, Ks + c * LD, Ks + (c + 8) * LD, d, s0, s1);
+    wide::dot2(dOs + r * LD, Vs + c * LD, Vs + (c + 8) * LD, d, dp0, dp1);
+    const int c0 = k0 + c, c1 = k0 + c + 8;
+    const float p0 =
+        c0 < sk && (!causal || c0 <= row) ? expf(s0 * scale - lr) : 0.f;
+    const float p1 =
+        c1 < sk && (!causal || c1 <= row) ? expf(s1 * scale - lr) : 0.f;
+    dSs[r * BS + c] = p0 * (dp0 - dl) * scale;
+    dSs[r * BS + c + 8] = p1 * (dp1 - dl) * scale;
+    __syncthreads();
+    wide::add_wb<BS>(dQs, dSs, Ks, d);  // dQ += dS K
+  }
+  __syncthreads();
+  wide::store_rows(dq, dQs, q0, sq, d, 1.f);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(wide::THREADS)
+bwd_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, int sq, int sk, int d, int causal,
+                    float scale) {
+  constexpr int R = wide::ROWS, BS = wide::DKV_STREAM;
+  const int LD = wide::ld<T>(d);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dKs = reinterpret_cast<float*>(smem);  // [R][d]
+  float* dVs = dKs + R * d;                      // [R][d]
+  float* Ps = dVs + R * d;                       // [R][BS], keys x queries
+  float* dSs = Ps + R * BS;                      // [R][BS]
+  float* lse_s = dSs + R * BS;                   // [BS]
+  float* delta_s = lse_s + BS;                   // [BS]
+  T* Ks = reinterpret_cast<T*>(delta_s + BS);    // [R][LD]
+  T* Vs = Ks + R * LD;                           // [R][LD]
+  T* Qs = Vs + R * LD;                           // [BS][LD]
+  T* dOs = Qs + BS * LD;                         // [BS][LD]
+
+  // The first key blocks see the most causal queries: issued first.
+  const int nkb = (sk + R - 1) / R;
+  const int bh = blockIdx.x / nkb;
+  const int k0 = (blockIdx.x % nkb) * R;
+  q += (size_t)bh * sq * d;
+  k += (size_t)bh * sk * d;
+  v += (size_t)bh * sk * d;
+  dout += (size_t)bh * sq * d;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+  dk += (size_t)bh * sk * d;
+  dv += (size_t)bh * sk * d;
+
+  wide::load_rows(Ks, k, k0, R, sk, d);
+  wide::load_rows(Vs, v, k0, R, sk, d);
+  for (int i = threadIdx.x; i < 2 * R * d; i += wide::THREADS) dKs[i] = 0.f;
+  // This thread's key row and its one query column of each tile.
+  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, key = k0 + r;
+
+  const int nqb = (sq + BS - 1) / BS;
+  for (int qb = causal ? k0 / BS : 0; qb < nqb; ++qb) {
+    const int q0 = qb * BS;
+    __syncthreads();  // every thread is done with the previous tiles, P, dS
+    wide::load_rows(Qs, q, q0, BS, sq, d);
+    wide::load_rows(dOs, dout, q0, BS, sq, d);
+    if (threadIdx.x < BS) {
+      const bool in = q0 + threadIdx.x < sq;
+      lse_s[threadIdx.x] = in ? lse[q0 + threadIdx.x] : 0.f;
+      delta_s[threadIdx.x] = in ? delta[q0 + threadIdx.x] : 0.f;
+    }
+    __syncthreads();
+
+    const float s = wide::dot(Ks + r * LD, Qs + c * LD, d);
+    const float dp = wide::dot(Vs + r * LD, dOs + c * LD, d);
+    const int qrow = q0 + c;
+    const float p = qrow < sq && key < sk && (!causal || key <= qrow)
+                        ? expf(s * scale - lse_s[c])
+                        : 0.f;
+    Ps[r * BS + c] = p;
+    dSs[r * BS + c] = p * (dp - delta_s[c]) * scale;
+    __syncthreads();
+    wide::add_wb<BS>(dVs, Ps, dOs, d);  // dV += P^T dO
+    wide::add_wb<BS>(dKs, dSs, Qs, d);  // dK += dS^T Q
+  }
+  __syncthreads();
+  wide::store_rows(dk, dKs, k0, sk, d, 1.f);
+  wide::store_rows(dv, dVs, k0, sk, d, 1.f);
+}
+
 // Shared memory of each body (ray_tpu_torch/ops/attention.py's
 // kernel_smem_bytes mirrors these).
 template <typename T, int D>
@@ -775,6 +928,48 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
   }
 }
 
+template <typename T>
+static int bwd_dq_wide(const void* q, const void* k, const void* v,
+                       const void* dout, const void* out, const void* lse,
+                       void* delta, void* dq, int bh, int sq, int sk, int d,
+                       int causal, float scale, cudaStream_t stream) {
+  const size_t smem = wide::dq_smem<T>(d);
+  if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
+  const dim3 grid(bh * ((sq + wide::ROWS - 1) / wide::ROWS));
+  return launch(bwd_dq_kernel_wide<T>, grid, wide::THREADS, smem, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const T*>(out), static_cast<const float*>(lse),
+                static_cast<float*>(delta), static_cast<T*>(dq), sq, sk, d,
+                causal, scale);
+}
+
+template <typename T>
+static int bwd_dkv_wide(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int bh, int sq, int sk, int d,
+                        int causal, float scale, cudaStream_t stream) {
+  const size_t smem = wide::dkv_smem<T>(d);
+  if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
+  const dim3 grid(bh * ((sk + wide::ROWS - 1) / wide::ROWS));
+  return launch(bwd_dkv_kernel_wide<T>, grid, wide::THREADS, smem, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<T*>(dk),
+                static_cast<T*>(dv), sq, sk, d, causal, scale);
+}
+
+template <typename T>
+static int dq_wide_smem(int d) {
+  return (int)wide::dq_smem<T>(d);
+}
+
+template <typename T>
+static int dkv_wide_smem(int d) {
+  return (int)wide::dkv_smem<T>(d);
+}
+
 // q, dout, out [bh, sq, d]; k, v [bh, sk, d]; lse [bh, sq] float32
 // -> delta [bh, sq] float32, dq [bh, sq, d].
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -782,6 +977,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* lse, void* delta, void* dq, int bh,
                             int sq, int sk, int d, int causal, float scale,
                             int dtype, void* stream) {
+  if (wide::head_dim(d))
+    FLASH_DISPATCH_WIDE(bwd_dq_wide, dtype, q, k, v, dout, out, lse, delta,
+                        dq, bh, sq, sk, d, causal, scale,
+                        static_cast<cudaStream_t>(stream));
   FLASH_DISPATCH(bwd_dq, dtype, d, q, k, v, dout, out, lse, delta, dq, bh, sq,
                  sk, causal, scale, static_cast<cudaStream_t>(stream));
 }
@@ -793,6 +992,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* delta, void* dk, void* dv, int bh,
                              int sq, int sk, int d, int causal, float scale,
                              int dtype, void* stream) {
+  if (wide::head_dim(d))
+    FLASH_DISPATCH_WIDE(bwd_dkv_wide, dtype, q, k, v, dout, lse, delta, dk,
+                        dv, bh, sq, sk, d, causal, scale,
+                        static_cast<cudaStream_t>(stream));
   FLASH_DISPATCH(bwd_dkv, dtype, d, q, k, v, dout, lse, delta, dk, dv, bh, sq,
                  sk, causal, scale, static_cast<cudaStream_t>(stream));
 }
@@ -800,6 +1003,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 // Shared memory one block of flash_bwd_dq (kernel 0) or flash_bwd_dkv
 // (kernel 1) takes at this head dim and dtype.
 extern "C" int flash_bwd_smem(int kernel, int d, int dtype) {
+  if (wide::head_dim(d)) {
+    if (kernel == 0) FLASH_DISPATCH_WIDE(dq_wide_smem, dtype, d);
+    FLASH_DISPATCH_WIDE(dkv_wide_smem, dtype, d);
+  }
   if (kernel == 0) FLASH_DISPATCH(dq_smem, dtype, d, );
   FLASH_DISPATCH(dkv_smem, dtype, d, );
 }

@@ -20,6 +20,9 @@
 //   three decimal digits, too few for the 1e-4 the float32 instances are
 //   held to, so those stay on the CUDA cores. The 16-bit instances at
 //   D > 128 use these bodies until they get a Hopper design of their own.
+// - The wide bodies (namespace flash::wide): every type at head dims above
+//   256 that are a multiple of 64, d a run-time argument, accumulators in
+//   shared memory, on the CUDA cores in float32.
 //
 // Accumulator layout (the mma.sync C fragment, which is also the layout of
 // each warp's 16 rows of a wgmma accumulator), lane = 4 * g + t:
@@ -177,6 +180,7 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 #define FLASH_ERR_UNSUPPORTED 1000  // dtype or head dimension not compiled
 #define FLASH_ERR_NO_ENCODER 1001   // libcuda has no cuTensorMapEncodeTiled
 #define FLASH_ERR_TENSOR_MAP 1002   // cuTensorMapEncodeTiled refused a map
+#define FLASH_ERR_SMEM 1003         // a wide body's tiles exceed 227 KB
 
 // --------------------------------------------------------------------------
 // Hopper pieces: TMA, mbarriers and wgmma, as short inline PTX.
@@ -655,13 +659,179 @@ __device__ __forceinline__ uint8_t* aligned_smem(unsigned char* p) {
 }  // namespace sm90
 }  // namespace flash
 
+// --------------------------------------------------------------------------
+// The wide bodies: head dims above 256 that are a multiple of 64.
+// --------------------------------------------------------------------------
+//
+// One instance per type and kernel serves every such head dim: d is a
+// run-time argument. A block of 4 warps owns ROWS = 16 rows (queries; keys
+// for dK/dV) and streams tiles of *_STREAM rows past them. The D-wide
+// float32 accumulators (O; dQ; dK and dV) and the tile products (P, dS)
+// live in dynamic shared memory, not in registers, so the block's shared
+// memory grows with d (fwd_smem, dq_smem, dkv_smem below, mirrored by
+// kernel_smem_bytes in ray_tpu_torch/ops/attention.py): it fits the 227 KB
+// a block may take up to d 704 in float32 and d 1024 in bf16 and float16.
+// Every product runs on the CUDA cores in float32.
+namespace flash {
+namespace wide {
+
+constexpr int ROWS = 16, THREADS = 128;
+constexpr int FWD_STREAM = 16, DQ_STREAM = 16, DKV_STREAM = 8;
+constexpr int SMEM_LIMIT = 232448;  // bytes one block may opt in to
+
+__host__ __device__ constexpr bool head_dim(int d) {
+  return d > 256 && d % 64 == 0;
+}
+
+// Shared-memory row stride in elements: 16 bytes of padding, as ld<T, D>.
+template <typename T>
+__host__ __device__ inline int ld(int d) {
+  return d + 16 / (int)sizeof(T);
+}
+
+template <typename T>
+size_t fwd_smem(int d) {  // O; P; Q; K and V tiles
+  return (size_t)ROWS * d * 4 + ROWS * FWD_STREAM * 4 +
+         (size_t)(ROWS + 2 * FWD_STREAM) * ld<T>(d) * sizeof(T);
+}
+template <typename T>
+size_t dq_smem(int d) {  // dQ; dS; Q and dO; K and V tiles
+  return (size_t)ROWS * d * 4 + ROWS * DQ_STREAM * 4 +
+         (size_t)(2 * ROWS + 2 * DQ_STREAM) * ld<T>(d) * sizeof(T);
+}
+template <typename T>
+size_t dkv_smem(int d) {  // dK, dV; P, dS; lse, delta; K, V; Q and dO tiles
+  return (size_t)2 * ROWS * d * 4 + 2 * ROWS * DKV_STREAM * 4 +
+         2 * DKV_STREAM * 4 +
+         (size_t)(2 * ROWS + 2 * DKV_STREAM) * ld<T>(d) * sizeof(T);
+}
+
+// Copy rows [row0, row0 + rows) of a [seq, d] matrix into shared memory
+// (row stride ld<T>(d)) with 16-byte vectors; rows at or past `seq` are
+// zero-filled.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
+                                          int rows, int seq, int d) {
+  const int per_row = d / (16 / (int)sizeof(T)), lds = ld<T>(d);
+  for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
+    const int r = i / per_row, c = (i % per_row) * (16 / (int)sizeof(T));
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < seq)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + c);
+    *reinterpret_cast<uint4*>(dst + r * lds + c) = val;
+  }
+}
+
+// Sixteen bytes of a 16-byte aligned row as float32.
+template <typename T>
+__device__ __forceinline__ void unpack(const T* p, float (&x)[16 / sizeof(T)]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16 / (int)sizeof(T); ++i) x[i] = to_float(e[i]);
+}
+
+// a . b0 and a . b1 over d elements of shared-memory rows.
+template <typename T>
+__device__ __forceinline__ void dot2(const T* a, const T* b0, const T* b1,
+                                     int d, float& s0, float& s1) {
+  constexpr int V = 16 / sizeof(T);
+  for (int j = 0; j < d; j += V) {
+    float x[V], y0[V], y1[V];
+    unpack(a + j, x);
+    unpack(b0 + j, y0);
+    unpack(b1 + j, y1);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      s0 = fmaf(x[i], y0[i], s0);
+      s1 = fmaf(x[i], y1[i], s1);
+    }
+  }
+}
+
+// a . b over d elements of shared-memory rows.
+template <typename T>
+__device__ __forceinline__ float dot(const T* a, const T* b, int d) {
+  constexpr int V = 16 / sizeof(T);
+  float s = 0.f;
+  for (int j = 0; j < d; j += V) {
+    float x[V], y[V];
+    unpack(a + j, x);
+    unpack(b + j, y);
+#pragma unroll
+    for (int i = 0; i < V; ++i) s = fmaf(x[i], y[i], s);
+  }
+  return s;
+}
+
+// Sum (or max) over the 8 lanes that share one row (lanes 8r .. 8r + 7).
+__device__ __forceinline__ float oct_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+__device__ __forceinline__ float oct_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+
+__device__ __forceinline__ void store_one(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_one(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+
+// acc[rr][j] += sum_c w[rr][c] * B[c][j] for the block's ROWS rows and all
+// d columns: thread x takes columns x, x + THREADS, ..., and holds the
+// column of B in registers. w is [ROWS][S] float32, B [S][ld] in shared
+// memory.
+template <int S, typename T>
+__device__ __forceinline__ void add_wb(float* acc, const float* w,
+                                       const T* B, int d) {
+  const int lds = ld<T>(d);
+  for (int j = threadIdx.x; j < d; j += THREADS) {
+    float b[S];
+#pragma unroll
+    for (int c = 0; c < S; ++c) b[c] = to_float(B[c * lds + j]);
+#pragma unroll 4
+    for (int rr = 0; rr < ROWS; ++rr) {
+      float a = acc[rr * d + j];
+#pragma unroll
+      for (int c = 0; c < S; ++c) a = fmaf(w[rr * S + c], b[c], a);
+      acc[rr * d + j] = a;
+    }
+  }
+}
+
+// Write the block's float32 [ROWS][d] accumulator to rows row0.. of a
+// [seq, d] matrix, times `mul` (each row's own, or 1); rows at or past
+// `seq` are dropped. Lane c of a row's 8 takes columns c, c + 8, ....
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float* acc, int row0,
+                                           int seq, int d, float mul) {
+  const int r = threadIdx.x >> 3, c = threadIdx.x & 7;
+  if (row0 + r >= seq) return;
+  for (int j = c; j < d; j += 8)
+    store_one(dst + (size_t)(row0 + r) * d + j, acc[r * d + j] * mul);
+}
+
+}  // namespace wide
+}  // namespace flash
+
 // The C entry points take dtype 0 = float32, 1 = bfloat16, 2 = float16,
-// and a head dimension of 32, 64, 128, 192 or 256; anything else returns
-// FLASH_ERR_UNSUPPORTED. Each shared library built from a source that
-// includes this header exports its own copy.
+// and a head dimension of 32, 64, 128, 192 or 256, or a multiple of 64
+// above 256 whose wide tiles fit; anything else returns
+// FLASH_ERR_UNSUPPORTED or FLASH_ERR_SMEM. Each shared library built from
+// a source that includes this header exports its own copy.
 extern "C" const char* flash_error_string(int code) {
   if (code == FLASH_ERR_UNSUPPORTED)
     return "unsupported dtype or head dimension";
+  if (code == FLASH_ERR_SMEM)
+    return "the head dimension's tiles exceed a block's 227 KB of shared "
+           "memory";
   if (code == FLASH_ERR_NO_ENCODER)
     return "libcuda has no cuTensorMapEncodeTiled";
   if (code == FLASH_ERR_TENSOR_MAP)
@@ -684,6 +854,14 @@ extern "C" const char* flash_error_string(int code) {
     if (dtype == 0) FLASH_DISPATCH_D(fn, float, d, __VA_ARGS__);           \
     if (dtype == 1) FLASH_DISPATCH_D(fn, __nv_bfloat16, d, __VA_ARGS__);   \
     if (dtype == 2) FLASH_DISPATCH_D(fn, __half, d, __VA_ARGS__);          \
+    return FLASH_ERR_UNSUPPORTED;                                          \
+  } while (0)
+// The same for the wide bodies: calls `fn<T>(args...)`, d among the args.
+#define FLASH_DISPATCH_WIDE(fn, dtype, ...)                                \
+  do {                                                                     \
+    if (dtype == 0) return fn<float>(__VA_ARGS__);                         \
+    if (dtype == 1) return fn<__nv_bfloat16>(__VA_ARGS__);                 \
+    if (dtype == 2) return fn<__half>(__VA_ARGS__);                        \
     return FLASH_ERR_UNSUPPORTED;                                          \
   } while (0)
 

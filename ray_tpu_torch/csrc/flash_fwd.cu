@@ -33,7 +33,14 @@
 // 16 rows, K and V tiles of PlainTiles<D>::STREAM rows copied into shared
 // memory between two barriers, P through shared memory in the input type.
 //
-// Both skip causal tiles above the diagonal, mask only the tiles that cross
+// Every type at d > 256, a multiple of 64 (fwd_kernel_wide): on the CUDA
+// cores in float32, d a run-time argument. 16 query rows a block, K and V
+// tiles of 16 rows; the 8 lanes of each query row compute two scores each
+// and run that row's online softmax with shuffles, P (float32) and the
+// D-wide O accumulator stay in shared memory, and each thread adds P V
+// into its own columns of O with V's column in registers.
+//
+// All skip causal tiles above the diagonal, mask only the tiles that cross
 // it or the end of the sequence, and issue the heaviest q-blocks first.
 
 #include "flash_common.cuh"
@@ -351,6 +358,68 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
         lse[(size_t)bh * sq + rows[h]] = m[h] * scale + logf(den[h]);
   }
 }
+// The wide body (flash_common.cuh, namespace wide).
+template <typename T>
+__global__ void __launch_bounds__(wide::THREADS)
+fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ o,
+                float* __restrict__ lse, int sq, int sk, int d, int causal,
+                float scale) {
+  constexpr int R = wide::ROWS, BS = wide::FWD_STREAM;
+  const int LD = wide::ld<T>(d);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Os = reinterpret_cast<float*>(smem);  // [R][d]
+  float* Ps = Os + R * d;                       // [R][BS]
+  T* Qs = reinterpret_cast<T*>(Ps + R * BS);    // [R][LD]
+  T* Ks = Qs + R * LD;                          // [BS][LD]
+  T* Vs = Ks + BS * LD;                         // [BS][LD]
+
+  const int nqb = (sq + R - 1) / R;
+  const int bh = blockIdx.x / nqb;
+  const int q0 = (nqb - 1 - blockIdx.x % nqb) * R;
+  q += (size_t)bh * sq * d;
+  k += (size_t)bh * sk * d;
+  v += (size_t)bh * sk * d;
+  o += (size_t)bh * sq * d;
+  lse += (size_t)bh * sq;
+
+  wide::load_rows(Qs, q, q0, R, sq, d);
+  for (int i = threadIdx.x; i < R * d; i += wide::THREADS) Os[i] = 0.f;
+  // This thread's query row and its two key columns of each tile.
+  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, row = q0 + r;
+  float m = NEG_INF, l = 0.f;
+
+  int nkb = (sk + BS - 1) / BS;
+  if (causal) nkb = min(nkb, (q0 + R - 1) / BS + 1);
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * BS;
+    __syncthreads();  // every thread is done with the previous tiles and P
+    wide::load_rows(Ks, k, k0, BS, sk, d);
+    wide::load_rows(Vs, v, k0, BS, sk, d);
+    __syncthreads();
+
+    float s0 = 0.f, s1 = 0.f;
+    wide::dot2(Qs + r * LD, Ks + c * LD, Ks + (c + 8) * LD, d, s0, s1);
+    const int c0 = k0 + c, c1 = k0 + c + 8;
+    s0 = c0 < sk && (!causal || c0 <= row) ? s0 * scale : NEG_INF;
+    s1 = c1 < sk && (!causal || c1 <= row) ? s1 * scale : NEG_INF;
+    const float mx = wide::oct_max(fmaxf(m, fmaxf(s0, s1)));
+    const float corr = expf(m - mx);
+    s0 = expf(s0 - mx);
+    s1 = expf(s1 - mx);
+    l = corr * l + wide::oct_sum(s0 + s1);
+    m = mx;
+    Ps[r * BS + c] = s0;
+    Ps[r * BS + c + 8] = s1;
+    for (int j = c; j < d; j += 8) Os[r * d + j] *= corr;
+    __syncthreads();
+    wide::add_wb<BS>(Os, Ps, Vs, d);  // O += P V
+  }
+  __syncthreads();
+  const float den = fmaxf(l, 1e-30f);
+  wide::store_rows(o, Os, q0, sq, d, 1.f / den);
+  if (c == 0 && row < sq) lse[row] = m + logf(den);
+}
 
 // Shared memory of each body (ray_tpu_torch/ops/attention.py's
 // kernel_smem_bytes mirrors these).
@@ -391,15 +460,37 @@ static int fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+template <typename T>
+static int fwd_wide(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int bh, int sq, int sk, int d, int causal,
+                    float scale, cudaStream_t stream) {
+  const size_t smem = wide::fwd_smem<T>(d);
+  if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
+  const dim3 grid(bh * ((sq + wide::ROWS - 1) / wide::ROWS));
+  return launch(fwd_kernel_wide<T>, grid, wide::THREADS, smem, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<T*>(o),
+                static_cast<float*>(lse), sq, sk, d, causal, scale);
+}
+
+template <typename T>
+static int fwd_wide_smem(int d) {
+  return (int)wide::fwd_smem<T>(d);
+}
+
 // q [bh, sq, d], k and v [bh, sk, d] -> o [bh, sq, d], lse [bh, sq] float32.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int sq, int sk, int d,
                          int causal, float scale, int dtype, void* stream) {
+  if (wide::head_dim(d))
+    FLASH_DISPATCH_WIDE(fwd_wide, dtype, q, k, v, o, lse, bh, sq, sk, d,
+                        causal, scale, static_cast<cudaStream_t>(stream));
   FLASH_DISPATCH(fwd, dtype, d, q, k, v, o, lse, bh, sq, sk, causal, scale,
                  static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory one block of flash_fwd takes at this head dim and dtype.
 extern "C" int flash_fwd_smem(int d, int dtype) {
+  if (wide::head_dim(d)) FLASH_DISPATCH_WIDE(fwd_wide_smem, dtype, d);
   FLASH_DISPATCH(fwd_smem, dtype, d, );
 }

@@ -3,8 +3,9 @@
 Counterpart of `ray_tpu.inference`: a paged KV-cache block manager and
 radix prefix cache (`kv_cache`), LRU-resident LoRA adapter banks
 (`adapters`) and an iteration-level scheduler that re-forms the batch every
-decode step (`engine`). The Serve deployment `LLMServer` waits for the port
-of the actor runtime and the Serve tier.
+decode step (`engine`). `LLMServer` (`inference/api.py`) is the Serve
+deployment over the engine; it is imported lazily, so the engine core loads
+without the serving stack.
 
     from ray_tpu_torch.inference import EngineConfig, InferenceEngine
     engine = InferenceEngine(EngineConfig(model_size="7b", batch_slots=8))
@@ -28,5 +29,16 @@ __all__ = [
     "EngineConfig",
     "EngineLoop",
     "InferenceEngine",
+    "LLMServer",
     "Request",
 ]
+
+
+def __getattr__(name):
+    # LLMServer pulls in ray_tpu_torch.serve; keep the core engine
+    # importable without the serving stack (and without a cluster).
+    if name == "LLMServer":
+        from ray_tpu_torch.inference.api import LLMServer
+
+        return LLMServer
+    raise AttributeError(name)

@@ -13,9 +13,11 @@ head_dim]. The kernels and their plain PyTorch versions work on
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
 for the other. On the card the body is chosen by type and head dim: bf16
 and float16 at d <= 128 run the Hopper bodies (TMA ring, wgmma), float32
-and the 16-bit types at d 192 and 256 the CUDA-core bodies (`TILES` lists
-each one's tiles). The dQ kernel runs first in the backward and also
-writes delta = rowsum(dO * O), which the dK/dV kernel reads.
+and the 16-bit types at d 192 and 256 the CUDA-core bodies, and every type
+at a multiple of 64 above 256 the wide bodies, which take d at run time and
+keep their accumulators in shared memory (`TILES` lists each one's tiles).
+The dQ kernel runs first in the backward and also writes delta =
+rowsum(dO * O), which the dK/dV kernel reads.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 192, 256)  # head dims the kernels are compiled for
+HEAD_DIMS = (32, 64, 128, 192, 256)  # head dims with an instance of their own
 SMEM_LIMIT = 232448        # shared memory one block may use on Hopper
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HALF = (torch.bfloat16, torch.float16)  # the types wgmma takes
@@ -42,6 +44,7 @@ class Tile(NamedTuple):
     stages: int   # slots of the ring the streamed tiles pass through
     ring: bool    # TMA ring + wgmma (Hopper body), or the CUDA cores
     split: int = 1  # warps per 16 owned rows, each with its share of columns
+    wide: bool = False  # d at run time, accumulators in shared memory
 
 
 def _plain(name: str, d: int) -> Tile:
@@ -64,14 +67,97 @@ _RING = {
                      64: Tile(128, 128, 4, True),
                      128: Tile(128, 64, 4, True)},
 }
+# The wide bodies' tiles (flash_common.cuh, namespace wide: ROWS and the
+# *_STREAM rows): one instance per type serves every multiple of 64 above
+# 256, up to the largest whose shared memory fits (`WIDE_MAX_D`).
+_WIDE = {"flash_fwd": Tile(16, 16, 1, False, wide=True),
+         "flash_bwd_dq": Tile(16, 16, 1, False, wide=True),
+         "flash_bwd_dkv": Tile(16, 8, 1, False, wide=True)}
+
+
+def _smem(name: str, t: Tile, d: int, size: int) -> int:
+    """Shared memory of one block of kernel `name` with tiles `t` at head
+    dim d for elements of `size` bytes (the formulas of csrc/)."""
+    if t.wide:
+        # float32 accumulators (O; dQ; dK and dV) and P / dS tiles, then
+        # the owned and streamed rows padded by 16 bytes; dK/dV keeps the
+        # streamed rows' lse and delta.
+        row = (d + 16 // size) * size
+        n_acc, n_p, owned = {"flash_fwd": (1, 1, 1), "flash_bwd_dq": (1, 1, 2),
+                             "flash_bwd_dkv": (2, 2, 2)}[name]
+        out = 4 * t.rows * (n_acc * d + n_p * t.stream) \
+            + (owned * t.rows + 2 * t.stream) * row
+        return out + (2 * t.stream * 4 if name == "flash_bwd_dkv" else 0)
+    if t.ring:
+        # Tiles are unpadded (TMA swizzles them); one 8-byte mbarrier per
+        # resident load and two per slot; 1024 bytes to align the swizzle
+        # pattern. Resident: Q (forward); Q, dO and O (dQ); K and V (dK/dV).
+        owned = {"flash_fwd": 1, "flash_bwd_dq": 3,
+                 "flash_bwd_dkv": 2}[name] * t.rows * d * size
+        slot = 2 * t.stream * d * size
+        if name == "flash_bwd_dkv":
+            slot += 2 * t.stream * 4       # lse and delta
+        return owned + t.stages * slot + 8 * (1 + 2 * t.stages) + 1024
+    # Rows padded by 16 bytes; each warp's rows of P or dS get a tile of
+    # their own; dK/dV keeps lse and delta beside its tiles. Owned: Q
+    # (forward); Q and dO (dQ); K and V (dK/dV).
+    row = (d + 16 // size) * size
+    owned = 1 if name == "flash_fwd" else 2
+    p_tile = t.split * t.rows * (t.stream + 16 // size) * size
+    out = (owned * t.rows + 2 * t.stream) * row + p_tile
+    return out + (2 * t.stream * 4 if name == "flash_bwd_dkv" else 0)
+
+
+def _wide_max_d(dtype: torch.dtype) -> int:
+    """The largest multiple of 64 at which all three wide blocks fit."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    d = 256
+    while all(_smem(n, t, d + 64, size) <= SMEM_LIMIT
+              for n, t in _WIDE.items()):
+        d += 64
+    return d
+
+
+# dtype -> the largest head dim the kernels take: 704 in float32 and 1024
+# in bf16 and float16 (the wide dK/dV block's shared memory bounds both).
+WIDE_MAX_D: Dict[torch.dtype, int] = {dt: _wide_max_d(dt)
+                                      for dt in _DTYPE_CODES}
+
+
+def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
+    """Every head dim the kernels take in this dtype: `HEAD_DIMS`, then
+    the multiples of 64 above 256 up to `WIDE_MAX_D`."""
+    return HEAD_DIMS + tuple(range(320, WIDE_MAX_D[dtype] + 1, 64))
+
+
 # (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: bf16 and float16 run
-# the Hopper bodies at d <= 128 and the CUDA-core bodies above; float32
-# runs the CUDA-core bodies at every head dim.
+# the Hopper bodies at d <= 128 and the CUDA-core bodies at 192 and 256;
+# float32 runs the CUDA-core bodies up to 256; every type runs the wide
+# bodies above 256.
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
-    (name, dtype): {d: (_RING[name][d] if dtype in _HALF and d in _RING[name]
-                        else _plain(name, d)) for d in HEAD_DIMS}
+    (name, dtype): {d: (_WIDE[name] if d > 256
+                        else _RING[name][d] if dtype in _HALF
+                        and d in _RING[name] else _plain(name, d))
+                    for d in head_dims(dtype)}
     for name in KERNELS for dtype in _DTYPE_CODES
 }
+
+
+def _refuse_head_dim(d: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernels take head dim d in this dtype."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash attention takes float32, bfloat16 or "
+                         f"float16, not {dtype}")
+    if d in TILES[KERNELS[0], dtype]:
+        return
+    if d > 256 and d % 64 == 0:
+        raise ValueError(
+            f"head dim {d}: above {WIDE_MAX_D[dtype]} the kernels' tiles "
+            f"in {dtype} exceed the {SMEM_LIMIT} bytes of shared memory a "
+            f"block may take")
+    raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS} and the "
+                     f"multiples of 64 up to {WIDE_MAX_D[dtype]}")
+
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -178,8 +264,7 @@ def _check_inputs(q, k, v, do=None, lse=None, delta=None, out=None) -> bool:
     if k.shape != (bh, sk, d) or v.shape != k.shape or sq == 0 or sk == 0:
         raise ValueError(f"flash attention shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
+    _refuse_head_dim(d, q.dtype)
     rows = min(TILES[name, q.dtype][d].rows for name in KERNELS)
     if bh * -(-max(sq, sk) // rows) >= 2 ** 31:
         raise ValueError(f"{bh} x {max(sq, sk)} rows exceed one launch grid")
@@ -285,37 +370,13 @@ def _flash_backward(q, k, v, out, lse, do, causal: bool, scale: float
 def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16
                       ) -> Dict[str, int]:
     """Shared memory each kernel's block takes, from `TILES` (the formulas
-    of csrc/: fwd_smem, dq_smem, dkv_smem, which the C entry points
-    flash_fwd_smem and flash_bwd_smem report on the card)."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
+    of csrc/: fwd_smem, dq_smem, dkv_smem and their wide counterparts, which
+    the C entry points flash_fwd_smem and flash_bwd_smem report on the
+    card)."""
+    _refuse_head_dim(d, dtype)
     size = torch.tensor([], dtype=dtype).element_size()
-    out = {}
-    for name in KERNELS:
-        t = TILES[name, dtype][d]
-        if t.ring:
-            # Tiles are unpadded (TMA swizzles them); one 8-byte mbarrier per
-            # resident load and two per slot; 1024 bytes to align the
-            # swizzle pattern. Resident: Q (forward); Q, dO and O (dQ); K
-            # and V (dK/dV).
-            owned = {"flash_fwd": 1, "flash_bwd_dq": 3,
-                     "flash_bwd_dkv": 2}[name] * t.rows * d * size
-            slot = 2 * t.stream * d * size
-            if name == "flash_bwd_dkv":
-                slot += 2 * t.stream * 4       # lse and delta
-            out[name] = owned + t.stages * slot + 8 * (1 + 2 * t.stages) \
-                + 1024
-        else:
-            # Rows padded by 16 bytes; each warp's rows of P or dS get a
-            # tile of their own; dK/dV keeps lse and delta beside its tiles.
-            # Owned: Q (forward); Q and dO (dQ); K and V (dK/dV).
-            row = (d + 16 // size) * size
-            owned = 1 if name == "flash_fwd" else 2
-            p_tile = t.split * t.rows * (t.stream + 16 // size) * size
-            out[name] = (owned * t.rows + 2 * t.stream) * row + p_tile
-            if name == "flash_bwd_dkv":
-                out[name] += 2 * t.stream * 4
-    return out
+    return {name: _smem(name, TILES[name, dtype][d], d, size)
+            for name in KERNELS}
 
 
 class FlashAttention(torch.autograd.Function):
@@ -350,22 +411,24 @@ def flash_attention(q, k, v, causal: bool = True,
 
     Runs the flash kernels (forward and backward) on the card, their plain
     versions on the CPU, when seq_q == seq_k and the head dim is one the
-    kernels are compiled for (`HEAD_DIMS`), in float32, bf16 or float16.
-    Where the JAX package's `_use_pallas` answers by shape with
-    `mha_reference`, so does this, on both devices: seq_q != seq_k (its
-    causal mask aligns sequence ends while the kernels' starts both at 0),
-    or a head dim that is not a multiple of 64 and has no kernel here (16,
-    48, 80, 96, ...). The choice depends on the shape alone, never on
-    whether a kernel built or launched, so it hides no kernel. A multiple
-    of 64 above 256 raises: the JAX package runs its kernels there, and
-    no kernel of the port is compiled for it. Each kernel's tiles are fixed
-    by its source for each type and head dim (`TILES`); the kernels mask a
-    ragged last tile, so any sequence length takes them."""
+    kernels take (`head_dims`: 32, 64, 128, 192, 256 and every multiple of
+    64 above, up to `WIDE_MAX_D`), in float32, bf16 or float16. Where the
+    JAX package's `_use_pallas` answers by shape with `mha_reference`, so
+    does this, on both devices: seq_q != seq_k (its causal mask aligns
+    sequence ends while the kernels' starts both at 0), or a head dim that
+    is not a multiple of 64 and has no kernel here (16, 48, 80, 96, ...).
+    The choice depends on the shape alone, never on whether a kernel built
+    or launched, so it hides no kernel. A multiple of 64 above
+    `WIDE_MAX_D` (704 in float32, 1024 in bf16 and float16) raises: the
+    wide kernels' tiles no longer fit the 227 KB of shared memory a block
+    may take, a resource limit as the TPU kernels' VMEM is. Each kernel's
+    tiles are fixed by its source for each type and head dim (`TILES`);
+    the kernels mask a ragged last tile, so any sequence length takes
+    them."""
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if q.shape[2] != k.shape[2] or (d % 64 and d not in HEAD_DIMS):
         return mha_reference(q, k, v, causal=causal, scale=scale)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
+    _refuse_head_dim(d, q.dtype)
     return FlashAttention.apply(q, k, v, causal, float(scale))

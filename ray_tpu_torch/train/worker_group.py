@@ -5,9 +5,9 @@ The port's copy of `ray_tpu/train/worker_group.py` (the reference's
 function-executor actors; the backend's process-group setup and the
 training loop both run through them. A worker granted GPUs sees exactly
 its cards (the raylet sets its CUDA_VISIBLE_DEVICES) and trains on
-`cuda`. The JAX package's gang monitor (`shardgroup`), which fails a
-multi-host group fast when one rank dies, is not ported yet (ROADMAP M4c):
-here a dead rank surfaces as the actor error of its next call.
+`cuda`. A group of more than one worker is watched by the `shardgroup`
+gang monitor: when a rank dies, the next `execute*` call fails at once,
+naming the rank, instead of at the collective's timeout.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ class TrainWorker:
         return fn(*args, **kwargs)
 
     def ping(self) -> Dict[str, Any]:
-        """Liveness probe."""
+        """Liveness probe for the group's death monitor."""
         return {"ok": True, "rank": self.rank}
 
     def node_info(self):
@@ -130,7 +130,13 @@ class WorkerGroup:
         self.incarnation = 0
         self.workers: List[Any] = []
         self._pg = None
+        self._dead_rank: Optional[int] = None
+        self._monitor = None
         self._create(num_workers)
+
+    @property
+    def dead_rank(self) -> Optional[int]:
+        return self._dead_rank
 
     def _create(self, num_workers: int, pg_timeout_s: float = 120.0):
         resources = dict(self._resources_per_worker)
@@ -164,6 +170,8 @@ class WorkerGroup:
                                        strategy=self._placement_strategy)
             self._pg.ready(timeout=pg_timeout_s)
         self.workers = []
+        self._dead_rank = None
+        self._monitor = None
         try:
             for rank in range(num_workers):
                 opts: Dict[str, Any] = {"num_cpus": num_cpus}
@@ -192,6 +200,18 @@ class WorkerGroup:
             # already-created worker AND the placement group's bundles.
             self._abort_gang()
             raise
+        if num_workers > 1:
+            # Group death hook: a dead worker fails the next execute()
+            # fast with a rank-attributed error instead of a generic actor
+            # error at the collective's timeout.
+            from ray_tpu_torch.shardgroup import (GangMonitor, ReplicaGroup,
+                                                  ShardSpec)
+
+            grp = ReplicaGroup(
+                f"train-wg-{id(self):x}", ShardSpec(world_size=num_workers),
+                None, self.workers,
+                [f"rank{r}" for r in range(num_workers)])
+            self._monitor = GangMonitor(grp, self._on_worker_death)
         self.incarnation += 1
 
     def restart(self, num_workers: Optional[int] = None,
@@ -252,19 +272,36 @@ class WorkerGroup:
                 pass
             self._pg = None
 
+    def _on_worker_death(self, group, rank: int):
+        self._dead_rank = rank
+
+    def _check_group_alive(self):
+        if self._dead_rank is not None:
+            raise RuntimeError(
+                f"train worker group lost rank {self._dead_rank}/"
+                f"{self.num_workers} — the group must be shut down and "
+                "recreated (workers restart as a unit)")
+
     def __len__(self):
         return self.num_workers
 
     def execute(self, fn: Callable, *args, **kwargs) -> List[Any]:
+        self._check_group_alive()
         return ray_tpu_torch.get([w.execute.remote(fn, *args, **kwargs)
                                   for w in self.workers])
 
     def execute_async(self, fn: Callable, *args, **kwargs):
+        self._check_group_alive()
         return [w.execute.remote(fn, *args, **kwargs) for w in self.workers]
 
     def execute_single(self, rank: int, fn: Callable, *args, **kwargs) -> Any:
+        self._check_group_alive()
         return ray_tpu_torch.get(
             self.workers[rank].execute.remote(fn, *args, **kwargs))
 
     def shutdown(self):
+        if self._monitor is not None:
+            self._monitor.stop()
+            self._monitor.group._dead = True
+            self._monitor = None
         self._abort_gang()

@@ -154,6 +154,31 @@ def test_new_head_dims_and_float16_match_jax_kernels(interpret, d, dtype):
                                    np.asarray(want, np.float32), **gtol)
 
 
+@pytest.mark.parametrize("d", [320, 384])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dims_above_256_match_jax_kernels(interpret, causal, d):
+    # A multiple of 64 above 256: the reference's _use_pallas runs its
+    # kernels there (128 x 128 blocks), and the port's wide kernels answer
+    # it; on the CPU their plain versions. float32, the kernels' own
+    # tolerances (2e-5 forward, 5e-4 gradients).
+    import jax
+
+    q, k, v, g = _inputs(11, shape=(1, 2, 128, d))
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    assert jattn._use_pallas(jq, jk, BLOCK, BLOCK, causal)
+    out_j, vjp = jax.vjp(lambda a, b, c: jattn.flash_attention(
+        a, b, c, causal, None, BLOCK, BLOCK), jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv, causal)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               **FWD_TOL)
+    for got, want in zip(grads, vjp(jg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+    assert all(t.wide for t in (tattn.TILES[name, torch.float32][d]
+                                for name in tattn.KERNELS))
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_head_dim_96_is_answered_like_the_reference(interpret, causal):
     # d % 64 != 0 with no kernel: the reference's _use_pallas sends it to
@@ -248,30 +273,43 @@ def test_tile_table_fits_hopper_shared_memory():
     # kernel, dtype and head dim); every block fits Hopper's 227 KB, and the
     # head dims the kernels are not compiled for are refused.
     for (name, dtype), by_d in tattn.TILES.items():
-        assert name in tattn.KERNELS and set(by_d) == set(tattn.HEAD_DIMS)
+        assert name in tattn.KERNELS
+        assert set(by_d) == set(tattn.head_dims(dtype))
         for d, t in by_d.items():
             # wgmma's M is 64 rows per warpgroup, and the dK/dV kernel starts
             # its causal q loop at key0 / stream: both must divide evenly.
             assert t.rows % (64 if t.ring else 16) == 0
             assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
-            # The Hopper bodies take the 16-bit types up to d 128.
+            # The Hopper bodies take the 16-bit types up to d 128, the wide
+            # bodies every type above 256.
             assert t.ring == (dtype != torch.float32 and d <= 128)
-            assert t.split == (2 if name == "flash_bwd_dkv" and d > 128
-                               else 1)
+            assert t.wide == (d > 256)
+            assert t.split == (2 if name == "flash_bwd_dkv"
+                               and 128 < d <= 256 else 1)
     assert len(tattn.TILES) == 3 * len(tattn.KERNELS)
     assert set(tattn.HEAD_DIMS) == {32, 64, 128, 192, 256}
-    for d in tattn.HEAD_DIMS:
-        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+    # One wide instance a type serves every multiple of 64 above 256 up to
+    # the largest whose blocks fit: 704 in float32, 1024 in 16 bits.
+    assert tattn.WIDE_MAX_D == {torch.float32: 704, torch.bfloat16: 1024,
+                                torch.float16: 1024}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        assert tattn.head_dims(dtype)[5:] == tuple(
+            range(320, tattn.WIDE_MAX_D[dtype] + 1, 64))
+        for d in tattn.head_dims(dtype):
             smem = tattn.kernel_smem_bytes(d, dtype)
             assert set(smem) == set(tattn.KERNELS)
             assert max(smem.values()) <= tattn.SMEM_LIMIT
     with pytest.raises(ValueError):
         tattn.kernel_smem_bytes(96)
-    # A multiple of 64 above 256 is the one refusal left: the JAX package
-    # runs its kernels there and the port has none.
-    q = torch.randn(1, 2, 128, 320)
-    with pytest.raises(ValueError):
-        tattn.flash_attention(q, q, q, True)
+    # Past that limit the tiles do not fit a block: a resource limit, named
+    # in the message, as the reference's VMEM is one.
+    for dtype, d in ((torch.float32, 768), (torch.bfloat16, 1088)):
+        q = torch.randn(1, 2, 32, d, dtype=dtype)
+        with pytest.raises(ValueError,
+                           match=str(tattn.WIDE_MAX_D[dtype])):
+            tattn.flash_attention(q, q, q, True)
+        with pytest.raises(ValueError):
+            tattn.kernel_smem_bytes(d, dtype)
 
 
 def test_tile_table_mirrors_the_cuda_sources():
@@ -290,6 +328,15 @@ def test_tile_table_mirrors_the_cuda_sources():
                       r"D > 128 \? (\d+) : (\d+), SPLIT = D > 128 \? (\d+) "
                       r": (\d+);", src)
     s_big, s_small, split_big, split_small = map(int, plain.groups())
+    # The wide bodies: ROWS, and the streamed rows of each kernel.
+    wide = re.search(r"constexpr int ROWS = (\d+), THREADS = \d+;\s*"
+                     r"constexpr int FWD_STREAM = (\d+), DQ_STREAM = (\d+), "
+                     r"DKV_STREAM = (\d+);", src)
+    wide_rows, fwd_s, dq_s, dkv_s = map(int, wide.groups())
+    wide_stream = {"flash_fwd": fwd_s, "flash_bwd_dq": dq_s,
+                   "flash_bwd_dkv": dkv_s}
+    assert int(re.search(r"SMEM_LIMIT = (\d+);", src).group(1)) \
+        == tattn.SMEM_LIMIT
     for struct, name in (("FwdTiles", "flash_fwd"),
                          ("DqTiles", "flash_bwd_dq"),
                          ("DkvTiles", "flash_bwd_dkv")):
@@ -300,7 +347,10 @@ def test_tile_table_mirrors_the_cuda_sources():
         rows, tile128, tile, stages = body.groups()
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             for d, t in tattn.TILES[name, dtype].items():
-                if t.ring:
+                if t.wide:
+                    assert t == tattn.Tile(wide_rows, wide_stream[name], 1,
+                                           False, wide=True)
+                elif t.ring:
                     want = tile128 if d == 128 and tile128 else tile
                     assert t == tattn.Tile(int(rows), int(want), int(stages),
                                            True)

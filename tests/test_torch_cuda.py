@@ -48,7 +48,12 @@ def card():
     (torch.float16, True, 1024, 64, 3), (torch.float16, False, 200, 128, 3),
     (torch.float16, True, 130, 32, 3), (torch.bfloat16, True, 300, 192, 3),
     (torch.float16, True, 300, 256, 3), (torch.bfloat16, False, 256, 256, 2),
-    (torch.float32, True, 200, 256, 2), (torch.float32, False, 130, 192, 2)])
+    (torch.float32, True, 200, 256, 2), (torch.float32, False, 130, 192, 2),
+    # Above 256 the wide bodies, d at run time, in every type, up to the
+    # largest head dim whose tiles fit (1024 in 16 bits, 704 in float32).
+    (torch.bfloat16, True, 300, 384, 3), (torch.float16, False, 200, 384, 2),
+    (torch.float32, True, 130, 384, 2), (torch.bfloat16, True, 77, 1024, 1),
+    (torch.float32, False, 64, 704, 1)])
 def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d,
                                               bh):
     # float32: summation order only (1e-4 forward, 5e-4 gradients); bf16

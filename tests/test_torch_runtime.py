@@ -56,6 +56,12 @@ def unwrap(refs):
 
 
 @ray_tpu_torch.remote
+def slow_square(x, hold_s):
+    time.sleep(hold_s)
+    return x * x
+
+
+@ray_tpu_torch.remote
 def fail():
     raise KeyError("the cause")
 
@@ -101,6 +107,16 @@ def test_tasks_objects_and_wait():
     assert len(ready) == 4 and not pending
     res = ray_tpu_torch.cluster_resources()
     assert res["CPU"] == 2 and res["GPU"] == 2
+
+
+def test_nested_refs_of_running_tasks_are_waited_for_not_lost():
+    # `unwrap` runs on the second CPU while the inner task still runs on
+    # the first: the borrower registers the inner ref before its task
+    # finishes, so the directory knows the id but holds no copy yet. That
+    # is pending, not lost (it raised ObjectLostError).
+    for hold_s in (1.0, 0.5):
+        inner = [slow_square.remote(3, hold_s)]
+        assert ray_tpu_torch.get(unwrap.remote(inner)) == 9
 
 
 def test_64_mib_array_through_shared_memory():

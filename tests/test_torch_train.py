@@ -217,6 +217,27 @@ def test_gang_restart_resumes_from_the_last_checkpoint():
     assert isinstance(result.error, TrainingFailedError)
 
 
+def test_gang_monitor_fails_the_worker_group_fast_on_rank_death():
+    # The train worker group of two is watched by the shardgroup gang
+    # monitor: a killed rank fails the next call at once, naming it.
+    import time
+
+    from ray_tpu_torch.train.worker_group import WorkerGroup
+
+    group = WorkerGroup(2, resources_per_worker={"CPU": 0.5})
+    try:
+        assert group.execute(os.getpid) and group.dead_rank is None
+        ray_tpu_torch.kill(group.workers[1])
+        t0 = time.time()
+        while group.dead_rank is None and time.time() - t0 < 15:
+            time.sleep(0.05)
+        assert group.dead_rank == 1 and time.time() - t0 < 5.0
+        with pytest.raises(RuntimeError, match="lost rank 1/2"):
+            group.execute(os.getpid)
+    finally:
+        group.shutdown()
+
+
 def test_as_trainable_returns_metrics_or_raises():
     trainable = TorchTrainer(_direct_loop, device="cpu").as_trainable()
     assert trainable({})["step"] == 2
@@ -283,6 +304,10 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     banned_anywhere = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
     files = _port_files()
     assert len(files) > 10
+    for rel in ("serve/controller.py", "serve/examples.py",
+                "shardgroup/runtime.py", "inference/api.py",
+                "chaos/deadline.py", "observability/export.py"):
+        assert os.path.join(ROOT, "ray_tpu_torch", rel) in files, rel
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
