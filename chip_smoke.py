@@ -120,12 +120,35 @@ failed phase, with no phase caught.
    2048, 2 + 5 steps; falling cross-entropy, a finite router loss, K1, K2
    and K3 8 times a step; prints layer 0's slots used per expert and the
    share of routing choices dropped at capacity in the last step.
+11b. RLlib on the card, at the width of the reference's Atari PPO
+   configuration (`tuned_examples._atari_ppo_config`: 4 rollout workers x
+   8 envs x 100 steps, minibatch 500, 10 SGD epochs, lr 5e-5) on the
+   Atari-native synthetic env (210x160x3 uint8 frames, 4 actions, episodes
+   of 32 steps; ALE is absent) through `atari_connectors()` (84x84x4 uint8):
+   one `PPOLearner.update` of the Nature CNN on the card against the same
+   update on the CPU from the same weights and 500-row batch (loss,
+   metrics, gradient norm and the largest weight difference, each beside
+   its limit; the card runs full float32, TF32 off), with the SGD step's
+   wall time, kernel time and launches from a trace; then PPO itself, one
+   warm-up and 3 iterations with rollout workers in CPU actors (finite
+   losses; env steps/s, learner rows/s as SGD steps x 500 / learn_s, ms an
+   SGD step, learn_s's share, peak memory; the learner's parameters on
+   cuda:0, every worker at `CUDA_VISIBLE_DEVICES=""`); IMPALA (the Atari
+   IMPALA configuration, 4 updates an iteration) with
+   `learner_mode="remote"` in an actor granted card "0", and
+   `vtrace_returns` on the card against the CPU at its [T, B]; DQN on Catch
+   at 84 px for 24 updates on the card, its target synced at 256 env steps.
+   No kernel of the port is on this path; the phase must launch none.
 12. Results (phase 5 before phases 6 and 7 came): prints the serving and
-   training numbers, the `{"kernels": [...]}` line (launches summed over
-   the paths of phases 4, 6, 7, 7b, 8, 10 and 11; each record also holds its
+   training numbers, the `{"rllib": {...}}` line, the `{"kernels": [...]}`
+   line (launches summed over
+   the paths of phases 4, 6, 7, 7b, 8, 10, 11 and 11b; each record also holds its
    time at the long-context shape under `gpt2_long`, K1's at the Llama-7B
    shape under `llama7b_prefill`, and each head-dim and float16 instance
-   of phase 2 under `instances`), then the device line last.
+   of phase 2 under `instances`; K2's and K3's records hold
+   `scaled_dot_product_attention`'s backward, which does their joint work,
+   under `sdpa_backward_ms`, at the main shape and at seq 8192), then the
+   device line last.
 
 Phases 8, 10 and 11 also train in worker actors through `TorchTrainer.fit`.
 Each phase frees what it allocated before the next starts, and the script
@@ -497,6 +520,10 @@ def check_kernels(attn) -> dict:
                 "plain_ms": time_ms(plain, reps=3, rounds=3),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             }
+            if lib_ms is None:
+                # No PyTorch call computes dQ alone or dK/dV alone; SDPA's
+                # backward computes K2's and K3's work together.
+                b["sdpa_backward_ms"] = lib_bwd
             print(f"  {name:14s} main shape: {b['ms']:.4f} ms, plain "
                   f"{b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']}), library {lib_ms}")
@@ -1032,6 +1059,8 @@ def time_long_shape(attn) -> dict:
                       "ms": time_ms(fn), "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": lib_ms,
                       "sdpa_fwd_bwd_ms": sdpa["both"]}
+        if lib_ms is None:  # K2 and K3: SDPA's backward does both
+            recs[name]["sdpa_backward_ms"] = sdpa["backward"]
         print(f"  {name:14s} at {shape}: {recs[name]['ms']:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), {b_ms / recs[name]['ms']:.2%} of it")
     fwd, bwd = recs["flash_fwd"]["ms"], (recs["flash_bwd_dq"]["ms"]
@@ -1897,6 +1926,446 @@ def serve_gpt2(gpt2, card: str) -> dict:
     return res
 
 
+def synthetic_atari_env(n_envs: int, seed: int = 0):
+    """The Atari-native synthetic env of the reference's Atari test: random
+    210x160x3 uint8 frames, 4 actions, reward 1 for action 1, episodes of
+    32 steps. Stands in for ALE, which this machine does not have. The
+    class is made inside the function, which rollout workers receive by
+    value."""
+    from ray_tpu_torch.rllib.env import VectorEnv
+
+    class SyntheticAtariEnv(VectorEnv):
+        n_actions = 4
+
+        def __init__(self, n_envs: int, seed: int = 0):
+            self.n_envs = n_envs
+            self._rng = np.random.default_rng(seed)
+            self._t = np.zeros(n_envs, dtype=np.int32)
+
+        @property
+        def obs_shape(self):
+            return (210, 160, 3)
+
+        @property
+        def obs_dtype(self):
+            return np.uint8
+
+        def reset(self):
+            self._t[:] = 0
+            return self._obs()
+
+        def _obs(self):
+            return self._rng.integers(0, 255,
+                                      (self.n_envs, *self.obs_shape),
+                                      dtype=np.uint8)
+
+        def step(self, actions):
+            self._t += 1
+            rewards = (np.asarray(actions) == 1).astype(np.float32)
+            dones = self._t >= 32
+            infos = {}
+            if dones.any():
+                infos["final_obs"] = self._obs()
+                self._t[dones] = 0
+            return self._obs(), rewards, dones, infos
+
+    return SyntheticAtariEnv(n_envs, seed)
+
+
+# RLlib phase, two updates held against the CPU's. The port's
+# resolve_device turns TF32 off, so both sides compute in full float32.
+# Float32 against float64 on the CPU, same weights and batch, read 1.4e-7
+# relative on the loss and 4.7e-5 on the gradient norm (a norm over 1.7M
+# gradients of sums over 500 rows x 400 positions). Adam's first step is lr
+# times the sign of each gradient, so the weights after it differ only
+# where a gradient is too small to keep its sign: lr/10 (the card read
+# 0.04 lr on an H100). The second step is m / sqrt(v) of two gradients,
+# which is sensitive where they nearly cancel: lr/2 (the card read 0.19
+# lr); a lost or doubled step is ~lr. With TF32 on, the same updates read
+# 1.9e-4 on the loss and on the gradient norm and 3.3 lr on the weights:
+# the limits must catch that, or they could not tell TF32 from float32.
+RL_LOSS_TOL = 1e-4          # relative, the loss, each metric, the grad norm
+RL_WEIGHT_TOLS_LR = (0.1, 0.5)  # after steps 1 and 2, in units of lr
+RL_VTRACE_TOL = 1e-5        # |card - cpu| <= tol * (|cpu| + 1)
+
+
+def sgd_step_flops(module, rows: int) -> float:
+    """Floating-point operations of one SGD step of `module`'s net on
+    `rows` rows: each layer's multiply-adds in the forward, as many again
+    for its weight gradient and, for every layer but the first (the
+    observations need no gradient), for its data gradient; two operations
+    a multiply-add. Counted on one row of a CPU copy of the net."""
+    net = module.build("cpu")
+    macs = []
+
+    def count(layer, inputs, out):
+        macs.append(out[0].numel() * layer.weight[0].numel())
+
+    for layer in net.modules():
+        if isinstance(layer, (torch.nn.Conv2d, torch.nn.Linear)):
+            layer.register_forward_hook(count)
+    with torch.no_grad():
+        net(torch.zeros((1,) + tuple(module.spec.obs_shape),
+                        dtype=torch.uint8))
+    return 2.0 * rows * (3 * sum(macs) - macs[0])
+
+
+def _rl_update_profile(learner, stacked) -> dict:
+    """Times `update_many` on a stacked epoch (its one copy of the epoch to
+    the card included), untraced and then traced: wall ms a step, and per
+    step the kernels' ms, the copies' ms, the kernel launches and the
+    largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(next(iter(stacked.values())))
+    learner.update_many(stacked)  # warm-up (cuDNN picks its algorithms)
+    t0 = time.perf_counter()
+    learner.update_many(stacked)  # ends in a sync (its metrics)
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        learner.update_many(stacked)
+    by_name = collections.Counter()
+    kernels = copies = 0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
+            by_name[e.name] += e.device_time_total / 1e3 / n
+            if e.name.startswith("Memcpy") or e.name.startswith("Memset"):
+                copies += 1
+            else:
+                kernels += 1
+    copy_ms = sum(ms for name, ms in by_name.items()
+                  if name.startswith(("Memcpy", "Memset")))
+    kernel_ms = sum(by_name.values()) - copy_ms
+    if kernel_ms <= 0:
+        raise AssertionError("the trace of the SGD steps holds no kernel "
+                             "time")
+    return {"ms_per_sgd_step_untraced": wall,
+            "kernels_ms_per_sgd_step": kernel_ms,
+            "copies_ms_per_sgd_step": copy_ms,
+            "launches_per_sgd_step": kernels / n,
+            "copies_per_sgd_step": copies / n,
+            "host_share": 1 - (kernel_ms + copy_ms) / wall,
+            "top_kernels_ms_per_sgd_step": [
+                (name[:90], ms) for name, ms in by_name.most_common(8)]}
+
+
+def rllib_phase(attn, card: str) -> dict:
+    """Phase 11b: RLlib on the card, at the width of the reference's Atari
+    PPO configuration (`tuned_examples._atari_ppo_config`) on the synthetic
+    Atari env through `atari_connectors()` (84x84x4 uint8 frames)."""
+    import dataclasses
+    import functools
+    import types
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.connectors import atari_connectors
+    from ray_tpu_torch.rllib.dqn import DQN, DQNConfig
+    from ray_tpu_torch.rllib.env import CatchVectorEnv
+    from ray_tpu_torch.rllib.impala import (IMPALA, IMPALALearner,
+                                            vtrace_returns)
+    from ray_tpu_torch.rllib.ppo import PPO, PPOLearner
+    from ray_tpu_torch.rllib.rl_module import ConvPolicyModule, SpecDict
+    from ray_tpu_torch.rllib.rollout import WorkerSet
+    from ray_tpu_torch.rllib.tuned_examples import (_atari_impala_config,
+                                                    _atari_ppo_config)
+
+    before = attn.kernel_launches()
+    cfg = _atari_ppo_config("ALE/Breakout-v5")
+    cfg.env, cfg.connectors = synthetic_atari_env, atari_connectors()
+    mb = cfg.sgd_minibatch_size
+    res = {"card": card, "config": {
+        k: getattr(cfg, k) for k in (
+            "num_rollout_workers", "num_envs_per_worker",
+            "rollout_fragment_length", "sgd_minibatch_size", "num_sgd_iter",
+            "lr", "clip_param", "vf_clip_param", "entropy_coeff",
+            "lambda_")}}
+
+    print(f"  1. two PPOLearner.updates on the card against the CPU's: "
+          f"2 x {mb} rows of 84x84x4 uint8 frames, the Nature CNN, in "
+          f"float32 and again with TF32 on; the batch sampled by two "
+          f"rollout workers on the card")
+    workers = WorkerSet(synthetic_atari_env, num_workers=2, n_envs=4,
+                        seed=0, device="cuda", connectors=atari_connectors())
+    try:
+        visible = rt.get([w.cuda_visible_devices.remote()
+                          for w in workers.workers])
+        frags = workers.sample(-(-mb // 4))
+    finally:
+        workers.shutdown()
+    print(f"    the rollout workers on the card see CUDA_VISIBLE_DEVICES="
+          f"{visible}")
+    if visible != ["0", "0"]:
+        raise AssertionError("a rollout worker on the card was granted no "
+                             "card")
+    processed = sb.concat_batches([PPO._postprocess(
+        types.SimpleNamespace(config=cfg), f) for f in frags])
+    processed[sb.ADVANTAGES] = sb.standardize(processed[sb.ADVANTAGES])
+    view = PPO._learner_view(processed)
+    batches = [{k: v[i * mb:(i + 1) * mb] for k, v in view.items()}
+               for i in range(2)]
+    batch = batches[0]
+    module = ConvPolicyModule(SpecDict(84 * 84 * 4, 4, (84, 84, 4)))
+    cpu = PPOLearner(module, dataclasses.replace(cfg, device="cpu"),
+                     seed=cfg.seed)
+    start = cpu.get_weights()
+
+    def two_updates(learner):
+        metrics, weights = [], []
+        for b in batches:
+            metrics.append(learner.update(b))
+            weights.append(learner.get_weights())
+        return metrics, weights
+
+    want, w_cpu = two_updates(cpu)
+    w_tols = [tol * cfg.lr for tol in RL_WEIGHT_TOLS_LR]
+    update = {"cpu": want, "loss_tol": RL_LOSS_TOL, "weight_tols": w_tols,
+              "n_params": sum(v.numel() for v in start.values())}
+    learners = {}
+    for precision in ("float32", "tf32"):
+        gpu = learners[precision] = PPOLearner(module, cfg, seed=cfg.seed)
+        gpu.set_weights(start)  # resolve_device turned TF32 off
+        tf32 = precision == "tf32"
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            got, w_gpu = two_updates(gpu)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        worst_w = [max((g[k] - w[k]).abs().max().item() for k in w)
+                   for g, w in zip(w_gpu, w_cpu)]
+        rel = {k: [abs(g[k] - w[k]) / max(abs(w[k]), 1e-2)
+                   for g, w in zip(got, want)] for k in want[0]}
+        within = all(d <= tol for d, tol in zip(worst_w, w_tols)) and all(
+            max(r) <= RL_LOSS_TOL for r in rel.values())
+        update[precision] = {"card": got, "relative": rel,
+                             "max_weight_diff": worst_w,
+                             "within_limits": within}
+        print(f"    {precision} ({update['n_params']} parameters), "
+              f"relative to the CPU in updates 1, 2 (limit "
+              f"{RL_LOSS_TOL:.0e}):")
+        for k, r in rel.items():
+            print(f"      {k:12s} {r[0]:.2e}, {r[1]:.2e} (cpu "
+                  f"{want[0][k]:.7f}, {want[1][k]:.7f})")
+        print(f"      largest weight difference after steps 1, 2: "
+              f"{worst_w[0]:.3e}, {worst_w[1]:.3e} (limits lr/10, lr/2 = "
+              f"{w_tols[0]:.1e}, {w_tols[1]:.1e}; a step moves each weight "
+              f"~lr); within every limit: {within}")
+    gpu = learners.pop("float32")
+    del learners
+    if not update["float32"]["within_limits"]:
+        raise AssertionError("the card's PPO updates disagree with the CPU's")
+    if update["tf32"]["within_limits"]:
+        raise AssertionError("TF32 passed every limit: the limits cannot "
+                             "tell TF32 from float32")
+    # PPO's epoch: 3,200 rows shuffled on the host into 6 minibatches of
+    # 500 (and a 200-row tail), copied to the card in one go.
+    rows = cfg.num_rollout_workers * cfg.num_envs_per_worker \
+        * cfg.rollout_fragment_length
+    epoch = {k: np.concatenate([v] * -(-rows // mb))[:rows]
+             for k, v in batch.items()}
+    t0 = time.perf_counter()
+    stacked, _ = sb.stack_minibatches(
+        sb.shuffle_batch(epoch, np.random.default_rng(0)), mb)
+    update["host_epoch_prep_ms"] = 1e3 * (time.perf_counter() - t0)
+    update.update(_rl_update_profile(gpu, stacked))
+    flops = sgd_step_flops(module, mb)
+    update["sgd_step_gflop"] = flops / 1e9
+    update["sgd_step_bound_ms"] = 1e3 * flops / PEAK_FLOPS[torch.float32]
+    print(f"    SGD steps at {mb} rows on the card, update_many over "
+          f"{len(stacked['obs'])} minibatches: "
+          f"{update['ms_per_sgd_step_untraced']:.3f} ms wall a step, of it "
+          f"{update['kernels_ms_per_sgd_step']:.3f} ms of kernels "
+          f"({update['launches_per_sgd_step']:.0f} launches) and "
+          f"{update['copies_ms_per_sgd_step']:.3f} ms of copies (the "
+          f"epoch's, {update['copies_per_sgd_step']:.1f} a step); host "
+          f"share {update['host_share']:.4f}. Shuffling and stacking the "
+          f"{rows}-row epoch on the host first: "
+          f"{update['host_epoch_prep_ms']:.1f} ms. Largest device items "
+          f"(ms a step):")
+    for name, ms in update["top_kernels_ms_per_sgd_step"]:
+        print(f"      {ms:.4f}  {name}")
+    print(f"    the step's bound: {update['sgd_step_gflop']:.3f} GFLOP at "
+          f"float32's peak, {update['sgd_step_bound_ms']:.4f} ms (bound by "
+          f"operations); the kernels reach "
+          f"{update['sgd_step_bound_ms'] / update['kernels_ms_per_sgd_step']:.4f}"
+          f" of the bound, card {card}")
+    res["one_update"] = update
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"  2. PPO: {cfg.num_rollout_workers} workers x "
+          f"{cfg.num_envs_per_worker} envs x {cfg.rollout_fragment_length} "
+          f"steps, 1 warm-up + 3 iterations")
+    algo = PPO(cfg)
+    try:
+        place = algo.learner_group.call("placement")
+        visible = rt.get([w.cuda_visible_devices.remote()
+                          for w in algo.workers.workers])
+        print(f"    learner {place}; the workers see "
+              f"CUDA_VISIBLE_DEVICES={visible}")
+        if place["device"] != "cuda:0" or visible != [""] * len(visible):
+            raise AssertionError("the learner is not on cuda:0 or a worker "
+                                 "sees a card")
+        algo.train()
+        torch.cuda.reset_peak_memory_stats()
+        iters = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            m = algo.train()
+            m["wall_s"] = time.perf_counter() - t0
+            iters.append(m)
+            print(f"    iteration {m['training_iteration']}: wall "
+                  f"{m['wall_s']:.3f} s, sample {m['sample_s']:.3f} s, learn "
+                  f"{m['learn_s']:.3f} s, {m['sgd_steps']} SGD steps, loss "
+                  f"{m['total_loss']:.5f}, kl {m['kl']:.5f}, reward "
+                  f"{m['episode_reward_mean']}")
+            if not all(math.isfinite(m[k]) for k in (
+                    "total_loss", "policy_loss", "vf_loss", "entropy",
+                    "grad_norm")):
+                raise AssertionError(f"PPO losses not finite: {m}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        algo.stop()
+    wall = sum(m["wall_s"] for m in iters)
+    learn = sum(m["learn_s"] for m in iters)
+    steps = sum(m["sgd_steps"] for m in iters)
+    # The KL guard stops training only at an epoch's end, so each
+    # iteration trained whole epochs of `rows` rows, each of
+    # ceil(rows / mb) steps (its last a 200-row tail).
+    per_epoch = -(-rows // mb)
+    if any(m["sgd_steps"] % per_epoch for m in iters):
+        raise AssertionError("a PPO iteration trained part of an epoch")
+    res["ppo"] = ppo_res = {
+        "env_steps_per_s": 3 * rows / wall,
+        "learner_rows_per_s": steps * mb / learn,
+        "learner_rows_trained_per_s": steps // per_epoch * rows / learn,
+        "ms_per_sgd_step": 1e3 * learn / steps,
+        "learn_share": learn / wall, "sgd_steps": steps,
+        "peak_gib": peak, "learner": place, "iterations": [
+            {k: m[k] for k in ("wall_s", "sample_s", "learn_s", "sgd_steps",
+                               "total_loss", "kl")} for m in iters]}
+    print(f"    env steps/s {ppo_res['env_steps_per_s']:.1f}; learner rows/s "
+          f"{ppo_res['learner_rows_per_s']:.1f} ({steps} SGD steps x {mb} "
+          f"rows / learn_s, as bench.py counts; the rows trained: "
+          f"{ppo_res['learner_rows_trained_per_s']:.1f} a second); "
+          f"{ppo_res['ms_per_sgd_step']:.3f} ms an SGD "
+          f"step in learn_s; learn_s {ppo_res['learn_share']:.4f} of the "
+          f"iterations; peak memory {peak:.2f} GiB; card {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("  3. IMPALA with a remote learner in a one-GPU actor")
+    icfg = _atari_impala_config("ALE/Breakout-v5")
+    icfg.env, icfg.connectors = synthetic_atari_env, atari_connectors()
+    icfg.learner_mode, icfg.learner_resources = "remote", {"num_gpus": 1}
+    icfg.updates_per_iteration = 4
+
+    class CountedLearner(IMPALALearner):
+        def kernel_launches(self):
+            """The port's kernel launches in the learner's process."""
+            from ray_tpu_torch.ops import attention
+
+            return attention.kernel_launches()
+
+    class CountedIMPALA(IMPALA):
+        learner_cls = CountedLearner
+
+    algo = CountedIMPALA(icfg)
+    try:
+        place = algo.learner_group.call("placement")
+        print(f"    learner actor {place} (this process {os.getpid()})")
+        if (place["pid"] == os.getpid() or place["device"] != "cuda:0"
+                or place["cuda_visible_devices"] != "0"):
+            raise AssertionError("the IMPALA learner is not in an actor "
+                                 "granted card 0")
+        ims = [algo.train() for _ in range(2)]
+        remote = algo.learner_group.call("kernel_launches")
+    finally:
+        algo.stop()
+    for m in ims:
+        print(f"    iteration {m['training_iteration']}: {m['updates']} "
+              f"updates, loss {m['total_loss']:.5f}, learner frames/s "
+              f"{m['learner_sps']:.1f}, env frames/s "
+              f"{m['env_steps_per_s']:.1f}")
+        if not all(math.isfinite(m[k]) for k in ("total_loss", "vf_loss")):
+            raise AssertionError(f"IMPALA losses not finite: {m}")
+    rng = np.random.default_rng(7)
+    T, B = icfg.rollout_fragment_length, 2 * icfg.num_envs_per_worker
+    dones = (rng.random((T, B)) < 0.05).astype(np.float32)
+    args = dict(
+        behavior_logp=np.log(rng.uniform(0.1, 0.9, (T, B))),
+        target_logp=np.log(rng.uniform(0.1, 0.9, (T, B))),
+        rewards=rng.standard_normal((T, B)), dones=dones,
+        terminateds=dones * (rng.random((T, B)) < 0.5),
+        values=rng.standard_normal((T, B)),
+        next_values=rng.standard_normal((T, B)))
+    outs = [vtrace_returns(**{k: torch.tensor(v, dtype=torch.float32,
+                                              device=dev)
+                              for k, v in args.items()}, gamma=icfg.gamma)
+            for dev in ("cuda", "cpu")]
+    vt_err = max(((g.cpu() - w).abs() / (w.abs() + 1)).max().item()
+                 for g, w in zip(*outs))
+    print(f"    vtrace_returns at [T, B] = [{T}, {B}], card against CPU: "
+          f"{vt_err:.2e} of |cpu| + 1 (limit {RL_VTRACE_TOL:.0e})")
+    if not vt_err <= RL_VTRACE_TOL:
+        raise AssertionError("V-trace on the card disagrees with the CPU's")
+    res["impala"] = {"learner": place, "vtrace_err": vt_err,
+                     "iterations": [{k: m[k] for k in (
+                         "updates", "total_loss", "learner_sps",
+                         "env_steps_per_s")} for m in ims]}
+
+    print("  4. DQN on Catch at 84 px: updates on the card, sync_target")
+    dcfg = DQNConfig(env=functools.partial(CatchVectorEnv, size=84),
+                     num_rollout_workers=1, num_envs_per_worker=8,
+                     rollout_fragment_length=16, learning_starts=128,
+                     train_batch_size=32, updates_per_iteration=8,
+                     target_network_update_freq=256, buffer_capacity=10_000)
+    algo = DQN(dcfg)
+    try:
+        learner = algo.learner_group._learner
+
+        def target_is_online():
+            net, tgt = learner.net.state_dict(), learner.target_net.state_dict()
+            return all(torch.equal(net[k], tgt[k]) for k in net)
+
+        dms = [algo.train() for _ in range(2)]
+        synced = algo._last_target_sync == 256 and target_is_online()
+        dms.append(algo.train())
+        moved = not target_is_online()
+        place = learner.placement()
+    finally:
+        algo.stop()
+    for m in dms:
+        print(f"    iteration {m['training_iteration']}: {m['updates']} "
+              f"updates, td_loss {m['td_loss']:.4e}, q_mean "
+              f"{m['q_mean']:.4e}, epsilon {m['epsilon']:.4f}")
+    print(f"    learner on {place['device']}; target synced at 256 env steps "
+          f"and equal to the net: {synced}; the net moved on after: {moved}")
+    if not (synced and moved and place["device"] == "cuda:0" and all(
+            math.isfinite(m["td_loss"]) for m in dms)
+            and sum(m["updates"] for m in dms) == 24):
+        raise AssertionError("DQN on the card did not update and sync")
+    res["dqn"] = {"learner": place, "iterations": [
+        {k: m[k] for k in ("updates", "td_loss", "q_mean", "epsilon")}
+        for m in dms]}
+    launches = {k: v - before[k] + remote[k]
+                for k, v in attn.kernel_launches().items()}
+    print(f"  launches of the port's kernels in this phase, this process "
+          f"and IMPALA's learner: {launches} (no kernel of the port is on "
+          f"RLlib's path)")
+    if any(launches.values()):
+        raise AssertionError("RLlib's path launched a kernel of the port")
+    res["launches"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2012,6 +2481,10 @@ def main() -> int:
     if not math.isfinite(m["router_loss"]):
         raise AssertionError(f"router loss not finite: {m['router_loss']}")
 
+    print("== 11b. RLlib on the card: PPO's learner at Atari width, IMPALA "
+          "with a remote learner, DQN")
+    rllib = rllib_phase(attn, card)
+
     stop_runtime()
 
     print("== 12. results")
@@ -2024,10 +2497,11 @@ def main() -> int:
                           str(k): v for k, v in remat_bit_equal.items()}}))
     paths = [launches, llama_launches, serve_launches,
              served["llm_server"]["replica_launches"],
-             served["gpt2_sampler"]["launches"]] + [
+             served["gpt2_sampler"]["launches"], rllib["launches"]] + [
         leg["launches"] for leg in legs.values()]
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths)
+    print(json.dumps({"rllib": rllib}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

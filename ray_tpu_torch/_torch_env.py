@@ -37,19 +37,28 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def granted_device(device: Optional[Union[str, torch.device]], holder: str,
+                   hint: str) -> torch.device:
+    """The device for a process the runtime may have placed: `device` when
+    the caller names it, else the card. A process the runtime granted no
+    card (it sees `CUDA_VISIBLE_DEVICES=""`) that asks for one raises,
+    naming `holder` and how to grant it one (`hint`): it never drops to the
+    CPU on its own. A process outside the runtime asks `resolve_device`."""
+    dev = torch.device("cuda" if device is None else device)
+    granted = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if dev.type == "cuda" and granted is not None and not granted.strip():
+        raise RuntimeError(f"this {holder} asks for the card, but its process "
+                           f"holds no GPU: {hint}, or pass device='cpu'")
+    return resolve_device(dev)
+
+
 def replica_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device a serving replica computes on: `device` when the caller
     names it, else the card the raylet granted this process (it sees only
-    its own cards, as `CUDA_VISIBLE_DEVICES`). A replica with no card and
-    no `device="cpu"` raises: serving never drops to the CPU on its own."""
-    if device is not None:
-        return resolve_device(device)
-    if not os.environ.get("CUDA_VISIBLE_DEVICES", "").strip():
-        raise RuntimeError(
-            "this replica holds no GPU: deploy it with ray_actor_options="
-            "{'num_gpus': 1}, or pass device='cpu' to serve on the CPU")
-    return resolve_device("cuda")
+    its own cards, as `CUDA_VISIBLE_DEVICES`)."""
+    return granted_device(device, "replica", "deploy it with "
+                          "ray_actor_options={'num_gpus': 1}")
 
 
 def same_device(asked: torch.device, actual: torch.device) -> bool:

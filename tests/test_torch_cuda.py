@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and Llama
-(its GQA training backward too) and the serving engine, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, Llama (its
+GQA training backward too), the serving engine, and RLlib's learner update
+and V-trace against the CPU's, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -9,6 +10,7 @@ Every test marked `cuda` skips where CUDA is absent: the kernels have no
 CPU mode. The last test checks the behaviour there.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -266,6 +268,71 @@ def test_fail_all_never_holds_two_arenas_on_card(card):
     assert torch.cuda.max_memory_allocated() < before + arena_bytes / 2
     assert torch.cuda.memory_allocated() <= before
     engine.check_no_leaks()
+
+
+def _ppo_image_batch(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": rng.integers(0, 256, (n, 42, 42, 4), dtype=np.uint8),
+        "actions": rng.integers(0, 4, n),
+        "logp": np.log(rng.uniform(0.2, 0.3, n)).astype(np.float32),
+        "advantages": rng.standard_normal(n).astype(np.float32),
+        "vf_preds": rng.standard_normal(n).astype(np.float32),
+        "value_targets": rng.standard_normal(n).astype(np.float32),
+    }
+
+
+@pytest.mark.cuda
+def test_ppo_learner_update_on_card_matches_cpu(card):
+    # The Nature CNN (42 px frames: the >= 40 px stack) in full float32 on
+    # both sides (resolve_device turns TF32 off): the card's sums differ in
+    # order only, 1e-4 relative on the loss, metrics and gradient norm.
+    # Each parameter moves by about lr (3e-4) a step; the card's must land
+    # within lr / 10 of the CPU's after two steps (a lost or doubled step
+    # is 10x that).
+    from ray_tpu_torch.rllib import ppo, rl_module
+
+    module = rl_module.ConvPolicyModule(rl_module.SpecDict(42 * 42 * 4, 4,
+                                                           (42, 42, 4)))
+    cpu = ppo.PPOLearner(module, ppo.PPOConfig(device="cpu"))
+    gpu = ppo.PPOLearner(module, ppo.PPOConfig())
+    gpu.set_weights(cpu.get_weights())
+    assert {p.device.type for p in gpu.net.parameters()} == {"cuda"}
+    for seed in (0, 1):
+        batch = _ppo_image_batch(128, seed)
+        want, got = cpu.update(batch), gpu.update(batch)
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-4 * (abs(want[k]) + 1e-3), k
+    w_cpu, w_gpu = cpu.get_weights(), gpu.get_weights()
+    worst = max((w_gpu[k] - w_cpu[k]).abs().max().item() for k in w_cpu)
+    assert worst <= 3e-4 / 10, worst
+
+
+@pytest.mark.cuda
+def test_vtrace_on_card_matches_cpu(card):
+    # The same loop over T in both, elementwise float32: exp and the
+    # products differ by an ulp or two, 1e-5 relative.
+    from ray_tpu_torch.rllib.impala import vtrace_returns
+
+    rng = np.random.default_rng(2)
+    T, B = 50, 16
+    dones = (rng.random((T, B)) < 0.05).astype(np.float32)
+    args = dict(
+        behavior_logp=np.log(rng.uniform(0.1, 0.9, (T, B))),
+        target_logp=np.log(rng.uniform(0.1, 0.9, (T, B))),
+        rewards=rng.standard_normal((T, B)), dones=dones,
+        terminateds=dones * (rng.random((T, B)) < 0.5),
+        values=rng.standard_normal((T, B)),
+        next_values=rng.standard_normal((T, B)))
+    outs = [vtrace_returns(**{k: torch.tensor(v, dtype=torch.float32,
+                                              device=dev)
+                              for k, v in args.items()}, gamma=0.99)
+            for dev in ("cpu", card)]
+    for want, got in zip(*outs):
+        assert got.device.type == "cuda"
+        got = got.cpu()
+        assert torch.all((got - want).abs() <= 1e-5 * (want.abs() + 1)), \
+            (got - want).abs().max()
 
 
 def test_engine_defaults_to_the_card():
