@@ -48,6 +48,32 @@ failed phase, with no phase caught.
    same steps run in this process (`profile_train_step.build`, no
    trainer) before and after, as the yardstick for tokens/s through the
    actor.
+4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
+   seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
+   goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
+   tokens into `ids`, `targets` and the window's index, and
+   `random_shuffle(seed=0)`, into
+   `TorchTrainer.fit(datasets={"train": ds})` with phase 4's model, batch
+   and steps in a worker actor granted the card; the loop reads
+   `get_dataset_shard("train").iter_batches(batch_size=24,
+   drop_last=True)` for 2 + 10 steps and stops, most of the epoch unread.
+   The loss must be finite and fall, the worker be another process seeing
+   card "0", each step launch each kernel once a layer, the 288 windows be
+   distinct, the shard's `stall_frac` be below 0.10 (the reference's
+   bound) and the store hold no more objects than before within 20 s of
+   `fit()` returning. Prints tokens/s beside phase 4's, `first_batch_ms`,
+   `stall_ms_per_step`, the shuffle's windows and peak memory. The loop
+   reports the model's state dict as its checkpoint.
+4d. Scoring: `BatchPredictor.from_checkpoint(<4c's checkpoint>,
+   <a TorchPredictor that returns each row's summed log-likelihood of its
+   targets>, model=<GPT-2-small spec>, input_column="ids")` scores the
+   first 256 windows of the last shard, in order, in batches of 16, in one
+   pool actor granted the card (`predict(...).with_resources(num_gpus=1)`,
+   once 4c's worker has exited). Every row must be scored once, equal to
+   the same checkpoint scored in this process at the same batches
+   (`SCORE_TOL`), in another process seeing card "0", with K1 12 times a
+   batch and K2 and K3 never. Prints rows/s and tokens/s, the actor's
+   ready time and peak memory.
 6. Llama-7B forward: `LlamaConfig.llama7b()` at full width and depth
    (5,933,109,248 float32 parameters from seed 0, bf16 compute), batch 1,
    seq 2048, through the flash kernel, through plain attention and in
@@ -139,19 +165,25 @@ failed phase, with no phase caught.
    `vtrace_returns` on the card against the CPU at its [T, B]; DQN on Catch
    at 84 px for 24 updates on the card, its target synced at 256 env steps.
    No kernel of the port is on this path; the phase must launch none.
+11c. Offline BC: 4 CartPole sample batches of 200 rows go through
+   `write_batches` (JSON lines) and back through `read_batches`, the same
+   rows; then one `BC` update over them on the card and on the CPU from
+   the same weights: the loss within 1e-4 relative and the weights within
+   lr / 10 (phase 11b's limits), and no kernel of the port launched.
 12. Results (phase 5 before phases 6 and 7 came): prints the serving and
-   training numbers, the `{"rllib": {...}}` line, the `{"kernels": [...]}`
-   line (launches summed over
-   the paths of phases 4, 6, 7, 7b, 8, 10, 11 and 11b; each record also holds its
-   time at the long-context shape under `gpt2_long`, K1's at the Llama-7B
-   shape under `llama7b_prefill`, and each head-dim and float16 instance
+   training numbers, the `{"data": {...}}` line (phases 4c, 4d, 11c), the
+   `{"rllib": {...}}` line, the `{"kernels": [...]}` line (launches summed
+   over the paths of phases 4, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
+   each record also holds its time at the long-context shape under
+   `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
+   each head-dim and float16 instance
    of phase 2 under `instances`; K2's and K3's records hold
    `scaled_dot_product_attention`'s backward, which does their joint work,
    under `sdpa_backward_ms`, at the main shape and at seq 8192), then the
    device line last.
 
-Phases 8, 10 and 11 also train in worker actors through `TorchTrainer.fit`.
-Each phase frees what it allocated before the next starts, and the script
+Phases 4c, 8, 10 and 11 also train in worker actors through
+`TorchTrainer.fit`. Each phase frees what it allocated before the next starts, and the script
 shuts the runtime and its worker template down before it exits.
 """
 
@@ -159,13 +191,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -884,6 +919,368 @@ def in_driver_steps(name: str) -> float:
     gc.collect()
     torch.cuda.empty_cache()
     return b * s * leg.steps / dt
+
+
+# Phases 4c and 4d: the Data-fed path. The corpus is the nanoGPT layout,
+# flat int32 token shards, each stored as one `.npz` row (`read_numpy`
+# reads an archive's arrays as columns): `tokens` [1, SHARD_TOKENS] and
+# `shard`, its index, so a window knows its place in the corpus without a
+# read task per file. A row is a window of WINDOW + 1 tokens cut at stride
+# WINDOW, `ids` its first WINDOW tokens and `targets` its last.
+CORPUS_SHARDS, SHARD_TOKENS, WINDOW = 16, 1 << 20, 1024
+DATA_WARMUP, DATA_STEPS = 2, 10          # phase 4's steps
+MAX_STALL_FRAC = 0.10    # the reference's bound (bench.py bench_ingest)
+LEAK_WAIT_S = 20.0       # store frees are batched (bench.py bench_ingest)
+SCORE_ROWS, SCORE_BATCH = 256, 16
+# Phase 4d holds the pool actor's scores against the same checkpoint
+# scored in this process on the card, at the same batches: the same
+# kernels on the same inputs, so they should be bit-equal. Were cuBLAS to
+# pick another algorithm in the other process, the bf16 logits would move
+# by their rounding, ~4e-3 a token at random, ~0.13 nats over a row's 1024
+# tokens: 1e-5 of a row's ~1.1e4 nats. 1e-4 covers that eight times; a
+# row scored with other weights or against other tokens is off by tens of
+# nats.
+SCORE_TOL = 1e-4          # relative
+# Phase 11c: the CartPole sample batches that BC learns from.
+BC_BATCHES, BC_ROWS = 4, 200
+
+
+def write_corpus(path: str, vocab: int) -> list:
+    """CORPUS_SHARDS files of SHARD_TOKENS int32 tokens each, from seed
+    0."""
+    rng = np.random.default_rng(0)
+    files = []
+    for i in range(CORPUS_SHARDS):
+        files.append(os.path.join(path, f"shard_{i:02d}.npz"))
+        np.savez(files[-1], shard=np.array([i], np.int32),
+                 tokens=rng.integers(0, vocab, (1, SHARD_TOKENS),
+                                     dtype=np.int32))
+    return files
+
+
+def cut_windows(batch, limit=None):
+    """One shard (a `read_numpy` row) cut into rows of WINDOW + 1 tokens
+    at stride WINDOW: `ids`, `targets` and the window's index in the
+    corpus. `limit` keeps the first windows."""
+    tokens, shard = batch["tokens"][0], int(batch["shard"][0])
+    per_shard = (len(tokens) - 1) // WINDOW
+    n = per_shard if limit is None else min(per_shard, limit)
+    win = tokens[np.arange(n)[:, None] * WINDOW + np.arange(WINDOW + 1)]
+    return {"ids": win[:, :-1], "targets": win[:, 1:],
+            "window": shard * per_shard + np.arange(n)}
+
+
+def corpus_dataset(files: list, limit=None):
+    """`read_numpy` of the shards, cut into windows."""
+    from ray_tpu_torch import data as rd
+
+    return rd.read_numpy(files).map_batches(
+        functools.partial(cut_windows, limit=limit))
+
+
+def window_nll(logits, targets):
+    """Each row's summed negative log-likelihood of its targets, in
+    float32 (as `next_token_loss`, without the shift)."""
+    logits = logits.float()
+    tgt = torch.gather(logits, -1, targets.long().unsqueeze(-1)).squeeze(-1)
+    return (torch.logsumexp(logits, dim=-1) - tgt).sum(dim=-1)
+
+
+def data_train_loop(config):
+    """Phase 4c's loop, run in a worker actor: GPT-2 from seed 0 under
+    AdamW(3e-4, wd 0.1), fed by `get_dataset_shard("train").iter_batches`
+    for the warm-up and timed steps, then it stops with most of the epoch
+    unread. Reports each step's loss, then one record with the windows
+    trained, tokens/s, the shard's ingest and split accounting, the kernel
+    launches of the run (from 0 at the loop's start), this process's pid,
+    its CUDA_VISIBLE_DEVICES and peak memory, and the model's state dict
+    as the checkpoint."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.train import Checkpoint, session
+
+    device = session.get_device()
+    torch.cuda.reset_peak_memory_stats()
+    attn.reset_kernel_launches()
+    model = gpt2.GPT2(config["cfg"], device=device, seed=0)
+
+    def loss_fn(model, batch):
+        nll = window_nll(model(batch["ids"]), batch["targets"])
+        ce = nll.sum() / batch["targets"].numel()
+        return ce, ce
+
+    step = gpt2.make_train_step(model, gpt2.adamw(model), loss_fn=loss_fn)
+    shard = session.get_dataset_shard("train")
+    n_steps = config["warmup"] + config["steps"]
+    losses, windows, t0 = [], [], None
+    for batch in shard.iter_batches(batch_size=config["batch"],
+                                    drop_last=True):
+        if len(losses) == config["warmup"]:
+            losses[-1].item()  # waits for the device
+            t0 = time.perf_counter()
+        losses.append(step({k: torch.tensor(batch[k], device=device)
+                            for k in ("ids", "targets")}))
+        windows += batch["window"].tolist()
+        if len(losses) == n_steps:
+            # Timed to the last step's end: leaving the epoch (the
+            # prefetch thread's stop, the frees) is not a step.
+            losses[-1].item()
+            dt = time.perf_counter() - t0
+            break
+    if len(losses) < n_steps:
+        raise AssertionError(f"the shard ran dry after {len(losses)} of "
+                             f"{n_steps} batches")
+    for i, loss in enumerate(losses):
+        session.report({"step": i, "loss": loss.item()})
+    ids_per_batch = config["batch"] * config["cfg"].n_positions
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    session.report({
+        "step": n_steps, "loss": losses[-1].item(), "windows": windows,
+        "tokens_per_sec": ids_per_batch * config["steps"] / dt,
+        "ms_per_step": 1e3 * dt / config["steps"],
+        "ingest": session.get_ingest_stats()["train"],
+        "split": shard.split_stats(),
+        "launches": attn.kernel_launches(), "pid": os.getpid(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
+        checkpoint=Checkpoint.from_state_dict(state,
+                                              path=config["ckpt_dir"]))
+
+
+def store_objects() -> list:
+    """Objects in each node's store (this process's head node)."""
+    import ray_tpu_torch as rt
+
+    return [rt._global_node.raylet.store.stats()["num_objects"]]
+
+
+def data_phase(attn, cfg, files: list, workdir: str, card: str):
+    """Phase 4c: `TorchTrainer.fit(datasets={"train": ds})` trains GPT-2 on
+    the corpus's windows, shuffled (`random_shuffle(seed=0)`), in a worker
+    actor granted the card. Checks the loss (finite, falling), the worker
+    (another process, card "0"), each kernel once a layer a step, distinct
+    windows, the shard's stall_frac and that the store returns to its
+    object count within LEAK_WAIT_S of fit() returning. Returns the final
+    metrics and the run's checkpoint."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    # The worker shares the card with this process: hand back the cache.
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    baseline = store_objects()
+    driver_launches = attn.kernel_launches()
+    ds = corpus_dataset(files).random_shuffle(seed=0)
+    result = TorchTrainer(
+        data_train_loop,
+        train_loop_config={"cfg": cfg, "batch": BATCH,
+                           "warmup": DATA_WARMUP, "steps": DATA_STEPS,
+                           "ckpt_dir": os.path.join(workdir, "ckpt")},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="data", storage_path=workdir),
+        datasets={"train": ds}).fit()
+    fit_done = time.perf_counter()
+    if result.error is not None:
+        raise AssertionError("the Data-fed run failed") from result.error
+    if attn.kernel_launches() != driver_launches:
+        raise AssertionError("this process launched kernels while the "
+                             "worker trained")
+    del ds
+    gc.collect()
+    now = store_objects()
+    while any(n > b for n, b in zip(now, baseline)) \
+            and time.perf_counter() - fit_done < LEAK_WAIT_S:
+        time.sleep(0.2)
+        now = store_objects()
+    freed_s = time.perf_counter() - fit_done
+    m = dict(result.metrics, card=card)
+    ingest, split = m["ingest"], m["split"]
+    losses = [r["loss"] for r in result.metrics_history[:-1]]
+    print(f"  worker pid {m['pid']} (this process {os.getpid()}), "
+          f"CUDA_VISIBLE_DEVICES={m['cuda_visible_devices']!r}")
+    print("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"  batch {BATCH}, seq {cfg.n_positions}: tokens/s "
+          f"{m['tokens_per_sec']:.1f}, ms/step {m['ms_per_step']:.3f}, "
+          f"peak memory {m['peak_gib']:.2f} GiB, card {card}")
+    print(f"  ingest: first_batch_ms {ingest['first_batch_ms']}, "
+          f"stall_ms_per_step {ingest['stall_ms_per_step']}, stall_frac "
+          f"{ingest['stall_frac']} (bound {MAX_STALL_FRAC}), steps "
+          f"{ingest['steps']}; shuffle {split.get('shuffle')}")
+    print(f"  store objects before {baseline}, {now} after "
+          f"{freed_s:.1f} s; launches {m['launches']}")
+    if m["pid"] == os.getpid() or m["cuda_visible_devices"] != "0":
+        raise AssertionError("the loop did not run in a worker granted "
+                             "card 0")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    n_steps = DATA_WARMUP + DATA_STEPS
+    want = dict.fromkeys(attn.KERNELS, cfg.n_layer * n_steps)
+    if m["launches"] != want:
+        raise AssertionError(f"expected {want} launches, got "
+                             f"{m['launches']}")
+    if len(set(m["windows"])) != BATCH * n_steps:
+        raise AssertionError(f"{len(set(m['windows']))} distinct windows "
+                             f"of {BATCH * n_steps} trained")
+    if not ingest["stall_frac"] < MAX_STALL_FRAC:
+        raise AssertionError(f"stall_frac {ingest['stall_frac']} is not "
+                             f"below {MAX_STALL_FRAC}")
+    if any(n > b for n, b in zip(now, baseline)):
+        raise AssertionError(f"store objects {baseline} before the phase, "
+                             f"{now} {LEAK_WAIT_S} s after fit()")
+    m.update(windows=len(m["windows"]), losses=losses,
+             store_freed_s=freed_s)
+    return m, result.checkpoint
+
+
+def window_scorer():
+    """Phase 4d's predictor: a `TorchPredictor` that returns each row's
+    summed log-likelihood of its targets (`score`; full logits would be
+    206 MB a row), how a user scores a corpus. Each output row also
+    carries, as of its batch, the actor's pid, its CUDA_VISIBLE_DEVICES,
+    its kernel launches since the predictor was built, its peak memory,
+    when the predictor was ready (wall clock) and the batch's predict time
+    (the scores' copy to the host waits for the card). The class is made
+    here so that the pool actor receives it by value."""
+    from ray_tpu_torch.train import TorchPredictor
+
+    class WindowScorer(TorchPredictor):
+        @classmethod
+        def from_checkpoint(cls, checkpoint, **kwargs):
+            from ray_tpu_torch.ops import attention
+
+            pred = super().from_checkpoint(checkpoint, **kwargs)
+            attention.reset_kernel_launches()
+            torch.cuda.reset_peak_memory_stats()
+            pred.ready_at = time.time()
+            return pred
+
+        def predict(self, batch):
+            from ray_tpu_torch.ops import attention
+
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits = self.model(self.inputs(batch, self.input_column))
+                score = -window_nll(logits, self.inputs(batch, "targets"))
+            out = self._passthrough(batch,
+                                    {"score": score.cpu().numpy()})
+            predict_ms = 1e3 * (time.perf_counter() - t0)
+            n, launches = len(out["score"]), attention.kernel_launches()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out.update({
+                "pid": np.full(n, os.getpid()),
+                "cuda_visible": np.full(
+                    n, os.environ.get("CUDA_VISIBLE_DEVICES", "unset")),
+                "peak_gib": np.full(n, peak),
+                "ready_at": np.full(n, self.ready_at),
+                "predict_ms": np.full(n, predict_ms),
+                **{k: np.full(n, v) for k, v in launches.items()}})
+            return out
+
+    return WindowScorer
+
+
+def score_phase(attn, cfg, files: list, checkpoint, card: str,
+                train_pid: int) -> dict:
+    """Phase 4d: `BatchPredictor` scores the first SCORE_ROWS windows of the
+    corpus's last shard, in order, with phase 4c's checkpoint, in one pool
+    actor granted the card (once 4c's worker has exited). Every row must
+    be scored once, equal to the same checkpoint scored in this process
+    at the same batches (SCORE_TOL), in another process seeing card "0",
+    with K1 once a layer a batch and no backward kernel."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import BatchPredictor
+
+    exited_s = wait_exited(train_pid, "phase 4c's trainer worker")
+    scorer = window_scorer()
+    spec = functools.partial(gpt2.GPT2, cfg)
+    last = len(files) - 1
+    rows, batch = SCORE_ROWS, SCORE_BATCH
+    ds = corpus_dataset(files[last:], limit=rows)
+    t0 = time.time()
+    # The pool's actors take the card; the read tasks upstream stay on CPU
+    # workers (with_resources on `ds` would ask the card for them too).
+    scored = BatchPredictor.from_checkpoint(
+        checkpoint, scorer, model=spec, input_column="ids").predict(
+        ds, batch_size=batch, max_scoring_workers=1,
+        keep_columns=("window",)).with_resources(num_gpus=1)
+    out = collections.defaultdict(list)
+    for b in scored.iter_batches(batch_size=rows):
+        for k, v in b.items():
+            out[k].append(v)
+    t_end = time.time()
+    out = {k: np.concatenate(v) for k, v in out.items()}
+    rows_np = cut_windows(dict(np.load(files[last])), limit=rows)
+    want_windows = rows_np["window"]
+    got_windows = np.sort(out["window"])
+    if not np.array_equal(got_windows, want_windows):
+        raise AssertionError(f"{len(out['window'])} rows scored, "
+                             f"{len(np.unique(out['window']))} distinct; "
+                             f"expected windows {want_windows[0]}.."
+                             f"{want_windows[-1]} once each")
+    pids = set(out["pid"].tolist())
+    visible = set(out["cuda_visible"].tolist())
+    ready_s = float(out["ready_at"][0]) - t0
+    score_s = t_end - float(out["ready_at"][0])
+    k1 = sorted(set(out["flash_fwd"].tolist()))
+    # One predict time a batch, in K1-count (batch) order.
+    batch_ms = [float(out["predict_ms"][out["flash_fwd"] == c][0])
+                for c in k1]
+    steady_s = 1e-3 * sum(batch_ms[1:])
+    res = {"card": card, "rows": rows, "batch": batch,
+           "rows_per_sec": rows / score_s,
+           "tokens_per_sec": rows * WINDOW / score_s,
+           "rows_per_sec_with_ready": rows / (t_end - t0),
+           "first_batch_ms": batch_ms[0],
+           "batch_ms_median": statistics.median(batch_ms[1:]),
+           "steady_rows_per_sec": (rows - batch) / steady_s,
+           "steady_tokens_per_sec": (rows - batch) * WINDOW / steady_s,
+           "actor_ready_s": ready_s, "trainer_exit_wait_s": exited_s,
+           "peak_gib": float(out["peak_gib"].max()),
+           "launches": {k: int(out[k].max()) for k in attn.KERNELS},
+           "pid": sorted(pids)}
+    print(f"  pool actor pid {sorted(pids)} (this process {os.getpid()}), "
+          f"CUDA_VISIBLE_DEVICES {sorted(visible)}; 4c's worker gone "
+          f"{exited_s:.2f} s after the wait began")
+    print(f"  {rows} rows of {WINDOW} tokens in batches of {batch}: "
+          f"rows/s {res['rows_per_sec']:.1f}, tokens/s "
+          f"{res['tokens_per_sec']:.1f} (from the predictor's ready time; "
+          f"{res['rows_per_sec_with_ready']:.1f} rows/s with it), actor "
+          f"ready {ready_s:.2f} s, peak memory {res['peak_gib']:.2f} GiB, "
+          f"launches {res['launches']}, card {card}")
+    print(f"  predict a batch: first {res['first_batch_ms']:.1f} ms, then "
+          f"median {res['batch_ms_median']:.1f} ms: "
+          f"{res['steady_rows_per_sec']:.1f} rows/s, "
+          f"{res['steady_tokens_per_sec']:.1f} tokens/s past the first")
+    if len(pids) != 1 or os.getpid() in pids or visible != {"0"}:
+        raise AssertionError("the scoring did not run in one pool actor "
+                             "granted card 0")
+    n_batches = rows // batch
+    want_k1 = [cfg.n_layer * (i + 1) for i in range(n_batches)]
+    if k1 != want_k1 or res["launches"]["flash_bwd_dq"] \
+            or res["launches"]["flash_bwd_dkv"]:
+        raise AssertionError(f"expected K1 {cfg.n_layer} times a batch and "
+                             f"no backward kernel; K1 counts {k1}, "
+                             f"{res['launches']}")
+    # The same checkpoint scored here, at the same batches in order.
+    ref = scorer.from_checkpoint(checkpoint, model=spec, input_column="ids")
+    want = np.concatenate([ref.predict(
+        {k: v[i:i + batch] for k, v in rows_np.items()})["score"]
+        for i in range(0, rows, batch)])
+    got = out["score"][np.argsort(out["window"])]
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    res.update(score_max_rel_err=err,
+               bit_equal=bool(np.array_equal(got, want)),
+               mean_score=float(want.mean()))
+    print(f"  scores against this process's: max relative error {err:.3e} "
+          f"(tol {SCORE_TOL}), bit-equal {res['bit_equal']}, mean "
+          f"{res['mean_score']:.2f} nats a row")
+    if not (np.all(np.isfinite(got)) and err <= SCORE_TOL):
+        raise AssertionError("the pool actor's scores differ from this "
+                             "process's")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def runtime_phase() -> dict:
@@ -1664,8 +2061,8 @@ def wait_exited(pid: int, what: str, timeout_s: float = 60.0) -> float:
         except ProcessLookupError:
             return time.perf_counter() - t0
         time.sleep(0.1)
-    raise AssertionError(f"the {what} replica (pid {pid}) did not exit "
-                         f"within {timeout_s} s of serve.shutdown()")
+    raise AssertionError(f"{what} (pid {pid}) did not exit within "
+                         f"{timeout_s} s")
 
 
 def _stream(events, submitted):
@@ -1837,7 +2234,8 @@ def serve_llm(card: str, serving: dict) -> dict:
           f"{res['output_tokens_per_s'] / serving['output_tokens_per_s']:.4f}"
           ")")
     serve.shutdown()
-    res["replica_exit_s"] = wait_exited(probe["pid"], "LLMServer")
+    res["replica_exit_s"] = wait_exited(probe["pid"],
+                                         "the LLMServer replica")
     print(f"  serve.shutdown(): the replica exited "
           f"{res['replica_exit_s']:.2f} s later")
     return res
@@ -1868,7 +2266,7 @@ def serve_gpt2(gpt2, card: str) -> dict:
     m = rt.get(handle.metrics.remote())
     probe = rt.get(handle.probe.remote())
     serve.shutdown()
-    exit_s = wait_exited(probe["pid"], "GPT2Sampler")
+    exit_s = wait_exited(probe["pid"], "the GPT2Sampler replica")
     launches, forwards = probe["launches"], probe["forwards"]
     want = {name: 0 for name in launches}
     want["flash_fwd"] = cfg.n_layer * forwards
@@ -2366,6 +2764,87 @@ def rllib_phase(attn, card: str) -> dict:
     return res
 
 
+def cartpole_batches(n_batches: int = BC_BATCHES, rows: int = BC_ROWS,
+                     seed: int = 0) -> list:
+    """Sample batches of CartPole under a uniform random policy from
+    `seed`: obs, actions, rewards, dones and the behaviour log-probs."""
+    from ray_tpu_torch.rllib.env import CartPoleVectorEnv
+
+    env = CartPoleVectorEnv(1, seed=seed)
+    rng = np.random.default_rng(seed)
+    obs = env.reset()
+    out = []
+    for _ in range(n_batches):
+        cols = collections.defaultdict(list)
+        for _ in range(rows):
+            action = rng.integers(0, 2, size=1)
+            cols["obs"].append(obs[0])
+            cols["actions"].append(action[0])
+            obs, reward, done, _ = env.step(action)
+            cols["rewards"].append(reward[0])
+            cols["dones"].append(done[0])
+        out.append({"obs": np.asarray(cols["obs"], np.float32),
+                    "actions": np.asarray(cols["actions"], np.int64),
+                    "rewards": np.asarray(cols["rewards"], np.float32),
+                    "dones": np.asarray(cols["dones"], bool),
+                    "logp": np.full(rows, np.log(0.5), np.float32)})
+    return out
+
+
+def offline_phase(attn, card: str, workdir: str) -> dict:
+    """Phase 11c: offline RL through Data. Writes 4 CartPole sample
+    batches of 200 rows with `write_batches` and reads them back with
+    `read_batches`: the same rows. Then one `BC` update over them on the
+    card and the same on the CPU from the same weights: the loss within
+    RL_LOSS_TOL, the weights within lr / 10 (phase 11b's limits). No
+    kernel of the port is on this path."""
+    from ray_tpu_torch.rllib import BC, BCConfig, read_batches, \
+        rows_to_batch, write_batches
+
+    before = attn.kernel_launches()
+    batches = cartpole_batches()
+    files = write_batches(os.path.join(workdir, "experiences"), batches)
+    ds = read_batches(os.path.join(workdir, "experiences"))
+    back = rows_to_batch(ds.take_all())
+    for k in batches[0]:
+        want = np.concatenate([b[k] for b in batches])
+        if back[k].dtype != want.dtype or not np.array_equal(back[k], want):
+            raise AssertionError(f"{k} came back changed from {files}")
+    cfg = BCConfig(obs_dim=4, n_actions=2)
+    algos = {"cpu": BC(dataclasses.replace(cfg, device="cpu")),
+             "cuda": BC(cfg)}
+    algos["cuda"].learner.set_weights(algos["cpu"].learner.get_weights())
+    metrics = {k: a.train_on_dataset(ds, batch_size=len(back["obs"]))
+               for k, a in algos.items()}
+    want, got = metrics["cpu"], metrics["cuda"]
+    weights = {k: a.get_policy_weights() for k, a in algos.items()}
+    worst = max((weights["cuda"][k] - weights["cpu"][k]).abs().max().item()
+                for k in weights["cpu"])
+    loss_err = abs(got["total_loss"] - want["total_loss"]) \
+        / (abs(want["total_loss"]) + 1e-3)
+    launches = {k: attn.kernel_launches()[k] - before[k]
+                for k in attn.KERNELS}
+    res = {"card": card, "rows": len(back["obs"]), "files": len(files),
+           "loss": got["total_loss"], "loss_cpu": want["total_loss"],
+           "loss_rel_err": loss_err, "weight_err_lr": worst / cfg.lr,
+           "launches": launches,
+           "device": str(next(algos["cuda"].learner.net.parameters())
+                         .device)}
+    print(f"  {res['rows']} rows written to {len(files)} file(s) and read "
+          f"back equal; one BC update on {res['device']}: loss "
+          f"{got['total_loss']:.6f} (CPU {want['total_loss']:.6f}, rel err "
+          f"{loss_err:.2e}, tol {RL_LOSS_TOL}), largest weight difference "
+          f"{worst / cfg.lr:.4f} lr (tol {RL_WEIGHT_TOLS_LR[0]} lr); "
+          f"launches {launches}")
+    if not (loss_err <= RL_LOSS_TOL and worst <= RL_WEIGHT_TOLS_LR[0]
+            * cfg.lr):
+        raise AssertionError("BC's update on the card differs from the "
+                             "CPU's")
+    if any(launches.values()):
+        raise AssertionError(f"BC launched kernels of the port: {launches}")
+    return res
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2421,6 +2900,29 @@ def main() -> int:
           f"{yardstick[1]:.1f} (actor / mean {ratio:.4f})")
     runtime.update(actor_tokens_per_sec=main_leg["tokens_per_sec"],
                    in_driver_tokens_per_sec=yardstick, actor_ratio=ratio)
+
+    print("== 4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
+          "small on a shuffled token corpus")
+    small = gpt2.GPT2Config.small()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        files = write_corpus(workdir, small.vocab_size)
+        print(f"  corpus: {len(files)} shards of {SHARD_TOKENS} int32 tokens "
+              f"from seed 0, written in {time.perf_counter() - t0:.2f} s")
+        data_leg, data_ckpt = data_phase(attn, small, files, workdir, card)
+        data_leg["phase4_ratio"] = \
+            data_leg["tokens_per_sec"] / main_leg["tokens_per_sec"]
+        print(f"  tokens/s fed by Data {data_leg['tokens_per_sec']:.1f}, "
+              f"phase 4's synthetic batches {main_leg['tokens_per_sec']:.1f}"
+              f" (ratio {data_leg['phase4_ratio']:.4f})")
+
+        print("== 4d. BatchPredictor: 4c's checkpoint scored in a pool "
+              "actor granted the card")
+        scoring = score_phase(attn, small, files, data_ckpt, card,
+                              data_leg["pid"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     print("== 6. Llama-7B forward, flash kernel against plain attention")
     from ray_tpu_torch import inference
@@ -2485,6 +2987,11 @@ def main() -> int:
           "with a remote learner, DQN")
     rllib = rllib_phase(attn, card)
 
+    print("== 11c. offline BC through Data: write_batches, read_batches, "
+          "one BC update on the card against the CPU")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        offline = offline_phase(attn, card, d)
+
     stop_runtime()
 
     print("== 12. results")
@@ -2495,9 +3002,13 @@ def main() -> int:
                       "long_model_check": long_check,
                       "remat_bit_equal": {
                           str(k): v for k, v in remat_bit_equal.items()}}))
-    paths = [launches, llama_launches, serve_launches,
+    print(json.dumps({"data": {"train": data_leg, "score": scoring,
+                               "offline": offline}}))
+    paths = [launches, data_leg["launches"], scoring["launches"],
+             llama_launches, serve_launches,
              served["llm_server"]["replica_launches"],
-             served["gpt2_sampler"]["launches"], rllib["launches"]] + [
+             served["gpt2_sampler"]["launches"], rllib["launches"],
+             offline["launches"]] + [
         leg["launches"] for leg in legs.values()]
     for name, rec in records.items():
         rec["launches"] = sum(p[name] for p in paths)

@@ -4,8 +4,8 @@ The port of `ray_tpu/rllib/`: the reference's RLModule/Learner/
 LearnerGroup/RolloutWorker stack (`rllib/core/`, `rllib/evaluation/`, the
 new stack only) with torch nets, the learner's update on the card and the
 rollout workers sampling on CPU actors of the port's runtime. Offline IO
-and BC (`ray_tpu/rllib/offline.py`) wait for the port of Data (ROADMAP
-M10).
+and BC (`offline.py`) write and read experiences through
+`ray_tpu_torch.data`.
 """
 
 from ray_tpu_torch.rllib.connectors import (
@@ -33,6 +33,16 @@ from ray_tpu_torch.rllib.appo import APPO, APPOConfig, APPOLearner
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, DQNLearner, QModule
 from ray_tpu_torch.rllib.external import PolicyClient, PolicyServer
 from ray_tpu_torch.rllib.learner import Learner, LearnerGroup
+from ray_tpu_torch.rllib.offline import (
+    BC,
+    BCConfig,
+    BCLearner,
+    batch_to_rows,
+    iter_learner_batches,
+    read_batches,
+    rows_to_batch,
+    write_batches,
+)
 from ray_tpu_torch.rllib.replay_buffers import (
     PrioritizedReplayBuffer,
     ReplayBuffer,
@@ -61,4 +71,6 @@ __all__ = [
     "DQN", "DQNConfig", "DQNLearner", "QModule",
     "ReplayBuffer", "PrioritizedReplayBuffer",
     "PolicyServer", "PolicyClient",
+    "BC", "BCConfig", "BCLearner", "batch_to_rows", "rows_to_batch",
+    "write_batches", "read_batches", "iter_learner_batches",
 ]

@@ -15,6 +15,8 @@ from ray_tpu_torch.train.backend import (
 )
 from ray_tpu_torch.train.backend_executor import (BackendExecutor,
                                                   TrainingFailedError)
+from ray_tpu_torch.train.batch_predictor import (BatchPredictor, Predictor,
+                                                 TorchPredictor)
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager
 from ray_tpu_torch.train.config import (
     CheckpointConfig,
@@ -26,7 +28,9 @@ from ray_tpu_torch.train.session import (
     broadcast_params,
     get_checkpoint,
     get_context,
+    get_dataset_shard,
     get_device,
+    get_ingest_stats,
     get_local_rank,
     get_world_rank,
     get_world_size,
@@ -43,10 +47,12 @@ from ray_tpu_torch.train.worker_group import TrainWorker, WorkerGroup
 
 __all__ = [
     "Backend", "BackendConfig", "BackendExecutor", "BaseTrainer",
+    "BatchPredictor", "Predictor", "TorchPredictor",
     "Checkpoint", "CheckpointConfig", "CheckpointManager",
     "DataParallelTrainer", "FailureConfig", "Result", "RunConfig",
     "ScalingConfig", "TorchBackend", "TorchConfig", "TorchTrainer",
     "TrainWorker", "TrainingFailedError", "WorkerGroup", "broadcast_params",
-    "get_checkpoint", "get_context", "get_device", "get_local_rank",
+    "get_checkpoint", "get_context", "get_dataset_shard", "get_device",
+    "get_ingest_stats", "get_local_rank",
     "get_world_rank", "get_world_size", "report", "sync_gradients",
 ]

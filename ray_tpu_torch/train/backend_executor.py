@@ -54,6 +54,7 @@ class BackendExecutor:
 
     def run(self, train_fn: Callable, config: Dict[str, Any],
             checkpoint=None, device: str = "cuda",
+            datasets_per_worker: Optional[List[Dict]] = None,
             experiment_name: str = "") -> Iterator[List[Dict[str, Any]]]:
         """Generator: yields one list of per-worker results per report round;
         returns when all workers finish.
@@ -69,6 +70,7 @@ class BackendExecutor:
             try:
                 yield from self._run_once(train_fn, config,
                                           self.latest_checkpoint, device,
+                                          datasets_per_worker,
                                           experiment_name)
                 return
             except (RayActorError, TrainingFailedError):
@@ -100,12 +102,14 @@ class BackendExecutor:
         self.backend.on_start(self.worker_group, self.backend_config)
 
     def _run_once(self, train_fn, config, checkpoint, device,
-                  experiment_name):
+                  datasets_per_worker, experiment_name):
         wg = self.worker_group
         self.backend.on_training_start(wg, self.backend_config)
         ray_tpu_torch.get([w.start_training.remote(
-            train_fn, config, checkpoint, device, experiment_name)
-            for w in wg.workers])
+            train_fn, config, checkpoint, device,
+            datasets_per_worker[i] if datasets_per_worker else None,
+            experiment_name)
+            for i, w in enumerate(wg.workers)])
         done = [False] * len(wg.workers)
         while not all(done):
             refs = [w.next_result.remote()

@@ -1,13 +1,13 @@
-"""Per-worker training session: report(), ranks, the device, and the
-torch.distributed group.
+"""Per-worker training session: report(), ranks, dataset shards, the
+device, and the torch.distributed group.
 
 The port's copy of `ray_tpu/train/session.py` (the reference's
-`session.report`, `python/ray/air/session.py:43`, and `_TrainSession`,
-`python/ray/train/_internal/session.py:63`). `get_device()` stands where
-the JAX package's `get_mesh()` does, and `sync_gradients` and
-`broadcast_params` run over the torch.distributed group that the backend
-formed (NCCL on the card, gloo on the CPU) where the JAX package uses its
-host collective plane.
+`session.report`/`get_dataset_shard`, `python/ray/air/session.py:43,359`,
+and `_TrainSession`, `python/ray/train/_internal/session.py:63`).
+`get_device()` stands where the JAX package's `get_mesh()` does, and
+`sync_gradients` and `broadcast_params` run over the torch.distributed
+group that the backend formed (NCCL on the card, gloo on the CPU) where
+the JAX package uses its host collective plane.
 """
 
 from __future__ import annotations
@@ -36,9 +36,11 @@ class _TrainSession:
     """Lives inside each training worker while the user loop runs."""
 
     def __init__(self, context: TrainContext, device=None,
+                 datasets: Optional[Dict[str, Any]] = None,
                  checkpoint: Optional[Checkpoint] = None):
         self.context = context
         self.device = device
+        self.datasets = datasets or {}
         self.loaded_checkpoint = checkpoint
         self.result_queue: "queue.Queue" = queue.Queue()
         self.finished = threading.Event()
@@ -49,6 +51,21 @@ class _TrainSession:
                checkpoint: Optional[Checkpoint] = None):
         self.result_queue.put({"metrics": dict(metrics),
                                "checkpoint": checkpoint})
+
+    def get_dataset_shard(self, name: str = "train"):
+        # ray_tpu_torch.data shards are pre-split by the trainer
+        # (prefetching ShardIterators); plain iterables pass through.
+        return self.datasets.get(name)
+
+    def ingest_stats(self) -> Dict[str, Any]:
+        """Per-dataset step-stall accounting from every shard that keeps
+        it (ShardIterator): did input ever stall the step?"""
+        out: Dict[str, Any] = {}
+        for name, ds in self.datasets.items():
+            stats_fn = getattr(ds, "ingest_stats", None)
+            if stats_fn is not None:
+                out[name] = stats_fn()
+        return out
 
 
 _session: Optional[_TrainSession] = None
@@ -94,6 +111,18 @@ def get_world_size() -> int:
 
 def get_local_rank() -> int:
     return get_session().context.local_rank
+
+
+def get_dataset_shard(name: str = "train"):
+    return get_session().get_dataset_shard(name)
+
+
+def get_ingest_stats() -> Dict[str, Any]:
+    """Step-stall accounting of this worker's dataset shards (per
+    dataset: steps, stall_ms_total, stall_frac — see
+    ray_tpu_torch/data/streaming/ingest.py). Empty when shards don't track
+    ingest (plain iterables)."""
+    return get_session().ingest_stats()
 
 
 def get_device():

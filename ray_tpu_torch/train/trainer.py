@@ -45,13 +45,10 @@ class BaseTrainer:
                  run_config: Optional[RunConfig] = None,
                  resume_from_checkpoint: Optional[Checkpoint] = None,
                  datasets: Optional[Dict[str, Any]] = None):
-        if datasets:
-            raise NotImplementedError(
-                "datasets= needs ray_tpu_torch.data, not ported yet "
-                "(ROADMAP M4c)")
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
         self.resume_from_checkpoint = resume_from_checkpoint
+        self.datasets = datasets or {}
 
     def training_loop(self) -> Result:
         raise NotImplementedError
@@ -139,6 +136,33 @@ class DataParallelTrainer(BaseTrainer):
 
             resolve_device("cuda")  # raises where CUDA is absent
 
+    def _split_datasets(self) -> Optional[List[Dict[str, Any]]]:
+        """Per-worker dataset shards: ray_tpu_torch.data Datasets are
+        streaming_split and wrapped in prefetching ShardIterators (each
+        worker's prefetch thread pulls the next blocks onto its host ahead
+        of the step, with step-stall accounting — see
+        ray_tpu_torch/data/streaming/ingest.py); plain lists are
+        round-robin sharded; other values are passed through whole."""
+        if not self.datasets:
+            return None
+        n = self.scaling_config.num_workers
+        per_worker: List[Dict[str, Any]] = [dict() for _ in range(n)]
+        for name, ds in self.datasets.items():
+            splits = None
+            if hasattr(ds, "streaming_split"):
+                from ray_tpu_torch.data.streaming.ingest import ShardIterator
+
+                splits = [ShardIterator(s) for s in ds.streaming_split(n)]
+            elif isinstance(ds, (list, tuple)):
+                splits = [list(ds[i::n]) for i in range(n)]
+            if splits is None:
+                for i in range(n):
+                    per_worker[i][name] = ds
+            else:
+                for i in range(n):
+                    per_worker[i][name] = splits[i]
+        return per_worker
+
     def training_loop(self) -> Result:
         import ray_tpu_torch
 
@@ -178,10 +202,15 @@ class DataParallelTrainer(BaseTrainer):
         last_metrics: Dict[str, Any] = {}
         last_ckpt: Optional[Checkpoint] = None
         error: Optional[BaseException] = None
+        datasets_per_worker = None
         try:
+            # Split once per fit(): a gang restart hands the new workers
+            # the same shards, which resume the split's epoch.
+            datasets_per_worker = self._split_datasets()
             for round_results in executor.run(
                     self.train_loop_per_worker, self.train_loop_config,
                     checkpoint=self.resume_from_checkpoint, device=device,
+                    datasets_per_worker=datasets_per_worker,
                     experiment_name=name):
                 rank0 = next((r for r in round_results if r["rank"] == 0),
                              round_results[0])
@@ -205,6 +234,7 @@ class DataParallelTrainer(BaseTrainer):
             error = e
         finally:
             executor.shutdown()
+            _close_shards(datasets_per_worker)
         return Result(metrics=last_metrics, checkpoint=last_ckpt,
                       best_checkpoint=manager.best_checkpoint(),
                       error=error, metrics_history=history, path=exp_dir)
@@ -221,6 +251,17 @@ class DataParallelTrainer(BaseTrainer):
                     os.path.join(ckpt_dir, entries[-1]))
         return cls(train_loop_per_worker,
                    resume_from_checkpoint=latest, **kwargs)
+
+
+def _close_shards(datasets_per_worker: Optional[List[Dict[str, Any]]]):
+    """Release each split's shared execution when the run ends: a loop
+    that stops mid-epoch (N steps) leaves the split's coordinator holding
+    the pipeline's in-flight blocks in the object store."""
+    for shards in datasets_per_worker or ():
+        for shard in shards.values():
+            close = getattr(shard, "close", None)
+            if close is not None:
+                close()
 
 
 class TorchTrainer(DataParallelTrainer):

@@ -56,9 +56,11 @@ class TrainWorker:
 
     def start_training(self, train_fn: Callable, config: Dict[str, Any],
                        checkpoint=None, device: str = "cuda",
+                       datasets: Optional[Dict[str, Any]] = None,
                        experiment_name: str = ""):
         """Run `train_fn` in a thread of this actor, on `device` ("cuda",
-        the card this worker was granted, or "cpu")."""
+        the card this worker was granted, or "cpu"), with this worker's
+        dataset shards (`session.get_dataset_shard`)."""
         assert self._thread is None or not self._thread.is_alive(), \
             "training already running"
         from ray_tpu_torch._torch_env import resolve_device
@@ -67,7 +69,7 @@ class TrainWorker:
                                world_size=self.world_size,
                                experiment_name=experiment_name)
         session = _TrainSession(context, device=resolve_device(device),
-                                checkpoint=checkpoint)
+                                datasets=datasets, checkpoint=checkpoint)
         self._session = session
         init_session(session)
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, Llama (its
-GQA training backward too), the serving engine, and RLlib's learner update
-and V-trace against the CPU's, on a card.
+GQA training backward too), the serving engine, RLlib's learner update and
+V-trace, and TorchPredictor against the CPU's, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -333,6 +333,42 @@ def test_vtrace_on_card_matches_cpu(card):
         got = got.cpu()
         assert torch.all((got - want).abs() <= 1e-5 * (want.abs() + 1)), \
             (got - want).abs().max()
+
+
+@pytest.mark.cuda
+def test_torch_predictor_on_card_matches_cpu(card, tmp_path):
+    # A tiny GPT-2 in float32 scored by TorchPredictor on the card (flash
+    # forward, TF32 off) and with device="cpu" (plain attention): the sums
+    # differ in order only, 1e-4 on the logits as the CPU parity tests
+    # hold them. The card's scoring launches K1 once a layer and no
+    # backward kernel.
+    import dataclasses
+    import functools
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import Checkpoint, TorchPredictor
+
+    cfg = dataclasses.replace(gpt2.GPT2Config.tiny(seq=128),
+                              dtype=torch.float32)
+    ckpt = Checkpoint.from_state_dict(
+        gpt2.GPT2(cfg, device="cpu", seed=3).state_dict(),
+        path=str(tmp_path / "ckpt"))
+    spec = functools.partial(gpt2.GPT2, cfg)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 128),
+                                            dtype=np.int64)
+    want = TorchPredictor.from_checkpoint(
+        ckpt, model=spec, input_column="ids",
+        device="cpu").predict({"ids": ids})["predictions"]
+    pred = TorchPredictor.from_checkpoint(ckpt, model=spec,
+                                          input_column="ids")
+    assert pred.device.type == "cuda"
+    tattn.reset_kernel_launches()
+    got = pred.predict({"ids": ids})["predictions"]
+    assert tattn.kernel_launches() == {"flash_fwd": cfg.n_layer,
+                                       "flash_bwd_dq": 0,
+                                       "flash_bwd_dkv": 0}
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_engine_defaults_to_the_card():

@@ -33,6 +33,7 @@ from ray_tpu.rllib import connectors as j_conn
 from ray_tpu.rllib import dqn as j_dqn
 from ray_tpu.rllib import env as j_env
 from ray_tpu.rllib import impala as j_impala
+from ray_tpu.rllib import offline as j_off
 from ray_tpu.rllib import ppo as j_ppo
 from ray_tpu.rllib import replay_buffers as j_rb
 from ray_tpu.rllib import rl_module as j_rlm
@@ -42,6 +43,7 @@ from ray_tpu_torch.rllib import connectors as t_conn
 from ray_tpu_torch.rllib import dqn as t_dqn
 from ray_tpu_torch.rllib import env as t_env
 from ray_tpu_torch.rllib import impala as t_impala
+from ray_tpu_torch.rllib import offline as t_off
 from ray_tpu_torch.rllib import ppo as t_ppo
 from ray_tpu_torch.rllib import replay_buffers as t_rb
 from ray_tpu_torch.rllib import rl_module as t_rlm
@@ -97,9 +99,8 @@ def test_rllib_port_has_the_reference_modules():
            if n.endswith(".py")}
     port = {n for n in os.listdir(os.path.join(ROOT, "ray_tpu_torch",
                                                "rllib")) if n.endswith(".py")}
-    # offline.py reads and writes through Data, which is not ported yet.
-    assert port == ref - {"offline.py"}
-    assert len(port) == 14
+    assert port == ref
+    assert len(port) == 15
 
 
 def test_gae_standardize_and_minibatches_match_reference():
@@ -540,3 +541,70 @@ def test_dqn_exploration_follows_epsilon_in_the_weights():
         same = (out["actions"] == greedy).float().mean().item()
         assert lo <= same <= hi, (eps, same)
         assert torch.equal(out["logp"], torch.zeros(256))
+
+
+# --------------------------------------------------------------------------
+# Offline IO and BC
+# --------------------------------------------------------------------------
+
+
+class _Rows:
+    """What `iter_learner_batches` reads of a Dataset: its rows."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def take_all(self):
+        return list(self.rows)
+
+
+def _experience(rng, n, obs_dim=4, n_actions=2):
+    return {"obs": rng.standard_normal((n, obs_dim)).astype(np.float32),
+            "actions": rng.integers(0, n_actions, n),
+            "rewards": rng.standard_normal(n).astype(np.float32),
+            "dones": rng.uniform(size=n) < 0.1,
+            "logp": np.log(rng.uniform(0.2, 0.8, n)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_bc_rows_and_learner_batches_match_reference(seed):
+    # Row conversion is the reference's numpy code and the shuffled
+    # minibatch order comes from the same seeded permutation: both exact.
+    batch = _experience(np.random.default_rng(3), 50)
+    rows = t_off.batch_to_rows(batch)
+    assert rows == j_off.batch_to_rows(batch)
+    for k, v in t_off.rows_to_batch(rows).items():
+        want = j_off.rows_to_batch(rows)[k]
+        assert v.dtype == want.dtype, k
+        np.testing.assert_array_equal(v, want)
+    got = list(t_off.iter_learner_batches(_Rows(rows), 16, seed=seed))
+    want = list(j_off.iter_learner_batches(_Rows(rows), 16, seed=seed))
+    assert [len(b["obs"]) for b in got] == [16, 16, 16, 2]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_bc_learner_loss_and_update_match_reference():
+    jcfg = j_off.BCConfig(obs_dim=4, n_actions=2, hidden=(16, 16))
+    tcfg = t_off.BCConfig(obs_dim=4, n_actions=2, hidden=(16, 16),
+                          device="cpu")
+    spec = t_rlm.SpecDict(4, 2)
+    jmod, _, tmod, _ = _carry_module(spec)
+    jl = j_off.BCLearner(jmod, jcfg, seed=0)
+    tl = t_off.BCLearner(tmod, tcfg, seed=0)
+    tl.set_weights(t_rlm.params_from_jax(_np_tree(jl.params)))
+    exp = _experience(np.random.default_rng(4), 64)
+    batch = {"obs": exp["obs"], "actions": exp["actions"]}
+    jloss, jm = jl.compute_loss(jl.params, jax.tree.map(jnp.asarray, batch))
+    tloss, tm = tl.compute_loss(tl.net, _torch_batch(batch))
+    _close(tloss, jloss, TOL, "loss")
+    for k in jm:
+        _close(tm[k], jm[k], TOL, k)
+    want = jl.update(batch)
+    got = tl.update(batch)
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k], TOL, k)
+    _state_close(tl.get_weights(), t_rlm.params_from_jax(_np_tree(jl.params)))

@@ -1,7 +1,7 @@
 """The PyTorch port's RLlib end to end on the CPU: PPO, IMPALA, APPO and DQN
 with rollout workers in actors of the port's runtime, the learner group in
-its local, remote and two-learner (gloo) forms, and the external-env policy
-server.
+its local, remote and two-learner (gloo) forms, the external-env policy
+server, and BC from experiences written and read back through Data.
 
 One module-scoped `ray_tpu_torch.init` serves every test; each algorithm
 runs with `device="cpu"`, tiny widths and a few iterations. Workers fork
@@ -13,10 +13,12 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from ray_tpu_torch.rllib import (APPO, DQN, IMPALA, PPO, APPOConfig,
-                                 DQNConfig, IMPALAConfig, IMPALALearner,
-                                 PolicyClient, PolicyServer, PPOConfig,
-                                 WorkerSet, atari_connectors)
+from ray_tpu_torch.rllib import (APPO, BC, DQN, IMPALA, PPO, APPOConfig,
+                                 BCConfig, CartPoleVectorEnv, DQNConfig,
+                                 IMPALAConfig, IMPALALearner, PolicyClient,
+                                 PolicyServer, PPOConfig, WorkerSet,
+                                 atari_connectors, read_batches,
+                                 rows_to_batch, write_batches)
 from ray_tpu_torch.rllib.connectors import FrameStack
 from ray_tpu_torch.rllib.learner import LearnerGroup
 from ray_tpu_torch.rllib.ppo import PPOLearner
@@ -308,3 +310,43 @@ def test_policy_server_round_trips():
     finally:
         server.stop()
         greedy.stop()
+
+
+def _cartpole_batches(n_batches, rows, seed=0):
+    env = CartPoleVectorEnv(1, seed=seed)
+    rng = np.random.default_rng(seed)
+    obs = env.reset()
+    out = []
+    for _ in range(n_batches):
+        cols = {"obs": [], "actions": [], "rewards": [], "dones": []}
+        for _ in range(rows):
+            action = rng.integers(0, 2, size=1)
+            cols["obs"].append(obs[0])
+            cols["actions"].append(action[0])
+            obs, reward, done, _ = env.step(action)
+            cols["rewards"].append(reward[0])
+            cols["dones"].append(done[0])
+        out.append({"obs": np.asarray(cols["obs"], np.float32),
+                    "actions": np.asarray(cols["actions"], np.int64),
+                    "rewards": np.asarray(cols["rewards"], np.float32),
+                    "dones": np.asarray(cols["dones"], bool)})
+    return out
+
+
+def test_bc_trains_from_experiences_written_through_data(tmp_path):
+    batches = _cartpole_batches(3, 40)
+    files = write_batches(str(tmp_path), batches)
+    assert len(files) == 1 and files[0].endswith(".json")
+    ds = read_batches(str(tmp_path))
+    back = rows_to_batch(ds.take_all())
+    for k, v in back.items():
+        want = np.concatenate([b[k] for b in batches])
+        assert v.dtype == want.dtype, k
+        np.testing.assert_array_equal(v, want)
+    algo = BC(BCConfig(obs_dim=4, n_actions=2, hidden=(16, 16),
+                       device="cpu"))
+    m = algo.train_on_dataset(ds, epochs=2, batch_size=32)
+    _finite(m, "nll", "entropy", "grad_norm", "total_loss")
+    assert algo.iteration == 2
+    assert set(algo.get_policy_weights()) == set(
+        algo.learner.net.state_dict())

@@ -2,23 +2,37 @@
 
 `TorchTrainer.fit` runs its loop in worker actors of the port's runtime,
 which one module-scoped `ray_tpu_torch.init` starts; every loop below is a
-module-level function, so the workers import it from this file.
+module-level function, so the workers import it from this file. The
+Data-fed cases (`datasets=`) mirror the reference's trainer cases in
+tests/test_data.py and test_data_streaming.py; `TorchPredictor` and
+`BatchPredictor` are held against the JAX package's `JaxPredictor` on a
+tiny GPT-2 whose weights `params_from_jax` carries (Pallas in interpret
+mode).
 """
 
 import ast
 import dataclasses
+import functools
 import os
 
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import ray_tpu_torch
 from ray_tpu_torch import _torch_env, resolve_device
+from ray_tpu_torch import data as rd
 from ray_tpu_torch.models import gpt2
-from ray_tpu_torch.train import (Checkpoint, CheckpointConfig,
-                                 FailureConfig, RunConfig, ScalingConfig,
-                                 TorchTrainer, TrainingFailedError, session)
+from ray_tpu_torch.train import (BatchPredictor, Checkpoint,
+                                 CheckpointConfig, FailureConfig, RunConfig,
+                                 ScalingConfig, TorchPredictor, TorchTrainer,
+                                 TrainingFailedError, session)
+
+from ray_tpu.models import gpt2 as jgpt2
+from ray_tpu.train.batch_predictor import JaxPredictor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -279,6 +293,210 @@ def test_kernel_build_dir_is_git_ignored():
     assert build_dir.split(os.sep)[0] + "/" in ignored
 
 
+# --------------------------------------------------------------------------- #
+# datasets=: the Data-fed loop
+# --------------------------------------------------------------------------- #
+
+
+@ray_tpu_torch.remote
+class _Tally:
+    def __init__(self):
+        self.ids = []
+
+    def add(self, rank, ids):
+        self.ids.append((rank, list(ids)))
+
+    def get(self):
+        return self.ids
+
+
+def _ingest_loop(config):
+    shard = session.get_dataset_shard("train")
+    seen = []
+    for batch in shard.iter_batches(batch_size=8):
+        seen += batch["id"].tolist()
+    tally = ray_tpu_torch.get_actor(config["tally"])
+    ray_tpu_torch.get(tally.add.remote(session.get_world_rank(), seen))
+    stats = session.get_ingest_stats()["train"]
+    session.report({"rows": len(seen), "steps": stats["steps"],
+                    "stall_frac": stats["stall_frac"],
+                    "epochs": stats["epochs"]})
+
+
+def test_datasets_two_gloo_workers_see_every_row_once(tmp_path):
+    # The reference's tests/test_data.py::test_dataset_feeds_trainer_shards
+    # and test_data_streaming.py::test_trainer_shards_report_ingest_stats:
+    # one streaming_split over two gloo workers, each a prefetching
+    # ShardIterator with step-stall accounting.
+    tally = _Tally.options(name="ingest_tally").remote()
+    result = TorchTrainer(
+        _ingest_loop, device="cpu", train_loop_config={"tally":
+                                                       "ingest_tally"},
+        scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(name="ingest", storage_path=str(tmp_path)),
+        datasets={"train": rd.range(64, parallelism=4)}).fit()
+    assert result.error is None, result.error
+    seen = ray_tpu_torch.get(tally.get.remote())
+    assert sorted(rank for rank, _ in seen) == [0, 1]
+    assert sorted(i for _, ids in seen for i in ids) == list(range(64))
+    m = result.metrics
+    assert m["steps"] > 0 and m["epochs"] == 1
+    assert 0.0 <= m["stall_frac"] <= 1.0
+    ray_tpu_torch.kill(tally)
+
+
+def test_plain_lists_are_sharded_round_robin():
+    trainer = TorchTrainer(_ingest_loop, device="cpu",
+                           scaling_config=ScalingConfig(num_workers=3),
+                           datasets={"a": list(range(7)), "cfg": {"k": 1}})
+    shards = trainer._split_datasets()
+    assert [s["a"] for s in shards] == [[0, 3, 6], [1, 4], [2, 5]]
+    assert all(s["cfg"] == {"k": 1} for s in shards)
+    assert TorchTrainer(_ingest_loop, device="cpu")._split_datasets() is None
+
+
+def _restart_ingest_loop(config):
+    # The first incarnation takes two batches, checkpoints and dies; the
+    # restarted gang gets its shard again (the same ShardIterator, shipped
+    # anew) and reads on.
+    shard = session.get_dataset_shard("train")
+    start = session.get_checkpoint()
+    seen = []
+    for batch in shard.iter_batches(batch_size=8):
+        seen += batch["id"].tolist()
+        if start is None and len(seen) == 16:
+            break
+    tally = ray_tpu_torch.get_actor(config["tally"])
+    ray_tpu_torch.get(tally.add.remote(0 if start is None else 1, seen))
+    if start is None:
+        session.report({"rows": len(seen)},
+                       checkpoint=Checkpoint.from_dict({"rows": len(seen)}))
+        raise RuntimeError("the first incarnation dies")
+    session.report({"rows": len(seen)})
+
+
+def test_dataset_shards_survive_gang_restart():
+    # As in the reference, the split is made once per fit(): the restarted
+    # worker resumes the split's epoch where the coordinator stands, so it
+    # sees none of the first incarnation's rows (blocks its prefetch had
+    # pulled but not handed to the loop are not seen again).
+    tally = _Tally.options(name="restart_tally").remote()
+    result = TorchTrainer(
+        _restart_ingest_loop, device="cpu",
+        train_loop_config={"tally": "restart_tally"},
+        run_config=RunConfig(failure_config=FailureConfig(max_failures=1)),
+        datasets={"train": rd.range(128, parallelism=16)}).fit()
+    assert result.error is None, result.error
+    seen = dict(ray_tpu_torch.get(tally.get.remote()))
+    assert len(seen[0]) == 16 and len(seen[1]) > 0
+    assert not set(seen[0]) & set(seen[1])
+    assert set(seen[0]) | set(seen[1]) <= set(range(128))
+    ray_tpu_torch.kill(tally)
+
+
+def _one_batch_loop(config):
+    shard = session.get_dataset_shard("train")
+    for batch in shard.iter_batches(batch_size=100):
+        break  # N steps: most of the epoch is never read
+    session.report({"rows": len(batch["data"]),
+                    "shuffle": shard.split_stats()["shuffle"]})
+
+
+def test_an_abandoned_epoch_leaves_no_store_objects():
+    # A loop that stops after one batch of a shuffled dataset (blocks past
+    # the 100 KiB inline threshold, so they live in the store): fit()
+    # closes the split, whose coordinator drops the execution, frees its
+    # blocks and exits; the store returns to its count (frees are batched
+    # on a 1 s timer, so poll with a deadline, as bench.py's ingest leak
+    # check does).
+    import time
+
+    store = ray_tpu_torch._global_node.raylet.store
+    baseline = store.stats()["num_objects"]
+    ds = rd.range_tensor(4000, shape=(32,), parallelism=8) \
+        .random_shuffle(seed=1)
+    result = TorchTrainer(_one_batch_loop, device="cpu",
+                          datasets={"train": ds}).fit()
+    assert result.error is None, result.error
+    assert result.metrics["rows"] == 100
+    assert result.metrics["shuffle"]["windows"] >= 1
+    assert result.metrics["shuffle"]["input_blocks"] == 8
+    deadline = time.monotonic() + 20
+    while store.stats()["num_objects"] > baseline \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    assert store.stats()["num_objects"] <= baseline
+
+
+# --------------------------------------------------------------------------- #
+# TorchPredictor / BatchPredictor against JaxPredictor
+# --------------------------------------------------------------------------- #
+
+# float32 on both sides, widths up to 512: logits differ by summation order
+# only, 1e-4 (as tests/test_torch_gpt2.py holds the model's logits).
+_PRED_TOL = dict(atol=1e-4, rtol=1e-4)
+_PRED_SEQ = 64
+
+
+def _predictor_pair(tmp_path):
+    jcfg = jgpt2.GPT2Config(vocab_size=512, n_positions=_PRED_SEQ,
+                            n_embd=128, n_layer=2, n_head=2,
+                            dtype=jnp.float32)
+    tcfg = gpt2.GPT2Config(vocab_size=512, n_positions=_PRED_SEQ,
+                           n_embd=128, n_layer=2, n_head=2,
+                           dtype=torch.float32)
+    jmodel = jgpt2.GPT2(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(0),
+                         jnp.zeros((1, _PRED_SEQ), jnp.int32))
+    params_np = jax.tree.map(np.asarray, fnn.meta.unbox(params))
+    ckpt = Checkpoint.from_state_dict(gpt2.params_from_jax(params_np),
+                                      path=str(tmp_path / "ckpt"))
+    ids = np.random.default_rng(2).integers(0, 512, (12, _PRED_SEQ),
+                                            dtype=np.int32)
+    spec = functools.partial(gpt2.GPT2, tcfg)
+    return JaxPredictor(jmodel, params, input_column="ids"), ckpt, spec, ids
+
+
+def test_torch_predictor_and_batch_predictor_match_jax(tmp_path,
+                                                       monkeypatch):
+    monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
+    jpred, ckpt, spec, ids = _predictor_pair(tmp_path)
+    want = jpred.predict({"ids": ids})["predictions"]
+    tpred = TorchPredictor.from_checkpoint(ckpt, model=spec,
+                                           input_column="ids",
+                                           keep_columns=("row",),
+                                           device="cpu")
+    got = tpred.predict({"ids": ids, "row": np.arange(12)})
+    assert got["predictions"].dtype == np.float32
+    np.testing.assert_allclose(got["predictions"], want, **_PRED_TOL)
+    np.testing.assert_array_equal(got["row"], np.arange(12))
+    # The same scoring through Data: one pool actor (a CPU worker, so the
+    # predictor is asked for the CPU), batches of 4, every row once.
+    ds = rd.from_numpy(ids, column="ids")
+    ds = ds.map_batches(lambda b: {"ids": b["ids"],
+                                   "row": np.arange(len(b["ids"]))})
+    scored = BatchPredictor.from_checkpoint(
+        ckpt, TorchPredictor, model=spec, input_column="ids",
+        device="cpu").predict(ds, batch_size=4, max_scoring_workers=1,
+                              keep_columns=("row",))
+    out = {}
+    for batch in scored.iter_batches(batch_size=12):
+        for row, pred in zip(batch["row"], batch["predictions"]):
+            assert int(row) not in out
+            out[int(row)] = pred
+    assert sorted(out) == list(range(12))
+    np.testing.assert_allclose(np.stack([out[i] for i in range(12)]), want,
+                               **_PRED_TOL)
+
+
+def test_torch_predictor_asks_for_the_card_by_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour where CUDA is absent")
+    _, ckpt, spec, _ = _predictor_pair(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchPredictor.from_checkpoint(ckpt, model=spec)
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ray_tpu_torch")):
@@ -306,11 +524,19 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert len(files) > 10
     for rel in ("serve/controller.py", "serve/examples.py",
                 "shardgroup/runtime.py", "inference/api.py",
-                "chaos/deadline.py", "observability/export.py"):
+                "chaos/deadline.py", "observability/export.py",
+                "data/dataset.py", "data/streaming/ingest.py",
+                "data/query/sort.py", "train/batch_predictor.py",
+                "rllib/offline.py"):
         assert os.path.join(ROOT, "ray_tpu_torch", rel) in files, rel
+    data_dir = os.path.join(ROOT, "ray_tpu_torch", "data") + os.sep
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for root, in_function in _imports(tree):
             assert root not in banned_anywhere, (path, root)
             assert in_function or root != "triton", (path, root)
+            # Data tasks run in CPU workers forked from the forge's
+            # template, which must keep CUDA uninitialised: no torch.
+            assert not path.startswith(data_dir) or root != "torch", \
+                (path, root)
