@@ -8,9 +8,10 @@ failed phase, with no phase caught.
 
 1. Device and build: prints the card's name and power limit, builds the
    CUDA kernels of `ray_tpu_torch/csrc/`, prints the build time and each
-   kernel's registers and spills, and checks that the shared memory each C
-   entry point asks for is what `attention.kernel_smem_bytes` computes
-   from the tile table.
+   kernel's registers and spills (the backward pair's Hopper bodies at
+   head dims 192 and 256, in bf16 and float16, must not spill), and checks
+   that the shared memory each C entry point asks for is what
+   `attention.kernel_smem_bytes` computes from the tile table.
 1b. Runtime: `ray_tpu_torch.init()` must advertise the card (`GPU: 1`);
    runs 16 tasks and an actor, moves a 256 MiB numpy array through
    `put`/`get` in a worker and back (MB/s printed), checks that a CPU task
@@ -22,18 +23,23 @@ failed phase, with no phase caught.
    card, at GPT-2-small's attention shape (bf16, causal and not), at
    Llama's head dim 128 (bf16), on a ragged bf16 case whose last tile ends
    inside the head in several heads, on small float32 and ragged cases, at
-   seq 8192 (bh 4) and at the attention shapes of phases 10 and 11 (bh 96
-   and 64, seq 2048, d 64, bf16, causal), element by element, printing
-   each error beside its limit; then the instances that take head dims
-   192 and 256 and float16 (bf16 and float16 at d 192 and 256, bh 24, seq
-   2048, causal; float16 at d 64 and 128 at the main shape; float32 at
-   d 256, small), each held the same way and timed beside its bound, its
-   plain version and `scaled_dot_product_attention`; then the wide
+   seq 8192 (bh 4), at the attention shapes of phases 10 and 11 (bh 96
+   and 64, seq 2048, d 64, bf16, causal) and on the backward pair's Hopper
+   bodies at d 192 and 256 (bf16 and float16: ragged at seq 300 and 77 in
+   several heads, and non-causal), element by element, printing each error
+   beside its limit; then the instances that take head dims 192 and 256
+   and float16 (bf16 and float16 at d 192 and 256, bh 24, seq 2048,
+   causal; float16 at d 64 and 128 at the main shape; float32 at d 256,
+   small), each held the same way and timed beside its bound, its plain
+   version and `scaled_dot_product_attention` (at d 192 and 256 its
+   backward alone beside K2 + K3, with each kernel's share of its bound);
+   then the wide
    instances above d 256 (bf16 and float16 at d 320, 384 and 512, bh 8,
    seq 1024, causal; float32 small), held and timed the same way; shows
    that the same check rejects planted faults (a skipped tile, P left
    unnormalised, delta left at 0, each sized from the kernel's own tiles)
-   at the main shape and at d 384 (bf16); times each kernel, its plain
+   at the main shape, at bf16 d 256 (bh 24, seq 2048) and at d 384 (bf16);
+   times each kernel, its plain
    version and
    `scaled_dot_product_attention` (a yardstick the port never calls),
    forward and backward alone.
@@ -177,10 +183,11 @@ failed phase, with no phase caught.
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
-   of phase 2 under `instances`; K2's and K3's records hold
+   of phase 2 under `instances`, each with its share of its bound,
+   `bound_share`; K2's and K3's records hold
    `scaled_dot_product_attention`'s backward, which does their joint work,
-   under `sdpa_backward_ms`, at the main shape and at seq 8192), then the
-   device line last.
+   under `sdpa_backward_ms`, at the main shape, at seq 8192 and at each
+   d 192/256 instance), then the device line last.
 
 Phases 4c, 8, 10 and 11 also train in worker actors through
 `TorchTrainer.fit`. Each phase frees what it allocated before the next starts, and the script
@@ -254,6 +261,13 @@ CASES = [
     # plain scores take 1.5 and 1 GiB.
     dict(bh=96, seq=2048, d=64, dtype=torch.bfloat16, causal=True),
     dict(bh=64, seq=2048, d=64, dtype=torch.bfloat16, causal=True),
+    # The backward pair's Hopper bodies at d 192 and 256: ragged, the last
+    # streamed tile ending inside the head in several heads (seq 300 and
+    # 77), and non-causal.
+    *(dict(bh=bh, seq=seq, d=d, dtype=t, causal=causal)
+      for d in (192, 256) for t in (torch.bfloat16, torch.float16)
+      for bh, seq, causal in ((6, 300, True), (5, 77, True),
+                              (3, 256, False))),
 ]
 # The instances that take the head dims 192 and 256 and float16 (the JAX
 # package's kernels take any d % 64 == 0 in any float type): each is held
@@ -275,6 +289,14 @@ F3_CASES = [
       for d in (320, 384, 512)),
 ]
 F3_FAULTS = dict(bh=8, seq=1024, d=384, dtype=torch.bfloat16, causal=True)
+# The planted faults at the backward pair's widest Hopper instance.
+F10_FAULTS = dict(F1_CASES[2])
+assert F10_FAULTS["d"] == 256 and F10_FAULTS["dtype"] == torch.bfloat16
+# Kernel bodies that must not spill (phase 1): the backward pair's Hopper
+# bodies at d 192 and 256, as ptxas_usage names them.
+NO_SPILL = [f"{body}<{t}, {d}>"
+            for body in ("bwd_dq_kernel_sm90", "bwd_dkv_kernel_sm90_split")
+            for t in ("bf16", "f16") for d in (192, 256)]
 # (kernel, output, tolerance) of each output held against its plain
 # version; delta is a float32 sum in both, held to the float32 forward's.
 OUTPUTS = [("flash_fwd", "out", "fwd"), ("flash_fwd", "lse", "fwd"),
@@ -585,8 +607,11 @@ def check_instances(attn, records, cases, seed: int) -> None:
     each kernel held element by element against its plain version, then
     timed beside its bound, its plain version and
     scaled_dot_product_attention (forward for K1; forward + backward beside
-    K1 + K2 + K3). At F3_FAULTS the planted faults must be rejected too.
-    Adds one entry per case to each kernel's record under `instances`."""
+    K1 + K2 + K3; at d 192 and 256 its backward alone beside K2 + K3). At
+    F3_FAULTS and F10_FAULTS the planted faults must be rejected too. Adds
+    one entry per case to each kernel's record under `instances`, with its
+    share of its bound (`bound_share`) and, for K2 and K3 at d 192 and 256,
+    `sdpa_backward_ms`."""
     for i, case in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(seed + i)
         shape = (case["bh"], case["seq"], case["d"])
@@ -598,13 +623,15 @@ def check_instances(attn, records, cases, seed: int) -> None:
         torch.cuda.synchronize()
         label = case_label(case)
         errs = report(compare(got, want, case["dtype"]), label)
-        if case == F3_FAULTS:
+        if case in (F3_FAULTS, F10_FAULTS):
             check_planted_faults(attn, q, k, v, do, got["lse"],
                                  want["delta"], scale, got, want, errs)
         out, lse, dq, delta, dk, dv = (got[key] for key in (
             "out", "lse", "dq", "delta", "dk", "dv"))
         sdpa_fwd = _sdpa(q, k, v, causal, scale, "forward", batch=1)
         sdpa_both = _sdpa(q, k, v, causal, scale, "both", batch=1)
+        sdpa_bwd = (_sdpa(q, k, v, causal, scale, "backward", batch=1)
+                    if case["d"] in (192, 256) else None)
         work = {
             "flash_fwd": (
                 lambda: attn._flash_forward(q, k, v, causal, scale),
@@ -622,22 +649,34 @@ def check_instances(attn, records, cases, seed: int) -> None:
                                                      causal, scale),
                 4, [q, k, v, do, lse, delta, dk, dv], None),
         }
-        total = 0.0
+        total, inst = 0.0, {}
         for name, (kern, plain, n_prod, tensors, lib_ms) in work.items():
             b_ms, b_by = bound(case, n_prod, tensors)
-            inst = {"shape": label, "max_abs_err": errs[name][1],
-                    "ms": time_ms(kern, reps=5, rounds=3),
-                    "plain_ms": time_ms(plain, reps=2, rounds=2),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-            total += inst["ms"]
-            records[name].setdefault("instances", []).append(inst)
-            print(f"  {name:14s} {label}: {inst['ms']:.4f} ms, plain "
-                  f"{inst['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+            inst[name] = rec = {
+                "shape": label, "max_abs_err": errs[name][1],
+                "ms": time_ms(kern, reps=5, rounds=3),
+                "plain_ms": time_ms(plain, reps=2, rounds=2),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            rec["bound_share"] = b_ms / rec["ms"]
+            if sdpa_bwd is not None and name != "flash_fwd":
+                rec["sdpa_backward_ms"] = sdpa_bwd
+            total += rec["ms"]
+            records[name].setdefault("instances", []).append(rec)
+            print(f"  {name:14s} {label}: {rec['ms']:.4f} ms, plain "
+                  f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"{rec['bound_share']:.1%} of it)"
                   + (f", sdpa forward {lib_ms:.4f} ms" if lib_ms else ""))
         print(f"  {label}: K1 + K2 + K3 {total:.4f} ms, "
               f"scaled_dot_product_attention forward + backward "
               f"{sdpa_both:.4f} ms")
-        del q, k, v, do, got, want, out, lse, dq, delta, dk, dv, work
+        if sdpa_bwd is not None:
+            pair = inst["flash_bwd_dq"]["ms"] + inst["flash_bwd_dkv"]["ms"]
+            print(f"  {label}: K2 + K3 {pair:.4f} ms, "
+                  f"scaled_dot_product_attention backward {sdpa_bwd:.4f} ms "
+                  f"({pair / sdpa_bwd:.3f}x); K2 at "
+                  f"{inst['flash_bwd_dq']['bound_share']:.1%} of its bound, "
+                  f"K3 at {inst['flash_bwd_dkv']['bound_share']:.1%}")
+        del q, k, v, do, got, want, out, lse, dq, delta, dk, dv, work, inst
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2865,11 +2904,21 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for src, log in logs.items():
-        for fn, regs, spill in ptxas_usage(log):
+        usage = ptxas_usage(log)
+        for fn, regs, spill in usage:
             print(f"  {src}: {fn}: {regs} registers, {spill}")
         for line in log.splitlines():  # e.g. wgmma serialised by ptxas
             if "warning" in line.lower() or "Performance Loss" in line:
                 print(f"  {src}: {line.strip()}")
+        if src == "flash_bwd.cu":
+            spills = {fn: spill for fn, _, spill in usage}
+            bad = [fn for fn in NO_SPILL
+                   if "0 bytes spill stores, 0 bytes spill loads"
+                   not in spills.get(fn, "missing")]
+            if bad:
+                raise AssertionError(f"spilled or not built: {bad}")
+            print(f"  no spills in {len(NO_SPILL)} Hopper bodies of the "
+                  f"backward pair at d 192 and 256")
     check_smem(attn, _build)
 
     print("== 1b. runtime: ray_tpu_torch.init, tasks, objects, GPU grants")

@@ -23,7 +23,7 @@
 // The TPU grid's sequential dimension becomes a loop inside the block, so
 // nothing is carried between blocks and no atomics are needed.
 //
-// dQ, bf16 and float16 at d <= 128 (bwd_dq_kernel_sm90): the dK/dV design
+// dQ, bf16 and float16 at d <= 256 (bwd_dq_kernel_sm90): the dK/dV design
 // below with the roles of queries and keys swapped back. One block per 128
 // queries, two consumer warpgroups of 64 and a producer warpgroup, whose
 // first warp loads Q, dO and O once by TMA and streams K and V tiles
@@ -51,7 +51,42 @@
 // The two warpgroups take turns on the tensor cores, so that one's
 // elementwise step overlaps the other's products.
 //
-// float32, and 16-bit at d 192 and 256 (bwd_dq_kernel, bwd_dkv_kernel): 64
+// bf16 and float16 at d 192 and 256. Bounds at bh = 24, seq = 2048,
+// causal: dQ about 58 (d 192) and 77 GFLOP (d 256), 59 and 78 us at 989
+// TFLOP/s; dK/dV 77 and 103 GFLOP, 78 and 104 us: all bound by operations,
+// as the d <= 128 instances at long sequences. What changes with the head
+// dim is what fits:
+// - dQ (bwd_dq_kernel_sm90, the body above): Q, dO and O of 128 rows would
+//   take 144 KB at d 192 and 192 KB at d 256, so O stays in device memory
+//   and the prologue reads its rows for delta from there, the lanes taking
+//   the columns that match dO's swizzled pieces. Q and dO stay resident
+//   (96 and 128 KB), and K and V stream in tiles of 32 keys through 5 and 3
+//   slots. dQ's accumulator is D / 2 = 96 or 128 floats a thread, beside S
+//   and dP (16 each) and dS's A fragments (8); dS K is issued as products
+//   of 128 columns (and one of 64 at d 192), since the Wgmma shapes stop at
+//   N = 128.
+// - dK/dV (bwd_dkv_kernel_sm90_split): one warpgroup holding dK and dV of
+//   its 64 keys needs D floats a thread, 192 or 256, before S^T and dP^T:
+//   more than the 232 registers a consumer thread gets. Both consumer
+//   warpgroups own the same 64 keys instead, and each runs half of every
+//   tile's products: warpgroup 0 computes S^T = K Q^T, forms P^T, hands it
+//   in float32 to warpgroup 1 through a shared-memory buffer and adds
+//   dV += P^T dO; warpgroup 1 computes dP^T = V dO^T, forms dS^T with the
+//   P^T it reads and adds dK += dS^T Q. Each holds one D-wide accumulator
+//   (D / 2 floats a thread) and one [64 x 64] tile of scores (32), and
+//   feeds its second product from registers, as the d <= 128 body does.
+//   FlashAttention-3 splits dK's and dV's columns between the warpgroups
+//   and each computes S^T and dP^T for half of the queries, exchanging P^T
+//   and dS^T; that was written first and ran slower at d 256 on an H100:
+//   its m64n32 products read as many bytes of shared memory as they
+//   compute, it met at a barrier every tile, and at d 192 the column halves
+//   (96) would start inside a 64-column swizzle atom of the MN-major B. The
+//   handoff needs one direction only, so warpgroup 0 may run a tile ahead:
+//   two buffers, each with a full and an empty mbarrier. K and V stay
+//   resident (48 and 64 KB), and Q and dO stream in tiles of 64 queries
+//   through 3 slots at d 192 and 2 at d 256.
+//
+// float32 at every d <= 256 (bwd_dq_kernel, bwd_dkv_kernel): 64
 // rows and 4 warps of 16 per block; dQ streams K/V tiles up to the diagonal
 // (and sums delta first, as the Hopper body does), dK/dV streams Q/dO tiles
 // from the diagonal down with the same transposed products. Each tile of
@@ -174,19 +209,23 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_v,
                    const __grid_constant__ CUtensorMap map_do,
                    const __grid_constant__ CUtensorMap map_o,
-                   const float* __restrict__ lse, float* __restrict__ delta,
-                   T* __restrict__ dq, int sq, int sk, int causal,
-                   float scale) {
+                   const T* __restrict__ out, const float* __restrict__ lse,
+                   float* __restrict__ delta, T* __restrict__ dq, int sq,
+                   int sk, int causal, float scale) {
   using namespace sm90;
   constexpr int BQ = DqTiles<D>::ROWS, BK = DqTiles<D>::TILE;
   constexpr int STAGES = DqTiles<D>::STAGES;
+  // O stays in shared memory beside Q and dO up to D 128; above, the
+  // prologue reads it from device memory (`out`).
+  constexpr bool RESIDENT_O = D <= 128;
   constexpr uint32_t Q_BYTES = tile_bytes<BQ, D>();
   constexpr uint32_t KV_BYTES = tile_bytes<BK, D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* sq_tile = aligned_smem(smem_raw);
   uint8_t* sdo_tile = sq_tile + Q_BYTES;
   uint8_t* so_tile = sdo_tile + Q_BYTES;
-  uint8_t* ring = so_tile + Q_BYTES;  // slot s: K at 2s, V at 2s + 1
+  // slot s: K at 2s, V at 2s + 1
+  uint8_t* ring = RESIDENT_O ? so_tile + Q_BYTES : so_tile;
   uint64_t* own_full =
       reinterpret_cast<uint64_t*>(ring + STAGES * 2 * KV_BYTES);
   uint64_t* full = own_full + 1;
@@ -214,9 +253,10 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   if (warp >= PRODUCER_WARP) {
     reg_dealloc<PRODUCER_REGS>();
     if (warp == PRODUCER_WARP && lane == 0) {
-      mbar_expect_tx(own_full, 3 * Q_BYTES);
+      mbar_expect_tx(own_full, (RESIDENT_O ? 3 : 2) * Q_BYTES);
       tma_tile<BQ, D>(sdo_tile, &map_do, own_full, q0, bh);
-      tma_tile<BQ, D>(so_tile, &map_o, own_full, q0, bh);
+      if constexpr (RESIDENT_O)
+        tma_tile<BQ, D>(so_tile, &map_o, own_full, q0, bh);
       tma_tile<BQ, D>(sq_tile, &map_q, own_full, q0, bh);
       for (int i = 0; i < nkb; ++i) {
         const int s = i % STAGES;
@@ -256,8 +296,8 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   // are stored alike, so the pair at an offset is the same (row, column) in
   // both. Rows past the end were zero-filled and are not written.
   mbar_wait(own_full, 0);
-  {
-    constexpr int RB = row_bytes<D>(), PART = RB / 4;  // bytes of a lane
+  constexpr int RB = row_bytes<D>(), PART = RB / 4;  // bytes of a lane
+  if constexpr (RESIDENT_O) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float sum = 0.f;
@@ -268,6 +308,32 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
         for (int b = 0; b < PART; b += 16)
           sum = dot8<T>(*reinterpret_cast<const uint4*>(sdo_tile + off + b),
                      *reinterpret_cast<const uint4*>(so_tile + off + b), sum);
+      }
+      dlt[h] = quad_sum(sum);
+      if (t == 0 && rows[h] < sq) delta[rows[h]] = dlt[h];
+    }
+  } else {
+    // O from device memory: the stored 16-byte piece ph of tile row rr
+    // holds the row's columns 8 (ph ^ rr % 8).. of its chunk (the 128-byte
+    // swizzle), so each lane reads O's matching columns. Rows past the end
+    // read nothing.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r0 + g + 8 * h;
+      const T* orow = out + ((size_t)bh * sq + rows[h]) * D;
+      float sum = 0.f;
+      if (rows[h] < sq) {
+#pragma unroll
+        for (int c = 0; c < D / chunk_cols<D>(); ++c)
+#pragma unroll
+          for (int b = 0; b < PART; b += 16) {
+            const int ph = (t * PART + b) / 16;
+            sum = dot8<T>(*reinterpret_cast<const uint4*>(
+                              sdo_tile + c * BQ * RB + rr * RB + ph * 16),
+                          *reinterpret_cast<const uint4*>(
+                              orow + c * 64 + (ph ^ (rr & 7)) * 8),
+                          sum);
+          }
       }
       dlt[h] = quad_sum(sum);
       if (t == 0 && rows[h] < sq) delta[rows[h]] = dlt[h];
@@ -284,20 +350,41 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
     return smem_u32(ring + (i % STAGES) * 2 * KV_BYTES);
   };
   auto issue_s = [&](int i) {  // S = Q K^T, dP = dO V^T, all K-major
+    if constexpr (D == 256) {
+      // Hoisted out of the loop, the 32 descriptors of Q and dO spill at
+      // d 256: rebuilt each turn from an opaque base, by one add each.
+      const uint64_t qd = k_major<BQ, D>(opaque(q_addr), 0);
+      const uint64_t dd = k_major<BQ, D>(opaque(do_addr), 0);
+      const uint64_t kd = k_major<BK, D>(slot(i), 0);
+      const uint64_t vd = k_major<BK, D>(slot(i) + KV_BYTES, 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BK, T>::ss(s, k_major<BQ, D>(q_addr, kk),
-                       k_major<BK, D>(slot(i), kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BK, T>::ss(s, k_major_at<BQ, D>(qd, kk),
+                         k_major_at<BK, D>(kd, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BK, T>::ss(dp, k_major<BQ, D>(do_addr, kk),
-                       k_major<BK, D>(slot(i) + KV_BYTES, kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BK, T>::ss(dp, k_major_at<BQ, D>(dd, kk),
+                         k_major_at<BK, D>(vd, kk), kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BK, T>::ss(s, k_major<BQ, D>(q_addr, kk),
+                         k_major<BK, D>(slot(i), kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BK, T>::ss(dp, k_major<BQ, D>(do_addr, kk),
+                         k_major<BK, D>(slot(i) + KV_BYTES, kk), kk > 0);
+    }
     wg_commit();
   };
   auto issue_dq = [&](int i) {  // dQ += dS K, K read MN-major
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<D, T>::rs(acc, dsa[kk], mn_major<BK, D>(slot(i), kk), 1);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if constexpr (D <= 128)
+        Wgmma<D, T>::rs(acc, dsa[kk], mn_major<BK, D>(slot(i), kk), 1);
+      else
+        WgmmaCols<D, T>::rs(acc, dsa[kk], mn_major<BK, D>(slot(i), kk), 1);
+    }
     wg_commit();
   };
   auto release = [&](int i) {  // this warp is done with tile i's slot
@@ -691,6 +778,208 @@ bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   store_rows<D, T>(dv + ((size_t)bh * sk + w0) * D, dv_acc, sk - w0);
 }
 
+// dK/dV, bf16 and float16 at d 192 and 256 (the file's header says why):
+// both consumer warpgroups own the block's 64 keys. Warpgroup 0 computes
+// S^T and P^T of each streamed tile, hands P^T in float32 to warpgroup 1
+// through a shared-memory buffer and adds dV += P^T dO; warpgroup 1
+// computes dP^T, forms dS^T = P^T (dP^T - delta) scale with the P^T it
+// reads and adds dK += dS^T Q. P^T and dS^T feed their products from
+// registers. The handoff is two buffers, each with a full and an empty
+// mbarrier of 128 arrivals (every thread of one warpgroup).
+template <typename T, int D>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+bwd_dkv_kernel_sm90_split(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int sq,
+                          int sk, int causal, float scale) {
+  using namespace sm90;
+  constexpr int BKEY = DkvTiles<D>::ROWS, BQ = DkvTiles<D>::TILE;
+  constexpr int STAGES = DkvTiles<D>::STAGES;
+  static_assert(BKEY == 64, "both warpgroups own the block's 64 keys");
+  constexpr uint32_t KV_BYTES = tile_bytes<BKEY, D>();
+  constexpr uint32_t Q_BYTES = tile_bytes<BQ, D>();
+  constexpr int P_VEC = BQ / 8;  // float4 of P^T a thread holds
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* sk_tile = aligned_smem(smem_raw);
+  uint8_t* sv_tile = sk_tile + KV_BYTES;
+  uint8_t* ring = sv_tile + KV_BYTES;  // slot s: Q at 2s, dO at 2s + 1
+  // P^T handoff, two buffers of [P_VEC][128 threads] float4: each thread of
+  // warpgroup 1 reads what the same thread of warpgroup 0 wrote, since both
+  // hold [64 x BQ] accumulators in one layout.
+  float4* pbuf = reinterpret_cast<float4*>(ring + STAGES * 2 * Q_BYTES);
+  float* lse_s = reinterpret_cast<float*>(pbuf + 2 * P_VEC * WG_THREADS);
+  float* delta_s = lse_s + STAGES * BQ;  // [STAGES][BQ] each
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + STAGES * BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* p_full = empty + STAGES;  // [2] each
+  uint64_t* p_empty = p_full + 2;
+
+  const int nkb = (sk + BKEY - 1) / BKEY;
+  const int bh = blockIdx.x / nkb;
+  const int k0 = (blockIdx.x % nkb) * BKEY;  // low k-blocks: most work
+  // Causal: q-tiles that end before this block's first key add nothing.
+  const int qb0 = causal ? k0 / BQ : 0;
+  const int n_iter = max(0, (sq + BQ - 1) / BQ - qb0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);              // every producer lane arrives
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&p_full[b], WG_THREADS);
+      mbar_init(&p_empty[b], WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= PRODUCER_WARP) {  // as in bwd_dkv_kernel_sm90
+    reg_dealloc<PRODUCER_REGS>();
+    if (warp > PRODUCER_WARP) return;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * KV_BYTES);
+      tma_tile<BKEY, D>(sk_tile, &map_k, kv_full, k0, bh);
+      tma_tile<BKEY, D>(sv_tile, &map_v, kv_full, k0, bh);
+    }
+    for (int i = 0; i < n_iter; ++i) {
+      const int s = i % STAGES, q0 = (qb0 + i) * BQ;
+      if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+      for (int c = lane; c < BQ; c += 32) {
+        const bool in = q0 + c < sq;
+        lse_s[s * BQ + c] = in ? lse[q0 + c] * LOG2E : 0.f;
+        delta_s[s * BQ + c] = in ? delta[q0 + c] : 0.f;
+      }
+      if (lane == 0) {
+        uint8_t* slot = ring + s * 2 * Q_BYTES;
+        mbar_expect_tx(&full[s], 2 * Q_BYTES);
+        tma_tile<BQ, D>(slot, &map_q, &full[s], q0, bh);
+        tma_tile<BQ, D>(slot + Q_BYTES, &map_do, &full[s], q0, bh);
+      } else {
+        mbar_arrive(&full[s]);  // after this lane's lse and delta stores
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: 0 accumulates dV, 1 dK, over the block's keys;
+  // each warp holds 16 of them.
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = warp / 4, tid = threadIdx.x % WG_THREADS;
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = k0 + (warp % 4) * 16;  // this warp's first key row
+  const int keys[2] = {w0 + g, w0 + g + 8};
+  const float c2 = scale * LOG2E;
+
+  float acc[D / 2];  // dV or dK, [64 x D] across the warpgroup
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float x[BQ / 2];          // S^T, then P^T (wg 0); dP^T, then dS^T (wg 1)
+  uint32_t xa[BQ / 16][4];  // P^T or dS^T as A fragments
+
+  auto slot = [&](int i) {
+    return smem_u32(ring + (i % STAGES) * 2 * Q_BYTES);
+  };
+  auto release = [&](int i) {  // this warp is done with tile i's slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % STAGES]);
+  };
+  // S^T = K Q^T (wg 0) or dP^T = V dO^T (wg 1), K-major as stored; then,
+  // after the previous tile's product, the whole [64 x BQ] tile is in x.
+  auto scores = [&](int i) {
+    const uint64_t a =
+        k_major<BKEY, D>(opaque(smem_u32(wg == 0 ? sk_tile : sv_tile)), 0);
+    const uint64_t b = k_major<BQ, D>(slot(i) + wg * Q_BYTES, 0);
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<BQ, T>::ss(x, k_major_at<BKEY, D>(a, kk),
+                       k_major_at<BQ, D>(b, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();  // the scores, and tile i - 1's dV or dK product
+    fence_regs(x);
+    fence_regs(acc);
+    if (i > 0) release(i - 1);
+  };
+  // dV += P^T dO (wg 0) or dK += dS^T Q (wg 1), B MN-major from the slot.
+  auto product = [&](int i) {
+    to_a_frags<BQ, T>(xa, x);
+    const uint32_t b = slot(i) + (wg == 0 ? Q_BYTES : 0);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      WgmmaCols<D, T>::rs(acc, xa[kk], mn_major<BQ, D>(b, kk), 1);
+    wg_commit();
+  };
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_iter; ++i) {
+    const int q0 = (qb0 + i) * BQ, s = i % STAGES, b = i & 1;
+    float4* buf = pbuf + b * P_VEC * WG_THREADS + tid;
+    scores(i);
+    if (wg == 0) {
+      // P^T = 2^(S^T c2 - lse log2 e). Only tiles that cross the diagonal
+      // or either sequence's end are masked, in a branch of their own: a
+      // masked score becomes -1e30, whose probability is 0.
+      if (q0 + BQ > sq || k0 + BKEY > sk || (causal && q0 < k0 + BKEY - 1)) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = q0 + 8 * j + 2 * t + (e & 1), key = keys[e >> 1];
+            if (!(q < sq && key < sk && (!causal || key <= q)))
+              x[4 * j + e] = NEG_INF;
+          }
+      }
+      const float* lse2 = lse_s + s * BQ;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] = fast_exp2(
+              fmaf(x[4 * j + e], c2, -lse2[8 * j + 2 * t + (e & 1)]));
+      if (i >= 2) mbar_wait(&p_empty[b], ((i >> 1) - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < P_VEC; ++j)
+        buf[j * WG_THREADS] =
+            make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      mbar_arrive(&p_full[b]);
+    } else {
+      // dS^T = P^T (dP^T - delta) scale, P^T from warpgroup 0.
+      const float* dlt = delta_s + s * BQ;
+      mbar_wait(&p_full[b], (i >> 1) & 1);
+#pragma unroll
+      for (int j = 0; j < P_VEC; ++j) {
+        const float4 p = buf[j * WG_THREADS];
+        const float d0 = dlt[8 * j + 2 * t], d1 = dlt[8 * j + 2 * t + 1];
+        x[4 * j] = p.x * (x[4 * j] - d0) * scale;
+        x[4 * j + 1] = p.y * (x[4 * j + 1] - d1) * scale;
+        x[4 * j + 2] = p.z * (x[4 * j + 2] - d0) * scale;
+        x[4 * j + 3] = p.w * (x[4 * j + 3] - d1) * scale;
+      }
+      if (i + 2 < n_iter) mbar_arrive(&p_empty[b]);
+    }
+    product(i);
+  }
+  if (n_iter > 0) {
+    wg_wait<0>();
+    fence_regs(acc);
+    release(n_iter - 1);
+  }
+  store_rows<D, T>((wg == 0 ? dv : dk) + ((size_t)bh * sk + w0) * D, acc,
+                   sk - w0);
+}
+
 // The wide bodies (flash_common.cuh, namespace wide).
 template <typename T>
 __global__ void __launch_bounds__(wide::THREADS)
@@ -839,9 +1128,9 @@ bwd_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 // kernel_smem_bytes mirrors these).
 template <typename T, int D>
 static size_t dq_smem() {
-  if constexpr (hopper_body<T, D>()) {
-    using Tl = sm90::DqTiles<D>;
-    return 3 * sm90::tile_bytes<Tl::ROWS, D>() +
+  if constexpr (hopper_bwd<T, D>()) {
+    using Tl = sm90::DqTiles<D>;  // Q, dO and, up to D 128, O resident
+    return (D <= 128 ? 3 : 2) * sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * 2 * sm90::tile_bytes<Tl::TILE, D>() +
            (1 + 2 * Tl::STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
   } else {
@@ -853,12 +1142,14 @@ static size_t dq_smem() {
 
 template <typename T, int D>
 static size_t dkv_smem() {
-  if constexpr (hopper_body<T, D>()) {
-    using Tl = sm90::DkvTiles<D>;
+  if constexpr (hopper_bwd<T, D>()) {
+    using Tl = sm90::DkvTiles<D>;  // above D 128, two float32 P^T buffers
     return 2 * sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * (2 * sm90::tile_bytes<Tl::TILE, D>() +
                          2 * Tl::TILE * sizeof(float)) +
-           (1 + 2 * Tl::STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
+           (D <= 128 ? 0 : 2 * Tl::ROWS * Tl::TILE * sizeof(float)) +
+           (1 + 2 * Tl::STAGES + (D <= 128 ? 0 : 4)) * sizeof(uint64_t) +
+           sm90::SMEM_ALIGN;
   } else {
     using Tl = PlainTiles<D>;
     return ((2 * BLOCK + 2 * Tl::STREAM) * ld<T, D>() +
@@ -872,20 +1163,22 @@ static int bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* out, const void* lse,
                   void* delta, void* dq, int bh, int sq, int sk, int causal,
                   float scale, cudaStream_t stream) {
-  if constexpr (hopper_body<T, D>()) {
+  if constexpr (hopper_bwd<T, D>()) {
     using Tl = sm90::DqTiles<D>;
-    CUtensorMap mq, mk, mv, mdo, mo;
+    CUtensorMap mq, mk, mv, mdo, mo = {};  // O's map: up to D 128
     int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::ROWS);
     if (!err) err = sm90::make_map<T, D>(&mk, k, bh, sk, Tl::TILE);
     if (!err) err = sm90::make_map<T, D>(&mv, v, bh, sk, Tl::TILE);
     if (!err) err = sm90::make_map<T, D>(&mdo, dout, bh, sq, Tl::ROWS);
-    if (!err) err = sm90::make_map<T, D>(&mo, out, bh, sq, Tl::ROWS);
+    if (!err && D <= 128)
+      err = sm90::make_map<T, D>(&mo, out, bh, sq, Tl::ROWS);
     if (err) return err;
     const dim3 grid(bh * ((sq + Tl::ROWS - 1) / Tl::ROWS));
     return launch(bwd_dq_kernel_sm90<T, D>, grid, sm90::THREADS,
                   dq_smem<T, D>(), stream, mq, mk, mv, mdo, mo,
-                  static_cast<const float*>(lse), static_cast<float*>(delta),
-                  static_cast<T*>(dq), sq, sk, causal, scale);
+                  static_cast<const T*>(out), static_cast<const float*>(lse),
+                  static_cast<float*>(delta), static_cast<T*>(dq), sq, sk,
+                  causal, scale);
   } else {
     const dim3 grid(bh * ((sq + BLOCK - 1) / BLOCK));
     return launch(bwd_dq_kernel<T, D>, grid, THREADS, dq_smem<T, D>(), stream,
@@ -902,7 +1195,7 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int bh, int sq, int sk, int causal,
                    float scale, cudaStream_t stream) {
-  if constexpr (hopper_body<T, D>()) {
+  if constexpr (hopper_bwd<T, D>()) {
     using Tl = sm90::DkvTiles<D>;
     CUtensorMap mq, mk, mv, mdo;
     int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::TILE);
@@ -911,11 +1204,18 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
     if (!err) err = sm90::make_map<T, D>(&mdo, dout, bh, sq, Tl::TILE);
     if (err) return err;
     const dim3 grid(bh * ((sk + Tl::ROWS - 1) / Tl::ROWS));
-    return launch(bwd_dkv_kernel_sm90<T, D>, grid, sm90::THREADS,
-                  dkv_smem<T, D>(), stream, mq, mk, mv, mdo,
-                  static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dk),
-                  static_cast<T*>(dv), sq, sk, causal, scale);
+    const float* lse_f = static_cast<const float*>(lse);
+    const float* delta_f = static_cast<const float*>(delta);
+    if constexpr (D <= 128)
+      return launch(bwd_dkv_kernel_sm90<T, D>, grid, sm90::THREADS,
+                    dkv_smem<T, D>(), stream, mq, mk, mv, mdo, lse_f,
+                    delta_f, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
+                    causal, scale);
+    else
+      return launch(bwd_dkv_kernel_sm90_split<T, D>, grid, sm90::THREADS,
+                    dkv_smem<T, D>(), stream, mq, mk, mv, mdo, lse_f,
+                    delta_f, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
+                    causal, scale);
   } else {
     const dim3 grid(bh * ((sk + BLOCK - 1) / BLOCK));
     return launch(bwd_dkv_kernel<T, D>, grid,

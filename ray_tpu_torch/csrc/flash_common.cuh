@@ -4,22 +4,25 @@
 // contiguous; lse and delta are [bh, seq] float32. Inputs are bf16, float16
 // or float32; every product accumulates in float32.
 //
-// Two families of kernel bodies live on these pieces:
+// Three families of kernel bodies live on these pieces:
 //
 // - The Hopper bodies (namespace flash::sm90 below): the 16-bit (bf16 and
-//   float16) forward, dQ and dK/dV kernels at D <= 128. One warp of a
-//   producer warpgroup streams tiles into a ring in shared memory with TMA,
-//   ordered by mbarriers; two consumer warpgroups take turns to run every
-//   tile product on wgmma and keep probabilities and dS in registers.
+//   float16) forward at D <= 128, and the dQ and dK/dV kernels at D <= 256.
+//   One warp of a producer warpgroup streams tiles into a ring in shared
+//   memory with TMA, ordered by mbarriers; two consumer warpgroups run every
+//   tile product on wgmma. At D 192 and 256 the dK/dV block's two
+//   warpgroups share its keys, one accumulating dV and the other dK, the
+//   first handing P^T to the second through shared memory (flash_bwd.cu
+//   says why).
 // - The CUDA-core bodies of the three kernels: every float32 instance, and
-//   the 16-bit ones at D 192 and 256. A block owns BLOCK = 64 rows, 4 warps
-//   of 16 rows, and streams tiles of PlainTiles<D>::STREAM rows past them;
-//   every operand of a tile product is read from shared memory by
+//   the 16-bit forward at D 192 and 256. A block owns BLOCK = 64 rows, 4
+//   warps of 16 rows, and streams tiles of PlainTiles<D>::STREAM rows past
+//   them; every operand of a tile product is read from shared memory by
 //   `warp_gemm`, which runs the 16x8 mma.sync accumulator layout on the
 //   CUDA cores in float32. wgmma has no float32 type, and TF32 keeps about
 //   three decimal digits, too few for the 1e-4 the float32 instances are
-//   held to, so those stay on the CUDA cores. The 16-bit instances at
-//   D > 128 use these bodies until they get a Hopper design of their own.
+//   held to, so those stay on the CUDA cores. The 16-bit forward at D > 128
+//   uses these bodies until it gets a Hopper design of its own.
 // - The wide bodies (namespace flash::wide): every type at head dims above
 //   256 that are a multiple of 64, d a run-time argument, accumulators in
 //   shared memory, on the CUDA cores in float32.
@@ -219,6 +222,31 @@ template <int D>
 struct DkvTiles {  // dK/dV: owns key rows, streams Q, dO, lse and delta
   static constexpr int ROWS = 128, TILE = D == 128 ? 32 : 64, STAGES = 3;
 };
+// D 192 and 256, the backward pair only (flash_bwd.cu). dQ: Q, dO and O of
+// 128 rows would take 144 and 192 KB, so O stays in device memory (the
+// prologue reads it for delta) and K and V stream in tiles of 32 keys
+// through as many slots as the rest of the 227 KB holds. dK/dV: one
+// warpgroup cannot hold dK and dV (D floats a thread), so both consumer
+// warpgroups own the same 64 keys, one accumulating dV and the other dK,
+// and Q and dO stream in tiles of 64 queries: through 2 slots at d 256,
+// which ran faster on an H100 than 4 slots of 32 queries (m64n32 products
+// read as many bytes of shared memory as they compute).
+template <>
+struct DqTiles<192> {
+  static constexpr int ROWS = 128, TILE = 32, STAGES = 5;
+};
+template <>
+struct DqTiles<256> {
+  static constexpr int ROWS = 128, TILE = 32, STAGES = 3;
+};
+template <>
+struct DkvTiles<192> {
+  static constexpr int ROWS = 64, TILE = 64, STAGES = 3;
+};
+template <>
+struct DkvTiles<256> {
+  static constexpr int ROWS = 64, TILE = 64, STAGES = 2;
+};
 
 // A tile of R rows x D 16-bit columns lies in shared memory as D / C chunks
 // of R rows x C columns, one TMA box each, swizzled by TMA as wgmma reads
@@ -256,6 +284,16 @@ __device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
   const uint32_t addr = tile + (kk * 16 / C) * (R * row_bytes<D>()) +
                         (kk * 16 % C) * 2;
   return make_desc(addr, 16, 8 * row_bytes<D>(), layout_code<D>());
+}
+
+// k_major<R, D>(tile, kk) from desc0 = k_major<R, D>(tile, 0): kk's offset
+// added to the start address field (tiles lie below 256 KB, so the field
+// never carries into the next).
+template <int R, int D>
+__device__ __forceinline__ uint64_t k_major_at(uint64_t desc0, int kk) {
+  constexpr int C = chunk_cols<D>();
+  return desc0 + (uint64_t)(((kk * 16 / C) * (R * row_bytes<D>()) +
+                             (kk * 16 % C) * 2) >> 4);
 }
 
 // Operand for k-step kk (16 rows) of an MN-major tile: the contraction runs
@@ -376,6 +414,14 @@ __device__ __forceinline__ void named_sync(int id) {
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(CONSUMERS * WG_THREADS)
                : "memory");
+}
+// x, as a value the compiler cannot see through: the operand descriptors
+// built from it inside a loop are rebuilt at each use instead of being
+// hoisted out of the loop and held in registers (at d 256, 32 descriptors
+// of 64 bits beside the accumulators spill).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 // Keep the compiler from moving reads or writes of wgmma's registers across
 // the asynchronous product.
@@ -546,6 +592,33 @@ struct Wgmma<128, T> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
           "r"(accumulate));
+  }
+};
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N] at N = 192 or 256, B MN-major in
+// shared memory, issued as a product of 128 columns and one of N - 128:
+// B's 64-column chunk c lies c LBO past its descriptor's start (LBO is the
+// descriptor's field, in the same 16-byte units as its address), and the
+// accumulator of columns 128.. follows that of columns 0..127 in d, which
+// is the layout of one m64nNk16 accumulator. A in registers.
+template <int N, typename T>
+struct WgmmaCols {
+  static_assert(N == 192 || N == 256, "column chunks of 128 and 64 or 128");
+  using Rest = Wgmma<N - 128, T>;
+  static __device__ __forceinline__ uint64_t past128(uint64_t b) {
+    return b + 2 * ((b >> 16) & 0x3FFF);
+  }
+  static __device__ __forceinline__ float (&lo(float (&d)[N / 2]))[64] {
+    return *reinterpret_cast<float(*)[64]>(&d[0]);
+  }
+  static __device__ __forceinline__ float (&hi(float (&d)[N / 2]))[N / 2 - 64] {
+    return *reinterpret_cast<float(*)[N / 2 - 64]>(&d[64]);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    Wgmma<128, T>::rs(lo(d), a, b, accumulate);
+    Rest::rs(hi(d), a, past128(b), accumulate);
   }
 };
 
@@ -866,9 +939,15 @@ extern "C" const char* flash_error_string(int code) {
   } while (0)
 
 namespace flash {
-// Whether the instance <T, D> runs a Hopper body (sm90) or a CUDA-core one.
+// Whether the instance <T, D> of a kernel runs a Hopper body (sm90) or a
+// CUDA-core one: the forward takes the 16-bit types up to D 128, the
+// backward pair (dQ, dK/dV) up to D 256.
 template <typename T, int D>
-constexpr bool hopper_body() {
+constexpr bool hopper_fwd() {
   return sizeof(T) == 2 && D <= 128;
+}
+template <typename T, int D>
+constexpr bool hopper_bwd() {
+  return sizeof(T) == 2 && D <= 256;
 }
 }  // namespace flash

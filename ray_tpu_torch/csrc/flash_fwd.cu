@@ -425,7 +425,7 @@ fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 // kernel_smem_bytes mirrors these).
 template <typename T, int D>
 static size_t fwd_smem() {
-  if constexpr (hopper_body<T, D>()) {
+  if constexpr (hopper_fwd<T, D>()) {
     using Tl = sm90::FwdTiles<D>;
     return sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * 2 * sm90::tile_bytes<Tl::TILE, D>() +
@@ -440,7 +440,7 @@ template <typename T, int D>
 static int fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int sq, int sk, int causal, float scale,
                cudaStream_t stream) {
-  if constexpr (hopper_body<T, D>()) {
+  if constexpr (hopper_fwd<T, D>()) {
     using Tl = sm90::FwdTiles<D>;
     CUtensorMap mq, mk, mv;
     int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::ROWS);

@@ -11,11 +11,12 @@ Public layout as in the JAX package: q, k, v are [batch, heads, seq,
 head_dim]. The kernels and their plain PyTorch versions work on
 [batch * heads, seq, head_dim]. Each wrapper launches its kernel for a
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
-for the other. On the card the body is chosen by type and head dim: bf16
-and float16 at d <= 128 run the Hopper bodies (TMA ring, wgmma), float32
-and the 16-bit types at d 192 and 256 the CUDA-core bodies, and every type
-at a multiple of 64 above 256 the wide bodies, which take d at run time and
-keep their accumulators in shared memory (`TILES` lists each one's tiles).
+for the other. On the card the body is chosen by kernel, type and head dim:
+bf16 and float16 run the Hopper bodies (TMA ring, wgmma) in the forward at
+d <= 128 and in the backward pair at d <= 256; float32, and the 16-bit
+forward at d 192 and 256, the CUDA-core bodies; every type at a multiple
+of 64 above 256 the wide bodies, which take d at run time and keep their
+accumulators in shared memory (`TILES` lists each one's tiles).
 The dQ kernel runs first in the backward and also writes delta =
 rowsum(dO * O), which the dK/dV kernel reads.
 """
@@ -43,7 +44,11 @@ class Tile(NamedTuple):
     stream: int   # rows of each tile the block streams past them
     stages: int   # slots of the ring the streamed tiles pass through
     ring: bool    # TMA ring + wgmma (Hopper body), or the CUDA cores
-    split: int = 1  # warps per 16 owned rows, each with its share of columns
+    # CUDA-core bodies: warps per 16 owned rows, each with its share of
+    # dK's and dV's columns. Ring bodies: consumer warpgroups per 64 owned
+    # rows; at 2 (dK/dV above d 128) one accumulates dV and the other dK,
+    # and the first hands P^T to the second through shared memory.
+    split: int = 1
     wide: bool = False  # d at run time, accumulators in shared memory
 
 
@@ -58,14 +63,21 @@ def _plain(name: str, d: int) -> Tile:
 
 # The Hopper bodies' tiles (flash_common.cuh FwdTiles, DqTiles, DkvTiles):
 # dQ and dK/dV stream a smaller tile at d = 128, where their accumulators
-# take the most registers, and dQ has 4 slots.
+# take the most registers, and dQ has 4 slots. At d 192 and 256 (the
+# backward pair only) dQ streams 32 keys through as many slots as fit
+# beside Q and dO, and dK/dV's two warpgroups share 64 keys (split 2) and
+# stream 64 queries.
 _RING = {
     "flash_fwd": dict.fromkeys((32, 64, 128), Tile(128, 128, 3, True)),
     "flash_bwd_dkv": {32: Tile(128, 64, 3, True), 64: Tile(128, 64, 3, True),
-                      128: Tile(128, 32, 3, True)},
+                      128: Tile(128, 32, 3, True),
+                      192: Tile(64, 64, 3, True, 2),
+                      256: Tile(64, 64, 2, True, 2)},
     "flash_bwd_dq": {32: Tile(128, 128, 4, True),
                      64: Tile(128, 128, 4, True),
-                     128: Tile(128, 64, 4, True)},
+                     128: Tile(128, 64, 4, True),
+                     192: Tile(128, 32, 5, True),
+                     256: Tile(128, 32, 3, True)},
 }
 # The wide bodies' tiles (flash_common.cuh, namespace wide: ROWS and the
 # *_STREAM rows): one instance per type serves every multiple of 64 above
@@ -91,13 +103,17 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
     if t.ring:
         # Tiles are unpadded (TMA swizzles them); one 8-byte mbarrier per
         # resident load and two per slot; 1024 bytes to align the swizzle
-        # pattern. Resident: Q (forward); Q, dO and O (dQ); K and V (dK/dV).
-        owned = {"flash_fwd": 1, "flash_bwd_dq": 3,
+        # pattern. Resident: Q (forward); Q, dO and, up to d 128, O (dQ); K
+        # and V (dK/dV). At split 2, two float32 buffers of P^T with a full
+        # and an empty mbarrier each.
+        owned = {"flash_fwd": 1, "flash_bwd_dq": 3 if d <= 128 else 2,
                  "flash_bwd_dkv": 2}[name] * t.rows * d * size
         slot = 2 * t.stream * d * size
         if name == "flash_bwd_dkv":
             slot += 2 * t.stream * 4       # lse and delta
-        return owned + t.stages * slot + 8 * (1 + 2 * t.stages) + 1024
+        handoff = (2 * t.rows * t.stream * 4 + 8 * 4) if t.split == 2 else 0
+        return (owned + t.stages * slot + handoff + 8 * (1 + 2 * t.stages)
+                + 1024)
     # Rows padded by 16 bytes; each warp's rows of P or dS get a tile of
     # their own; dK/dV keeps lse and delta beside its tiles. Owned: Q
     # (forward); Q and dO (dQ); K and V (dK/dV).
@@ -131,9 +147,10 @@ def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
 
 
 # (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: bf16 and float16 run
-# the Hopper bodies at d <= 128 and the CUDA-core bodies at 192 and 256;
-# float32 runs the CUDA-core bodies up to 256; every type runs the wide
-# bodies above 256.
+# the Hopper bodies wherever `_RING` has the kernel's head dim (the forward
+# up to 128, the backward pair up to 256) and the CUDA-core forward at 192
+# and 256; float32 runs the CUDA-core bodies up to 256; every type runs the
+# wide bodies above 256.
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
     (name, dtype): {d: (_WIDE[name] if d > 256
                         else _RING[name][d] if dtype in _HALF

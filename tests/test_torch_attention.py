@@ -126,7 +126,8 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # bf16 keeps 8 significant bits
 
 @pytest.mark.parametrize("d,dtype", [(192, "float32"), (256, "float32"),
                                      (64, "float16"), (256, "float16"),
-                                     (192, "bfloat16")])
+                                     (192, "bfloat16"), (256, "bfloat16"),
+                                     (192, "float16")])
 def test_new_head_dims_and_float16_match_jax_kernels(interpret, d, dtype):
     import jax
 
@@ -280,9 +281,11 @@ def test_tile_table_fits_hopper_shared_memory():
             # its causal q loop at key0 / stream: both must divide evenly.
             assert t.rows % (64 if t.ring else 16) == 0
             assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
-            # The Hopper bodies take the 16-bit types up to d 128, the wide
-            # bodies every type above 256.
-            assert t.ring == (dtype != torch.float32 and d <= 128)
+            # The Hopper bodies take the 16-bit types, the forward up to d
+            # 128 and the backward pair up to 256; the wide bodies every
+            # type above 256.
+            assert t.ring == (dtype != torch.float32 and (
+                d <= 128 or (name != "flash_fwd" and d <= 256)))
             assert t.wide == (d > 256)
             assert t.split == (2 if name == "flash_bwd_dkv"
                                and 128 < d <= 256 else 1)
@@ -313,9 +316,10 @@ def test_tile_table_fits_hopper_shared_memory():
 
 
 def test_tile_table_mirrors_the_cuda_sources():
-    # The Hopper bodies (16-bit, d <= 128) fix their tiles in
-    # flash_common.cuh (FwdTiles, DqTiles, DkvTiles), the CUDA-core bodies
-    # in BLOCK and PlainTiles; the table the wrappers and chip_smoke.py read
+    # The Hopper bodies (16-bit; d <= 128, and the backward pair at 192 and
+    # 256) fix their tiles in flash_common.cuh (FwdTiles, DqTiles, DkvTiles,
+    # the last two specialised at 192 and 256), the CUDA-core bodies in
+    # BLOCK and PlainTiles; the table the wrappers and chip_smoke.py read
     # must agree.
     import os
     import re
@@ -345,11 +349,21 @@ def test_tile_table_mirrors_the_cuda_sources():
                          r"(?:D == 128 \? (\d+) : )?(\d+), STAGES = (\d+);",
                          src)
         rows, tile128, tile, stages = body.groups()
+        # The specialisations at 192 and 256: the backward pair only, and
+        # dK/dV's two warpgroups share their keys there (split 2).
+        spec = {int(d): tuple(map(int, rest)) for d, *rest in re.findall(
+            struct + r"<(\d+)> \{\s*static constexpr int ROWS = (\d+), "
+            r"TILE = (\d+), STAGES = (\d+);", src)}
+        assert set(spec) == (set() if name == "flash_fwd" else {192, 256})
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             for d, t in tattn.TILES[name, dtype].items():
                 if t.wide:
                     assert t == tattn.Tile(wide_rows, wide_stream[name], 1,
                                            False, wide=True)
+                elif t.ring and d in spec:
+                    assert t == tattn.Tile(
+                        *spec[d], True,
+                        2 if name == "flash_bwd_dkv" else 1)
                 elif t.ring:
                     want = tile128 if d == 128 and tile128 else tile
                     assert t == tattn.Tile(int(rows), int(want), int(stages),
@@ -361,17 +375,43 @@ def test_tile_table_mirrors_the_cuda_sources():
                         split if name == "flash_bwd_dkv" else 1)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 192, 256])
 def test_dq_ring_shared_memory(d):
-    # The bf16 dQ block keeps Q, dO and O (128 rows each) and streams K and
-    # V through 4 slots, with no lse or delta in the slots (each thread
-    # reads its rows' own); one mbarrier for the resident tiles and two per
-    # slot; 1024 bytes to align the swizzle. chip_smoke.py checks these
-    # against what flash_bwd_smem asks for on the card.
+    # The bf16 dQ block keeps Q, dO and O (128 rows each; above d 128 O
+    # stays in device memory) and streams K and V through 4 slots (5 and 3
+    # of 32 keys at d 192 and 256), with no lse or delta in the slots (each
+    # thread reads its rows' own); one mbarrier for the resident tiles and
+    # two per slot; 1024 bytes to align the swizzle. chip_smoke.py checks
+    # these against what flash_bwd_smem asks for on the card.
     t = tattn.TILES["flash_bwd_dq", torch.bfloat16][d]
-    assert t.ring and (t.rows, t.stages) == (128, 4)
-    want = 3 * 128 * d * 2 + 4 * 2 * t.stream * d * 2 + 8 * 9 + 1024
+    stages = {192: 5, 256: 3}.get(d, 4)
+    assert t.ring and (t.rows, t.stages) == (128, stages)
+    resident = 3 if d <= 128 else 2
+    want = (resident * 128 * d * 2 + stages * 2 * t.stream * d * 2
+            + 8 * (1 + 2 * stages) + 1024)
     assert tattn.kernel_smem_bytes(d)["flash_bwd_dq"] == want
+    assert want <= tattn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dkv_ring_shared_memory(d, dtype):
+    # The 16-bit dK/dV block keeps K and V of its keys (128; 64 above d
+    # 128, which both warpgroups share) and streams Q and dO with their
+    # queries' lse and delta (float32) through the slots; above d 128 warp
+    # group 0 hands P^T to warpgroup 1 through two float32 buffers of
+    # [64 keys x stream queries], each with a full and an empty mbarrier.
+    # One mbarrier for the resident tiles and two per slot; 1024 bytes to
+    # align the swizzle. chip_smoke.py checks these against what
+    # flash_bwd_smem asks for on the card.
+    t = tattn.TILES["flash_bwd_dkv", dtype][d]
+    rows = 128 if d <= 128 else 64
+    assert t.ring and t.rows == rows and t.split == (1 if d <= 128 else 2)
+    slot = 2 * t.stream * d * 2 + 2 * t.stream * 4
+    handoff = 0 if d <= 128 else 2 * 64 * t.stream * 4 + 4 * 8
+    want = (2 * rows * d * 2 + t.stages * slot + handoff
+            + 8 * (1 + 2 * t.stages) + 1024)
+    assert tattn.kernel_smem_bytes(d, dtype)["flash_bwd_dkv"] == want
     assert want <= tattn.SMEM_LIMIT
 
 

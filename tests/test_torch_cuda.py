@@ -45,8 +45,9 @@ def card():
     # heads would read the next head's rows there; at d 128 too (Llama's
     # head dim, two boxes a row).
     (torch.bfloat16, True, 200, 64, 6), (torch.bfloat16, True, 200, 128, 8),
-    # float16 on the Hopper bodies, and d 192 and 256 on the CUDA-core
-    # bodies in every type (two warps a key row in dK/dV, ragged tiles).
+    # float16 on the Hopper bodies, and d 192 and 256: the forward on the
+    # CUDA-core bodies in every type, the backward pair on them in float32
+    # (two warps a key row in dK/dV) and on the Hopper bodies in 16 bits.
     (torch.float16, True, 1024, 64, 3), (torch.float16, False, 200, 128, 3),
     (torch.float16, True, 130, 32, 3), (torch.bfloat16, True, 300, 192, 3),
     (torch.float16, True, 300, 256, 3), (torch.bfloat16, False, 256, 256, 2),
@@ -84,6 +85,42 @@ def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d,
     assert all(after[name] == before[name] + 1 for name in after)
     for i, (a, b, t) in enumerate(zip(got, want, tols)):
         assert _within(a, b, t), i
+
+
+# The backward pair's Hopper bodies at d 192 and 256 (dQ with O read from
+# device memory; dK/dV with both warpgroups on one block's 64 keys):
+# non-causal; ragged, the last streamed tile ending inside the head in
+# several heads (seq 300 and 77); and enough heads that the blocks of
+# several heads share the card at once (bh 40 at seq 512: 160 dQ and 320
+# dK/dV blocks on 132 SMs).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,seq,bh", [(False, 256, 3), (True, 300, 6),
+                                           (True, 77, 5), (True, 512, 40)])
+def test_backward_pair_at_head_dims_192_and_256_on_card(card, d, dtype,
+                                                        causal, seq, bh):
+    tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3}[dtype]
+    gen = torch.Generator(device=card).manual_seed(d + seq)
+    q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device=card,
+                               dtype=dtype) for _ in range(4))
+    scale = d ** -0.5
+    assert all(tattn.TILES[name, dtype][d].ring
+               for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+    out, lse = tattn.flash_forward_reference(q, k, v, causal, scale)
+    before = tattn.kernel_launches()
+    dq, delta_k = tattn._bwd_dq(q, k, v, do, out, lse, causal, scale)
+    dk, dv = tattn._bwd_dkv(q, k, v, do, lse, delta_k, causal, scale)
+    torch.cuda.synchronize()
+    after = tattn.kernel_launches()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    delta = tattn.bwd_delta(out, do)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    want_dk, want_dv = tattn.flash_bwd_dkv_reference(*args)
+    assert _within(delta_k, delta, 1e-4)
+    assert _within(dq, tattn.flash_bwd_dq_reference(*args), tol)
+    assert _within(dk, want_dk, tol) and _within(dv, want_dv, tol)
 
 
 @pytest.mark.cuda

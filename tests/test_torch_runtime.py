@@ -72,9 +72,16 @@ def visible():
 
 
 @ray_tpu_torch.remote(num_gpus=1)
-def gpu_visible(hold_s):
+def gpu_visible(rendezvous, me, other):
+    """Announce `me` as a file in the directory `rendezvous`, then wait up
+    to 60 s for `other` to announce itself: two such tasks return only if
+    they ran at once, however long their workers took to spawn."""
     start = time.monotonic()
-    time.sleep(hold_s)
+    open(os.path.join(rendezvous, me), "w").close()
+    while not os.path.exists(os.path.join(rendezvous, other)):
+        if time.monotonic() - start > 60:
+            raise TimeoutError(f"{other} did not run beside {me} in 60 s")
+        time.sleep(0.01)
     return os.environ.get("CUDA_VISIBLE_DEVICES"), start, time.monotonic()
 
 
@@ -144,11 +151,14 @@ def test_actors_named_actors_kill_and_task_errors():
     assert "the cause" in str(err.value)
 
 
-def test_gpu_grants_see_their_own_cards_and_a_cpu_task_none():
+def test_gpu_grants_see_their_own_cards_and_a_cpu_task_none(tmp_path):
     assert ray_tpu_torch.get(visible.remote())[0] == ""
     # Two concurrent one-GPU tasks: two workers, each with its own card.
+    # They meet at a rendezvous (each waits for the other's file), so a
+    # scheduler that ran them one after the other would fail at its 60 s.
     (a, s1, e1), (b, s2, e2) = ray_tpu_torch.get(
-        [gpu_visible.remote(2.0), gpu_visible.remote(2.0)])
+        [gpu_visible.remote(str(tmp_path), "a", "b"),
+         gpu_visible.remote(str(tmp_path), "b", "a")])
     assert max(s1, s2) < min(e1, e2), "the two tasks did not overlap"
     assert {a, b} == {"0", "1"}
     # Actors hold their card for life; a killed actor's card is reused.
