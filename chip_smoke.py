@@ -8,8 +8,8 @@ failed phase, with no phase caught.
 
 1. Device and build: prints the card's name and power limit, builds the
    CUDA kernels of `ray_tpu_torch/csrc/`, prints the build time and each
-   kernel's registers and spills (the backward pair's Hopper bodies at
-   head dims 192 and 256, in bf16 and float16, must not spill), and checks
+   kernel's registers and spills (the Hopper bodies of all three kernels
+   at head dims 192 and 256, in bf16 and float16, must not spill), and checks
    that the shared memory each C entry point asks for is what
    `attention.kernel_smem_bytes` computes from the tile table.
 1b. Runtime: `ray_tpu_torch.init()` must advertise the card (`GPU: 1`);
@@ -24,16 +24,17 @@ failed phase, with no phase caught.
    Llama's head dim 128 (bf16), on a ragged bf16 case whose last tile ends
    inside the head in several heads, on small float32 and ragged cases, at
    seq 8192 (bh 4), at the attention shapes of phases 10 and 11 (bh 96
-   and 64, seq 2048, d 64, bf16, causal) and on the backward pair's Hopper
-   bodies at d 192 and 256 (bf16 and float16: ragged at seq 300 and 77 in
-   several heads, and non-causal), element by element, printing each error
-   beside its limit; then the instances that take head dims 192 and 256
-   and float16 (bf16 and float16 at d 192 and 256, bh 24, seq 2048,
-   causal; float16 at d 64 and 128 at the main shape; float32 at d 256,
-   small), each held the same way and timed beside its bound, its plain
-   version and `scaled_dot_product_attention` (at d 192 and 256 its
-   backward alone beside K2 + K3, with each kernel's share of its bound);
-   then the wide
+   and 64, seq 2048, d 64, bf16, causal) and on the Hopper bodies of all
+   three kernels at d 192 and 256 (bf16 and float16: ragged at seq 300 and
+   77 in several heads, and non-causal), element by element, printing each
+   error beside its limit; then the instances that take head dims 192 and
+   256, float16 and float32 (bf16 and float16 at d 192 and 256, bh 24, seq
+   2048, causal; float16 at d 64 and 128 at the main shape; float32 at d
+   256, small, and at d 64, 128 and 256, bh 24, seq 2048, causal, a shape
+   that fills the card), each held the same way and timed beside its
+   bound, its plain version and `scaled_dot_product_attention` (K1 beside
+   its forward, K2 + K3 beside its backward alone, with each kernel's
+   share of its bound; null where it refuses a case); then the wide
    instances above d 256 (bf16 and float16 at d 320, 384 and 512, bh 8,
    seq 1024, causal; float32 small), held and timed the same way; shows
    that the same check rejects planted faults (a skipped tile, P left
@@ -187,7 +188,7 @@ failed phase, with no phase caught.
    `bound_share`; K2's and K3's records hold
    `scaled_dot_product_attention`'s backward, which does their joint work,
    under `sdpa_backward_ms`, at the main shape, at seq 8192 and at each
-   d 192/256 instance), then the device line last.
+   instance of phase 2), then the device line last.
 
 Phases 4c, 8, 10 and 11 also train in worker actors through
 `TorchTrainer.fit`. Each phase frees what it allocated before the next starts, and the script
@@ -278,6 +279,10 @@ F1_CASES = [
     dict(MAIN, dtype=torch.float16),
     dict(MAIN, d=128, dtype=torch.float16),
     dict(bh=4, seq=256, d=256, dtype=torch.float32, causal=True),
+    # float32 at a shape that fills the card (384 to 768 blocks on 132
+    # SMs), as the 16-bit instances above are timed.
+    *(dict(bh=24, seq=2048, d=d, dtype=torch.float32, causal=True)
+      for d in (64, 128, 256)),
 ]
 # The wide instances (head dims above 256, d at run time): bf16 and
 # float16 at d 320, 384 and 512 (bh 8, seq 1024), float32 small; each held
@@ -289,14 +294,17 @@ F3_CASES = [
       for d in (320, 384, 512)),
 ]
 F3_FAULTS = dict(bh=8, seq=1024, d=384, dtype=torch.bfloat16, causal=True)
-# The planted faults at the backward pair's widest Hopper instance.
+# The planted faults at the widest Hopper instance.
 F10_FAULTS = dict(F1_CASES[2])
 assert F10_FAULTS["d"] == 256 and F10_FAULTS["dtype"] == torch.bfloat16
-# Kernel bodies that must not spill (phase 1): the backward pair's Hopper
-# bodies at d 192 and 256, as ptxas_usage names them.
-NO_SPILL = [f"{body}<{t}, {d}>"
-            for body in ("bwd_dq_kernel_sm90", "bwd_dkv_kernel_sm90_split")
-            for t in ("bf16", "f16") for d in (192, 256)]
+# Kernel bodies that must not spill (phase 1), by source: the Hopper bodies
+# at d 192 and 256, as ptxas_usage names them.
+NO_SPILL = {src: [f"{body}<{t}, {d}>" for body in bodies
+                  for t in ("bf16", "f16") for d in (192, 256)]
+            for src, bodies in (
+                ("flash_fwd.cu", ("fwd_kernel_sm90",)),
+                ("flash_bwd.cu", ("bwd_dq_kernel_sm90",
+                                  "bwd_dkv_kernel_sm90_split")))}
 # (kernel, output, tolerance) of each output held against its plain
 # version; delta is a float32 sum in both, held to the float32 forward's.
 OUTPUTS = [("flash_fwd", "out", "fwd"), ("flash_fwd", "lse", "fwd"),
@@ -603,15 +611,15 @@ def case_label(case) -> str:
 
 
 def check_instances(attn, records, cases, seed: int) -> None:
-    """Phase 2, the head-dim and float16 instances (F1_CASES, F3_CASES):
-    each kernel held element by element against its plain version, then
-    timed beside its bound, its plain version and
-    scaled_dot_product_attention (forward for K1; forward + backward beside
-    K1 + K2 + K3; at d 192 and 256 its backward alone beside K2 + K3). At
-    F3_FAULTS and F10_FAULTS the planted faults must be rejected too. Adds
-    one entry per case to each kernel's record under `instances`, with its
-    share of its bound (`bound_share`) and, for K2 and K3 at d 192 and 256,
-    `sdpa_backward_ms`."""
+    """Phase 2, the head-dim and type instances (F1_CASES, F3_CASES): each
+    kernel held element by element against its plain version, then timed
+    beside its bound, its plain version and scaled_dot_product_attention
+    (forward for K1; forward + backward beside K1 + K2 + K3; its backward
+    alone beside K2 + K3). At F3_FAULTS and F10_FAULTS the planted faults
+    must be rejected too. Adds one entry per case to each kernel's record
+    under `instances`, with its share of its bound (`bound_share`) and, for
+    K2 and K3, `sdpa_backward_ms`; an SDPA time is None where SDPA refuses
+    the case."""
     for i, case in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(seed + i)
         shape = (case["bh"], case["seq"], case["d"])
@@ -628,10 +636,9 @@ def check_instances(attn, records, cases, seed: int) -> None:
                                  want["delta"], scale, got, want, errs)
         out, lse, dq, delta, dk, dv = (got[key] for key in (
             "out", "lse", "dq", "delta", "dk", "dv"))
-        sdpa_fwd = _sdpa(q, k, v, causal, scale, "forward", batch=1)
-        sdpa_both = _sdpa(q, k, v, causal, scale, "both", batch=1)
-        sdpa_bwd = (_sdpa(q, k, v, causal, scale, "backward", batch=1)
-                    if case["d"] in (192, 256) else None)
+        sdpa_fwd, sdpa_both, sdpa_bwd = (
+            _sdpa_or_none(q, k, v, causal, scale, part, label)
+            for part in ("forward", "both", "backward"))
         work = {
             "flash_fwd": (
                 lambda: attn._flash_forward(q, k, v, causal, scale),
@@ -658,17 +665,19 @@ def check_instances(attn, records, cases, seed: int) -> None:
                 "plain_ms": time_ms(plain, reps=2, rounds=2),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
             rec["bound_share"] = b_ms / rec["ms"]
-            if sdpa_bwd is not None and name != "flash_fwd":
+            if name != "flash_fwd":
                 rec["sdpa_backward_ms"] = sdpa_bwd
             total += rec["ms"]
             records[name].setdefault("instances", []).append(rec)
             print(f"  {name:14s} {label}: {rec['ms']:.4f} ms, plain "
                   f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                   f"{rec['bound_share']:.1%} of it)"
-                  + (f", sdpa forward {lib_ms:.4f} ms" if lib_ms else ""))
+                  + (f", sdpa forward {lib_ms:.4f} ms "
+                     f"({rec['ms'] / lib_ms:.3f}x)"
+                     if name == "flash_fwd" and lib_ms else ""))
         print(f"  {label}: K1 + K2 + K3 {total:.4f} ms, "
               f"scaled_dot_product_attention forward + backward "
-              f"{sdpa_both:.4f} ms")
+              + (f"{sdpa_both:.4f} ms" if sdpa_both else "refused"))
         if sdpa_bwd is not None:
             pair = inst["flash_bwd_dq"]["ms"] + inst["flash_bwd_dkv"]["ms"]
             print(f"  {label}: K2 + K3 {pair:.4f} ms, "
@@ -763,6 +772,17 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
         if not ratio > 1.0:
             raise AssertionError(f"the check of {name} passes a planted "
                                  f"fault ({what})")
+
+
+def _sdpa_or_none(q, k, v, causal, scale, part: str, label: str):
+    """`_sdpa` on one batch of [bh] heads, or None, printed, where
+    scaled_dot_product_attention refuses the case."""
+    try:
+        return _sdpa(q, k, v, causal, scale, part, batch=1)
+    except RuntimeError as err:
+        print(f"  {label}: scaled_dot_product_attention refuses the {part}"
+              f" ({err}); recorded as null")
+        return None
 
 
 def _sdpa(q, k, v, causal, scale, part: str, batch: int = BATCH) -> float:
@@ -2910,15 +2930,14 @@ def main() -> int:
         for line in log.splitlines():  # e.g. wgmma serialised by ptxas
             if "warning" in line.lower() or "Performance Loss" in line:
                 print(f"  {src}: {line.strip()}")
-        if src == "flash_bwd.cu":
-            spills = {fn: spill for fn, _, spill in usage}
-            bad = [fn for fn in NO_SPILL
-                   if "0 bytes spill stores, 0 bytes spill loads"
-                   not in spills.get(fn, "missing")]
-            if bad:
-                raise AssertionError(f"spilled or not built: {bad}")
-            print(f"  no spills in {len(NO_SPILL)} Hopper bodies of the "
-                  f"backward pair at d 192 and 256")
+        spills = {fn: spill for fn, _, spill in usage}
+        bad = [fn for fn in NO_SPILL[src]
+               if "0 bytes spill stores, 0 bytes spill loads"
+               not in spills.get(fn, "missing")]
+        if bad:
+            raise AssertionError(f"spilled or not built: {bad}")
+        print(f"  {src}: no spills in its {len(NO_SPILL[src])} Hopper "
+              f"bodies at d 192 and 256")
     check_smem(attn, _build)
 
     print("== 1b. runtime: ray_tpu_torch.init, tasks, objects, GPU grants")
@@ -2926,7 +2945,7 @@ def main() -> int:
 
     print("== 2. kernels against their plain versions")
     records = check_kernels(attn)
-    print("  head dims 192 and 256, float16:")
+    print("  head dims 192 and 256, float16, float32 filling the card:")
     check_instances(attn, records, F1_CASES, 200)
     print("  head dims above 256 (the wide instances):")
     check_instances(attn, records, F3_CASES, 300)

@@ -1128,7 +1128,7 @@ bwd_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 // kernel_smem_bytes mirrors these).
 template <typename T, int D>
 static size_t dq_smem() {
-  if constexpr (hopper_bwd<T, D>()) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::DqTiles<D>;  // Q, dO and, up to D 128, O resident
     return (D <= 128 ? 3 : 2) * sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * 2 * sm90::tile_bytes<Tl::TILE, D>() +
@@ -1142,7 +1142,7 @@ static size_t dq_smem() {
 
 template <typename T, int D>
 static size_t dkv_smem() {
-  if constexpr (hopper_bwd<T, D>()) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::DkvTiles<D>;  // above D 128, two float32 P^T buffers
     return 2 * sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * (2 * sm90::tile_bytes<Tl::TILE, D>() +
@@ -1163,7 +1163,7 @@ static int bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* out, const void* lse,
                   void* delta, void* dq, int bh, int sq, int sk, int causal,
                   float scale, cudaStream_t stream) {
-  if constexpr (hopper_bwd<T, D>()) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::DqTiles<D>;
     CUtensorMap mq, mk, mv, mdo, mo = {};  // O's map: up to D 128
     int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::ROWS);
@@ -1195,7 +1195,7 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int bh, int sq, int sk, int causal,
                    float scale, cudaStream_t stream) {
-  if constexpr (hopper_bwd<T, D>()) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::DkvTiles<D>;
     CUtensorMap mq, mk, mv, mdo;
     int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::TILE);

@@ -6,23 +6,21 @@
 //
 // Three families of kernel bodies live on these pieces:
 //
-// - The Hopper bodies (namespace flash::sm90 below): the 16-bit (bf16 and
-//   float16) forward at D <= 128, and the dQ and dK/dV kernels at D <= 256.
-//   One warp of a producer warpgroup streams tiles into a ring in shared
-//   memory with TMA, ordered by mbarriers; two consumer warpgroups run every
-//   tile product on wgmma. At D 192 and 256 the dK/dV block's two
-//   warpgroups share its keys, one accumulating dV and the other dK, the
-//   first handing P^T to the second through shared memory (flash_bwd.cu
-//   says why).
-// - The CUDA-core bodies of the three kernels: every float32 instance, and
-//   the 16-bit forward at D 192 and 256. A block owns BLOCK = 64 rows, 4
-//   warps of 16 rows, and streams tiles of PlainTiles<D>::STREAM rows past
-//   them; every operand of a tile product is read from shared memory by
-//   `warp_gemm`, which runs the 16x8 mma.sync accumulator layout on the
-//   CUDA cores in float32. wgmma has no float32 type, and TF32 keeps about
-//   three decimal digits, too few for the 1e-4 the float32 instances are
-//   held to, so those stay on the CUDA cores. The 16-bit forward at D > 128
-//   uses these bodies until it gets a Hopper design of its own.
+// - The Hopper bodies (namespace flash::sm90 below): all three kernels in
+//   16 bits (bf16 and float16) at D <= 256. One warp of a producer
+//   warpgroup streams tiles into a ring in shared memory with TMA, ordered
+//   by mbarriers; two consumer warpgroups run every tile product on wgmma.
+//   At D 192 and 256 the dK/dV block's two warpgroups share its keys, one
+//   accumulating dV and the other dK, the first handing P^T to the second
+//   through shared memory (flash_bwd.cu says why).
+// - The CUDA-core bodies of the three kernels: every float32 instance at
+//   D <= 256. A block owns BLOCK = 64 rows, 4 warps of 16 rows, and streams
+//   tiles of PlainTiles<D>::STREAM rows past them; every operand of a tile
+//   product is read from shared memory by `warp_gemm`, which runs the 16x8
+//   mma.sync accumulator layout on the CUDA cores in float32. wgmma has no
+//   float32 type, and TF32 keeps about three decimal digits, too few for
+//   the 1e-4 the float32 instances are held to, so those stay on the CUDA
+//   cores.
 // - The wide bodies (namespace flash::wide): every type at head dims above
 //   256 that are a multiple of 64, d a run-time argument, accumulators in
 //   shared memory, on the CUDA cores in float32.
@@ -214,6 +212,18 @@ template <int D>
 struct FwdTiles {  // forward: owns query rows, streams K and V
   static constexpr int ROWS = 128, TILE = 128, STAGES = 3;
 };
+// The forward at D 192 and 256: Q of 128 rows (48 and 64 KB) stays
+// resident, and K and V stream in tiles of 64 keys, 3 slots of each at d
+// 192 and 2 at d 256 (24 and 32 KB a tile), as many as fit beside Q; tiles
+// of 80 to 112 keys ran no faster on an H100.
+template <>
+struct FwdTiles<192> {
+  static constexpr int ROWS = 128, TILE = 64, STAGES = 3;
+};
+template <>
+struct FwdTiles<256> {
+  static constexpr int ROWS = 128, TILE = 64, STAGES = 2;
+};
 template <int D>
 struct DqTiles {  // dQ: owns query rows (Q, dO and O), streams K and V
   static constexpr int ROWS = 128, TILE = D == 128 ? 64 : 128, STAGES = 4;
@@ -222,7 +232,7 @@ template <int D>
 struct DkvTiles {  // dK/dV: owns key rows, streams Q, dO, lse and delta
   static constexpr int ROWS = 128, TILE = D == 128 ? 32 : 64, STAGES = 3;
 };
-// D 192 and 256, the backward pair only (flash_bwd.cu). dQ: Q, dO and O of
+// The backward pair at D 192 and 256 (flash_bwd.cu). dQ: Q, dO and O of
 // 128 rows would take 144 and 192 KB, so O stays in device memory (the
 // prologue reads it for delta) and K and V stream in tiles of 32 keys
 // through as many slots as the rest of the 227 KB holds. dK/dV: one
@@ -940,14 +950,9 @@ extern "C" const char* flash_error_string(int code) {
 
 namespace flash {
 // Whether the instance <T, D> of a kernel runs a Hopper body (sm90) or a
-// CUDA-core one: the forward takes the 16-bit types up to D 128, the
-// backward pair (dQ, dK/dV) up to D 256.
+// CUDA-core one: every kernel takes the 16-bit types up to D 256.
 template <typename T, int D>
-constexpr bool hopper_fwd() {
-  return sizeof(T) == 2 && D <= 128;
-}
-template <typename T, int D>
-constexpr bool hopper_bwd() {
+constexpr bool hopper_body() {
   return sizeof(T) == 2 && D <= 256;
 }
 }  // namespace flash

@@ -11,9 +11,14 @@
 // FLOPs, about 39 GFLOP (39 us at 989 TFLOP/s bf16 dense): it sits near the
 // ridge, bound by bytes at d = 64.
 //
-// Two bodies, chosen by type and head dim:
+// Bound at d 192 and 256 (bh = 24, seq = 2048, bf16, causal): 38.7 and
+// 51.6 GFLOP, 0.039 and 0.052 ms at 989 TFLOP/s, against 76 and 101 MB of
+// q, k, v, o and lse (0.023 and 0.030 ms at 3.35 TB/s): bound by
+// operations.
 //
-// bf16 and float16 at d <= 128 (fwd_kernel_sm90): one block per 128 query
+// Three bodies, chosen by type and head dim:
+//
+// bf16 and float16 at d <= 256 (fwd_kernel_sm90): one block per 128 query
 // rows, two consumer
 // warpgroups of 64 rows and a producer warpgroup. Its first warp loads the Q
 // tile once and streams K and V tiles through a ring of shared-memory slots
@@ -27,10 +32,30 @@
 // exponential per 4 d flops), so the two warpgroups take turns: one runs its
 // products while the other runs its softmax. lse is written in natural-log
 // units, as the dQ kernel reads it.
+// At d 192 and 256 the same body streams tiles of 64 keys, 3 and 2 slots
+// each of K and V beside Q (FwdTiles: Q of 128 rows takes 48 and 64 KB, a
+// tile 24 and 32 KB). What is tight there:
+// - registers: a consumer thread holds D / 2 floats of O (128 at d 256)
+//   beside S (32) and P's A fragments (16). Q's descriptors are
+//   rebuilt each turn from an opaque base so that they are not hoisted into
+//   registers (0 spills), and P V is issued as products of 128 columns (and
+//   one of 64 at d 192), since the Wgmma shapes stop at N = 128;
+// - the ring: released together, K_i and V_i would free their slot only
+//   after P_i V_i, a turn after S_i, and with 2 slots the next tile's load
+//   would start just as it is needed. K_i is released as soon as S_i is
+//   done and V_i after P_i V_i, each with its own mbarriers;
+// - the causal tail: a q-block's work grows with its position, and one
+//   head's blocks issued in a row (heaviest first) left the heavy blocks of
+//   the last heads to run alone at the end at bh 24. The grid runs through
+//   groups of 12 heads, and within a group through the q-blocks, heaviest
+//   first, for all its heads at each.
+// The softmax is a small share there (one exponential per 4 d = 1,024
+// flops at d 256), but the turns still let one warpgroup's softmax and
+// rescale of O run under the other's products.
 //
-// float32, and 16-bit at d 192 and 256 (fwd_kernel): on the CUDA cores, in
-// float32 arithmetic (flash_common.cuh says why): 64 query rows, 4 warps of
-// 16 rows, K and V tiles of PlainTiles<D>::STREAM rows copied into shared
+// float32 at d <= 256 (fwd_kernel): on the CUDA cores, in float32
+// arithmetic (flash_common.cuh says why): 64 query rows, 4 warps of 16
+// rows, K and V tiles of PlainTiles<D>::STREAM rows copied into shared
 // memory between two barriers, P through shared memory in the input type.
 //
 // Every type at d > 256, a multiple of 64 (fwd_kernel_wide): on the CUDA
@@ -170,26 +195,48 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   constexpr int STAGES = FwdTiles<D>::STAGES;
   constexpr uint32_t Q_BYTES = tile_bytes<BQ, D>();
   constexpr uint32_t KV_BYTES = tile_bytes<BK, D>();
+  // Above d 128, K_i and V_i are released apart: K_i once S_i is done, V_i
+  // once P_i V_i is, a turn later, so the next K tile is loaded while the
+  // current P V runs. The STAGES K slots come first in the ring, then the
+  // V slots, each with its own full and empty mbarrier (K's at s, V's at
+  // STAGES + s). Up to d 128, slot s holds K at 2s and V at 2s + 1, both
+  // released after P V.
+  constexpr bool SPLIT = D > 128;
+  constexpr int NBAR = SPLIT ? 2 * STAGES : STAGES;  // full (and empty) ones
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* sq_tile = aligned_smem(smem_raw);
-  uint8_t* ring = sq_tile + Q_BYTES;  // slot s: K at 2s, V at 2s + 1
+  uint8_t* ring = sq_tile + Q_BYTES;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * KV_BYTES);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + STAGES;
+  uint64_t* empty = full + NBAR;
 
-  // One block per (bh, q-block); the q-blocks of one bh are neighbours, so
-  // they share its K/V tiles in L2, and the last one, with the most causal
-  // work, is issued first.
+  // One block per (bh, q-block), the q-blocks with the most causal work
+  // first. Up to d 128 the q-blocks of one bh are neighbours, the last one
+  // first, so they share its K/V tiles in L2. Above, the grid runs through
+  // groups of HEADS heads, and within a group through the q-blocks from the
+  // last, all heads of the group at each: the heaviest blocks of many heads
+  // start in the first wave and the light ones fill the last, where one
+  // head's blocks in a row left a long tail of heavy blocks at bh 24.
   const int nqb = (sq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqb;
-  const int q0 = (nqb - 1 - blockIdx.x % nqb) * BQ;
+  int bh, q0;
+  if constexpr (SPLIT) {
+    constexpr int HEADS = 12;
+    const int bhs = gridDim.x / nqb;
+    const int g0 = blockIdx.x / (HEADS * nqb) * HEADS;  // the group's first
+    const int r = blockIdx.x - g0 * nqb, heads = min(HEADS, bhs - g0);
+    bh = g0 + r % heads;
+    q0 = (nqb - 1 - r / heads) * BQ;
+  } else {
+    bh = blockIdx.x / nqb;
+    q0 = (nqb - 1 - blockIdx.x % nqb) * BQ;
+  }
   int nkb = (sk + BK - 1) / BK;
   if (causal) nkb = min(nkb, (q0 + BQ - 1) / BK + 1);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NBAR; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
     }
@@ -203,12 +250,21 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
       mbar_expect_tx(q_full, Q_BYTES);
       tma_tile<BQ, D>(sq_tile, &map_q, q_full, q0, bh);
       for (int i = 0; i < nkb; ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
-        uint8_t* slot = ring + s * 2 * KV_BYTES;
-        mbar_expect_tx(&full[s], 2 * KV_BYTES);
-        tma_tile<BK, D>(slot, &map_k, &full[s], i * BK, bh);
-        tma_tile<BK, D>(slot + KV_BYTES, &map_v, &full[s], i * BK, bh);
+        if constexpr (SPLIT) {
+          for (int s = i % STAGES; s < NBAR; s += STAGES) {  // K_i, then V_i
+            if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+            mbar_expect_tx(&full[s], KV_BYTES);
+            tma_tile<BK, D>(ring + s * KV_BYTES, s < STAGES ? &map_k : &map_v,
+                            &full[s], i * BK, bh);
+          }
+        } else {
+          const int s = i % STAGES;
+          if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+          uint8_t* slot = ring + s * 2 * KV_BYTES;
+          mbar_expect_tx(&full[s], 2 * KV_BYTES);
+          tma_tile<BK, D>(slot, &map_k, &full[s], i * BK, bh);
+          tma_tile<BK, D>(slot + KV_BYTES, &map_v, &full[s], i * BK, bh);
+        }
       }
     }
     return;
@@ -232,25 +288,57 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   uint32_t pa[BK / 16][4];  // P of the previous tile, as A fragments
   float corr[2];
 
-  auto slot = [&](int i) {
-    return smem_u32(ring + (i % STAGES) * 2 * KV_BYTES);
+  auto k_at = [&](int i) {  // K_i's slot
+    if constexpr (SPLIT) return smem_u32(ring + (i % STAGES) * KV_BYTES);
+    else return smem_u32(ring + (i % STAGES) * 2 * KV_BYTES);
+  };
+  auto v_at = [&](int i) {  // V_i's slot
+    if constexpr (SPLIT)
+      return smem_u32(ring + (STAGES + i % STAGES) * KV_BYTES);
+    else return smem_u32(ring + (i % STAGES) * 2 * KV_BYTES) + KV_BYTES;
   };
   auto issue_s = [&](int i) {  // S_i = Q K_i^T, both K-major in shared memory
+    if constexpr (D > 128) {
+      // Hoisted out of the loop, Q's D / 16 descriptors (64 bits each)
+      // would sit beside O's D / 2 floats: rebuilt each turn from an opaque
+      // base, by one add each, as dQ's are.
+      const uint64_t qd = k_major<BQ, D>(opaque(q_addr), 0);
+      const uint64_t kd = k_major<BK, D>(k_at(i), 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BK, T>::ss(sc, k_major<BQ, D>(q_addr, kk),
-                    k_major<BK, D>(slot(i), kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BK, T>::ss(sc, k_major_at<BQ, D>(qd, kk),
+                         k_major_at<BK, D>(kd, kk), kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BK, T>::ss(sc, k_major<BQ, D>(q_addr, kk),
+                      k_major<BK, D>(k_at(i), kk), kk > 0);
+    }
     wg_commit();
   };
   auto issue_pv = [&](int i) {  // O += P_i V_i, V read MN-major
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<D, T>::rs(acc, pa[kk], mn_major<BK, D>(slot(i) + KV_BYTES, kk), 1);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t vd = mn_major<BK, D>(v_at(i), kk);
+      if constexpr (D <= 128)
+        Wgmma<D, T>::rs(acc, pa[kk], vd, 1);
+      else  // products of 128 columns, then one of D - 128
+        WgmmaCols<D, T>::rs(acc, pa[kk], vd, 1);
+    }
     wg_commit();
   };
-  auto release = [&](int i) {  // this warp is done with tile i's slot
+  // This warp is done with V_i's slot (and K_i's, unless SPLIT), or with
+  // K_i's alone.
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(SPLIT ? STAGES : 0) + i % STAGES]);
+  };
+  auto release_k = [&](int i) {
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[i % STAGES]);
+  };
+  auto wait_v = [&](int i) {  // SPLIT: V_i is in its slot
+    mbar_wait(&full[STAGES + i % STAGES], (i / STAGES) & 1);
   };
   // Online softmax on the raw scores of tile i, in base 2: the row max m is
   // kept unscaled, and p = 2^(s c2 - m c2) is one multiply-add and one ex2.
@@ -305,11 +393,13 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
   issue_s(0);
   named_arrive(2 - wg);
   wg_wait<0>();
+  if constexpr (SPLIT) release_k(0);
   fence_regs(sc);
   softmax(0);
   to_a_frags<BK, T>(pa, sc);
   for (int i = 1; i < nkb; ++i) {
-    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);  // K_i (and V_i)
+    if constexpr (SPLIT) wait_v(i - 1);
     named_sync(1 + wg);
     fence_regs(acc);
     wg_fence();
@@ -317,6 +407,7 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
     issue_pv(i - 1);
     named_arrive(2 - wg);
     wg_wait<1>();  // S_i is in sc
+    if constexpr (SPLIT) release_k(i);
     fence_regs(sc);
     softmax(i);
     wg_wait<0>();  // P_{i-1} V_{i-1} is in acc
@@ -331,6 +422,7 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
     }
     to_a_frags<BK, T>(pa, sc);
   }
+  if constexpr (SPLIT) wait_v(nkb - 1);
   named_sync(1 + wg);
   fence_regs(acc);
   wg_fence();
@@ -425,11 +517,14 @@ fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 // kernel_smem_bytes mirrors these).
 template <typename T, int D>
 static size_t fwd_smem() {
-  if constexpr (hopper_fwd<T, D>()) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::FwdTiles<D>;
+    // Q, the slots and their mbarriers: two per slot pair, four above d
+    // 128, where K and V have barriers of their own.
+    constexpr int bars = 1 + (D > 128 ? 4 : 2) * Tl::STAGES;
     return sm90::tile_bytes<Tl::ROWS, D>() +
            Tl::STAGES * 2 * sm90::tile_bytes<Tl::TILE, D>() +
-           (1 + 2 * Tl::STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
+           bars * sizeof(uint64_t) + sm90::SMEM_ALIGN;
   } else {
     constexpr int BS = PlainTiles<D>::STREAM;
     return ((BLOCK + 2 * BS) * ld<T, D>() + BLOCK * ld<T, BS>()) * sizeof(T);
@@ -440,7 +535,7 @@ template <typename T, int D>
 static int fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int sq, int sk, int causal, float scale,
                cudaStream_t stream) {
-  if constexpr (hopper_fwd<T, D>()) {
+  if constexpr (hopper_body<T, D>()) {
     using Tl = sm90::FwdTiles<D>;
     CUtensorMap mq, mk, mv;
     int err = sm90::make_map<T, D>(&mq, q, bh, sq, Tl::ROWS);

@@ -11,11 +11,10 @@ Public layout as in the JAX package: q, k, v are [batch, heads, seq,
 head_dim]. The kernels and their plain PyTorch versions work on
 [batch * heads, seq, head_dim]. Each wrapper launches its kernel for a
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
-for the other. On the card the body is chosen by kernel, type and head dim:
-bf16 and float16 run the Hopper bodies (TMA ring, wgmma) in the forward at
-d <= 128 and in the backward pair at d <= 256; float32, and the 16-bit
-forward at d 192 and 256, the CUDA-core bodies; every type at a multiple
-of 64 above 256 the wide bodies, which take d at run time and keep their
+for the other. On the card the body is chosen by type and head dim: bf16
+and float16 run the Hopper bodies (TMA ring, wgmma) of all three kernels at
+d <= 256; float32 the CUDA-core bodies; every type at a multiple of 64
+above 256 the wide bodies, which take d at run time and keep their
 accumulators in shared memory (`TILES` lists each one's tiles).
 The dQ kernel runs first in the backward and also writes delta =
 rowsum(dO * O), which the dK/dV kernel reads.
@@ -63,12 +62,13 @@ def _plain(name: str, d: int) -> Tile:
 
 # The Hopper bodies' tiles (flash_common.cuh FwdTiles, DqTiles, DkvTiles):
 # dQ and dK/dV stream a smaller tile at d = 128, where their accumulators
-# take the most registers, and dQ has 4 slots. At d 192 and 256 (the
-# backward pair only) dQ streams 32 keys through as many slots as fit
-# beside Q and dO, and dK/dV's two warpgroups share 64 keys (split 2) and
-# stream 64 queries.
+# take the most registers, and dQ has 4 slots. At d 192 and 256 the forward
+# streams 64 keys through as many slots as fit beside Q (3 and 2), dQ 32
+# keys through as many as fit beside Q and dO, and dK/dV's two warpgroups
+# share 64 keys (split 2) and stream 64 queries.
 _RING = {
-    "flash_fwd": dict.fromkeys((32, 64, 128), Tile(128, 128, 3, True)),
+    "flash_fwd": {**dict.fromkeys((32, 64, 128), Tile(128, 128, 3, True)),
+                  192: Tile(128, 64, 3, True), 256: Tile(128, 64, 2, True)},
     "flash_bwd_dkv": {32: Tile(128, 64, 3, True), 64: Tile(128, 64, 3, True),
                       128: Tile(128, 32, 3, True),
                       192: Tile(64, 64, 3, True, 2),
@@ -102,7 +102,8 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
         return out + (2 * t.stream * 4 if name == "flash_bwd_dkv" else 0)
     if t.ring:
         # Tiles are unpadded (TMA swizzles them); one 8-byte mbarrier per
-        # resident load and two per slot; 1024 bytes to align the swizzle
+        # resident load and two per slot (four in the forward above d 128,
+        # where K and V are released apart); 1024 bytes to align the swizzle
         # pattern. Resident: Q (forward); Q, dO and, up to d 128, O (dQ); K
         # and V (dK/dV). At split 2, two float32 buffers of P^T with a full
         # and an empty mbarrier each.
@@ -112,8 +113,8 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
         if name == "flash_bwd_dkv":
             slot += 2 * t.stream * 4       # lse and delta
         handoff = (2 * t.rows * t.stream * 4 + 8 * 4) if t.split == 2 else 0
-        return (owned + t.stages * slot + handoff + 8 * (1 + 2 * t.stages)
-                + 1024)
+        bars = (4 if name == "flash_fwd" and d > 128 else 2) * t.stages
+        return owned + t.stages * slot + handoff + 8 * (1 + bars) + 1024
     # Rows padded by 16 bytes; each warp's rows of P or dS get a tile of
     # their own; dK/dV keeps lse and delta beside its tiles. Owned: Q
     # (forward); Q and dO (dQ); K and V (dK/dV).
@@ -147,14 +148,12 @@ def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
 
 
 # (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: bf16 and float16 run
-# the Hopper bodies wherever `_RING` has the kernel's head dim (the forward
-# up to 128, the backward pair up to 256) and the CUDA-core forward at 192
-# and 256; float32 runs the CUDA-core bodies up to 256; every type runs the
-# wide bodies above 256.
+# the Hopper bodies up to d 256, float32 the CUDA-core bodies; every type
+# runs the wide bodies above 256.
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
     (name, dtype): {d: (_WIDE[name] if d > 256
                         else _RING[name][d] if dtype in _HALF
-                        and d in _RING[name] else _plain(name, d))
+                        else _plain(name, d))
                     for d in head_dims(dtype)}
     for name in KERNELS for dtype in _DTYPE_CODES
 }

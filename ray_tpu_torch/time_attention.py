@@ -1,18 +1,18 @@
-"""Time the three flash kernels at the main path's attention shape, on one
-CUDA card.
+"""Time the three flash kernels, by default at the main path's attention
+shape, on one CUDA card.
 
     python3 -m ray_tpu_torch.time_attention [--causal 1] [--d 64] [--bh 288]
-        [--only flash_fwd,...]
+        [--seq 1024] [--dtype bfloat16] [--only flash_fwd,...]
 
 Builds the kernels of the checkout it is run from, launches each on random
-bf16 inputs from a fixed seed (seq 1024; bh 288 is GPT-2-small's batch 24
-times 12 heads), as well as the plain PyTorch delta = rowsum(dO * O) that
-the dQ kernel computes (`bwd_delta`), and prints one JSON line: each time
-in ms (the median over five rounds of the mean of ten back-to-back
-launches, from CUDA events), the shape, and the card's name and power
-limit. To compare two
-versions of a kernel, run this from each checkout in one call to the card,
-in turns. Exits non-zero where there is no card.
+inputs from a fixed seed (by default bf16, seq 1024 and bh 288,
+GPT-2-small's batch 24 times 12 heads), as well as the plain PyTorch delta
+= rowsum(dO * O) that the dQ kernel computes (`bwd_delta`), and prints one
+JSON line: each time in ms (the median over five rounds of the mean of ten
+back-to-back launches, from CUDA events), the shape, and the card's name
+and power limit. To compare two versions of a kernel, run this from each
+checkout in one call to the card, in turns. Exits non-zero where there is
+no card.
 """
 
 from __future__ import annotations
@@ -24,8 +24,6 @@ import subprocess
 import sys
 
 import torch
-
-SEQ = 1024
 
 
 def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
@@ -51,6 +49,9 @@ def main(argv=None) -> int:
     parser.add_argument("--causal", type=int, default=1)
     parser.add_argument("--d", type=int, default=64)
     parser.add_argument("--bh", type=int, default=288)
+    parser.add_argument("--seq", type=int, default=1024)
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=("bfloat16", "float16", "float32"))
     parser.add_argument("--only", default="flash_fwd,flash_bwd_dq,"
                         "flash_bwd_dkv,bwd_delta")
     args = parser.parse_args(argv)
@@ -61,8 +62,8 @@ def main(argv=None) -> int:
     from ray_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(args.bh, SEQ, args.d, generator=gen,
-                               device="cuda", dtype=torch.bfloat16)
+    q, k, v, do = (torch.randn(args.bh, args.seq, args.d, generator=gen,
+                               device="cuda", dtype=getattr(torch, args.dtype))
                    for _ in range(4))
     causal, scale = bool(args.causal), args.d ** -0.5
     out, lse = attn._flash_forward(q, k, v, causal, scale)
@@ -80,8 +81,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    result = {"bh": args.bh, "seq": SEQ, "d": args.d, "causal": causal,
-              "card": card}
+    result = {"bh": args.bh, "seq": args.seq, "d": args.d,
+              "dtype": args.dtype, "causal": causal, "card": card}
     for name in args.only.split(","):
         result[name] = time_ms(calls[name])
     print(json.dumps(result))

@@ -281,11 +281,9 @@ def test_tile_table_fits_hopper_shared_memory():
             # its causal q loop at key0 / stream: both must divide evenly.
             assert t.rows % (64 if t.ring else 16) == 0
             assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
-            # The Hopper bodies take the 16-bit types, the forward up to d
-            # 128 and the backward pair up to 256; the wide bodies every
-            # type above 256.
-            assert t.ring == (dtype != torch.float32 and (
-                d <= 128 or (name != "flash_fwd" and d <= 256)))
+            # The Hopper bodies take the 16-bit types up to d 256, in all
+            # three kernels; the wide bodies every type above 256.
+            assert t.ring == (dtype != torch.float32 and d <= 256)
             assert t.wide == (d > 256)
             assert t.split == (2 if name == "flash_bwd_dkv"
                                and 128 < d <= 256 else 1)
@@ -316,9 +314,9 @@ def test_tile_table_fits_hopper_shared_memory():
 
 
 def test_tile_table_mirrors_the_cuda_sources():
-    # The Hopper bodies (16-bit; d <= 128, and the backward pair at 192 and
-    # 256) fix their tiles in flash_common.cuh (FwdTiles, DqTiles, DkvTiles,
-    # the last two specialised at 192 and 256), the CUDA-core bodies in
+    # The Hopper bodies (16-bit, d <= 256) fix their tiles in
+    # flash_common.cuh (FwdTiles, DqTiles, DkvTiles, each specialised at 192
+    # and 256), the CUDA-core bodies in
     # BLOCK and PlainTiles; the table the wrappers and chip_smoke.py read
     # must agree.
     import os
@@ -349,12 +347,12 @@ def test_tile_table_mirrors_the_cuda_sources():
                          r"(?:D == 128 \? (\d+) : )?(\d+), STAGES = (\d+);",
                          src)
         rows, tile128, tile, stages = body.groups()
-        # The specialisations at 192 and 256: the backward pair only, and
-        # dK/dV's two warpgroups share their keys there (split 2).
+        # The specialisations at 192 and 256, in every kernel; dK/dV's two
+        # warpgroups share their keys there (split 2).
         spec = {int(d): tuple(map(int, rest)) for d, *rest in re.findall(
             struct + r"<(\d+)> \{\s*static constexpr int ROWS = (\d+), "
             r"TILE = (\d+), STAGES = (\d+);", src)}
-        assert set(spec) == (set() if name == "flash_fwd" else {192, 256})
+        assert set(spec) == {192, 256}
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             for d, t in tattn.TILES[name, dtype].items():
                 if t.wide:
@@ -373,6 +371,25 @@ def test_tile_table_mirrors_the_cuda_sources():
                     assert t == tattn.Tile(
                         block, s_big if d > 128 else s_small, 1, False,
                         split if name == "flash_bwd_dkv" else 1)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fwd_ring_shared_memory(d, dtype):
+    # The 16-bit forward block keeps Q of its 128 rows and streams K and V
+    # through the slots: 3 slots of 128 keys up to d 128; 64-key tiles
+    # above, 3 slots at d 192 and 2 at d 256 (Q and a slot take 48 and
+    # 64 KB each). One mbarrier for Q and two per slot, four above d 128
+    # (K and V are released apart); 1024 bytes to align the swizzle.
+    # chip_smoke.py checks these against what flash_fwd_smem asks for on
+    # the card.
+    t = tattn.TILES["flash_fwd", dtype][d]
+    stream, stages = {192: (64, 3), 256: (64, 2)}.get(d, (128, 3))
+    assert t == tattn.Tile(128, stream, stages, True)
+    bars = (4 if d > 128 else 2) * stages
+    want = 128 * d * 2 + stages * 2 * stream * d * 2 + 8 * (1 + bars) + 1024
+    assert tattn.kernel_smem_bytes(d, dtype)["flash_fwd"] == want
+    assert want <= tattn.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 192, 256])

@@ -45,9 +45,9 @@ def card():
     # heads would read the next head's rows there; at d 128 too (Llama's
     # head dim, two boxes a row).
     (torch.bfloat16, True, 200, 64, 6), (torch.bfloat16, True, 200, 128, 8),
-    # float16 on the Hopper bodies, and d 192 and 256: the forward on the
-    # CUDA-core bodies in every type, the backward pair on them in float32
-    # (two warps a key row in dK/dV) and on the Hopper bodies in 16 bits.
+    # float16 on the Hopper bodies, and d 192 and 256: all three kernels on
+    # the Hopper bodies in 16 bits, on the CUDA-core bodies in float32 (two
+    # warps a key row in dK/dV).
     (torch.float16, True, 1024, 64, 3), (torch.float16, False, 200, 128, 3),
     (torch.float16, True, 130, 32, 3), (torch.bfloat16, True, 300, 192, 3),
     (torch.float16, True, 300, 256, 3), (torch.bfloat16, False, 256, 256, 2),
@@ -121,6 +121,32 @@ def test_backward_pair_at_head_dims_192_and_256_on_card(card, d, dtype,
     assert _within(delta_k, delta, 1e-4)
     assert _within(dq, tattn.flash_bwd_dq_reference(*args), tol)
     assert _within(dk, want_dk, tol) and _within(dv, want_dv, tol)
+
+
+# The forward's Hopper body at d 192 and 256 (64-key tiles, K and V
+# released apart, O as D / 2 floats a thread): non-causal, and ragged, the
+# last streamed tile ending inside the head in several heads (seq 300 and
+# 77).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,seq,bh", [(False, 256, 3), (True, 300, 6),
+                                           (True, 77, 5)])
+def test_forward_at_head_dims_192_and_256_on_card(card, d, dtype, causal,
+                                                  seq, bh):
+    tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3}[dtype]
+    gen = torch.Generator(device=card).manual_seed(d + seq + 1)
+    q, k, v = (torch.randn(bh, seq, d, generator=gen, device=card,
+                           dtype=dtype) for _ in range(3))
+    scale = d ** -0.5
+    assert tattn.TILES["flash_fwd", dtype][d].ring
+    before = tattn.kernel_launches()["flash_fwd"]
+    out, lse = tattn._flash_forward(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert tattn.kernel_launches()["flash_fwd"] == before + 1
+    want_out, want_lse = tattn.flash_forward_reference(q, k, v, causal, scale)
+    assert _within(out, want_out, tol)
+    assert _within(lse, want_lse, 1e-4)
 
 
 @pytest.mark.cuda
