@@ -36,8 +36,10 @@ failed phase, with no phase caught.
    its forward, K2 + K3 beside its backward alone, with each kernel's
    share of its bound; null where it refuses a case); then the wide
    instances above d 256 (bf16 and float16 at d 320, 384 and 512, bh 8,
-   seq 1024, causal; float32 small), held and timed the same way; shows
-   that the same check rejects planted faults (a skipped tile, P left
+   seq 1024, and at d 384, 512 and 1024, bh 24, seq 2048, causal; the
+   forward on its Hopper body there; float32 small), held and timed the
+   same way; shows that the same check rejects planted faults (a skipped
+   tile, in one of O's column chunks too where a block owns one, P left
    unnormalised, delta left at 0, each sized from the kernel's own tiles)
    at the main shape, at bf16 d 256 (bh 24, seq 2048) and at d 384 (bf16);
    times each kernel, its plain
@@ -287,22 +289,28 @@ F1_CASES = [
 # The wide instances (head dims above 256, d at run time): bf16 and
 # float16 at d 320, 384 and 512 (bh 8, seq 1024), float32 small; each held
 # and timed as F1_CASES are. The planted faults run again at F3_FAULTS.
+# The 16-bit forward's Hopper body there is timed at a shape that fills
+# the card too (bh 24, seq 2048; d 384, 512 and 1024).
 F3_CASES = [
     *(dict(bh=8, seq=1024, d=d, dtype=t, causal=True)
       for d in (320, 384, 512) for t in (torch.bfloat16, torch.float16)),
     *(dict(bh=2, seq=256, d=d, dtype=torch.float32, causal=True)
       for d in (320, 384, 512)),
+    *(dict(bh=24, seq=2048, d=d, dtype=t, causal=True)
+      for d in (384, 512, 1024) for t in (torch.bfloat16, torch.float16)),
 ]
 F3_FAULTS = dict(bh=8, seq=1024, d=384, dtype=torch.bfloat16, causal=True)
 # The planted faults at the widest Hopper instance.
 F10_FAULTS = dict(F1_CASES[2])
 assert F10_FAULTS["d"] == 256 and F10_FAULTS["dtype"] == torch.bfloat16
 # Kernel bodies that must not spill (phase 1), by source: the Hopper bodies
-# at d 192 and 256, as ptxas_usage names them.
+# at d 192 and 256, and the forward's above d 256, whose instances are
+# named by the columns of O a block owns (192 and 256), as ptxas_usage
+# names them.
 NO_SPILL = {src: [f"{body}<{t}, {d}>" for body in bodies
                   for t in ("bf16", "f16") for d in (192, 256)]
             for src, bodies in (
-                ("flash_fwd.cu", ("fwd_kernel_sm90",)),
+                ("flash_fwd.cu", ("fwd_kernel_sm90", "fwd_kernel_sm90_wide")),
                 ("flash_bwd.cu", ("bwd_dq_kernel_sm90",
                                   "bwd_dkv_kernel_sm90_split")))}
 # (kernel, output, tolerance) of each output held against its plain
@@ -430,7 +438,9 @@ def ptxas_usage(log: str):
     """(kernel, registers, spill line) for each kernel in `nvcc -Xptxas -v`
     output; the kernel is named with its template arguments, read from the
     mangled name (e.g. `bwd_dq_kernel<bf16, 64>`; the wide bodies, whose d
-    is a run-time argument, `fwd_kernel_wide<bf16, d>`)."""
+    is a run-time argument, `bwd_dq_kernel_wide<bf16, d>`; the 16-bit
+    forward above d 256 by the columns of O a block owns,
+    `fwd_kernel_sm90_wide<bf16, 256>`)."""
     import re
 
     types = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "f16"}
@@ -700,6 +710,9 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
     requires a mismatch above 1 for each. Each fault is one of the kernel's
     own tiles (`attention.TILES`):
       - forward, the last q-block skips one K/V tile in the middle;
+      - forward, where a block owns a chunk of O's columns (the 16-bit
+        body above d 256), only chunk 0's block of the last q-block skips
+        that tile;
       - forward, the last q-block leaves P unnormalised (acc, not acc / l);
       - dQ, the last q-block skips one K/V tile in the middle;
       - delta, the last q-block leaves its rows at 0;
@@ -717,6 +730,11 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
     def planted(t, rows, value):
         t = t.clone()
         t[:, rows] = value
+        return t
+
+    def planted_cols(t, rows, cols, value):  # the first `cols` columns
+        t = t.clone()
+        t[:, rows, :cols] = value[..., :cols]
         return t
 
     def last_rows_forward(rows, drop, normalise):
@@ -753,6 +771,11 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
         ("flash_fwd", "out: last q-block leaves P unnormalised", "out", tol_f,
          planted(got["out"], last_f,
                  last_rows_forward(last_f, slice(0, 0), False))),
+        *([("flash_fwd", f"out: the last q-block's columns 0..{fwd.cols - 1}"
+            f" skip keys {rows(drop_f)}", "out", tol_f,
+            planted_cols(got["out"], last_f, fwd.cols,
+                         last_rows_forward(last_f, drop_f, True)))]
+          if fwd.cols else []),
         ("flash_bwd_dq", f"dQ: last q-block skips keys {rows(drop_q)}", "dq",
          tol_b, planted(got["dq"], last_q, dq_drop[:, last_q])),
         ("flash_bwd_dq", f"delta: last q-block's rows {rows(last_q)} left "
@@ -2937,7 +2960,7 @@ def main() -> int:
         if bad:
             raise AssertionError(f"spilled or not built: {bad}")
         print(f"  {src}: no spills in its {len(NO_SPILL[src])} Hopper "
-              f"bodies at d 192 and 256")
+              f"instances at d 192 and 256 (and above 256)")
     check_smem(attn, _build)
 
     print("== 1b. runtime: ray_tpu_torch.init, tasks, objects, GPU grants")

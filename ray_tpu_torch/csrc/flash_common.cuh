@@ -7,12 +7,13 @@
 // Three families of kernel bodies live on these pieces:
 //
 // - The Hopper bodies (namespace flash::sm90 below): all three kernels in
-//   16 bits (bf16 and float16) at D <= 256. One warp of a producer
-//   warpgroup streams tiles into a ring in shared memory with TMA, ordered
-//   by mbarriers; two consumer warpgroups run every tile product on wgmma.
-//   At D 192 and 256 the dK/dV block's two warpgroups share its keys, one
-//   accumulating dV and the other dK, the first handing P^T to the second
-//   through shared memory (flash_bwd.cu says why).
+//   16 bits (bf16 and float16) at D <= 256, and the forward in 16 bits at
+//   every head dim above 256 too (WideFwdTiles, d at run time). One warp of
+//   a producer warpgroup streams tiles into a ring in shared memory with
+//   TMA, ordered by mbarriers; two consumer warpgroups run every tile
+//   product on wgmma. At D 192 and 256 the dK/dV block's two warpgroups
+//   share its keys, one accumulating dV and the other dK, the first handing
+//   P^T to the second through shared memory (flash_bwd.cu says why).
 // - The CUDA-core bodies of the three kernels: every float32 instance at
 //   D <= 256. A block owns BLOCK = 64 rows, 4 warps of 16 rows, and streams
 //   tiles of PlainTiles<D>::STREAM rows past them; every operand of a tile
@@ -21,9 +22,10 @@
 //   float32 type, and TF32 keeps about three decimal digits, too few for
 //   the 1e-4 the float32 instances are held to, so those stay on the CUDA
 //   cores.
-// - The wide bodies (namespace flash::wide): every type at head dims above
-//   256 that are a multiple of 64, d a run-time argument, accumulators in
-//   shared memory, on the CUDA cores in float32.
+// - The wide bodies (namespace flash::wide): head dims above 256 that are
+//   a multiple of 64, d a run-time argument, accumulators in shared
+//   memory, on the CUDA cores in float32: the forward in float32, dQ and
+//   dK/dV in every type.
 //
 // Accumulator layout (the mma.sync C fragment, which is also the layout of
 // each warp's 16 rows of a wgmma accumulator), lane = 4 * g + t:
@@ -257,6 +259,27 @@ template <>
 struct DkvTiles<256> {
   static constexpr int ROWS = 64, TILE = 64, STAGES = 2;
 };
+// The 16-bit forward above d 256 (fwd_kernel_sm90_wide in flash_fwd.cu),
+// d at run time. Neither Q of 128 rows (80 to 256 KB) nor a K tile of 64
+// keys (40 to 128 KB) fits beside the rest, and a warpgroup's O of d / 2
+// floats a thread does not fit in registers. So O's columns are split over
+// the grid: a block owns 128 query rows and one chunk of at most 256 of
+// O's columns (COLS: 192 or 256 wide, the chunks of one head dim alike),
+// computes S over all d columns from 64-column chunks of Q and K that
+// stream through a ring of STAGES slots (one chunk of each a slot), and
+// P V for its chunk from V tiles of TILE keys x COLS columns through
+// V_STAGES slots. Its shared memory does not grow with d.
+struct WideFwdTiles {
+  static constexpr int ROWS = 128, TILE = 64, STAGES = 6, V_STAGES = 2;
+};
+// Column chunks of O at head dim d: as few as 256 columns each allow, of
+// equal width, a multiple of 64 (the last one may run past d).
+__host__ __device__ constexpr int wide_chunks(int d) {
+  return (d / 64 + 3) / 4;
+}
+__host__ __device__ constexpr int wide_cols(int d) {
+  return (d / 64 + wide_chunks(d) - 1) / wide_chunks(d) * 64;
+}
 
 // A tile of R rows x D 16-bit columns lies in shared memory as D / C chunks
 // of R rows x C columns, one TMA box each, swizzled by TMA as wgmma reads
@@ -688,6 +711,27 @@ __device__ __forceinline__ void store_rows(T* dst,
   }
 }
 
+// Write a warp's 16 rows of a [64 x N] accumulator as 16-bit rows of a
+// row-major matrix with row stride ldd, whose element 0 is the warp's
+// first row at the accumulator's first column; rows at or past `rows` and
+// columns at or past `cols` (a multiple of 8) are dropped.
+template <int N, typename T>
+__device__ __forceinline__ void store_cols(T* dst, int ldd,
+                                           const float (&c)[N / 2], int rows,
+                                           int cols) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (8 * j < cols && g < rows)
+      store_pair(dst + (size_t)g * ldd + col, c[4 * j], c[4 * j + 1]);
+    if (8 * j < cols && g + 8 < rows)
+      store_pair(dst + (size_t)(g + 8) * ldd + col, c[4 * j + 2],
+                 c[4 * j + 3]);
+  }
+}
+
 // Host: cuTensorMapEncodeTiled from libcuda, fetched at run time so that
 // the library needs no -lcuda.
 static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -708,18 +752,19 @@ static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The TMA map of a contiguous 16-bit [bh, seq, D] tensor, one box = `rows`
-// rows x one chunk of columns. Three dimensions, so that a box that runs
-// past `seq` is zero-filled instead of reading the next head's rows.
-// Returns 0 or a FLASH_ERR_ code.
-template <typename T, int D>
-static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
-                    int rows) {
+// The TMA map of a contiguous 16-bit [bh, seq, d] tensor, one box = `rows`
+// rows x `cols` columns: 64 with the 128B swizzle, or d itself below 64
+// with the 64B swizzle. Three dimensions, so that a box that runs past
+// `seq` is zero-filled instead of reading the next head's rows. Returns 0
+// or a FLASH_ERR_ code.
+template <typename T>
+static int make_map_cols(CUtensorMap* map, const void* ptr, int bh, int seq,
+                         int d, int rows, int cols) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return FLASH_ERR_NO_ENCODER;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)seq, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)seq * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)chunk_cols<D>(), (cuuint32_t)rows, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res = encode(
       map,
@@ -727,9 +772,15 @@ static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      cols < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : FLASH_ERR_TENSOR_MAP;
+}
+// The same at a compile-time head dim D, one chunk of columns a box.
+template <typename T, int D>
+static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
+                    int rows) {
+  return make_map_cols<T>(map, ptr, bh, seq, D, rows, chunk_cols<D>());
 }
 
 // Dynamic shared memory is rounded up to the 1024-byte swizzle period here.
@@ -747,13 +798,15 @@ __device__ __forceinline__ uint8_t* aligned_smem(unsigned char* p) {
 // --------------------------------------------------------------------------
 //
 // One instance per type and kernel serves every such head dim: d is a
-// run-time argument. A block of 4 warps owns ROWS = 16 rows (queries; keys
-// for dK/dV) and streams tiles of *_STREAM rows past them. The D-wide
-// float32 accumulators (O; dQ; dK and dV) and the tile products (P, dS)
-// live in dynamic shared memory, not in registers, so the block's shared
-// memory grows with d (fwd_smem, dq_smem, dkv_smem below, mirrored by
-// kernel_smem_bytes in ray_tpu_torch/ops/attention.py): it fits the 227 KB
-// a block may take up to d 704 in float32 and d 1024 in bf16 and float16.
+// run-time argument (the forward's bf16 and float16 instances are not
+// built: those types run fwd_kernel_sm90_wide). A block of 4 warps owns
+// ROWS = 16 rows (queries; keys for dK/dV) and streams tiles of *_STREAM
+// rows past them. The D-wide float32 accumulators (O; dQ; dK and dV) and
+// the tile products (P, dS) live in dynamic shared memory, not in
+// registers, so the block's shared memory grows with d (fwd_smem, dq_smem,
+// dkv_smem below, mirrored by kernel_smem_bytes in
+// ray_tpu_torch/ops/attention.py): it fits the 227 KB a block may take up
+// to d 704 in float32 and d 1024 in bf16 and float16.
 // Every product runs on the CUDA cores in float32.
 namespace flash {
 namespace wide {
@@ -950,7 +1003,8 @@ extern "C" const char* flash_error_string(int code) {
 
 namespace flash {
 // Whether the instance <T, D> of a kernel runs a Hopper body (sm90) or a
-// CUDA-core one: every kernel takes the 16-bit types up to D 256.
+// CUDA-core one: every kernel takes the 16-bit types up to D 256 (above,
+// the 16-bit forward runs fwd_kernel_sm90_wide, d at run time).
 template <typename T, int D>
 constexpr bool hopper_body() {
   return sizeof(T) == 2 && D <= 256;

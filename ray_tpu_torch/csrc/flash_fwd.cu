@@ -16,7 +16,7 @@
 // q, k, v, o and lse (0.023 and 0.030 ms at 3.35 TB/s): bound by
 // operations.
 //
-// Three bodies, chosen by type and head dim:
+// Four bodies, chosen by type and head dim:
 //
 // bf16 and float16 at d <= 256 (fwd_kernel_sm90): one block per 128 query
 // rows, two consumer
@@ -58,12 +58,29 @@
 // rows, K and V tiles of PlainTiles<D>::STREAM rows copied into shared
 // memory between two barriers, P through shared memory in the input type.
 //
-// Every type at d > 256, a multiple of 64 (fwd_kernel_wide): on the CUDA
-// cores in float32, d a run-time argument. 16 query rows a block, K and V
-// tiles of 16 rows; the 8 lanes of each query row compute two scores each
-// and run that row's online softmax with shuffles, P (float32) and the
-// D-wide O accumulator stay in shared memory, and each thread adds P V
-// into its own columns of O with V's column in registers.
+// bf16 and float16 at d > 256, a multiple of 64 (fwd_kernel_sm90_wide):
+// the Hopper machinery with d at run time. At those widths neither Q of
+// 128 rows nor a K tile of 64 keys fits in shared memory beside the rest,
+// and a warpgroup's O (d / 2 floats a thread) does not fit in registers.
+// So O's columns are split over the grid, in chunks of 192 or 256 columns
+// (sm90::WideFwdTiles): each block owns 128 query rows and one chunk,
+// streams 64-column chunks of Q and K through one ring and V's columns of
+// its chunk through another, and computes S over all d itself. With c
+// chunks that costs (c + 1) / 2 times the minimum FLOPs (1.5x at d 512,
+// 2.5x at d 1024) and multiplies the grid by c: 128 blocks on 132 SMs at
+// bh 8, seq 1024, d 320 to 512. Bound at bh 24, seq 2048, causal: 77.3,
+// 103.1 and 206.3 GFLOP at d 384, 512 and 1024 (0.078, 0.104 and 0.209 ms
+// at 989 TFLOP/s) against 151 to 403 MB (0.045 to 0.120 ms at 3.35 TB/s):
+// by operations. Q's chunks are read again from L2 for every key tile,
+// twice K's bytes; a variant that kept Q resident up to d 576 ran 3-14%
+// faster at d 384 and 512 on an H100 and was not kept (a second layout).
+//
+// float32 at d > 256 (fwd_kernel_wide): on the CUDA cores in float32, d a
+// run-time argument. 16 query rows a block, K and V tiles of 16 rows; the
+// 8 lanes of each query row compute two scores each and run that row's
+// online softmax with shuffles, P (float32) and the D-wide O accumulator
+// stay in shared memory, and each thread adds P V into its own columns of
+// O with V's column in registers.
 //
 // All skip causal tiles above the diagonal, mask only the tiles that cross
 // it or the end of the sequence, and issue the heaviest q-blocks first.
@@ -450,7 +467,254 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
         lse[(size_t)bh * sq + rows[h]] = m[h] * scale + logf(den[h]);
   }
 }
-// The wide body (flash_common.cuh, namespace wide).
+
+// The 16-bit body above d 256 (sm90::WideFwdTiles): a block owns 128 query
+// rows, two consumer warpgroups of 64, and one chunk of COLS of O's
+// columns, from col0 = chunk * COLS. For each key tile i of 64 keys it
+// builds S_i = Q K_i^T over all d columns from the 64-column chunks of Q
+// and K_i that the producer streams through ring A (one chunk of each a
+// slot, released as soon as the next chunk's product is issued), then
+// P_i V_i for its columns from V's [64 x COLS] tile in ring B. Step i
+// issues P_{i-1} V_{i-1} ahead of S_i's chunks, so the tensor cores run
+// the one while the other's operands arrive; the softmax of S_i runs once
+// both are done, while the other warpgroup's products run. The warpgroups
+// do not take turns as fwd_kernel_sm90's do: there is one exponential per
+// 2 (d + COLS) flops, over 1,000. Every block of
+// a q-block computes S in the same order, so their m and l agree bit for
+// bit; chunk 0's blocks write lse. V's boxes that lie past d are not
+// loaded: they feed only O's columns past d, which are not stored.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+fwd_kernel_sm90_wide(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     T* __restrict__ o, float* __restrict__ lse, int sq,
+                     int sk, int d, int causal, float scale) {
+  using namespace sm90;
+  using Tl = WideFwdTiles;
+  constexpr int BQ = Tl::ROWS, BK = Tl::TILE;
+  constexpr int SA = Tl::STAGES, SB = Tl::V_STAGES;
+  constexpr uint32_t Q_BYTES = tile_bytes<BQ, 64>();  // a chunk of Q
+  constexpr uint32_t A_BYTES = Q_BYTES + tile_bytes<BK, 64>();  // + K's
+  constexpr uint32_t BOX = tile_bytes<BK, 64>();  // 64 of V's columns
+  constexpr uint32_t B_BYTES = tile_bytes<BK, COLS>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* ring_a = aligned_smem(smem_raw);
+  uint8_t* ring_b = ring_a + SA * A_BYTES;
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(ring_b + SB * B_BYTES);
+  uint64_t* empty_a = full_a + SA;
+  uint64_t* full_b = empty_a + SA;
+  uint64_t* empty_b = full_b + SB;
+
+  // The grid runs through groups of HEADS heads, within a group through
+  // the q-blocks from the last (the most causal work), all heads and
+  // chunks of the group at each; the chunks of one q-block are neighbours,
+  // so they read its Q and K chunks from L2 at about the same time.
+  constexpr int HEADS = 12;
+  const int nd = d / 64, nc = wide_chunks(d);
+  const int nqb = (sq + BQ - 1) / BQ, per = nqb * nc;
+  const int g0 = blockIdx.x / (HEADS * per) * HEADS;
+  const int r = blockIdx.x - g0 * per;
+  const int heads = min(HEADS, (int)gridDim.x / per - g0);
+  const int chunk = r % nc, rq = r / nc;
+  const int bh = g0 + rq % heads;
+  const int q0 = (nqb - 1 - rq / heads) * BQ;
+  const int col0 = chunk * COLS, ncols = min(COLS, d - col0);
+  int nkb = (sk + BK - 1) / BK;
+  if (causal) nkb = min(nkb, (q0 + BQ - 1) / BK + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&empty_a[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full_b[s], 1);
+      mbar_init(&empty_b[s], CONSUMERS * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= PRODUCER_WARP) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (warp == PRODUCER_WARP && lane == 0) {
+      const int nbox = ncols / 64;
+      int s = 0, ph = 0;  // ring A's next slot, and its use's parity
+      for (int i = 0, n = 0; i < nkb; ++i) {
+        for (int c = 0; c < nd; ++c, ++n) {  // Q's and K_i's chunk c
+          if (n >= SA) mbar_wait(&empty_a[s], ph ^ 1);
+          uint8_t* slot = ring_a + s * A_BYTES;
+          mbar_expect_tx(&full_a[s], A_BYTES);
+          tma_load(slot, &map_q, &full_a[s], 64 * c, q0, bh);
+          tma_load(slot + Q_BYTES, &map_k, &full_a[s], 64 * c, i * BK, bh);
+          if (++s == SA) s = 0, ph ^= 1;
+        }
+        const int b = i % SB;  // V_i's columns of this chunk
+        if (i >= SB) mbar_wait(&empty_b[b], (i / SB - 1) & 1);
+        mbar_expect_tx(&full_b[b], nbox * BOX);
+        for (int j = 0; j < nbox; ++j)
+          tma_load(ring_b + b * B_BYTES + j * BOX, &map_v, &full_b[b],
+                   col0 + 64 * j, i * BK, bh);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg owns rows q0 + 64 wg ..; each warp 16 of them.
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  const int w0 = wg_row0 + (warp % 4) * 16;  // this warp's first query row
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  const float c2 = scale * LOG2E;  // raw scores to base-2 exponents
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[COLS / 2];
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];         // S_i, [64 x BK] across the warpgroup
+  uint32_t pa[BK / 16][4];  // P of the previous tile, as A fragments
+  float corr[2];
+
+  auto release = [&](uint64_t* bar) {  // this warp is done with a slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // Ring A's slot in use, the parity of its use and the slot used before
+  // it, counted as the producer counts them (dividing a count of chunks
+  // by SA instead took ~5% longer at d 1024 on an H100).
+  int s = 0, ph = 0, prev = 0;
+  // S (+)= Q_c K_c^T from slot s, both K-major (64 columns, one swizzled
+  // 128-byte row each).
+  auto issue_s = [&](int accumulate) {
+    const uint32_t slot = smem_u32(ring_a + s * A_BYTES);
+    const uint64_t qd = k_major<64, 64>(slot + wg * 64 * row_bytes<64>(), 0);
+    const uint64_t kd = k_major<BK, 64>(slot + Q_BYTES, 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<BK, T>::ss(sc, k_major_at<64, 64>(qd, kk),
+                       k_major_at<BK, 64>(kd, kk), accumulate | (kk > 0));
+    wg_commit();
+  };
+  // O += P_i V_i for this chunk's columns, V read MN-major; products of
+  // 128 columns, then one of COLS - 128.
+  auto issue_pv = [&](int i) {
+    const uint32_t vb = smem_u32(ring_b + (i % SB) * B_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      WgmmaCols<COLS, T>::rs(acc, pa[kk], mn_major<BK, COLS>(vb, kk), 1);
+    wg_commit();
+  };
+  // S_i from the next nd slots of ring A: each chunk's slot is released
+  // once the next chunk's product is issued and the older ones are done;
+  // V_{i-1}'s (pv, whose product went first) once chunk 0 is done.
+  auto s_tile = [&](int i, bool pv) {
+    for (int c = 0; c < nd; ++c) {
+      mbar_wait(&full_a[s], ph);
+      issue_s(c > 0);
+      if (c > 0) {
+        wg_wait<1>();
+        release(&empty_a[prev]);
+        if (c == 1 && pv) release(&empty_b[(i - 1) % SB]);
+      }
+      prev = s;
+      if (++s == SA) s = 0, ph ^= 1;
+    }
+    wg_wait<0>();
+    release(&empty_a[prev]);
+  };
+  // Online softmax on the raw scores of tile i, in base 2, as in
+  // fwd_kernel_sm90.
+  auto softmax = [&](int i) {
+    const int k0 = i * BK;
+    if (k0 + BK > sk || (causal && k0 + BK - 1 > wg_row0)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1), r = rows[e >> 1];
+          if (!(col < sk && (!causal || col <= r))) sc[4 * j + e] = NEG_INF;
+        }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+    float mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      corr[h] = fast_exp2((m[h] - mx[h]) * c2);
+      m[h] = mx[h];
+      mc[h] = mx[h] * c2;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = fast_exp2(fmaf(sc[4 * j + e], c2, -mc[e >> 1]));
+        sum[e >> 1] += sc[4 * j + e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = corr[h] * l[h] + quad_sum(sum[h]);
+  };
+
+  wg_fence();
+  s_tile(0, false);
+  fence_regs(sc);
+  softmax(0);
+  to_a_frags<BK, T>(pa, sc);
+  for (int i = 1; i < nkb; ++i) {
+    mbar_wait(&full_b[(i - 1) % SB], ((i - 1) / SB) & 1);  // V_{i-1}
+    fence_regs(acc);
+    wg_fence();
+    issue_pv(i - 1);
+    s_tile(i, true);
+    fence_regs(sc);
+    fence_regs(acc);
+    softmax(i);
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j) {
+      acc[4 * j] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
+    }
+    to_a_frags<BK, T>(pa, sc);
+  }
+  mbar_wait(&full_b[(nkb - 1) % SB], ((nkb - 1) / SB) & 1);
+  fence_regs(acc);
+  wg_fence();
+  issue_pv(nkb - 1);
+  wg_wait<0>();
+  fence_regs(acc);
+  release(&empty_b[(nkb - 1) % SB]);
+
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) den[h] = fmaxf(l[h], 1e-30f);
+#pragma unroll
+  for (int j = 0; j < COLS / 8; ++j) {
+    acc[4 * j] /= den[0];
+    acc[4 * j + 1] /= den[0];
+    acc[4 * j + 2] /= den[1];
+    acc[4 * j + 3] /= den[1];
+  }
+  store_cols<COLS, T>(o + ((size_t)bh * sq + w0) * d + col0, d, acc, sq - w0,
+                      ncols);
+  if (chunk == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (rows[h] < sq)
+        lse[(size_t)bh * sq + rows[h]] = m[h] * scale + logf(den[h]);
+  }
+}
+
+// The float32 body above d 256 (flash_common.cuh, namespace wide).
 template <typename T>
 __global__ void __launch_bounds__(wide::THREADS)
 fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
@@ -555,22 +819,65 @@ static int fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// Shared memory of the 16-bit body above d 256: ring A's slots (a chunk
+// of Q and one of K each), ring B's (V's [64 x COLS] tiles), a full and an
+// empty mbarrier a slot, and the swizzle's alignment.
+template <int COLS>
+static size_t fwd_smem_sm90_wide() {
+  using Tl = sm90::WideFwdTiles;
+  return Tl::STAGES * sm90::tile_bytes<Tl::ROWS + Tl::TILE, 64>() +
+         Tl::V_STAGES * sm90::tile_bytes<Tl::TILE, COLS>() +
+         2 * (Tl::STAGES + Tl::V_STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
+}
+
+template <typename T, int COLS>
+static int fwd_sm90_wide(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int bh, int sq, int sk, int d,
+                         int causal, float scale, cudaStream_t stream) {
+  using Tl = sm90::WideFwdTiles;
+  CUtensorMap mq, mk, mv;
+  int err = sm90::make_map_cols<T>(&mq, q, bh, sq, d, Tl::ROWS, 64);
+  if (!err) err = sm90::make_map_cols<T>(&mk, k, bh, sk, d, Tl::TILE, 64);
+  if (!err) err = sm90::make_map_cols<T>(&mv, v, bh, sk, d, Tl::TILE, 64);
+  if (err) return err;
+  const dim3 grid(bh * ((sq + Tl::ROWS - 1) / Tl::ROWS) *
+                  sm90::wide_chunks(d));
+  return launch(fwd_kernel_sm90_wide<T, COLS>, grid, sm90::THREADS,
+                fwd_smem_sm90_wide<COLS>(), stream, mq, mk, mv,
+                static_cast<T*>(o), static_cast<float*>(lse), sq, sk, d,
+                causal, scale);
+}
+
+// Above d 256: the Hopper body in 16 bits (O's column chunks 192 or 256
+// wide), the CUDA-core one in float32.
 template <typename T>
 static int fwd_wide(const void* q, const void* k, const void* v, void* o,
                     void* lse, int bh, int sq, int sk, int d, int causal,
                     float scale, cudaStream_t stream) {
-  const size_t smem = wide::fwd_smem<T>(d);
-  if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
-  const dim3 grid(bh * ((sq + wide::ROWS - 1) / wide::ROWS));
-  return launch(fwd_kernel_wide<T>, grid, wide::THREADS, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(o),
-                static_cast<float*>(lse), sq, sk, d, causal, scale);
+  if constexpr (sizeof(T) == 2) {
+    if (sm90::wide_cols(d) == 192)
+      return fwd_sm90_wide<T, 192>(q, k, v, o, lse, bh, sq, sk, d, causal,
+                                   scale, stream);
+    return fwd_sm90_wide<T, 256>(q, k, v, o, lse, bh, sq, sk, d, causal,
+                                 scale, stream);
+  } else {
+    const size_t smem = wide::fwd_smem<T>(d);
+    if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
+    const dim3 grid(bh * ((sq + wide::ROWS - 1) / wide::ROWS));
+    return launch(fwd_kernel_wide<T>, grid, wide::THREADS, smem, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<T*>(o),
+                  static_cast<float*>(lse), sq, sk, d, causal, scale);
+  }
 }
 
 template <typename T>
 static int fwd_wide_smem(int d) {
-  return (int)wide::fwd_smem<T>(d);
+  if constexpr (sizeof(T) == 2)
+    return (int)(sm90::wide_cols(d) == 192 ? fwd_smem_sm90_wide<192>()
+                                           : fwd_smem_sm90_wide<256>());
+  else
+    return (int)wide::fwd_smem<T>(d);
 }
 
 // q [bh, sq, d], k and v [bh, sk, d] -> o [bh, sq, d], lse [bh, sq] float32.

@@ -13,8 +13,10 @@ head_dim]. The kernels and their plain PyTorch versions work on
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
 for the other. On the card the body is chosen by type and head dim: bf16
 and float16 run the Hopper bodies (TMA ring, wgmma) of all three kernels at
-d <= 256; float32 the CUDA-core bodies; every type at a multiple of 64
-above 256 the wide bodies, which take d at run time and keep their
+d <= 256, and of the forward at every multiple of 64 above 256 too (d at
+run time, O's columns split over the grid); float32 the CUDA-core bodies;
+above 256, the dQ and dK/dV kernels in every type and the forward in
+float32 run the wide bodies, which take d at run time and keep their
 accumulators in shared memory (`TILES` lists each one's tiles).
 The dQ kernel runs first in the backward and also writes delta =
 rowsum(dO * O), which the dK/dV kernel reads.
@@ -48,7 +50,11 @@ class Tile(NamedTuple):
     # rows; at 2 (dK/dV above d 128) one accumulates dV and the other dK,
     # and the first hands P^T to the second through shared memory.
     split: int = 1
-    wide: bool = False  # d at run time, accumulators in shared memory
+    wide: bool = False  # d at run time
+    # The 16-bit forward above d 256 (a ring body with d at run time): the
+    # columns of O one block owns, 192 or 256; the grid holds one block per
+    # chunk of that many columns.
+    cols: int = 0
 
 
 def _plain(name: str, d: int) -> Tile:
@@ -81,15 +87,52 @@ _RING = {
 }
 # The wide bodies' tiles (flash_common.cuh, namespace wide: ROWS and the
 # *_STREAM rows): one instance per type serves every multiple of 64 above
-# 256, up to the largest whose shared memory fits (`WIDE_MAX_D`).
+# 256, up to the largest whose shared memory fits (`WIDE_MAX_D`); the
+# forward's serves float32 only.
 _WIDE = {"flash_fwd": Tile(16, 16, 1, False, wide=True),
          "flash_bwd_dq": Tile(16, 16, 1, False, wide=True),
          "flash_bwd_dkv": Tile(16, 8, 1, False, wide=True)}
+_V_STAGES = 2  # the 16-bit forward above d 256: slots of V's tiles
+
+
+def wide_chunks(d: int) -> Tuple[int, int]:
+    """(chunks, columns a chunk) of O at head dim d > 256 in the 16-bit
+    forward (flash_common.cuh wide_chunks, wide_cols): as few chunks as 256
+    columns each allow, of one width, a multiple of 64; the last may run
+    past d."""
+    m = d // 64
+    n = -(-m // 4)
+    return n, -(-m // n) * 64
+
+
+def _ring_wide(d: int) -> Tile:
+    """The 16-bit forward's tiles above d 256 (flash_common.cuh
+    WideFwdTiles): 128 query rows, 64-key tiles, a ring of 6 slots each
+    holding a 64-column chunk of Q and one of K, and 2 slots of V's
+    [64 x cols] tiles."""
+    return Tile(128, 64, 6, True, wide=True, cols=wide_chunks(d)[1])
+
+
+def _tile(name: str, dtype: torch.dtype, d: int) -> Tile:
+    """The tiles of kernel `name`'s body in this dtype at head dim d."""
+    if d > 256:
+        if name == "flash_fwd" and dtype in _HALF:
+            return _ring_wide(d)
+        return _WIDE[name]
+    return _RING[name][d] if dtype in _HALF else _plain(name, d)
 
 
 def _smem(name: str, t: Tile, d: int, size: int) -> int:
     """Shared memory of one block of kernel `name` with tiles `t` at head
     dim d for elements of `size` bytes (the formulas of csrc/)."""
+    if t.ring and t.wide:
+        # The 16-bit forward above d 256 (fwd_smem_sm90_wide): ring A's
+        # slots, a 64-column chunk of Q's rows and of K's streamed rows
+        # each; V's [stream x cols] slots; a full and an empty mbarrier a
+        # slot; 1024 bytes to align the swizzle pattern. d sets only cols.
+        ring_a = t.stages * (t.rows + t.stream) * 64 * size
+        ring_b = _V_STAGES * t.stream * t.cols * size
+        return ring_a + ring_b + 8 * 2 * (t.stages + _V_STAGES) + 1024
     if t.wide:
         # float32 accumulators (O; dQ; dK and dV) and P / dS tiles, then
         # the owned and streamed rows padded by 16 bytes; dK/dV keeps the
@@ -126,17 +169,18 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
 
 
 def _wide_max_d(dtype: torch.dtype) -> int:
-    """The largest multiple of 64 at which all three wide blocks fit."""
+    """The largest multiple of 64 at which the three kernels' blocks fit."""
     size = torch.tensor([], dtype=dtype).element_size()
     d = 256
-    while all(_smem(n, t, d + 64, size) <= SMEM_LIMIT
-              for n, t in _WIDE.items()):
+    while all(_smem(n, _tile(n, dtype, d + 64), d + 64, size) <= SMEM_LIMIT
+              for n in KERNELS):
         d += 64
     return d
 
 
 # dtype -> the largest head dim the kernels take: 704 in float32 and 1024
-# in bf16 and float16 (the wide dK/dV block's shared memory bounds both).
+# in bf16 and float16 (the wide dK/dV block's shared memory bounds both;
+# the 16-bit forward's does not grow with d).
 WIDE_MAX_D: Dict[torch.dtype, int] = {dt: _wide_max_d(dt)
                                       for dt in _DTYPE_CODES}
 
@@ -148,13 +192,10 @@ def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
 
 
 # (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: bf16 and float16 run
-# the Hopper bodies up to d 256, float32 the CUDA-core bodies; every type
-# runs the wide bodies above 256.
+# the Hopper bodies up to d 256 and the forward's above, float32 the
+# CUDA-core bodies; above 256 the rest runs the wide bodies.
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
-    (name, dtype): {d: (_WIDE[name] if d > 256
-                        else _RING[name][d] if dtype in _HALF
-                        else _plain(name, d))
-                    for d in head_dims(dtype)}
+    (name, dtype): {d: _tile(name, dtype, d) for d in head_dims(dtype)}
     for name in KERNELS for dtype in _DTYPE_CODES
 }
 

@@ -282,9 +282,13 @@ def test_tile_table_fits_hopper_shared_memory():
             assert t.rows % (64 if t.ring else 16) == 0
             assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
             # The Hopper bodies take the 16-bit types up to d 256, in all
-            # three kernels; the wide bodies every type above 256.
-            assert t.ring == (dtype != torch.float32 and d <= 256)
+            # three kernels, and the 16-bit forward above 256 too; the wide
+            # CUDA-core bodies the rest above 256. Above 256, d is a
+            # run-time argument of every body.
+            assert t.ring == (dtype != torch.float32
+                              and (d <= 256 or name == "flash_fwd"))
             assert t.wide == (d > 256)
+            assert (t.cols > 0) == (t.ring and t.wide)
             assert t.split == (2 if name == "flash_bwd_dkv"
                                and 128 < d <= 256 else 1)
     assert len(tattn.TILES) == 3 * len(tattn.KERNELS)
@@ -337,6 +341,12 @@ def test_tile_table_mirrors_the_cuda_sources():
     wide_rows, fwd_s, dq_s, dkv_s = map(int, wide.groups())
     wide_stream = {"flash_fwd": fwd_s, "flash_bwd_dq": dq_s,
                    "flash_bwd_dkv": dkv_s}
+    # The 16-bit forward above 256 (WideFwdTiles): rows, the keys of a
+    # tile, ring A's slots and V's; O's column chunks of 192 or 256.
+    ring_wide = tuple(map(int, re.search(
+        r"struct WideFwdTiles \{\s*static constexpr int ROWS = (\d+), "
+        r"TILE = (\d+), STAGES = (\d+), V_STAGES = (\d+);", src).groups()))
+    assert ring_wide[3] == tattn._V_STAGES
     assert int(re.search(r"SMEM_LIMIT = (\d+);", src).group(1)) \
         == tattn.SMEM_LIMIT
     for struct, name in (("FwdTiles", "flash_fwd"),
@@ -355,7 +365,13 @@ def test_tile_table_mirrors_the_cuda_sources():
         assert set(spec) == {192, 256}
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             for d, t in tattn.TILES[name, dtype].items():
-                if t.wide:
+                if t.ring and t.wide:
+                    m = d // 64
+                    cols = -(-m // -(-m // 4)) * 64
+                    assert name == "flash_fwd" and dtype != torch.float32
+                    assert t == tattn.Tile(*ring_wide[:3], True, wide=True,
+                                           cols=cols)
+                elif t.wide:
                     assert t == tattn.Tile(wide_rows, wide_stream[name], 1,
                                            False, wide=True)
                 elif t.ring and d in spec:
@@ -388,6 +404,28 @@ def test_fwd_ring_shared_memory(d, dtype):
     assert t == tattn.Tile(128, stream, stages, True)
     bars = (4 if d > 128 else 2) * stages
     want = 128 * d * 2 + stages * 2 * stream * d * 2 + 8 * (1 + bars) + 1024
+    assert tattn.kernel_smem_bytes(d, dtype)["flash_fwd"] == want
+    assert want <= tattn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", range(320, 1025, 64))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wide_fwd_ring_shared_memory(d, dtype):
+    # The 16-bit forward above d 256 holds no row of Q or K whole: ring A's
+    # 6 slots each take a 64-column chunk of Q's 128 rows and of K's 64
+    # keys, ring B's 2 slots V's 64 keys x the block's chunk of O's
+    # columns; a full and an empty mbarrier a slot; 1024 bytes to align the
+    # swizzle. O's d columns are split into c chunks of 192 or 256, as few
+    # as 256 each allow, of one width, each chunk starting inside d, so the
+    # block fits at every head dim the 16-bit types take.
+    t = tattn.TILES["flash_fwd", dtype][d]
+    chunks = -(-d // 256)
+    cols = -(-(d // 64) // chunks) * 64
+    assert tattn.wide_chunks(d) == (chunks, cols)
+    assert cols in (192, 256) and (chunks - 1) * cols < d <= chunks * cols
+    assert t == tattn.Tile(128, 64, 6, True, wide=True, cols=cols)
+    want = 6 * (128 + 64) * 64 * 2 + 2 * 64 * cols * 2 + 8 * 2 * (6 + 2) \
+        + 1024
     assert tattn.kernel_smem_bytes(d, dtype)["flash_fwd"] == want
     assert want <= tattn.SMEM_LIMIT
 

@@ -52,8 +52,9 @@ def card():
     (torch.float16, True, 130, 32, 3), (torch.bfloat16, True, 300, 192, 3),
     (torch.float16, True, 300, 256, 3), (torch.bfloat16, False, 256, 256, 2),
     (torch.float32, True, 200, 256, 2), (torch.float32, False, 130, 192, 2),
-    # Above 256 the wide bodies, d at run time, in every type, up to the
-    # largest head dim whose tiles fit (1024 in 16 bits, 704 in float32).
+    # Above 256, d at run time, up to the largest head dim whose tiles fit
+    # (1024 in 16 bits, 704 in float32): the forward's Hopper body in 16
+    # bits, whose lse K2 and K3 read here, and the wide bodies the rest.
     (torch.bfloat16, True, 300, 384, 3), (torch.float16, False, 200, 384, 2),
     (torch.float32, True, 130, 384, 2), (torch.bfloat16, True, 77, 1024, 1),
     (torch.float32, False, 64, 704, 1)])
@@ -140,6 +141,34 @@ def test_forward_at_head_dims_192_and_256_on_card(card, d, dtype, causal,
                            dtype=dtype) for _ in range(3))
     scale = d ** -0.5
     assert tattn.TILES["flash_fwd", dtype][d].ring
+    before = tattn.kernel_launches()["flash_fwd"]
+    out, lse = tattn._flash_forward(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert tattn.kernel_launches()["flash_fwd"] == before + 1
+    want_out, want_lse = tattn.flash_forward_reference(q, k, v, causal, scale)
+    assert _within(out, want_out, tol)
+    assert _within(lse, want_lse, 1e-4)
+
+
+# The forward's Hopper body above d 256 (d at run time, O's columns split
+# over the grid in chunks of 192 or 256): one or several chunks, the last
+# running past d at 320 and 704; ragged, the last tile ending inside the
+# head in several heads (seq 300 and 77); non-causal, and seq_q != seq_k.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [320, 512, 704, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,sq,sk,bh", [
+    (True, 300, 300, 3), (True, 77, 77, 5), (False, 256, 256, 2),
+    (False, 200, 333, 2)])
+def test_wide_forward_on_card(card, d, dtype, causal, sq, sk, bh):
+    tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3}[dtype]
+    gen = torch.Generator(device=card).manual_seed(d + sq + sk)
+    q = torch.randn(bh, sq, d, generator=gen, device=card, dtype=dtype)
+    k, v = (torch.randn(bh, sk, d, generator=gen, device=card, dtype=dtype)
+            for _ in range(2))
+    scale = d ** -0.5
+    t = tattn.TILES["flash_fwd", dtype][d]
+    assert t.ring and t.wide and t.cols in (192, 256)
     before = tattn.kernel_launches()["flash_fwd"]
     out, lse = tattn._flash_forward(q, k, v, causal, scale)
     torch.cuda.synchronize()

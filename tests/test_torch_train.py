@@ -311,9 +311,20 @@ class _Tally:
 
 
 def _ingest_loop(config):
+    # The split hands blocks to whichever rank asks first, as the
+    # reference's does. The ranks' loops start up to ~0.4 s apart (each
+    # worker imports this file, JAX with it, to unpickle the loop), and one
+    # rank drains all 4 blocks in ~0.15 s, so the later one could find none.
+    # So each rank takes its first batch, then the two meet on the gloo
+    # group: a rank waiting there holds at most 2 blocks (its prefetch
+    # queue of 2 batches and the block in hand), and the other finds the
+    # rest.
     shard = session.get_dataset_shard("train")
-    seen = []
-    for batch in shard.iter_batches(batch_size=8):
+    batches = shard.iter_batches(batch_size=8)
+    first = next(batches, None)
+    torch.distributed.barrier()
+    seen = [] if first is None else first["id"].tolist()
+    for batch in batches:
         seen += batch["id"].tolist()
     tally = ray_tpu_torch.get_actor(config["tally"])
     ray_tpu_torch.get(tally.add.remote(session.get_world_rank(), seen))
