@@ -9,9 +9,12 @@ failed phase, with no phase caught.
 1. Device and build: prints the card's name and power limit, builds the
    CUDA kernels of `ray_tpu_torch/csrc/`, prints the build time and each
    kernel's registers and spills (the Hopper bodies of all three kernels
-   at head dims 192 and 256, in bf16 and float16, must not spill), and checks
-   that the shared memory each C entry point asks for is what
-   `attention.kernel_smem_bytes` computes from the tile table.
+   at head dims 192 and 256, in bf16 and float16, and above 256, must not
+   spill), and checks that the shared memory each C entry point asks for
+   is what `attention.kernel_smem_bytes` computes from the tile table, that
+   in float32 one multiple of 64 past the largest head dim would not fit a
+   block, and that in 16 bits `flash_attention` refuses d 1088, naming
+   1024.
 1b. Runtime: `ray_tpu_torch.init()` must advertise the card (`GPU: 1`);
    runs 16 tasks and an actor, moves a 256 MiB numpy array through
    `put`/`get` in a worker and back (MB/s printed), checks that a CPU task
@@ -36,12 +39,14 @@ failed phase, with no phase caught.
    its forward, K2 + K3 beside its backward alone, with each kernel's
    share of its bound; null where it refuses a case); then the wide
    instances above d 256 (bf16 and float16 at d 320, 384 and 512, bh 8,
-   seq 1024, and at d 384, 512 and 1024, bh 24, seq 2048, causal; the
-   forward on its Hopper body there; float32 small), held and timed the
-   same way; shows that the same check rejects planted faults (a skipped
-   tile, in one of O's column chunks too where a block owns one, P left
-   unnormalised, delta left at 0, each sized from the kernel's own tiles)
-   at the main shape, at bf16 d 256 (bh 24, seq 2048) and at d 384 (bf16);
+   seq 1024, and at d 384, 512 and 1024, bh 24, seq 2048, causal; all
+   three kernels on their Hopper bodies there; float32 small), held and
+   timed the same way, with K2 + K3 beside SDPA's backward and each
+   kernel's share of its bound; shows that the same check rejects planted
+   faults (a skipped tile, in one of the output's column chunks too where
+   a block owns one, for O, dQ, dK and dV, P left unnormalised, delta left
+   at 0, each sized from the kernel's own tiles) at the main shape, at bf16
+   d 256 (bh 24, seq 2048) and at d 384 (bf16);
    times each kernel, its plain
    version and
    `scaled_dot_product_attention` (a yardstick the port never calls),
@@ -304,15 +309,17 @@ F3_FAULTS = dict(bh=8, seq=1024, d=384, dtype=torch.bfloat16, causal=True)
 F10_FAULTS = dict(F1_CASES[2])
 assert F10_FAULTS["d"] == 256 and F10_FAULTS["dtype"] == torch.bfloat16
 # Kernel bodies that must not spill (phase 1), by source: the Hopper bodies
-# at d 192 and 256, and the forward's above d 256, whose instances are
-# named by the columns of O a block owns (192 and 256), as ptxas_usage
+# at d 192 and 256, and those above d 256, whose instances are named by
+# the columns of the output a block owns (192 and 256), as ptxas_usage
 # names them.
 NO_SPILL = {src: [f"{body}<{t}, {d}>" for body in bodies
                   for t in ("bf16", "f16") for d in (192, 256)]
             for src, bodies in (
                 ("flash_fwd.cu", ("fwd_kernel_sm90", "fwd_kernel_sm90_wide")),
                 ("flash_bwd.cu", ("bwd_dq_kernel_sm90",
-                                  "bwd_dkv_kernel_sm90_split")))}
+                                  "bwd_dkv_kernel_sm90_split",
+                                  "bwd_dq_kernel_sm90_wide",
+                                  "bwd_dkv_kernel_sm90_wide")))}
 # (kernel, output, tolerance) of each output held against its plain
 # version; delta is a float32 sum in both, held to the float32 forward's.
 OUTPUTS = [("flash_fwd", "out", "fwd"), ("flash_fwd", "lse", "fwd"),
@@ -438,8 +445,8 @@ def ptxas_usage(log: str):
     """(kernel, registers, spill line) for each kernel in `nvcc -Xptxas -v`
     output; the kernel is named with its template arguments, read from the
     mangled name (e.g. `bwd_dq_kernel<bf16, 64>`; the wide bodies, whose d
-    is a run-time argument, `bwd_dq_kernel_wide<bf16, d>`; the 16-bit
-    forward above d 256 by the columns of O a block owns,
+    is a run-time argument, `bwd_dq_kernel_wide<float, d>`; the 16-bit
+    bodies above d 256 by the columns of the output a block owns,
     `fwd_kernel_sm90_wide<bf16, 256>`)."""
     import re
 
@@ -460,7 +467,8 @@ def ptxas_usage(log: str):
 
 def check_smem(attn, build) -> None:
     """The shared memory each C entry point asks for must be what the tile
-    table gives (`attention.kernel_smem_bytes`)."""
+    table gives (`attention.kernel_smem_bytes`); past the largest head dim
+    of each type the kernels must not be offered."""
     fwd, bwd = build.load("flash_fwd.cu"), build.load("flash_bwd.cu")
     for dtype, code in attn._DTYPE_CODES.items():
         for d in attn.head_dims(dtype):
@@ -477,12 +485,29 @@ def check_smem(attn, build) -> None:
     most = {str(t).split(".")[-1]: m for t, m in attn.WIDE_MAX_D.items()}
     print(f"  shared memory of every kernel, dtype and head dim matches the "
           f"tile table (largest {largest} B; head dims up to {most})")
-    # One multiple of 64 past the largest: some block would not fit.
+    # float32: one multiple of 64 past the largest, some block would not
+    # fit. bf16 and float16: no block grows with d above 256, so the cap is
+    # the tile table's own; flash_attention must refuse past it, naming it.
     for dtype, code in attn._DTYPE_CODES.items():
         d = attn.WIDE_MAX_D[dtype] + 64
-        if max(fwd.flash_fwd_smem(d, code), bwd.flash_bwd_smem(0, d, code),
-               bwd.flash_bwd_smem(1, d, code)) <= attn.SMEM_LIMIT:
-            raise AssertionError(f"d={d} {dtype} would fit a block")
+        if dtype == torch.float32:
+            if max(fwd.flash_fwd_smem(d, code),
+                   bwd.flash_bwd_smem(0, d, code),
+                   bwd.flash_bwd_smem(1, d, code)) <= attn.SMEM_LIMIT:
+                raise AssertionError(f"d={d} {dtype} would fit a block")
+            continue
+        q = torch.zeros(1, 1, 8, d, dtype=dtype, device="cuda")
+        try:
+            attn.flash_attention(q, q, q)
+        except ValueError as err:
+            if str(attn.WIDE_MAX_D[dtype]) not in str(err):
+                raise AssertionError(f"d={d} {dtype} refused without naming "
+                                     f"{attn.WIDE_MAX_D[dtype]}: {err}")
+        else:
+            raise AssertionError(f"flash_attention took d={d} {dtype}")
+    print(f"  past the largest head dims: float32's blocks would not fit; "
+          f"bf16 and float16 refused at d "
+          f"{attn.WIDE_MAX_D[torch.bfloat16] + 64}")
 
 
 def run_kernels(attn, q, k, v, do, causal: bool, scale: float) -> dict:
@@ -710,13 +735,13 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
     requires a mismatch above 1 for each. Each fault is one of the kernel's
     own tiles (`attention.TILES`):
       - forward, the last q-block skips one K/V tile in the middle;
-      - forward, where a block owns a chunk of O's columns (the 16-bit
-        body above d 256), only chunk 0's block of the last q-block skips
-        that tile;
       - forward, the last q-block leaves P unnormalised (acc, not acc / l);
       - dQ, the last q-block skips one K/V tile in the middle;
       - delta, the last q-block leaves its rows at 0;
-      - dK and dV, the first key block skips one Q/dO tile in the middle.
+      - dK and dV, the first key block skips one Q/dO tile in the middle;
+      - where a block owns a chunk of the output's columns (the 16-bit
+        bodies above d 256), each skipped tile again, in chunk 0's block
+        alone (O, dQ, dK and dV).
     The last q-block averages the most keys, and the first key block takes
     rows from every q-block, so one tile is the smallest share there."""
     s, d = q.shape[1], q.shape[2]
@@ -786,6 +811,16 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
         ("flash_bwd_dkv", f"dV: first key block skips queries "
          f"{rows(drop_k)}", "dv", tol_b,
          planted(got["dv"], first_k, dv_drop[:, first_k])),
+        *([("flash_bwd_dq", f"dQ: the last q-block's columns 0.."
+            f"{dq_t.cols - 1} skip keys {rows(drop_q)}", "dq", tol_b,
+            planted_cols(got["dq"], last_q, dq_t.cols, dq_drop[:, last_q]))]
+          if dq_t.cols else []),
+        *([("flash_bwd_dkv", f"d{key[1].upper()}: the first key block's "
+            f"columns 0..{dkv.cols - 1} skip queries {rows(drop_k)}", key,
+            tol_b,
+            planted_cols(got[key], first_k, dkv.cols, drop[:, first_k]))
+           for key, drop in (("dk", dk_drop), ("dv", dv_drop))]
+          if dkv.cols else []),
     ]
     for name, what, key, tol, bad in faults:
         ratio = mismatch(bad, want[key], tol)

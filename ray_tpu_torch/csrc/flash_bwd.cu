@@ -97,14 +97,30 @@
 // dK/dV block runs two warps per 16 keys, each accumulating half of dK's
 // and dV's columns (PlainTiles::SPLIT).
 //
-// Every type at d > 256, a multiple of 64 (bwd_dq_kernel_wide,
-// bwd_dkv_kernel_wide): on the CUDA cores in float32, d a run-time
-// argument, 16 owned rows a block. dQ streams K/V tiles of 16 keys (delta
-// summed first by the 8 lanes of each query row); dK/dV streams Q/dO tiles
-// of 8 queries with their lse and delta. Each thread computes its entries
-// of S and dP, P and dS go through shared memory in float32, and the D-wide
-// accumulators (dQ; dK and dV) stay in shared memory, each thread adding
-// into its own columns with the streamed tile's column in registers.
+// bf16 and float16 at d > 256, a multiple of 64 (bwd_dq_kernel_sm90_wide,
+// bwd_dkv_kernel_sm90_wide): the Hopper machinery with d at run time, on
+// the wide forward's answer (flash_fwd.cu). Neither a D-wide accumulator
+// nor a resident row block of Q, dO, K or V fits there, so the gradients'
+// columns are split over the grid in chunks of 192 or 256 (sm90::
+// WideDqTiles, WideDkvTiles): each block owns one chunk, computes S and dP
+// over all d from 64-column chunks that stream through ring A, and reads
+// its chunk's operand of the last product through ring B. dQ: 128 query
+// rows a block, as bwd_dq_kernel_sm90. dK/dV: 64 keys a block, the two
+// warpgroups split as in bwd_dkv_kernel_sm90_split. With c chunks, S and
+// dP are computed c times: dQ does (2c + 1) / 3 of the minimum FLOPs and
+// dK/dV (c + 1) / 2 (1.67x and 1.5x at d 512, 3x and 2.5x at d 1024). Bound
+// at bh 24, seq 2048, causal: dQ 116, 155 and 309 GFLOP at d 384, 512 and
+// 1024 (0.117, 0.156 and 0.313 ms at 989 TFLOP/s), dK/dV 155, 206 and 413
+// GFLOP (0.156, 0.209 and 0.417 ms); by operations.
+//
+// float32 at d > 256 (bwd_dq_kernel_wide, bwd_dkv_kernel_wide): on the
+// CUDA cores in float32, d a run-time argument, 16 owned rows a block. dQ
+// streams K/V tiles of 16 keys (delta summed first by the 8 lanes of each
+// query row); dK/dV streams Q/dO tiles of 8 queries with their lse and
+// delta. Each thread computes its entries of S and dP, P and dS go through
+// shared memory in float32, and the D-wide accumulators (dQ; dK and dV)
+// stay in shared memory, each thread adding into its own columns with the
+// streamed tile's column in registers.
 
 #include "flash_common.cuh"
 
@@ -980,7 +996,477 @@ bwd_dkv_kernel_sm90_split(const __grid_constant__ CUtensorMap map_q,
                    sk - w0);
 }
 
-// The wide bodies (flash_common.cuh, namespace wide).
+// Shared by the two 16-bit bodies above d 256: the grid runs through
+// groups of HEADS heads, within a group through the row blocks (the most
+// causal work first: the last q-block for dQ, the first key block for
+// dK/dV), all heads and column chunks of the group at each; the chunks of
+// one row block are neighbours, so they read the same chunks of Q, K, V
+// and dO from L2 at about the same time, as in fwd_kernel_sm90_wide.
+struct WideBlock {
+  int bh, row0, chunk;
+};
+__device__ __forceinline__ WideBlock wide_block(int n_rows, int nc,
+                                                bool last_first) {
+  constexpr int HEADS = 12;
+  const int per = n_rows * nc;
+  const int g0 = blockIdx.x / (HEADS * per) * HEADS;  // the group's first
+  const int r = blockIdx.x - g0 * per;
+  const int heads = min(HEADS, (int)gridDim.x / per - g0);
+  const int rb = r / nc / heads;
+  return {g0 + r / nc % heads, last_first ? n_rows - 1 - rb : rb, r % nc};
+}
+
+// dQ, bf16 and float16 above d 256 (sm90::WideDqTiles): a block owns 128
+// query rows, two consumer warpgroups of 64, and one chunk of COLS of dQ's
+// columns, from col0 = chunk * COLS. For each key tile i of 64 keys it
+// builds S_i = Q K_i^T and dP_i = dO V_i^T over all d columns from the
+// 64-column chunks of Q, dO, K_i and V_i in ring A (a slot released as
+// soon as the next chunk's products are issued), forms P and dS in
+// registers as bwd_dq_kernel_sm90 does, and adds dQ += dS_i K_i for its
+// columns from K_i's [64 x COLS] tile in ring B. A warpgroup holds dQ's
+// COLS / 2 floats beside S and dP of 64 keys (32 each): 192 at COLS 256,
+// within the 240 registers a consumer thread gets here (sm90::
+// WIDE_CONSUMER_REGS), so the dQ product is waited for before the next
+// tile's S and dP start (dS's A fragments would add 16); the other
+// warpgroup's products keep the tensor cores busy meanwhile. delta = rowsum(dO O) is summed in the
+// prologue from device memory by every chunk's block in one order, so all
+// agree bit for bit; chunk 0's blocks write it for the dK/dV kernel. K's
+// boxes that lie past d are not loaded: they feed only dQ's columns past
+// d, which are not stored.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+bwd_dq_kernel_sm90_wide(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const T* __restrict__ dout, const T* __restrict__ out,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta, T* __restrict__ dq, int sq,
+                        int sk, int d, int causal, float scale) {
+  using namespace sm90;
+  using Tl = WideDqTiles;
+  constexpr int BQ = Tl::ROWS, BK = Tl::TILE;
+  constexpr int SA = Tl::STAGES, SB = Tl::B_STAGES;
+  constexpr uint32_t Q_BYTES = tile_bytes<BQ, 64>();  // a chunk of Q or dO
+  constexpr uint32_t BOX = tile_bytes<BK, 64>();      // of K or V
+  constexpr uint32_t A_BYTES = 2 * Q_BYTES + 2 * BOX;  // Q, dO, K, V
+  constexpr uint32_t B_BYTES = tile_bytes<BK, COLS>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* ring_a = aligned_smem(smem_raw);
+  uint8_t* ring_b = ring_a + SA * A_BYTES;
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(ring_b + SB * B_BYTES);
+  uint64_t* empty_a = full_a + SA;
+  uint64_t* full_b = empty_a + SA;
+  uint64_t* empty_b = full_b + SB;
+
+  const int nd = d / 64, nc = wide_chunks(d);
+  const WideBlock blk = wide_block((sq + BQ - 1) / BQ, nc, true);
+  const int bh = blk.bh, q0 = blk.row0 * BQ, chunk = blk.chunk;
+  const int col0 = chunk * COLS, ncols = min(COLS, d - col0);
+  int nkb = (sk + BK - 1) / BK;
+  if (causal) nkb = min(nkb, (q0 + BQ - 1) / BK + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&empty_a[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full_b[s], 1);
+      mbar_init(&empty_b[s], CONSUMERS * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= PRODUCER_WARP) {
+    reg_dealloc<WIDE_PRODUCER_REGS>();
+    if (lane != 0) return;
+    if (warp == PRODUCER_WARP) {  // ring A: chunk c of Q, dO, K_i and V_i
+      int s = 0, ph = 0;
+      for (int i = 0, n = 0; i < nkb; ++i)
+        for (int c = 0; c < nd; ++c, ++n) {
+          if (n >= SA) mbar_wait(&empty_a[s], ph ^ 1);
+          uint8_t* slot = ring_a + s * A_BYTES;
+          mbar_expect_tx(&full_a[s], A_BYTES);
+          tma_load(slot, &map_q, &full_a[s], 64 * c, q0, bh);
+          tma_load(slot + Q_BYTES, &map_do, &full_a[s], 64 * c, q0, bh);
+          tma_load(slot + 2 * Q_BYTES, &map_k, &full_a[s], 64 * c, i * BK, bh);
+          tma_load(slot + 2 * Q_BYTES + BOX, &map_v, &full_a[s], 64 * c,
+                   i * BK, bh);
+          if (++s == SA) s = 0, ph ^= 1;
+        }
+    } else if (warp == PRODUCER_WARP + 1) {  // ring B: K_i's chunk columns
+      const int nbox = ncols / 64;
+      for (int i = 0; i < nkb; ++i) {
+        const int b = i % SB;
+        if (i >= SB) mbar_wait(&empty_b[b], (i / SB - 1) & 1);
+        mbar_expect_tx(&full_b[b], nbox * BOX);
+        for (int j = 0; j < nbox; ++j)
+          tma_load(ring_b + b * B_BYTES + j * BOX, &map_k, &full_b[b],
+                   col0 + 64 * j, i * BK, bh);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg owns rows q0 + 64 wg ..; each warp 16 of them.
+  reg_alloc<WIDE_CONSUMER_REGS>();
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  const int w0 = wg_row0 + (warp % 4) * 16;  // this warp's first query row
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  const float c2 = scale * LOG2E;  // raw scores to base-2 exponents
+
+  // Each thread's two rows: lse in base 2, and delta = rowsum(dO * O), the
+  // four lanes of a row each summing every fourth 16-byte piece of both
+  // rows. Rows past the end read nothing.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = 0.f;
+    lse2[h] = 0.f;
+    if (rows[h] < sq) {
+      const size_t row = (size_t)bh * sq + rows[h];
+      const uint4* a = reinterpret_cast<const uint4*>(dout + row * d);
+      const uint4* b = reinterpret_cast<const uint4*>(out + row * d);
+      for (int j = t; j < d / 8; j += 4) sum = dot8<T>(a[j], b[j], sum);
+      lse2[h] = lse[row] * LOG2E;
+    }
+    dlt[h] = quad_sum(sum);
+    if (chunk == 0 && t == 0 && rows[h] < sq)
+      delta[(size_t)bh * sq + rows[h]] = dlt[h];
+  }
+
+  float acc[COLS / 2];  // dQ / scale, [64 x COLS] across the warpgroup
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] = 0.f;
+  float s[BK / 2], dp[BK / 2];  // S_i and dP_i, then dS_i in s
+  uint32_t dsa[BK / 16][4];     // dS_i as A fragments
+
+  auto release = [&](uint64_t* bar) {  // this warp is done with a slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // Ring A's slot in use, the parity of its use and the slot used before
+  // it, counted as the producer counts them.
+  int sa = 0, ph = 0, prev = 0;
+  // S (+)= Q_c K_c^T and dP (+)= dO_c V_c^T from slot sa, all K-major (64
+  // columns, one swizzled 128-byte row each).
+  auto issue_sdp = [&](int accumulate) {
+    const uint32_t slot = smem_u32(ring_a + sa * A_BYTES);
+    const uint32_t own = wg * 64 * row_bytes<64>();  // this warpgroup's rows
+    const uint64_t qd = k_major<64, 64>(slot + own, 0);
+    const uint64_t dd = k_major<64, 64>(slot + Q_BYTES + own, 0);
+    const uint64_t kd = k_major<BK, 64>(slot + 2 * Q_BYTES, 0);
+    const uint64_t vd = k_major<BK, 64>(slot + 2 * Q_BYTES + BOX, 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<BK, T>::ss(s, k_major_at<64, 64>(qd, kk),
+                       k_major_at<BK, 64>(kd, kk), accumulate | (kk > 0));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<BK, T>::ss(dp, k_major_at<64, 64>(dd, kk),
+                       k_major_at<BK, 64>(vd, kk), accumulate | (kk > 0));
+    wg_commit();
+  };
+  // P = 2^(S c2 - lse log2 e) and dS = P (dP - delta), in registers, as in
+  // bwd_dq_kernel_sm90: only tiles that cross the diagonal or the end of
+  // the keys are masked.
+  auto grads = [&](int i) {
+    const int k0 = i * BK;
+    if (k0 + BK > sk || (causal && k0 + BK - 1 > wg_row0)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1), r = rows[e >> 1];
+          if (!(col < sk && (!causal || col <= r))) s[4 * j + e] = NEG_INF;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(fmaf(s[4 * j + e], c2, -lse2[e >> 1]));
+        s[4 * j + e] = p * (dp[4 * j + e] - dlt[e >> 1]);
+      }
+  };
+
+  for (int i = 0; i < nkb; ++i) {
+    wg_fence();
+    for (int c = 0; c < nd; ++c) {
+      mbar_wait(&full_a[sa], ph);
+      issue_sdp(c > 0);
+      if (c > 0) {
+        wg_wait<1>();
+        release(&empty_a[prev]);
+      }
+      prev = sa;
+      if (++sa == SA) sa = 0, ph ^= 1;
+    }
+    wg_wait<0>();
+    release(&empty_a[prev]);
+    fence_regs(s);
+    fence_regs(dp);
+    grads(i);
+    to_a_frags<BK, T>(dsa, s);
+    // dQ += dS_i K_i for this chunk's columns, K read MN-major; products
+    // of 128 columns, then one of COLS - 128.
+    const int b = i % SB;
+    mbar_wait(&full_b[b], (i / SB) & 1);
+    const uint32_t kb = smem_u32(ring_b + b * B_BYTES);
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      WgmmaCols<COLS, T>::rs(acc, dsa[kk], mn_major<BK, COLS>(kb, kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    release(&empty_b[b]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] *= scale;
+  store_cols<COLS, T>(dq + ((size_t)bh * sq + w0) * d + col0, d, acc,
+                      sq - w0, ncols);
+}
+
+// dK/dV, bf16 and float16 above d 256 (sm90::WideDkvTiles): a block owns
+// 64 keys and one chunk of COLS of dK's and dV's columns; both consumer
+// warpgroups share the keys, as in bwd_dkv_kernel_sm90_split. For each
+// tile i of 64 queries, warpgroup 0 builds S^T_i = K Q_i^T and warpgroup 1
+// dP^T_i = V dO_i^T over all d columns from the 64-column chunks of K, V,
+// Q_i and dO_i in ring A; warpgroup 0 forms P^T and hands it in float32 to
+// warpgroup 1 through a shared-memory buffer, then adds dV += P^T dO_i for
+// its columns; warpgroup 1 forms dS^T = P^T (dP^T - delta) scale and adds
+// dK += dS^T Q_i. The columns of Q_i and dO_i that the two products read,
+// and the tile's lse and delta, come through ring B. Each warpgroup holds
+// one accumulator of COLS / 2 floats, its [64 x 64] scores (32) and their
+// A fragments (16), as at d 256. One handoff buffer is enough: warpgroup 0
+// writes P^T_{i+1} only after a whole tile of chunks, and ring A keeps the
+// warpgroups within STAGES chunks of each other.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+bwd_dkv_kernel_sm90_wide(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv, int sq,
+                         int sk, int d, int causal, float scale) {
+  using namespace sm90;
+  using Tl = WideDkvTiles;
+  constexpr int BKEY = Tl::ROWS, BQ = Tl::TILE;
+  constexpr int SA = Tl::STAGES, SB = Tl::B_STAGES;
+  static_assert(BKEY == 64 && BQ == 64, "one box of 64 rows a chunk");
+  constexpr uint32_t BOX = tile_bytes<64, 64>();
+  constexpr uint32_t A_BYTES = 4 * BOX;  // K, V, Q, dO
+  constexpr uint32_t TB = tile_bytes<BQ, COLS>();  // Q's or dO's columns
+  constexpr uint32_t B_BYTES = 2 * TB;
+  constexpr int P_VEC = BQ / 8;  // float4 of P^T a thread holds
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* ring_a = aligned_smem(smem_raw);
+  uint8_t* ring_b = ring_a + SA * A_BYTES;
+  // P^T handoff, [P_VEC][128 threads] float4: each thread of warpgroup 1
+  // reads what the same thread of warpgroup 0 wrote.
+  float4* pbuf = reinterpret_cast<float4*>(ring_b + SB * B_BYTES);
+  float* lse_s = reinterpret_cast<float*>(pbuf + P_VEC * WG_THREADS);
+  float* delta_s = lse_s + SB * BQ;  // [SB][BQ] each
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(delta_s + SB * BQ);
+  uint64_t* empty_a = full_a + SA;
+  uint64_t* full_b = empty_a + SA;
+  uint64_t* empty_b = full_b + SB;
+  uint64_t* p_full = empty_b + SB;
+  uint64_t* p_empty = p_full + 1;
+
+  const int nd = d / 64, nc = wide_chunks(d);
+  const WideBlock blk = wide_block((sk + BKEY - 1) / BKEY, nc, false);
+  const int bh = blk.bh, k0 = blk.row0 * BKEY, chunk = blk.chunk;
+  const int col0 = chunk * COLS, ncols = min(COLS, d - col0);
+  // Causal: q-tiles that end before this block's first key add nothing.
+  const int qb0 = causal ? k0 / BQ : 0;
+  const int n_iter = max(0, (sq + BQ - 1) / BQ - qb0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  lse += (size_t)bh * sq;
+  delta += (size_t)bh * sq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&empty_a[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full_b[s], 32);  // every lane of ring B's producer arrives
+      mbar_init(&empty_b[s], CONSUMERS * 4);
+    }
+    mbar_init(p_full, WG_THREADS);
+    mbar_init(p_empty, WG_THREADS);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= PRODUCER_WARP) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (warp == PRODUCER_WARP && lane == 0) {  // ring A: chunk c of each
+      int s = 0, ph = 0;
+      for (int i = 0, n = 0; i < n_iter; ++i)
+        for (int c = 0; c < nd; ++c, ++n) {
+          if (n >= SA) mbar_wait(&empty_a[s], ph ^ 1);
+          uint8_t* slot = ring_a + s * A_BYTES;
+          const int q0 = (qb0 + i) * BQ;
+          mbar_expect_tx(&full_a[s], A_BYTES);
+          tma_load(slot, &map_k, &full_a[s], 64 * c, k0, bh);
+          tma_load(slot + BOX, &map_v, &full_a[s], 64 * c, k0, bh);
+          tma_load(slot + 2 * BOX, &map_q, &full_a[s], 64 * c, q0, bh);
+          tma_load(slot + 3 * BOX, &map_do, &full_a[s], 64 * c, q0, bh);
+          if (++s == SA) s = 0, ph ^= 1;
+        }
+    } else if (warp == PRODUCER_WARP + 1) {
+      // Ring B: Q_i's and dO_i's chunk columns, and the tile's lse
+      // (pre-multiplied by log2 e) and delta; rows past the end are masked
+      // by the consumers.
+      const int nbox = ncols / 64;
+      for (int i = 0; i < n_iter; ++i) {
+        const int b = i % SB, q0 = (qb0 + i) * BQ;
+        if (i >= SB) mbar_wait(&empty_b[b], (i / SB - 1) & 1);
+        for (int c = lane; c < BQ; c += 32) {
+          const bool in = q0 + c < sq;
+          lse_s[b * BQ + c] = in ? lse[q0 + c] * LOG2E : 0.f;
+          delta_s[b * BQ + c] = in ? delta[q0 + c] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* slot = ring_b + b * B_BYTES;
+          mbar_expect_tx(&full_b[b], 2 * nbox * BOX);
+          for (int j = 0; j < nbox; ++j) {
+            tma_load(slot + j * BOX, &map_q, &full_b[b], col0 + 64 * j, q0,
+                     bh);
+            tma_load(slot + TB + j * BOX, &map_do, &full_b[b], col0 + 64 * j,
+                     q0, bh);
+          }
+        } else {
+          mbar_arrive(&full_b[b]);  // after this lane's lse and delta stores
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: 0 accumulates dV, 1 dK, over the block's keys;
+  // each warp holds 16 of them.
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = warp / 4, tid = threadIdx.x % WG_THREADS;
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = k0 + (warp % 4) * 16;  // this warp's first key row
+  const int keys[2] = {w0 + g, w0 + g + 8};
+  const float c2 = scale * LOG2E;
+
+  float acc[COLS / 2];  // dV or dK, [64 x COLS] across the warpgroup
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] = 0.f;
+  float x[BQ / 2];          // S^T, then P^T (wg 0); dP^T, then dS^T (wg 1)
+  uint32_t xa[BQ / 16][4];  // P^T or dS^T as A fragments
+
+  auto release = [&](uint64_t* bar) {  // this warp is done with a slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  int sa = 0, ph = 0, prev = 0;  // ring A, counted as the producer counts
+  // S^T (+)= K_c Q_c^T (wg 0) or dP^T (+)= V_c dO_c^T (wg 1) from slot sa,
+  // K-major as stored.
+  auto issue_x = [&](int accumulate) {
+    const uint32_t slot = smem_u32(ring_a + sa * A_BYTES);
+    const uint64_t a = k_major<BKEY, 64>(slot + wg * BOX, 0);
+    const uint64_t b = k_major<BQ, 64>(slot + (2 + wg) * BOX, 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<BQ, T>::ss(x, k_major_at<BKEY, 64>(a, kk),
+                       k_major_at<BQ, 64>(b, kk), accumulate | (kk > 0));
+    wg_commit();
+  };
+
+  for (int i = 0; i < n_iter; ++i) {
+    const int q0 = (qb0 + i) * BQ, b = i % SB;
+    wg_fence();
+    for (int c = 0; c < nd; ++c) {
+      mbar_wait(&full_a[sa], ph);
+      issue_x(c > 0);
+      if (c > 0) {
+        wg_wait<1>();
+        release(&empty_a[prev]);
+      }
+      prev = sa;
+      if (++sa == SA) sa = 0, ph ^= 1;
+    }
+    wg_wait<0>();
+    release(&empty_a[prev]);
+    fence_regs(x);
+    mbar_wait(&full_b[b], (i / SB) & 1);
+    if (wg == 0) {
+      // P^T = 2^(S^T c2 - lse log2 e). Only tiles that cross the diagonal
+      // or either sequence's end are masked: a masked score becomes -1e30,
+      // whose probability is 0.
+      if (q0 + BQ > sq || k0 + BKEY > sk || (causal && q0 < k0 + BKEY - 1)) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = q0 + 8 * j + 2 * t + (e & 1), key = keys[e >> 1];
+            if (!(q < sq && key < sk && (!causal || key <= q)))
+              x[4 * j + e] = NEG_INF;
+          }
+      }
+      const float* lse2 = lse_s + b * BQ;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] = fast_exp2(
+              fmaf(x[4 * j + e], c2, -lse2[8 * j + 2 * t + (e & 1)]));
+      if (i > 0) mbar_wait(p_empty, (i - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < P_VEC; ++j)
+        pbuf[j * WG_THREADS + tid] =
+            make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      mbar_arrive(p_full);
+    } else {
+      // dS^T = P^T (dP^T - delta) scale, P^T from warpgroup 0.
+      const float* dlt = delta_s + b * BQ;
+      mbar_wait(p_full, i & 1);
+#pragma unroll
+      for (int j = 0; j < P_VEC; ++j) {
+        const float4 p = pbuf[j * WG_THREADS + tid];
+        const float d0 = dlt[8 * j + 2 * t], d1 = dlt[8 * j + 2 * t + 1];
+        x[4 * j] = p.x * (x[4 * j] - d0) * scale;
+        x[4 * j + 1] = p.y * (x[4 * j + 1] - d1) * scale;
+        x[4 * j + 2] = p.z * (x[4 * j + 2] - d0) * scale;
+        x[4 * j + 3] = p.w * (x[4 * j + 3] - d1) * scale;
+      }
+      if (i + 1 < n_iter) mbar_arrive(p_empty);
+    }
+    // dV += P^T dO_i (wg 0) or dK += dS^T Q_i (wg 1) for this chunk's
+    // columns, B MN-major from ring B.
+    to_a_frags<BQ, T>(xa, x);
+    const uint32_t bt = smem_u32(ring_b + b * B_BYTES) + (wg == 0 ? TB : 0);
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      WgmmaCols<COLS, T>::rs(acc, xa[kk], mn_major<BQ, COLS>(bt, kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    release(&empty_b[b]);
+  }
+  store_cols<COLS, T>((wg == 0 ? dv : dk) + ((size_t)bh * sk + w0) * d + col0,
+                      d, acc, sk - w0, ncols);
+}
+
+// The float32 bodies above d 256 (flash_common.cuh, namespace wide).
 template <typename T>
 __global__ void __launch_bounds__(wide::THREADS)
 bwd_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
@@ -1228,20 +1714,98 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
   }
 }
 
+// Shared memory of the 16-bit bodies above d 256: ring A's slots, ring
+// B's, (dK/dV) the P^T buffer and the slots' lse and delta, a full and an
+// empty mbarrier a slot (and the buffer's pair), and the swizzle's
+// alignment.
+template <int COLS>
+static size_t dq_smem_sm90_wide() {
+  using Tl = sm90::WideDqTiles;
+  return Tl::STAGES * 2 * (sm90::tile_bytes<Tl::ROWS, 64>() +
+                           sm90::tile_bytes<Tl::TILE, 64>()) +
+         Tl::B_STAGES * sm90::tile_bytes<Tl::TILE, COLS>() +
+         2 * (Tl::STAGES + Tl::B_STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
+}
+template <int COLS>
+static size_t dkv_smem_sm90_wide() {
+  using Tl = sm90::WideDkvTiles;
+  return Tl::STAGES * 2 * (sm90::tile_bytes<Tl::ROWS, 64>() +
+                           sm90::tile_bytes<Tl::TILE, 64>()) +
+         Tl::B_STAGES * (2 * sm90::tile_bytes<Tl::TILE, COLS>() +
+                         2 * Tl::TILE * sizeof(float)) +
+         Tl::ROWS * Tl::TILE * sizeof(float) +
+         (2 * (Tl::STAGES + Tl::B_STAGES) + 2) * sizeof(uint64_t) +
+         sm90::SMEM_ALIGN;
+}
+
+template <typename T, int COLS>
+static int bwd_dq_sm90_wide(const void* q, const void* k, const void* v,
+                            const void* dout, const void* out,
+                            const void* lse, void* delta, void* dq, int bh,
+                            int sq, int sk, int d, int causal, float scale,
+                            cudaStream_t stream) {
+  using Tl = sm90::WideDqTiles;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = sm90::make_map_cols<T>(&mq, q, bh, sq, d, Tl::ROWS, 64);
+  if (!err) err = sm90::make_map_cols<T>(&mk, k, bh, sk, d, Tl::TILE, 64);
+  if (!err) err = sm90::make_map_cols<T>(&mv, v, bh, sk, d, Tl::TILE, 64);
+  if (!err) err = sm90::make_map_cols<T>(&mdo, dout, bh, sq, d, Tl::ROWS, 64);
+  if (err) return err;
+  const dim3 grid(bh * ((sq + Tl::ROWS - 1) / Tl::ROWS) *
+                  sm90::wide_chunks(d));
+  return launch(bwd_dq_kernel_sm90_wide<T, COLS>, grid, sm90::THREADS,
+                dq_smem_sm90_wide<COLS>(), stream, mq, mk, mv, mdo,
+                static_cast<const T*>(dout), static_cast<const T*>(out),
+                static_cast<const float*>(lse), static_cast<float*>(delta),
+                static_cast<T*>(dq), sq, sk, d, causal, scale);
+}
+
+template <typename T, int COLS>
+static int bwd_dkv_sm90_wide(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int bh,
+                             int sq, int sk, int d, int causal, float scale,
+                             cudaStream_t stream) {
+  using Tl = sm90::WideDkvTiles;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = sm90::make_map_cols<T>(&mq, q, bh, sq, d, Tl::TILE, 64);
+  if (!err) err = sm90::make_map_cols<T>(&mk, k, bh, sk, d, Tl::ROWS, 64);
+  if (!err) err = sm90::make_map_cols<T>(&mv, v, bh, sk, d, Tl::ROWS, 64);
+  if (!err) err = sm90::make_map_cols<T>(&mdo, dout, bh, sq, d, Tl::TILE, 64);
+  if (err) return err;
+  const dim3 grid(bh * ((sk + Tl::ROWS - 1) / Tl::ROWS) *
+                  sm90::wide_chunks(d));
+  return launch(bwd_dkv_kernel_sm90_wide<T, COLS>, grid, sm90::THREADS,
+                dkv_smem_sm90_wide<COLS>(), stream, mq, mk, mv, mdo,
+                static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<T*>(dk),
+                static_cast<T*>(dv), sq, sk, d, causal, scale);
+}
+
+// Above d 256: the Hopper bodies in 16 bits (the gradients' column chunks
+// 192 or 256 wide), the CUDA-core ones in float32.
 template <typename T>
 static int bwd_dq_wide(const void* q, const void* k, const void* v,
                        const void* dout, const void* out, const void* lse,
                        void* delta, void* dq, int bh, int sq, int sk, int d,
                        int causal, float scale, cudaStream_t stream) {
-  const size_t smem = wide::dq_smem<T>(d);
-  if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
-  const dim3 grid(bh * ((sq + wide::ROWS - 1) / wide::ROWS));
-  return launch(bwd_dq_kernel_wide<T>, grid, wide::THREADS, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const T*>(out), static_cast<const float*>(lse),
-                static_cast<float*>(delta), static_cast<T*>(dq), sq, sk, d,
-                causal, scale);
+  if constexpr (sizeof(T) == 2) {
+    if (sm90::wide_cols(d) == 192)
+      return bwd_dq_sm90_wide<T, 192>(q, k, v, dout, out, lse, delta, dq, bh,
+                                      sq, sk, d, causal, scale, stream);
+    return bwd_dq_sm90_wide<T, 256>(q, k, v, dout, out, lse, delta, dq, bh,
+                                    sq, sk, d, causal, scale, stream);
+  } else {
+    const size_t smem = wide::dq_smem<T>(d);
+    if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
+    const dim3 grid(bh * ((sq + wide::ROWS - 1) / wide::ROWS));
+    return launch(bwd_dq_kernel_wide<T>, grid, wide::THREADS, smem, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const T*>(out), static_cast<const float*>(lse),
+                  static_cast<float*>(delta), static_cast<T*>(dq), sq, sk, d,
+                  causal, scale);
+  }
 }
 
 template <typename T>
@@ -1249,25 +1813,41 @@ static int bwd_dkv_wide(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dk, void* dv, int bh, int sq, int sk, int d,
                         int causal, float scale, cudaStream_t stream) {
-  const size_t smem = wide::dkv_smem<T>(d);
-  if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
-  const dim3 grid(bh * ((sk + wide::ROWS - 1) / wide::ROWS));
-  return launch(bwd_dkv_kernel_wide<T>, grid, wide::THREADS, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dk),
-                static_cast<T*>(dv), sq, sk, d, causal, scale);
+  if constexpr (sizeof(T) == 2) {
+    if (sm90::wide_cols(d) == 192)
+      return bwd_dkv_sm90_wide<T, 192>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                       sq, sk, d, causal, scale, stream);
+    return bwd_dkv_sm90_wide<T, 256>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                     sq, sk, d, causal, scale, stream);
+  } else {
+    const size_t smem = wide::dkv_smem<T>(d);
+    if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
+    const dim3 grid(bh * ((sk + wide::ROWS - 1) / wide::ROWS));
+    return launch(bwd_dkv_kernel_wide<T>, grid, wide::THREADS, smem, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dk),
+                  static_cast<T*>(dv), sq, sk, d, causal, scale);
+  }
 }
 
 template <typename T>
 static int dq_wide_smem(int d) {
-  return (int)wide::dq_smem<T>(d);
+  if constexpr (sizeof(T) == 2)
+    return (int)(sm90::wide_cols(d) == 192 ? dq_smem_sm90_wide<192>()
+                                           : dq_smem_sm90_wide<256>());
+  else
+    return (int)wide::dq_smem<T>(d);
 }
 
 template <typename T>
 static int dkv_wide_smem(int d) {
-  return (int)wide::dkv_smem<T>(d);
+  if constexpr (sizeof(T) == 2)
+    return (int)(sm90::wide_cols(d) == 192 ? dkv_smem_sm90_wide<192>()
+                                           : dkv_smem_sm90_wide<256>());
+  else
+    return (int)wide::dkv_smem<T>(d);
 }
 
 // q, dout, out [bh, sq, d]; k, v [bh, sk, d]; lse [bh, sq] float32

@@ -7,13 +7,14 @@
 // Three families of kernel bodies live on these pieces:
 //
 // - The Hopper bodies (namespace flash::sm90 below): all three kernels in
-//   16 bits (bf16 and float16) at D <= 256, and the forward in 16 bits at
-//   every head dim above 256 too (WideFwdTiles, d at run time). One warp of
-//   a producer warpgroup streams tiles into a ring in shared memory with
-//   TMA, ordered by mbarriers; two consumer warpgroups run every tile
-//   product on wgmma. At D 192 and 256 the dK/dV block's two warpgroups
-//   share its keys, one accumulating dV and the other dK, the first handing
-//   P^T to the second through shared memory (flash_bwd.cu says why).
+//   16 bits (bf16 and float16) at every head dim, at D <= 256 one instance
+//   per D and above 256 with d at run time (WideFwdTiles, WideDqTiles,
+//   WideDkvTiles). One warp of a producer warpgroup streams tiles into a
+//   ring in shared memory with TMA, ordered by mbarriers; two consumer
+//   warpgroups run every tile product on wgmma. From D 192 up the dK/dV
+//   block's two warpgroups share its keys, one accumulating dV and the
+//   other dK, the first handing P^T to the second through shared memory
+//   (flash_bwd.cu says why).
 // - The CUDA-core bodies of the three kernels: every float32 instance at
 //   D <= 256. A block owns BLOCK = 64 rows, 4 warps of 16 rows, and streams
 //   tiles of PlainTiles<D>::STREAM rows past them; every operand of a tile
@@ -22,10 +23,9 @@
 //   float32 type, and TF32 keeps about three decimal digits, too few for
 //   the 1e-4 the float32 instances are held to, so those stay on the CUDA
 //   cores.
-// - The wide bodies (namespace flash::wide): head dims above 256 that are
-//   a multiple of 64, d a run-time argument, accumulators in shared
-//   memory, on the CUDA cores in float32: the forward in float32, dQ and
-//   dK/dV in every type.
+// - The wide bodies (namespace flash::wide): float32 at head dims above
+//   256 that are a multiple of 64, d a run-time argument, accumulators in
+//   shared memory, on the CUDA cores.
 //
 // Accumulator layout (the mma.sync C fragment, which is also the layout of
 // each warp's 16 rows of a wgmma accumulator), lane = 4 * g + t:
@@ -201,6 +201,11 @@ constexpr int WG_THREADS = 128;
 constexpr int THREADS = (CONSUMERS + 1) * WG_THREADS;
 constexpr int PRODUCER_WARP = CONSUMERS * 4;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 65,536 in all
+// The 16-bit dQ body above d 256 holds dQ's 128 floats beside S and dP of
+// 64 keys (32 each): at 232 registers it spilled and ptxas serialised its
+// wgmma. Its producers only count slots and issue copies, so they give up
+// more (64,512 in all).
+constexpr int WIDE_PRODUCER_REGS = 24, WIDE_CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Tiles of the 16-bit Hopper kernels (mirrored by TILES in ray_tpu_torch/ops/
@@ -272,8 +277,28 @@ struct DkvTiles<256> {
 struct WideFwdTiles {
   static constexpr int ROWS = 128, TILE = 64, STAGES = 6, V_STAGES = 2;
 };
-// Column chunks of O at head dim d: as few as 256 columns each allow, of
-// equal width, a multiple of 64 (the last one may run past d).
+// The 16-bit backward pair above d 256 (flash_bwd.cu), d at run time, on
+// the forward's answer: a block owns one chunk of COLS (192 or 256) of the
+// gradients' columns, computes S and dP over all d columns from 64-column
+// chunks that stream through ring A (STAGES slots, one chunk of each
+// operand a slot), and takes the operand of its chunk's product, TILE rows
+// x COLS columns, from ring B (B_STAGES slots), which a second producer
+// warp fills as soon as a slot is free: one slot is enough, since the next
+// tile's chunks of S take longer than its load. dQ: 128 query rows, a slot
+// of A holds a chunk of Q, dO, K and V, B holds K's columns of the chunk.
+// dK/dV: 64 keys that both warpgroups share as at d 256, a slot of A holds
+// a chunk of K, V, Q and dO, B holds Q's and dO's columns of the chunk
+// with the tile's lse and delta. Neither block's shared memory grows with
+// d.
+struct WideDqTiles {
+  static constexpr int ROWS = 128, TILE = 64, STAGES = 4, B_STAGES = 1;
+};
+struct WideDkvTiles {
+  static constexpr int ROWS = 64, TILE = 64, STAGES = 4, B_STAGES = 1;
+};
+// Column chunks of O (dQ; dK and dV) at head dim d: as few as 256 columns
+// each allow, of equal width, a multiple of 64 (the last one may run past
+// d).
 __host__ __device__ constexpr int wide_chunks(int d) {
   return (d / 64 + 3) / 4;
 }
@@ -797,17 +822,17 @@ __device__ __forceinline__ uint8_t* aligned_smem(unsigned char* p) {
 // The wide bodies: head dims above 256 that are a multiple of 64.
 // --------------------------------------------------------------------------
 //
-// One instance per type and kernel serves every such head dim: d is a
-// run-time argument (the forward's bf16 and float16 instances are not
-// built: those types run fwd_kernel_sm90_wide). A block of 4 warps owns
+// One float32 instance per kernel serves every such head dim: d is a
+// run-time argument (bf16 and float16 run the Hopper bodies there:
+// fwd_kernel_sm90_wide, bwd_dq_kernel_sm90_wide and
+// bwd_dkv_kernel_sm90_wide). A block of 4 warps owns
 // ROWS = 16 rows (queries; keys for dK/dV) and streams tiles of *_STREAM
 // rows past them. The D-wide float32 accumulators (O; dQ; dK and dV) and
 // the tile products (P, dS) live in dynamic shared memory, not in
 // registers, so the block's shared memory grows with d (fwd_smem, dq_smem,
 // dkv_smem below, mirrored by kernel_smem_bytes in
 // ray_tpu_torch/ops/attention.py): it fits the 227 KB a block may take up
-// to d 704 in float32 and d 1024 in bf16 and float16.
-// Every product runs on the CUDA cores in float32.
+// to d 704. Every product runs on the CUDA cores in float32.
 namespace flash {
 namespace wide {
 
@@ -1004,7 +1029,7 @@ extern "C" const char* flash_error_string(int code) {
 namespace flash {
 // Whether the instance <T, D> of a kernel runs a Hopper body (sm90) or a
 // CUDA-core one: every kernel takes the 16-bit types up to D 256 (above,
-// the 16-bit forward runs fwd_kernel_sm90_wide, d at run time).
+// the 16-bit kernels run the *_sm90_wide bodies, d at run time).
 template <typename T, int D>
 constexpr bool hopper_body() {
   return sizeof(T) == 2 && D <= 256;

@@ -13,10 +13,9 @@ head_dim]. The kernels and their plain PyTorch versions work on
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
 for the other. On the card the body is chosen by type and head dim: bf16
 and float16 run the Hopper bodies (TMA ring, wgmma) of all three kernels at
-d <= 256, and of the forward at every multiple of 64 above 256 too (d at
-run time, O's columns split over the grid); float32 the CUDA-core bodies;
-above 256, the dQ and dK/dV kernels in every type and the forward in
-float32 run the wide bodies, which take d at run time and keep their
+every head dim, one instance per d up to 256 and, above, d at run time with
+the output's columns split over the grid; float32 runs the CUDA-core
+bodies, above 256 the wide ones, which take d at run time and keep their
 accumulators in shared memory (`TILES` lists each one's tiles).
 The dQ kernel runs first in the backward and also writes delta =
 rowsum(dO * O), which the dK/dV kernel reads.
@@ -51,9 +50,9 @@ class Tile(NamedTuple):
     # and the first hands P^T to the second through shared memory.
     split: int = 1
     wide: bool = False  # d at run time
-    # The 16-bit forward above d 256 (a ring body with d at run time): the
-    # columns of O one block owns, 192 or 256; the grid holds one block per
-    # chunk of that many columns.
+    # The 16-bit bodies above d 256 (ring bodies with d at run time): the
+    # columns of the output (O; dQ; dK and dV) one block owns, 192 or 256;
+    # the grid holds one block per chunk of that many columns.
     cols: int = 0
 
 
@@ -85,47 +84,57 @@ _RING = {
                      192: Tile(128, 32, 5, True),
                      256: Tile(128, 32, 3, True)},
 }
-# The wide bodies' tiles (flash_common.cuh, namespace wide: ROWS and the
-# *_STREAM rows): one instance per type serves every multiple of 64 above
-# 256, up to the largest whose shared memory fits (`WIDE_MAX_D`); the
-# forward's serves float32 only.
+# The float32 wide bodies' tiles (flash_common.cuh, namespace wide: ROWS
+# and the *_STREAM rows): one instance serves every multiple of 64 above
+# 256, up to the largest whose shared memory fits (`WIDE_MAX_D`).
 _WIDE = {"flash_fwd": Tile(16, 16, 1, False, wide=True),
          "flash_bwd_dq": Tile(16, 16, 1, False, wide=True),
          "flash_bwd_dkv": Tile(16, 8, 1, False, wide=True)}
 _V_STAGES = 2  # the 16-bit forward above d 256: slots of V's tiles
+# The 16-bit dQ and dK/dV above d 256: slots of ring B, which holds the
+# operand of the block's chunk product (K's columns; Q's and dO's).
+_B_STAGES = 1
 
 
 def wide_chunks(d: int) -> Tuple[int, int]:
-    """(chunks, columns a chunk) of O at head dim d > 256 in the 16-bit
-    forward (flash_common.cuh wide_chunks, wide_cols): as few chunks as 256
-    columns each allow, of one width, a multiple of 64; the last may run
-    past d."""
+    """(chunks, columns a chunk) of the output (O; dQ; dK and dV) at head
+    dim d > 256 in the 16-bit kernels (flash_common.cuh wide_chunks,
+    wide_cols): as few chunks as 256 columns each allow, of one width, a
+    multiple of 64; the last may run past d."""
     m = d // 64
     n = -(-m // 4)
     return n, -(-m // n) * 64
 
 
-def _ring_wide(d: int) -> Tile:
-    """The 16-bit forward's tiles above d 256 (flash_common.cuh
-    WideFwdTiles): 128 query rows, 64-key tiles, a ring of 6 slots each
-    holding a 64-column chunk of Q and one of K, and 2 slots of V's
-    [64 x cols] tiles."""
-    return Tile(128, 64, 6, True, wide=True, cols=wide_chunks(d)[1])
+def _ring_wide(name: str, d: int) -> Tile:
+    """The 16-bit tiles above d 256 (flash_common.cuh WideFwdTiles,
+    WideDqTiles, WideDkvTiles), each block owning one chunk of `cols` of
+    the output's columns. Forward: 128 query rows, 64-key tiles, a ring of
+    6 slots each holding a 64-column chunk of Q and one of K, and 2 slots
+    of V's [64 x cols] tiles. dQ: 128 query rows, 64-key tiles, 4 slots
+    each holding a 64-column chunk of Q, dO, K and V. dK/dV: 64 keys that
+    both warpgroups share (split 2), 64-query tiles, 4 slots each holding a
+    chunk of K, V, Q and dO. Both backward kernels read their chunk
+    product's operand through `_B_STAGES` more slots."""
+    cols = wide_chunks(d)[1]
+    if name == "flash_fwd":
+        return Tile(128, 64, 6, True, wide=True, cols=cols)
+    if name == "flash_bwd_dq":
+        return Tile(128, 64, 4, True, wide=True, cols=cols)
+    return Tile(64, 64, 4, True, 2, wide=True, cols=cols)
 
 
 def _tile(name: str, dtype: torch.dtype, d: int) -> Tile:
     """The tiles of kernel `name`'s body in this dtype at head dim d."""
     if d > 256:
-        if name == "flash_fwd" and dtype in _HALF:
-            return _ring_wide(d)
-        return _WIDE[name]
+        return _ring_wide(name, d) if dtype in _HALF else _WIDE[name]
     return _RING[name][d] if dtype in _HALF else _plain(name, d)
 
 
 def _smem(name: str, t: Tile, d: int, size: int) -> int:
     """Shared memory of one block of kernel `name` with tiles `t` at head
     dim d for elements of `size` bytes (the formulas of csrc/)."""
-    if t.ring and t.wide:
+    if t.ring and t.wide and name == "flash_fwd":
         # The 16-bit forward above d 256 (fwd_smem_sm90_wide): ring A's
         # slots, a 64-column chunk of Q's rows and of K's streamed rows
         # each; V's [stream x cols] slots; a full and an empty mbarrier a
@@ -133,6 +142,24 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
         ring_a = t.stages * (t.rows + t.stream) * 64 * size
         ring_b = _V_STAGES * t.stream * t.cols * size
         return ring_a + ring_b + 8 * 2 * (t.stages + _V_STAGES) + 1024
+    if t.ring and t.wide:
+        # The 16-bit dQ and dK/dV above d 256 (dq_smem_sm90_wide,
+        # dkv_smem_sm90_wide): ring A's slots, a 64-column chunk of two
+        # owned and two streamed row blocks each (Q, dO, K, V; K, V, Q,
+        # dO); ring B's, the streamed rows x cols of K (dQ) or of Q and dO
+        # with the tile's lse and delta (dK/dV); dK/dV's float32 P^T buffer
+        # of rows x stream with a full and an empty mbarrier; a full and an
+        # empty mbarrier a slot; 1024 bytes to align the swizzle pattern. d
+        # sets only cols.
+        ring_a = t.stages * 2 * (t.rows + t.stream) * 64 * size
+        if name == "flash_bwd_dq":
+            ring_b, handoff = _B_STAGES * t.stream * t.cols * size, 0
+        else:
+            ring_b = _B_STAGES * (2 * t.stream * t.cols * size
+                                  + 2 * t.stream * 4)
+            handoff = t.rows * t.stream * 4 + 8 * 2
+        return (ring_a + ring_b + handoff + 8 * 2 * (t.stages + _B_STAGES)
+                + 1024)
     if t.wide:
         # float32 accumulators (O; dQ; dK and dV) and P / dS tiles, then
         # the owned and streamed rows padded by 16 bytes; dK/dV keeps the
@@ -168,8 +195,21 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
     return out + (2 * t.stream * 4 if name == "flash_bwd_dkv" else 0)
 
 
+# The largest head dim the 16-bit kernels take. None of their blocks grows
+# with d above 256 (each owns a chunk of the output's columns), so shared
+# memory sets no limit there, and a search for the largest d that fits
+# would not end; the cost of recomputing S (and dP) once per chunk does
+# grow, to 3x the minimum FLOPs of dQ at d 1024. The cap keeps the set of
+# head dims these types have always taken, the widest of which the card
+# tests check (tests/test_torch_cuda.py).
+HALF_WIDE_MAX_D = 1024
+
+
 def _wide_max_d(dtype: torch.dtype) -> int:
-    """The largest multiple of 64 at which the three kernels' blocks fit."""
+    """The largest multiple of 64 the kernels take: in float32, the largest
+    at which the three wide blocks fit; in 16 bits, `HALF_WIDE_MAX_D`."""
+    if dtype in _HALF:
+        return HALF_WIDE_MAX_D
     size = torch.tensor([], dtype=dtype).element_size()
     d = 256
     while all(_smem(n, _tile(n, dtype, d + 64), d + 64, size) <= SMEM_LIMIT
@@ -178,9 +218,8 @@ def _wide_max_d(dtype: torch.dtype) -> int:
     return d
 
 
-# dtype -> the largest head dim the kernels take: 704 in float32 and 1024
-# in bf16 and float16 (the wide dK/dV block's shared memory bounds both;
-# the 16-bit forward's does not grow with d).
+# dtype -> the largest head dim the kernels take: 704 in float32 (the wide
+# dK/dV block's shared memory bounds it) and 1024 in bf16 and float16.
 WIDE_MAX_D: Dict[torch.dtype, int] = {dt: _wide_max_d(dt)
                                       for dt in _DTYPE_CODES}
 
@@ -192,8 +231,8 @@ def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
 
 
 # (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: bf16 and float16 run
-# the Hopper bodies up to d 256 and the forward's above, float32 the
-# CUDA-core bodies; above 256 the rest runs the wide bodies.
+# the Hopper bodies at every head dim, float32 the CUDA-core bodies (above
+# 256 the wide ones).
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
     (name, dtype): {d: _tile(name, dtype, d) for d in head_dims(dtype)}
     for name in KERNELS for dtype in _DTYPE_CODES
@@ -207,6 +246,10 @@ def _refuse_head_dim(d: int, dtype: torch.dtype) -> None:
                          f"float16, not {dtype}")
     if d in TILES[KERNELS[0], dtype]:
         return
+    if d > 256 and d % 64 == 0 and dtype in _HALF:
+        raise ValueError(
+            f"head dim {d}: the kernels in {dtype} take the multiples of 64 "
+            f"up to {WIDE_MAX_D[dtype]}")
     if d > 256 and d % 64 == 0:
         raise ValueError(
             f"head dim {d}: above {WIDE_MAX_D[dtype]} the kernels' tiles "
@@ -476,9 +519,10 @@ def flash_attention(q, k, v, causal: bool = True,
     is not a multiple of 64 and has no kernel here (16, 48, 80, 96, ...).
     The choice depends on the shape alone, never on whether a kernel built
     or launched, so it hides no kernel. A multiple of 64 above
-    `WIDE_MAX_D` (704 in float32, 1024 in bf16 and float16) raises: the
-    wide kernels' tiles no longer fit the 227 KB of shared memory a block
-    may take, a resource limit as the TPU kernels' VMEM is. Each kernel's
+    `WIDE_MAX_D` raises: in float32 above 704 the wide kernels' tiles no
+    longer fit the 227 KB of shared memory a block may take, a resource
+    limit as the TPU kernels' VMEM is; bf16 and float16 stop at 1024
+    (`HALF_WIDE_MAX_D`). Each kernel's
     tiles are fixed by its source for each type and head dim (`TILES`);
     the kernels mask a ragged last tile, so any sequence length takes
     them."""

@@ -281,16 +281,18 @@ def test_tile_table_fits_hopper_shared_memory():
             # its causal q loop at key0 / stream: both must divide evenly.
             assert t.rows % (64 if t.ring else 16) == 0
             assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
-            # The Hopper bodies take the 16-bit types up to d 256, in all
-            # three kernels, and the 16-bit forward above 256 too; the wide
-            # CUDA-core bodies the rest above 256. Above 256, d is a
-            # run-time argument of every body.
-            assert t.ring == (dtype != torch.float32
-                              and (d <= 256 or name == "flash_fwd"))
+            # The Hopper bodies take the 16-bit types at every head dim, in
+            # all three kernels; the float32 wide CUDA-core bodies take
+            # float32 above 256. Above 256, d is a run-time argument of
+            # every body, and each 16-bit block owns a chunk of the
+            # output's columns. From d 192 up, the 16-bit dK/dV block's
+            # two warpgroups share its keys (split 2), as the float32
+            # CUDA-core block splits its columns at d 192 and 256.
+            assert t.ring == (dtype != torch.float32)
             assert t.wide == (d > 256)
             assert (t.cols > 0) == (t.ring and t.wide)
-            assert t.split == (2 if name == "flash_bwd_dkv"
-                               and 128 < d <= 256 else 1)
+            assert t.split == (2 if name == "flash_bwd_dkv" and 128 < d
+                               and (d <= 256 or t.ring) else 1)
     assert len(tattn.TILES) == 3 * len(tattn.KERNELS)
     assert set(tattn.HEAD_DIMS) == {32, 64, 128, 192, 256}
     # One wide instance a type serves every multiple of 64 above 256 up to
@@ -318,9 +320,9 @@ def test_tile_table_fits_hopper_shared_memory():
 
 
 def test_tile_table_mirrors_the_cuda_sources():
-    # The Hopper bodies (16-bit, d <= 256) fix their tiles in
-    # flash_common.cuh (FwdTiles, DqTiles, DkvTiles, each specialised at 192
-    # and 256), the CUDA-core bodies in
+    # The Hopper bodies fix their tiles in flash_common.cuh (FwdTiles,
+    # DqTiles, DkvTiles, each specialised at 192 and 256; above d 256
+    # WideFwdTiles, WideDqTiles and WideDkvTiles), the CUDA-core bodies in
     # BLOCK and PlainTiles; the table the wrappers and chip_smoke.py read
     # must agree.
     import os
@@ -347,6 +349,17 @@ def test_tile_table_mirrors_the_cuda_sources():
         r"struct WideFwdTiles \{\s*static constexpr int ROWS = (\d+), "
         r"TILE = (\d+), STAGES = (\d+), V_STAGES = (\d+);", src).groups()))
     assert ring_wide[3] == tattn._V_STAGES
+    # The 16-bit dQ and dK/dV above 256 (WideDqTiles, WideDkvTiles): rows,
+    # the rows of a streamed tile, ring A's slots and ring B's.
+    ring_wide_bwd = {}
+    for struct, name in (("WideDqTiles", "flash_bwd_dq"),
+                         ("WideDkvTiles", "flash_bwd_dkv")):
+        rows, tile, stages, b_stages = map(int, re.search(
+            r"struct " + struct + r" \{\s*static constexpr int ROWS = "
+            r"(\d+), TILE = (\d+), STAGES = (\d+), B_STAGES = (\d+);",
+            src).groups())
+        assert b_stages == tattn._B_STAGES
+        ring_wide_bwd[name] = (rows, tile, stages)
     assert int(re.search(r"SMEM_LIMIT = (\d+);", src).group(1)) \
         == tattn.SMEM_LIMIT
     for struct, name in (("FwdTiles", "flash_fwd"),
@@ -368,9 +381,15 @@ def test_tile_table_mirrors_the_cuda_sources():
                 if t.ring and t.wide:
                     m = d // 64
                     cols = -(-m // -(-m // 4)) * 64
-                    assert name == "flash_fwd" and dtype != torch.float32
-                    assert t == tattn.Tile(*ring_wide[:3], True, wide=True,
-                                           cols=cols)
+                    assert dtype != torch.float32
+                    if name == "flash_fwd":
+                        assert t == tattn.Tile(*ring_wide[:3], True,
+                                               wide=True, cols=cols)
+                    else:
+                        assert t == tattn.Tile(
+                            *ring_wide_bwd[name], True,
+                            2 if name == "flash_bwd_dkv" else 1, wide=True,
+                            cols=cols)
                 elif t.wide:
                     assert t == tattn.Tile(wide_rows, wide_stream[name], 1,
                                            False, wide=True)
@@ -428,6 +447,81 @@ def test_wide_fwd_ring_shared_memory(d, dtype):
         + 1024
     assert tattn.kernel_smem_bytes(d, dtype)["flash_fwd"] == want
     assert want <= tattn.SMEM_LIMIT
+
+
+def _chunks_cover(d, cols):
+    """The 16-bit blocks above d 256 own chunks of `cols` of the output's
+    columns, as few as 256 columns each allow: each chunk starts inside d,
+    and the last may run past it."""
+    chunks = -(-d // 256)
+    assert tattn.wide_chunks(d) == (chunks, cols)
+    assert cols in (192, 256) and cols % 64 == 0
+    assert all(c * cols < d for c in range(chunks))
+    assert chunks * cols >= d
+
+
+@pytest.mark.parametrize("d", range(320, 1025, 64))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wide_dq_ring_shared_memory(d, dtype):
+    # The 16-bit dQ block above d 256 holds no row of Q, dO, K or V whole:
+    # ring A's 4 slots each take a 64-column chunk of Q's and dO's 128 rows
+    # and of K's and V's 64 keys; ring B's 1 slot K's 64 keys x the block's
+    # chunk of dQ's columns; a full and an empty mbarrier a slot; 1024
+    # bytes to align the swizzle. So the block fits at every head dim the
+    # 16-bit types take.
+    t = tattn.TILES["flash_bwd_dq", dtype][d]
+    cols = -(-(d // 64) // -(-d // 256)) * 64
+    _chunks_cover(d, cols)
+    assert t == tattn.Tile(128, 64, 4, True, wide=True, cols=cols)
+    want = 4 * 2 * (128 + 64) * 64 * 2 + 1 * 64 * cols * 2 \
+        + 8 * 2 * (4 + 1) + 1024
+    assert tattn.kernel_smem_bytes(d, dtype)["flash_bwd_dq"] == want
+    assert want <= tattn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", range(320, 1025, 64))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wide_dkv_ring_shared_memory(d, dtype):
+    # The 16-bit dK/dV block above d 256: 64 keys that both warpgroups
+    # share (split 2), ring A's 4 slots each a 64-column chunk of K, V and
+    # of the 64 queries' Q and dO; ring B's 1 slot the queries' Q and dO x
+    # the block's chunk of columns with their lse and delta (float32); one
+    # float32 P^T buffer of [64 keys x 64 queries] with a full and an empty
+    # mbarrier; a full and an empty mbarrier a slot; 1024 bytes to align
+    # the swizzle.
+    t = tattn.TILES["flash_bwd_dkv", dtype][d]
+    cols = -(-(d // 64) // -(-d // 256)) * 64
+    _chunks_cover(d, cols)
+    assert t == tattn.Tile(64, 64, 4, True, 2, wide=True, cols=cols)
+    want = (4 * 2 * (64 + 64) * 64 * 2
+            + 1 * (2 * 64 * cols * 2 + 2 * 64 * 4)
+            + 64 * 64 * 4 + 8 * 2 + 8 * 2 * (4 + 1) + 1024)
+    assert tattn.kernel_smem_bytes(d, dtype)["flash_bwd_dkv"] == want
+    assert want <= tattn.SMEM_LIMIT
+
+
+def test_import_ends_with_the_16_bit_head_dim_cap():
+    # None of the 16-bit blocks above d 256 grows with d, so a search for
+    # the largest head dim whose blocks fit would never end there: the cap
+    # is a named constant, and importing the module must end.
+    import os
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from ray_tpu_torch.ops import attention as a\n"
+            "assert a.HALF_WIDE_MAX_D == 1024\n"
+            "print(a.WIDE_MAX_D[torch.bfloat16], "
+            "a.WIDE_MAX_D[torch.float16], a.WIDE_MAX_D[torch.float32])")
+    package = os.path.dirname(os.path.dirname(os.path.abspath(tattn.__file__)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=os.path.dirname(package))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["1024", "1024", "704"]
+    for dtype in (torch.bfloat16, torch.float16):
+        assert tattn.WIDE_MAX_D[dtype] == tattn.HALF_WIDE_MAX_D == 1024
+        assert max(tattn.TILES["flash_bwd_dkv", dtype]) == 1024
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 192, 256])

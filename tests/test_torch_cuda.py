@@ -178,6 +178,45 @@ def test_wide_forward_on_card(card, d, dtype, causal, sq, sk, bh):
     assert _within(lse, want_lse, 1e-4)
 
 
+# The backward pair's Hopper bodies above d 256 (d at run time, dQ's and
+# dK's and dV's columns split over the grid in chunks of 192 or 256): one
+# to four chunks, the last running past d at 320 and 704; ragged, the last
+# tile ending inside the head in several heads (seq 300 and 77);
+# non-causal, and seq_q != seq_k both ways. delta comes from every chunk's
+# block alike and is written by chunk 0's.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [320, 512, 704, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,sq,sk,bh", [
+    (True, 300, 300, 3), (True, 77, 77, 5), (False, 256, 256, 2),
+    (False, 200, 333, 2), (False, 333, 200, 2)])
+def test_wide_backward_on_card(card, d, dtype, causal, sq, sk, bh):
+    tol = {torch.bfloat16: 2e-2, torch.float16: 5e-3}[dtype]
+    gen = torch.Generator(device=card).manual_seed(d + sq + 2 * sk)
+    q, do = (torch.randn(bh, sq, d, generator=gen, device=card, dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=gen, device=card, dtype=dtype)
+            for _ in range(2))
+    scale = d ** -0.5
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        t = tattn.TILES[name, dtype][d]
+        assert t.ring and t.wide and t.cols in (192, 256)
+    out, lse = tattn.flash_forward_reference(q, k, v, causal, scale)
+    before = tattn.kernel_launches()
+    dq, delta_k = tattn._bwd_dq(q, k, v, do, out, lse, causal, scale)
+    dk, dv = tattn._bwd_dkv(q, k, v, do, lse, delta_k, causal, scale)
+    torch.cuda.synchronize()
+    after = tattn.kernel_launches()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    delta = tattn.bwd_delta(out, do)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    want_dk, want_dv = tattn.flash_bwd_dkv_reference(*args)
+    assert _within(delta_k, delta, 1e-4)
+    assert _within(dq, tattn.flash_bwd_dq_reference(*args), tol)
+    assert _within(dk, want_dk, tol) and _within(dv, want_dv, tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_autograd_on_card_matches_mha_reference(card, causal):
