@@ -9,7 +9,8 @@ failed phase, with no phase caught.
 1. Device and build: prints the card's name and power limit, builds the
    CUDA kernels of `ray_tpu_torch/csrc/`, prints the build time and each
    kernel's registers and spills (the Hopper bodies of all three kernels
-   at head dims 192 and 256, in bf16 and float16, and above 256, must not
+   at head dims 192 and 256, in bf16 and float16, and above 256, and the
+   float32 forward at every width of its column chunks, must not
    spill), and checks that the shared memory each C entry point asks for
    is what `attention.kernel_smem_bytes` computes from the tile table, that
    in float32 one multiple of 64 past the largest head dim would not fit a
@@ -33,20 +34,24 @@ failed phase, with no phase caught.
    error beside its limit; then the instances that take head dims 192 and
    256, float16 and float32 (bf16 and float16 at d 192 and 256, bh 24, seq
    2048, causal; float16 at d 64 and 128 at the main shape; float32 at d
-   256, small, and at d 64, 128 and 256, bh 24, seq 2048, causal, a shape
-   that fills the card), each held the same way and timed beside its
+   256, small, and at d 64, 128, 192 and 256, bh 24, seq 2048, causal, a
+   shape that fills the card), each held the same way and timed beside its
    bound, its plain version and `scaled_dot_product_attention` (K1 beside
    its forward, K2 + K3 beside its backward alone, with each kernel's
    share of its bound; null where it refuses a case); then the wide
    instances above d 256 (bf16 and float16 at d 320, 384 and 512, bh 8,
    seq 1024, and at d 384, 512 and 1024, bh 24, seq 2048, causal; all
-   three kernels on their Hopper bodies there; float32 small), held and
+   three kernels on their Hopper bodies there; float32 small and at d 384
+   and 704, bh 24, seq 2048), held and
    timed the same way, with K2 + K3 beside SDPA's backward and each
    kernel's share of its bound; shows that the same check rejects planted
    faults (a skipped tile, in one of the output's column chunks too where
    a block owns one, for O, dQ, dK and dV, P left unnormalised, delta left
    at 0, each sized from the kernel's own tiles) at the main shape, at bf16
-   d 256 (bh 24, seq 2048) and at d 384 (bf16);
+   d 256 (bh 24, seq 2048), at d 384 (bf16) and at float32 d 256 and 704
+   (bh 24, seq 2048), and that the float32 limit rejects the forward in
+   one TF32 pass at every float32 case; names the kernels
+   `scaled_dot_product_attention` runs for float32 (a profiler trace);
    times each kernel, its plain
    version and
    `scaled_dot_product_attention` (a yardstick the port never calls),
@@ -192,7 +197,8 @@ failed phase, with no phase caught.
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
    of phase 2 under `instances`, each with its share of its bound,
-   `bound_share`; K2's and K3's records hold
+   `bound_share`; K1's holds the float32 SDPA kernels under
+   `sdpa_float32_kernels`; K2's and K3's records hold
    `scaled_dot_product_attention`'s backward, which does their joint work,
    under `sdpa_backward_ms`, at the main shape, at seq 8192 and at each
    instance of phase 2), then the device line last.
@@ -222,9 +228,13 @@ import numpy as np
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
+# Dense tensor-core rates. float32: 495 TFLOP/s of TF32 over the three
+# products of 3xTF32, the least time for float32-accurate products on this
+# card and the route of torch's float32 attention (the memory-efficient
+# kernel's OpMultiplyAddFastF32); the CUDA cores' 67 TFLOP/s is below it.
+PEAK_FLOPS = {torch.bfloat16: 989e12,
               torch.float16: 989e12,
-              torch.float32: 67e12}     # CUDA cores, no TF32
+              torch.float32: 495e12 / 3}
 
 # Tolerances, element by element: |kernel - plain| <= tol * (typical +
 # |plain|), where typical is the rms of the plain tensor's row (see
@@ -241,9 +251,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor cores
 # that error is random across a row's terms and a small share of the row's
 # size. Both round the result once to bf16, so they may differ by one ulp,
 # up to 2^-7 of |plain|. 2e-2 covers both with room.
-# float32: both run in float32 and differ only in summation order over up
-# to 1024 terms: 1e-4 for the forward; the gradients go through one more
-# product with cancelling terms (dP - delta), so 5e-4.
+# float32: the forward's products run in 3xTF32 (each operand split into
+# two TF32 parts; the dropped small * small term is about 2^-22 of a
+# product, float32's own rounding) and its sums in another order over up
+# to 1024 terms: 1e-4 for the forward, which a single TF32 pass (2^-11)
+# breaks (check_single_pass_tf32). The backward pair runs float32 on the
+# CUDA cores; its gradients go through one more product with cancelling
+# terms (dP - delta), so 5e-4.
 # float16: the same rounding of P and dS as bf16, to 11 significant bits
 # (2^-12 relative) instead of 8, and one rounding of the result (2^-11):
 # 5e-3 covers both with the same room as bf16's 2e-2.
@@ -286,10 +300,10 @@ F1_CASES = [
     dict(MAIN, dtype=torch.float16),
     dict(MAIN, d=128, dtype=torch.float16),
     dict(bh=4, seq=256, d=256, dtype=torch.float32, causal=True),
-    # float32 at a shape that fills the card (384 to 768 blocks on 132
-    # SMs), as the 16-bit instances above are timed.
+    # float32 at a shape that fills the card (384 row blocks of the forward
+    # on 132 SMs), as the 16-bit instances above are timed.
     *(dict(bh=24, seq=2048, d=d, dtype=torch.float32, causal=True)
-      for d in (64, 128, 256)),
+      for d in (64, 128, 192, 256)),
 ]
 # The wide instances (head dims above 256, d at run time): bf16 and
 # float16 at d 320, 384 and 512 (bh 8, seq 1024), float32 small; each held
@@ -303,15 +317,23 @@ F3_CASES = [
       for d in (320, 384, 512)),
     *(dict(bh=24, seq=2048, d=d, dtype=t, causal=True)
       for d in (384, 512, 1024) for t in (torch.bfloat16, torch.float16)),
+    # The float32 forward above 256 at a shape that fills the card.
+    *(dict(bh=24, seq=2048, d=d, dtype=torch.float32, causal=True)
+      for d in (384, 704)),
 ]
 F3_FAULTS = dict(bh=8, seq=1024, d=384, dtype=torch.bfloat16, causal=True)
-# The planted faults at the widest Hopper instance.
+# The planted faults at the widest Hopper instance, and at the float32
+# forward's widest d <= 256 and widest instance (three chunks of O's
+# columns, 256 each), each filling the card.
 F10_FAULTS = dict(F1_CASES[2])
 assert F10_FAULTS["d"] == 256 and F10_FAULTS["dtype"] == torch.bfloat16
+F32_FAULTS = [dict(bh=24, seq=2048, d=d, dtype=torch.float32, causal=True)
+              for d in (256, 704)]
+assert all(f in F1_CASES + F3_CASES for f in F32_FAULTS)
 # Kernel bodies that must not spill (phase 1), by source: the Hopper bodies
 # at d 192 and 256, and those above d 256, whose instances are named by
 # the columns of the output a block owns (192 and 256), as ptxas_usage
-# names them.
+# names them; and the float32 forward at every chunk of O's columns.
 NO_SPILL = {src: [f"{body}<{t}, {d}>" for body in bodies
                   for t in ("bf16", "f16") for d in (192, 256)]
             for src, bodies in (
@@ -320,6 +342,8 @@ NO_SPILL = {src: [f"{body}<{t}, {d}>" for body in bodies
                                   "bwd_dkv_kernel_sm90_split",
                                   "bwd_dq_kernel_sm90_wide",
                                   "bwd_dkv_kernel_sm90_wide")))}
+NO_SPILL["flash_fwd.cu"] += [f"fwd_kernel_tf32<float, {c}>"
+                             for c in (32, 64, 128, 256)]
 # (kernel, output, tolerance) of each output held against its plain
 # version; delta is a float32 sum in both, held to the float32 forward's.
 OUTPUTS = [("flash_fwd", "out", "fwd"), ("flash_fwd", "lse", "fwd"),
@@ -583,6 +607,8 @@ def check_kernels(attn) -> dict:
         torch.cuda.synchronize()
         label = case_label(case)
         errs = report(compare(got, want, case["dtype"]), label)
+        if case["dtype"] == torch.float32:
+            check_single_pass_tf32(attn, q, k, v, causal, scale, want, label)
         if case is not MAIN:
             continue
         check_planted_faults(attn, q, k, v, do, got["lse"], want["delta"],
@@ -666,9 +692,14 @@ def check_instances(attn, records, cases, seed: int) -> None:
         torch.cuda.synchronize()
         label = case_label(case)
         errs = report(compare(got, want, case["dtype"]), label)
-        if case in (F3_FAULTS, F10_FAULTS):
+        if case in (F3_FAULTS, F10_FAULTS, *F32_FAULTS):
             check_planted_faults(attn, q, k, v, do, got["lse"],
                                  want["delta"], scale, got, want, errs)
+        if case["dtype"] == torch.float32:
+            check_single_pass_tf32(attn, q, k, v, causal, scale, want, label)
+        if case == F32_FAULTS[0]:
+            records["flash_fwd"]["sdpa_float32_kernels"] = sdpa_kernels(
+                q, k, v, causal, scale, label)
         out, lse, dq, delta, dk, dv = (got[key] for key in (
             "out", "lse", "dq", "delta", "dk", "dv"))
         sdpa_fwd, sdpa_both, sdpa_bwd = (
@@ -728,8 +759,8 @@ def check_instances(attn, records, cases, seed: int) -> None:
 def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
                          errs) -> None:
     """The checks above must reject a kernel that is wrong in a small part
-    of its output. At the main shape and at F3_FAULTS (causal), this plants
-    into the
+    of its output. At the main shape, F3_FAULTS, F10_FAULTS and F32_FAULTS
+    (causal), this plants into the
     kernel's own result the rows that a tiled kernel with one of these
     faults would give, computed by the plain math with the fault, and
     requires a mismatch above 1 for each. Each fault is one of the kernel's
@@ -739,9 +770,10 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
       - dQ, the last q-block skips one K/V tile in the middle;
       - delta, the last q-block leaves its rows at 0;
       - dK and dV, the first key block skips one Q/dO tile in the middle;
-      - where a block owns a chunk of the output's columns (the 16-bit
-        bodies above d 256), each skipped tile again, in chunk 0's block
-        alone (O, dQ, dK and dV).
+      - where a block owns a chunk of the output's columns narrower than
+        d (the 16-bit bodies above d 256, the float32 forward above 256 at
+        these shapes), each skipped tile again, in chunk 0's block alone
+        (O, dQ, dK and dV).
     The last q-block averages the most keys, and the first key block takes
     rows from every q-block, so one tile is the smallest share there."""
     s, d = q.shape[1], q.shape[2]
@@ -800,7 +832,7 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
             f" skip keys {rows(drop_f)}", "out", tol_f,
             planted_cols(got["out"], last_f, fwd.cols,
                          last_rows_forward(last_f, drop_f, True)))]
-          if fwd.cols else []),
+          if 0 < fwd.cols < d else []),
         ("flash_bwd_dq", f"dQ: last q-block skips keys {rows(drop_q)}", "dq",
          tol_b, planted(got["dq"], last_q, dq_drop[:, last_q])),
         ("flash_bwd_dq", f"delta: last q-block's rows {rows(last_q)} left "
@@ -830,6 +862,46 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
         if not ratio > 1.0:
             raise AssertionError(f"the check of {name} passes a planted "
                                  f"fault ({what})")
+
+
+def check_single_pass_tf32(attn, q, k, v, causal, scale, want,
+                           label: str) -> None:
+    """The float32 forward's check must reject a kernel that runs its
+    products in one TF32 pass: the plain math with Q, K, V and P rounded to
+    TF32 (`flash_forward_tf32_reference(passes=1)`) must mismatch the plain
+    float32 version above 1 of the float32 limit, which the 3xTF32 kernel
+    passes."""
+    out, _ = attn.flash_forward_tf32_reference(q, k, v, causal, scale,
+                                               passes=1)
+    ratio = mismatch(out, want["out"], TOL[torch.float32, "fwd"])
+    print(f"  planted fault, out in one TF32 pass at {label}: mismatch="
+          f"{ratio:.4f} of its limit "
+          f"{'rejected' if ratio > 1.0 else 'NOT REJECTED'}")
+    if not ratio > 1.0:
+        raise AssertionError(f"the float32 check passes single-pass TF32 "
+                             f"at {label}")
+
+
+def sdpa_kernels(q, k, v, causal, scale, label: str) -> list:
+    """The device kernels scaled_dot_product_attention's forward launches
+    on these inputs, from a torch.profiler trace: [name, device ms]."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    q4, k4, v4 = (t.view(1, *t.shape) for t in (q, k, v))
+    F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                       scale=scale)
+        torch.cuda.synchronize()
+    names = [[e.key, e.device_time_total / 1e3]
+             for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0) > 0]
+    print(f"  scaled_dot_product_attention forward at {label} runs: "
+          + (", ".join(f"{n} ({ms:.4f} ms)" for n, ms in names)
+             or "no device time in the trace"))
+    return names
 
 
 def _sdpa_or_none(q, k, v, causal, scale, part: str, label: str):
@@ -2995,7 +3067,9 @@ def main() -> int:
         if bad:
             raise AssertionError(f"spilled or not built: {bad}")
         print(f"  {src}: no spills in its {len(NO_SPILL[src])} Hopper "
-              f"instances at d 192 and 256 (and above 256)")
+              f"instances at d 192 and 256 (and above 256)"
+              + (" and float32 forward ones" if src == "flash_fwd.cu"
+                 else ""))
     check_smem(attn, _build)
 
     print("== 1b. runtime: ray_tpu_torch.init, tasks, objects, GPU grants")

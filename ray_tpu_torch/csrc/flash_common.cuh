@@ -15,17 +15,25 @@
 //   block's two warpgroups share its keys, one accumulating dV and the
 //   other dK, the first handing P^T to the second through shared memory
 //   (flash_bwd.cu says why).
-// - The CUDA-core bodies of the three kernels: every float32 instance at
+// - The float32 forward (namespace flash::tf32 below, fwd_kernel_tf32 in
+//   flash_fwd.cu): every float32 head dim, d at run time. Its products run
+//   on the tensor cores in 3xTF32: each float32 operand is split in
+//   registers into two TF32 values, x = big + small, and a product is
+//   big*big + big*small + small*big, accumulated in float32. The dropped
+//   small*small term is about 2^-22 of the product, float32's own
+//   accuracy, where a single TF32 pass (three decimal digits) misses the
+//   1e-4 the float32 instances are held to. A producer warpgroup streams
+//   tiles into a ring with TMA, as the Hopper bodies' does; two consumer
+//   warpgroups run S on wgmma and P V on mma.sync (m16n8k8 .tf32),
+//   splitting the operands they hold in registers themselves.
+// - The CUDA-core bodies of the backward pair: every float32 instance at
 //   D <= 256. A block owns BLOCK = 64 rows, 4 warps of 16 rows, and streams
 //   tiles of PlainTiles<D>::STREAM rows past them; every operand of a tile
 //   product is read from shared memory by `warp_gemm`, which runs the 16x8
-//   mma.sync accumulator layout on the CUDA cores in float32. wgmma has no
-//   float32 type, and TF32 keeps about three decimal digits, too few for
-//   the 1e-4 the float32 instances are held to, so those stay on the CUDA
-//   cores.
-// - The wide bodies (namespace flash::wide): float32 at head dims above
-//   256 that are a multiple of 64, d a run-time argument, accumulators in
-//   shared memory, on the CUDA cores.
+//   mma.sync accumulator layout on the CUDA cores in float32.
+// - The wide bodies (namespace flash::wide): the float32 backward pair at
+//   head dims above 256 that are a multiple of 64, d a run-time argument,
+//   accumulators in shared memory, on the CUDA cores.
 //
 // Accumulator layout (the mma.sync C fragment, which is also the layout of
 // each warp's 16 rows of a wgmma accumulator), lane = 4 * g + t:
@@ -777,27 +785,32 @@ static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The TMA map of a contiguous 16-bit [bh, seq, d] tensor, one box = `rows`
-// rows x `cols` columns: 64 with the 128B swizzle, or d itself below 64
-// with the 64B swizzle. Three dimensions, so that a box that runs past
-// `seq` is zero-filled instead of reading the next head's rows. Returns 0
-// or a FLASH_ERR_ code.
+// The TMA map of a contiguous [bh, seq, d] tensor of T (bf16, float16 or
+// float32), one box = `rows` rows x `cols` columns: 128 bytes of columns
+// with the 128B swizzle (64 16-bit or 32 float32 ones), or fewer, d itself
+// below that, with the 64B swizzle. Three dimensions, so that a box that
+// runs past `seq` is zero-filled instead of reading the next head's rows.
+// Returns 0 or a FLASH_ERR_ code.
 template <typename T>
 static int make_map_cols(CUtensorMap* map, const void* ptr, int bh, int seq,
                          int d, int rows, int cols) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return FLASH_ERR_NO_ENCODER;
+  constexpr cuuint64_t SIZE = sizeof(T);
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * SIZE,
+                                 (cuuint64_t)seq * d * SIZE};
   const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res = encode(
       map,
-      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      cols < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      cols * SIZE < 128 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : FLASH_ERR_TENSOR_MAP;
 }
@@ -819,25 +832,167 @@ __device__ __forceinline__ uint8_t* aligned_smem(unsigned char* p) {
 }  // namespace flash
 
 // --------------------------------------------------------------------------
+// The float32 forward's pieces: 3xTF32 products on mma.sync.
+// --------------------------------------------------------------------------
+//
+// Tiles of fwd_kernel_tf32 (flash_fwd.cu), mirrored by TILES in
+// ray_tpu_torch/ops/attention.py. A block owns ROWS query rows, 16 a warp
+// (the M of mma.sync), 64 a warpgroup (the M of wgmma), and one chunk of
+// COLS of O's columns; it streams key tiles of TILE rows. S is built over
+// all d from 32-column chunks (one 128-byte TMA box, 128B swizzle) of Q's
+// rows and of the tile's keys, one chunk of each and the keys' small parts
+// a slot of ring A (STAGES slots, one fewer beside V's widest tiles); P V
+// takes V's [TILE x COLS] tile from ring B (V_STAGES slots). No block
+// grows with d: Q of 128 rows at d 256 would take 128 KB by itself.
+namespace flash {
+namespace tf32 {
+
+constexpr int ROWS = 128, TILE = 64, STAGES = 4, V_STAGES = 2;
+// Consumer warps, then a producer warpgroup whose first warp issues the
+// copies and whose other three (CONVERTERS) write K's small parts: a
+// whole warpgroup, so that setmaxnreg can hand its registers to the
+// consumers (9 warps alone get 168 a thread, since one of the SM's four
+// register partitions holds 3 of them, and O's 128 floats a thread at
+// COLS 256 spilled there). The producers only count slots, issue copies
+// and convert, so they keep the fewest, as the wide 16-bit dQ body's do.
+constexpr int WARPS = ROWS / 16;
+constexpr int THREADS = (WARPS + 4) * 32;
+constexpr int CONVERTERS = 3;
+constexpr int PRODUCER_REGS = sm90::WIDE_PRODUCER_REGS;  // 24
+constexpr int CONSUMER_REGS = sm90::WIDE_CONSUMER_REGS;  // 240
+constexpr int CHUNK = 32;                   // columns of a box, 128 bytes
+// The blocks an H100 runs at once (132 SMs, one block each): a grid with
+// fewer splits O's columns further (see cols).
+constexpr int FILL = 132;
+
+// O's columns a block owns at head dim d when the grid has `blocks` row
+// blocks (bh x q-blocks): the power of two from 32 to 256 that covers d,
+// so that a block owns all of d up to 256 and above that as few chunks as
+// 256 columns each allow (a thread holds COLS / 2 floats of O); the last
+// chunk may run past d. Where that leaves fewer blocks than FILL, half as
+// many columns, down to 64: each block still builds all of S for its
+// rows, so c chunks cost (c + 1) / 2 of the minimum FLOPs, but c blocks
+// share the P V products of a row block, and the card, which the row
+// blocks alone leave idle (bh 4, seq 256: 8 blocks on 132 SMs), fills.
+// (Chunks of 192 columns, which d 192, 320, 384 and 576 would take at one
+// width, spilled 16 bytes of registers in ptxas, so the widths are powers
+// of two.)
+__host__ __device__ constexpr int cols(int d, long blocks) {
+  int w = CHUNK;
+  while (w < d && w < 256) w *= 2;
+  while (w > 64 && blocks * ((d + w - 1) / w) < FILL) w /= 2;
+  return w;
+}
+
+// Ring A's slots at COLS of O's columns: as many as fit beside ring B.
+__host__ __device__ constexpr int stages(int cols) {
+  return cols > 128 ? STAGES - 1 : STAGES;
+}
+// Shared memory of a block owning COLS of O's columns: ring A's slots (a
+// chunk of Q's rows, one of the tile's keys and its small parts), ring B's
+// (V's [TILE x COLS] tiles), a full, a ready and an empty mbarrier a slot
+// of A, a full and an empty one a slot of B, and the swizzle's alignment.
+// (ray_tpu_torch/ops/attention.py's kernel_smem_bytes mirrors it.)
+__host__ __device__ constexpr int smem(int cols) {
+  return stages(cols) * (ROWS + 2 * TILE) * CHUNK * 4 +
+         V_STAGES * TILE * cols * 4 + (3 * stages(cols) + 2 * V_STAGES) * 8 +
+         sm90::SMEM_ALIGN;
+}
+
+// x = big + small for mma's TF32 operands, which read the 19 high bits of
+// a register (sign, exponent, 10 mantissa bits) and drop the 13 low ones:
+// big is x itself, read as x truncated, and small = x - that truncation
+// (exact in float32), read truncated in turn. big + small then misses x by
+// at most 2^-20 of it, and the three products miss x y by about 2^-21
+// where one TF32 pass misses it by 2^-10; with big and small rounded to
+// nearest (cvt.rna.tf32.f32 before each), K1's first version (every
+// product on mma.sync) took 1.13-1.23x as long on an H100 at the same
+// accuracy (PERF.md). Two instructions an operand.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = __float_as_uint(x);
+  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+}
+
+// d[16 x 8] += A[16 x 8] B[8 x 8] on the tensor cores in TF32, lane =
+// 4 g + t: a = A(g, t), A(g + 8, t), A(g, t + 4), A(g + 8, t + 4); b0 =
+// B(t, g), b1 = B(t + 4, g); d in the accumulator layout above.
+__device__ __forceinline__ void mma(float* d, const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// The same in 3xTF32, from the split operands: the two correction products
+// first, then big * big, so that the small terms are summed before the
+// large one joins them (small * small, under 2^-20 of the product, is
+// dropped).
+__device__ __forceinline__ void mma3(float* d, const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma(d, as, bb[0], bb[1]);
+  mma(d, ab, bs[0], bs[1]);
+  mma(d, ab, bb[0], bb[1]);
+}
+
+// x - x truncated to TF32: the small part of split(x), as a float.
+__device__ __forceinline__ float small_part(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// Make this thread's shared-memory writes visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d[64 x 64] += A[64 x 8] B[8 x 64] on wgmma in TF32: A in registers (each
+// warp's 16 rows as mma's A fragment above), B K-major in shared memory
+// (the tile's 64 rows, a 128-byte swizzled row of 32 floats each), read
+// truncated to TF32 as mma reads its operands.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+}  // namespace tf32
+}  // namespace flash
+
+// --------------------------------------------------------------------------
 // The wide bodies: head dims above 256 that are a multiple of 64.
 // --------------------------------------------------------------------------
 //
-// One float32 instance per kernel serves every such head dim: d is a
-// run-time argument (bf16 and float16 run the Hopper bodies there:
-// fwd_kernel_sm90_wide, bwd_dq_kernel_sm90_wide and
-// bwd_dkv_kernel_sm90_wide). A block of 4 warps owns
-// ROWS = 16 rows (queries; keys for dK/dV) and streams tiles of *_STREAM
-// rows past them. The D-wide float32 accumulators (O; dQ; dK and dV) and
-// the tile products (P, dS) live in dynamic shared memory, not in
-// registers, so the block's shared memory grows with d (fwd_smem, dq_smem,
-// dkv_smem below, mirrored by kernel_smem_bytes in
-// ray_tpu_torch/ops/attention.py): it fits the 227 KB a block may take up
-// to d 704. Every product runs on the CUDA cores in float32.
+// One float32 instance per backward kernel serves every such head dim: d
+// is a run-time argument (bf16 and float16 run the Hopper bodies there:
+// bwd_dq_kernel_sm90_wide and bwd_dkv_kernel_sm90_wide; the float32
+// forward runs fwd_kernel_tf32). A block of 4 warps owns ROWS = 16 rows
+// (queries; keys for dK/dV) and streams tiles of *_STREAM rows past them.
+// The D-wide float32 accumulators (dQ; dK and dV) and the tile products
+// (P, dS) live in dynamic shared memory, not in registers, so the block's
+// shared memory grows with d (dq_smem, dkv_smem below, mirrored by
+// kernel_smem_bytes in ray_tpu_torch/ops/attention.py): it fits the 227 KB
+// a block may take up to d 704. Every product runs on the CUDA cores in
+// float32.
 namespace flash {
 namespace wide {
 
 constexpr int ROWS = 16, THREADS = 128;
-constexpr int FWD_STREAM = 16, DQ_STREAM = 16, DKV_STREAM = 8;
+constexpr int DQ_STREAM = 16, DKV_STREAM = 8;
 constexpr int SMEM_LIMIT = 232448;  // bytes one block may opt in to
 
 __host__ __device__ constexpr bool head_dim(int d) {
@@ -850,11 +1005,6 @@ __host__ __device__ inline int ld(int d) {
   return d + 16 / (int)sizeof(T);
 }
 
-template <typename T>
-size_t fwd_smem(int d) {  // O; P; Q; K and V tiles
-  return (size_t)ROWS * d * 4 + ROWS * FWD_STREAM * 4 +
-         (size_t)(ROWS + 2 * FWD_STREAM) * ld<T>(d) * sizeof(T);
-}
 template <typename T>
 size_t dq_smem(int d) {  // dQ; dS; Q and dO; K and V tiles
   return (size_t)ROWS * d * 4 + ROWS * DQ_STREAM * 4 +
@@ -925,16 +1075,11 @@ __device__ __forceinline__ float dot(const T* a, const T* b, int d) {
   return s;
 }
 
-// Sum (or max) over the 8 lanes that share one row (lanes 8r .. 8r + 7).
+// Sum over the 8 lanes that share one row (lanes 8r .. 8r + 7).
 __device__ __forceinline__ float oct_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-__device__ __forceinline__ float oct_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
 }
 
 __device__ __forceinline__ void store_one(float* p, float x) { *p = x; }
@@ -1027,9 +1172,11 @@ extern "C" const char* flash_error_string(int code) {
   } while (0)
 
 namespace flash {
-// Whether the instance <T, D> of a kernel runs a Hopper body (sm90) or a
-// CUDA-core one: every kernel takes the 16-bit types up to D 256 (above,
-// the 16-bit kernels run the *_sm90_wide bodies, d at run time).
+// Whether the instance <T, D> of a kernel runs a Hopper body (sm90) or
+// another: every kernel takes the 16-bit types up to D 256 (above, the
+// 16-bit kernels run the *_sm90_wide bodies, d at run time). In float32
+// the forward runs fwd_kernel_tf32 and the backward pair the CUDA-core
+// bodies.
 template <typename T, int D>
 constexpr bool hopper_body() {
   return sizeof(T) == 2 && D <= 256;

@@ -16,7 +16,7 @@
 // q, k, v, o and lse (0.023 and 0.030 ms at 3.35 TB/s): bound by
 // operations.
 //
-// Four bodies, chosen by type and head dim:
+// Three bodies, chosen by type and head dim:
 //
 // bf16 and float16 at d <= 256 (fwd_kernel_sm90): one block per 128 query
 // rows, two consumer
@@ -53,11 +53,6 @@
 // flops at d 256), but the turns still let one warpgroup's softmax and
 // rescale of O run under the other's products.
 //
-// float32 at d <= 256 (fwd_kernel): on the CUDA cores, in float32
-// arithmetic (flash_common.cuh says why): 64 query rows, 4 warps of 16
-// rows, K and V tiles of PlainTiles<D>::STREAM rows copied into shared
-// memory between two barriers, P through shared memory in the input type.
-//
 // bf16 and float16 at d > 256, a multiple of 64 (fwd_kernel_sm90_wide):
 // the Hopper machinery with d at run time. At those widths neither Q of
 // 128 rows nor a K tile of 64 keys fits in shared memory beside the rest,
@@ -75,12 +70,21 @@
 // twice K's bytes; a variant that kept Q resident up to d 576 ran 3-14%
 // faster at d 384 and 512 on an H100 and was not kept (a second layout).
 //
-// float32 at d > 256 (fwd_kernel_wide): on the CUDA cores in float32, d a
-// run-time argument. 16 query rows a block, K and V tiles of 16 rows; the
-// 8 lanes of each query row compute two scores each and run that row's
-// online softmax with shuffles, P (float32) and the D-wide O accumulator
-// stay in shared memory, and each thread adds P V into its own columns of
-// O with V's column in registers.
+// float32 at every head dim (fwd_kernel_tf32), d a run-time argument: the
+// wide body's shape in 3xTF32 (flash_common.cuh says why three products),
+// S on wgmma and P V on mma.sync. 128 query rows a block, two consumer
+// warpgroups and a producer warpgroup; S over all d from 32-column chunks
+// of Q and K through a TMA ring of 4 slots (3 at COLS 256), P V from V's
+// [64 x COLS] tiles through a 2-slot one,
+// O's columns split over the grid in chunks of COLS (tf32::cols: a power
+// of two up to 256 that covers d, narrower where the row blocks alone
+// leave the card's SMs idle). Bound at bh 24, seq 2048, causal: 12.9, 25.8 and 51.6
+// GFLOP at d 64, 128 and 256, 0.078, 0.156 and 0.313 ms at 165 TFLOP/s,
+// the tensor cores' TF32 rate over its three products (495 / 3), against
+// 50 to 201 MB (0.015 to 0.060 ms at 3.35 TB/s): by operations. At the
+// small shapes phase 2 of chip_smoke.py times (bh 2 to 4, seq 256) 4 to 8
+// row blocks cannot fill 132 SMs, and latency bounds it instead: there the
+// columns are split down to 64 a block.
 //
 // All skip causal tiles above the diagonal, mask only the tiles that cross
 // it or the end of the sequence, and issue the heaviest q-blocks first.
@@ -88,117 +92,6 @@
 #include "flash_common.cuh"
 
 using namespace flash;
-
-// The CUDA-core body.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o,
-           float* __restrict__ lse, int sq, int sk, int causal, float scale) {
-  constexpr int BS = PlainTiles<D>::STREAM;  // keys a streamed tile
-  constexpr int LD = ld<T, D>();
-  constexpr int LDP = ld<T, BS>();
-  constexpr int NTD = D / 8;   // accumulator tiles across the head dim
-  constexpr int NTK = BS / 8;  // accumulator tiles across a key tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + BLOCK * LD;
-  T* Vs = Ks + BS * LD;
-  T* Ps = Vs + BS * LD;  // [BLOCK][LDP]: each warp its own 16 rows
-
-  // One block per (bh, q-block); the q-blocks of one bh are neighbours, so
-  // they share its K/V tiles in L2, and the last one, with the most causal
-  // work, is issued first.
-  const int nqb = (sq + BLOCK - 1) / BLOCK;
-  const int bh = blockIdx.x / nqb;
-  const int q0 = (nqb - 1 - blockIdx.x % nqb) * BLOCK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  q += (size_t)bh * sq * D;
-  k += (size_t)bh * sk * D;
-  v += (size_t)bh * sk * D;
-  o += (size_t)bh * sq * D;
-  lse += (size_t)bh * sq;
-
-  load_tile<T, D>(Qs, q, q0, sq);
-  const int w0 = q0 + warp * 16;  // this warp's first query row
-  const int rows[2] = {w0 + g, w0 + g + 8};
-  const T* Qw = Qs + warp * 16 * LD;
-  T* Pw = Ps + warp * 16 * LDP;
-
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[NTD][4];
-  zero(acc);
-
-  int nkb = (sk + BS - 1) / BS;
-  if (causal) nkb = min(nkb, (q0 + BLOCK - 1) / BS + 1);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BS;
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<T, D, BS>(Ks, k, k0, sk);
-    load_tile<T, D, BS>(Vs, v, k0, sk);
-    __syncthreads();
-
-    float s[NTK][4];
-    zero(s);
-    warp_gemm<true, NTK, D>(s, Qw, LD, Ks, LD);  // S = Q K^T
-
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < NTK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1), r = rows[e >> 1];
-        const bool ok = col < sk && (!causal || col <= r);
-        s[nt][e] = ok ? s[nt][e] * scale : NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      corr[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NTK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
-        sum[e >> 1] += s[nt][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = corr[i] * l[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int nt = 0; nt < NTD; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
-    }
-    store_acc<T>(Pw, LDP, s, 16);
-    __syncwarp();
-    warp_gemm<false, NTD, BS>(acc, Pw, LDP, Vs, LD);  // O += P V
-    __syncwarp();  // P is read by all lanes before the next write
-  }
-
-  float den[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) den[i] = fmaxf(l[i], 1e-30f);
-#pragma unroll
-  for (int nt = 0; nt < NTD; ++nt) {
-    acc[nt][0] /= den[0];
-    acc[nt][1] /= den[0];
-    acc[nt][2] /= den[1];
-    acc[nt][3] /= den[1];
-  }
-  store_acc<T>(o + (size_t)w0 * D, D, acc, sq - w0);
-  if (t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (rows[i] < sq) lse[rows[i]] = m[i] + logf(den[i]);
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
@@ -714,67 +607,365 @@ fwd_kernel_sm90_wide(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// The float32 body above d 256 (flash_common.cuh, namespace wide).
-template <typename T>
-__global__ void __launch_bounds__(wide::THREADS)
-fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o,
-                float* __restrict__ lse, int sq, int sk, int d, int causal,
-                float scale) {
-  constexpr int R = wide::ROWS, BS = wide::FWD_STREAM;
-  const int LD = wide::ld<T>(d);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Os = reinterpret_cast<float*>(smem);  // [R][d]
-  float* Ps = Os + R * d;                       // [R][BS]
-  T* Qs = reinterpret_cast<T*>(Ps + R * BS);    // [R][LD]
-  T* Ks = Qs + R * LD;                          // [BS][LD]
-  T* Vs = Ks + BS * LD;                         // [BS][LD]
+// The float32 body (flash_common.cuh, namespace tf32), every head dim, d
+// at run time: a block owns 128 query rows, two consumer warpgroups of 64,
+// and one chunk of COLS of O's columns from col0 = chunk * COLS. For each
+// key tile i of 64 keys it builds S_i = Q K_i^T over all d from the
+// 32-column chunks of Q and K_i that the producer streams through ring A
+// (one chunk of each a slot), then runs the online softmax of S_i and adds
+// P_i V_i for its columns from V's [64 x COLS] tile in ring B. Every
+// product is 3xTF32 (tf32::split): two correction products, then big *
+// big.
+// - S on wgmma (m64n64k8 .tf32): A is the warp's rows of Q's chunk, split
+//   in registers; B must lie K-major in shared memory, as Q's and K's rows
+//   do, and is read truncated, so K's chunk as TMA wrote it is its big
+//   part. Its small parts go beside it in the slot, in the same swizzled
+//   layout, written by the producer warpgroup's three idle warps once the
+//   chunk lands (ready_a). On mma.sync instead, where every warp loads and
+//   splits every K element itself, K1 took 1.15-1.26x as long on an H100
+//   (PERF.md).
+// - P V on mma.sync (m16n8k8 .tf32): wgmma's TF32 B cannot be MN-major,
+//   which V's rows are for this product. P, the softmax of S's
+//   accumulator, is the A operand without a shuffle: a lane holds columns
+//   2t and 2t + 1 of its rows where the A fragment wants t and t + 4, so
+//   P V takes each 8 keys in that order, key 2t as k = t and key 2t + 1 as
+//   k = t + 4, and each lane loads V's rows 2t and 2t + 1 as its B
+//   fragment, from the 128B-swizzled rows TMA writes (element (r, c) in
+//   16-byte unit (c / 4) ^ (r % 8) of row r), which puts the 32 lanes of
+//   each load on 32 banks.
+// - A warpgroup whose rows all lie above a causal tile, or past the end of
+//   the queries, only waits for the tile's slots and releases them.
+// The warpgroups do not take turns; each warp keeps a V box's 4 P V
+// accumulators in flight, added to O once the tile's keys are done (pv
+// below says why the sum leaves the tensor cores there). Every
+// block of a row block computes S in the same order, so their m and l
+// agree bit for bit; chunk 0's blocks write lse. V's boxes that lie past d
+// are not loaded: they feed only O's columns past d, which are not stored.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(tf32::THREADS, 1)
+fwd_kernel_tf32(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                T* __restrict__ o, float* __restrict__ lse, int sq, int sk,
+                int d, int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "the float32 body");
+  using namespace sm90;
+  constexpr int BQ = tf32::ROWS, BK = tf32::TILE, C = tf32::CHUNK;
+  constexpr int SA = tf32::stages(COLS), SB = tf32::V_STAGES;
+  constexpr uint32_t Q_BYTES = BQ * C * 4;  // a chunk of Q
+  constexpr uint32_t K_BYTES = BK * C * 4;  // one of K_i, and its small parts
+  constexpr uint32_t A_BYTES = Q_BYTES + 2 * K_BYTES;
+  constexpr uint32_t BOX = BK * C * 4;      // 32 of V_i's columns
+  constexpr uint32_t B_BYTES = BOX * (COLS / C);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* ring_a = aligned_smem(smem_raw);
+  uint8_t* ring_b = ring_a + SA * A_BYTES;
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(ring_b + SB * B_BYTES);
+  uint64_t* ready_a = full_a + SA;  // K_i's small parts are written
+  uint64_t* empty_a = ready_a + SA;
+  uint64_t* full_b = empty_a + SA;
+  uint64_t* empty_b = full_b + SB;
 
-  const int nqb = (sq + R - 1) / R;
-  const int bh = blockIdx.x / nqb;
-  const int q0 = (nqb - 1 - blockIdx.x % nqb) * R;
-  q += (size_t)bh * sq * d;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-  o += (size_t)bh * sq * d;
-  lse += (size_t)bh * sq;
+  // The grid in groups of HEADS heads, as fwd_kernel_sm90_wide's: within a
+  // group the q-blocks from the last (the most causal work), all heads and
+  // chunks of the group at each.
+  constexpr int HEADS = 12;
+  const int nd = d / C, nc = (d + COLS - 1) / COLS;
+  const int nqb = (sq + BQ - 1) / BQ, per = nqb * nc;
+  const int g0 = blockIdx.x / (HEADS * per) * HEADS;
+  const int r = blockIdx.x - g0 * per;
+  const int heads = min(HEADS, (int)gridDim.x / per - g0);
+  const int chunk = r % nc, rq = r / nc;
+  const int bh = g0 + rq % heads;
+  const int q0 = (nqb - 1 - rq / heads) * BQ;
+  const int col0 = chunk * COLS, ncols = min(COLS, d - col0);
+  int nkb = (sk + BK - 1) / BK;
+  if (causal) nkb = min(nkb, (q0 + BQ - 1) / BK + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  wide::load_rows(Qs, q, q0, R, sq, d);
-  for (int i = threadIdx.x; i < R * d; i += wide::THREADS) Os[i] = 0.f;
-  // This thread's query row and its two key columns of each tile.
-  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, row = q0 + r;
-  float m = NEG_INF, l = 0.f;
-
-  int nkb = (sk + BS - 1) / BS;
-  if (causal) nkb = min(nkb, (q0 + R - 1) / BS + 1);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BS;
-    __syncthreads();  // every thread is done with the previous tiles and P
-    wide::load_rows(Ks, k, k0, BS, sk, d);
-    wide::load_rows(Vs, v, k0, BS, sk, d);
-    __syncthreads();
-
-    float s0 = 0.f, s1 = 0.f;
-    wide::dot2(Qs + r * LD, Ks + c * LD, Ks + (c + 8) * LD, d, s0, s1);
-    const int c0 = k0 + c, c1 = k0 + c + 8;
-    s0 = c0 < sk && (!causal || c0 <= row) ? s0 * scale : NEG_INF;
-    s1 = c1 < sk && (!causal || c1 <= row) ? s1 * scale : NEG_INF;
-    const float mx = wide::oct_max(fmaxf(m, fmaxf(s0, s1)));
-    const float corr = expf(m - mx);
-    s0 = expf(s0 - mx);
-    s1 = expf(s1 - mx);
-    l = corr * l + wide::oct_sum(s0 + s1);
-    m = mx;
-    Ps[r * BS + c] = s0;
-    Ps[r * BS + c + 8] = s1;
-    for (int j = c; j < d; j += 8) Os[r * d + j] *= corr;
-    __syncthreads();
-    wide::add_wb<BS>(Os, Ps, Vs, d);  // O += P V
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&ready_a[s], tf32::CONVERTERS);
+      mbar_init(&empty_a[s], tf32::WARPS);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full_b[s], 1);
+      mbar_init(&empty_b[s], tf32::WARPS);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  const float den = fmaxf(l, 1e-30f);
-  wide::store_rows(o, Os, q0, sq, d, 1.f / den);
-  if (c == 0 && row < sq) lse[row] = m + logf(den);
+
+  if (warp >= tf32::WARPS) {  // the producer warpgroup
+    reg_dealloc<tf32::PRODUCER_REGS>();
+    if (warp == tf32::WARPS && lane == 0) {
+      const int nbox = ncols / C;
+      int s = 0, ph = 0;  // ring A's next slot, and its use's parity
+      for (int i = 0, n = 0; i < nkb; ++i) {
+        for (int c = 0; c < nd; ++c, ++n) {  // Q's and K_i's chunk c
+          if (n >= SA) mbar_wait(&empty_a[s], ph ^ 1);
+          uint8_t* slot = ring_a + s * A_BYTES;
+          mbar_expect_tx(&full_a[s], Q_BYTES + K_BYTES);
+          tma_load(slot, &map_q, &full_a[s], C * c, q0, bh);
+          tma_load(slot + Q_BYTES, &map_k, &full_a[s], C * c, i * BK, bh);
+          if (++s == SA) s = 0, ph ^= 1;
+        }
+        const int b = i % SB;  // V_i's columns of this chunk
+        if (i >= SB) mbar_wait(&empty_b[b], (i / SB - 1) & 1);
+        mbar_expect_tx(&full_b[b], nbox * BOX);
+        for (int j = 0; j < nbox; ++j)
+          tma_load(ring_b + b * B_BYTES + j * BOX, &map_v, &full_b[b],
+                   col0 + C * j, i * BK, bh);
+      }
+    } else if (warp > tf32::WARPS) {
+      // The converters: once a slot's chunk of K_i lands, write the small
+      // part of each element beside it, in the same swizzled layout, for
+      // S's correction product big(Q) small(K).
+      const int ct = threadIdx.x - (tf32::WARPS + 1) * 32;
+      int s = 0, ph = 0;
+      for (int n = 0; n < nkb * nd; ++n) {
+        mbar_wait(&full_a[s], ph);
+        float* kr = reinterpret_cast<float*>(ring_a + s * A_BYTES + Q_BYTES);
+        for (int e = ct; e < (int)K_BYTES / 4; e += tf32::CONVERTERS * 32)
+          kr[K_BYTES / 4 + e] = tf32::small_part(kr[e]);
+        tf32::fence_async_smem();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready_a[s]);
+        if (++s == SA) s = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumer warp `warp` owns rows w0 .. w0 + 15, its warpgroup rows
+  // wg_row0 .. wg_row0 + 63.
+  reg_alloc<tf32::CONSUMER_REGS>();
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + warp * 16, wg_row0 = q0 + (warp / 4) * 64;
+  const float c2 = scale * LOG2E;  // raw scores to base-2 exponents
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[COLS / 2];
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];  // S_i, then P_i: [16 x BK] across the warp
+  float corr[2];
+
+  auto release = [&](uint64_t* bar) {  // this warp is done with a slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // The float offset of column 4u + t in a swizzled row r with r % 8 == g
+  // (this lane's rows of Q): unit u lies at u ^ g, so the offset is
+  // (u << 2) ^ gt. gt and P V's tg below are made opaque where they are
+  // used, so that the offsets built from them are not hoisted out of the
+  // key loop into registers of their own (at COLS 256 those spilled).
+  const int gt = (g << 2) | t;
+  // S += Q_c K_c^T from one slot of ring A, on wgmma: A is this warp's
+  // rows of Q's chunk, split in registers; B is K_c's chunk as TMA wrote
+  // it (read truncated: its big part) and its small parts beside it. The
+  // chunk's 12 products are one group (two groups, each k-step's A
+  // fragments reusing one of two register sets, ran 3-5% slower on an
+  // H100).
+  auto s_chunk = [&](const uint8_t* slot) {
+    const float* qs = reinterpret_cast<const float*>(slot) + warp * 16 * C;
+    const int x = opaque(gt);
+    uint32_t ab[C / 8][4], as[C / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < C / 8; ++kk) {  // columns 8 kk .. 8 kk + 7
+      const int c0 = (8 * kk) ^ x, c1 = (8 * kk + 4) ^ x;  // 8 kk + t, + 4
+      tf32::split(qs[g * C + c0], ab[kk][0], as[kk][0]);
+      tf32::split(qs[(g + 8) * C + c0], ab[kk][1], as[kk][1]);
+      tf32::split(qs[g * C + c1], ab[kk][2], as[kk][2]);
+      tf32::split(qs[(g + 8) * C + c1], ab[kk][3], as[kk][3]);
+    }
+    const uint64_t kd = k_major<BK, 64>(smem_u32(slot + Q_BYTES), 0);
+    const uint64_t ksd = kd + (K_BYTES >> 4);  // the small parts
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 8; ++kk) {
+      tf32::wgmma_rs(sc, as[kk], k_major_at<BK, 64>(kd, kk));
+      tf32::wgmma_rs(sc, ab[kk], k_major_at<BK, 64>(ksd, kk));
+      tf32::wgmma_rs(sc, ab[kk], k_major_at<BK, 64>(kd, kk));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+  };
+  // O += P_i V_i for this chunk's columns, one of V's boxes (32 columns, 4
+  // n-tiles) at a time: the box's products accumulate from 0 and are then
+  // added to O in float32. The tensor cores' accumulator drops low bits as
+  // it adds, so a sum it runs over every key shrinks with the sequence (O
+  // accumulated on them directly sat at 0.35 of the 1e-4 limit at seq 2048
+  // and broke a float32 GPT-2's gradient check at seq 8192 on an H100);
+  // here each run is 24 products long, and the adds into O round to
+  // nearest. Column 8 n + g of V's row r lies in unit 2 (n % 4) + g / 4 of
+  // its box, at that ^ (r % 8): in this lane's rows 2t and 2t + 1 of each
+  // 8, at float ((n % 4) << 3) ^ tg and that ^ 4.
+  auto pv = [&](const uint8_t* tile) {
+    const float* vs = reinterpret_cast<const float*>(tile) + 2 * t * C;
+    const int tg = opaque((t << 3) | g);
+#pragma unroll
+    for (int box = 0; box < COLS / C; ++box) {
+      float part[C / 2];
+#pragma unroll
+      for (int e = 0; e < C / 2; ++e) part[e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {  // keys 8 j .. 8 j + 7
+        uint32_t ab[4], as[4];
+        tf32::split(sc[4 * j], ab[0], as[0]);      // row g,     key 2t
+        tf32::split(sc[4 * j + 2], ab[1], as[1]);  // row g + 8, key 2t
+        tf32::split(sc[4 * j + 1], ab[2], as[2]);  // row g,     key 2t + 1
+        tf32::split(sc[4 * j + 3], ab[3], as[3]);  // row g + 8, key 2t + 1
+        const float* v0 = vs + (box * BK + 8 * j) * C;  // V's row 8 j + 2t
+#pragma unroll
+        for (int n = 0; n < C / 8; ++n) {  // the box's columns 8 n ..
+          const int e = (n << 3) ^ tg;
+          uint32_t bb[2], bs[2];
+          tf32::split(v0[e], bb[0], bs[0]);
+          tf32::split(v0[C + (e ^ 4)], bb[1], bs[1]);
+          tf32::mma3(&part[4 * n], ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < C / 2; ++e) acc[box * (C / 2) + e] += part[e];
+    }
+  };
+  // Online softmax on the raw scores of the tile at key k0, in base 2, as
+  // in fwd_kernel_sm90, masking only a tile that crosses the diagonal or
+  // the end of the keys.
+  auto softmax = [&](int k0) {
+    if (k0 + BK > sk || (causal && k0 + BK - 1 > w0)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = w0 + g + 8 * (e >> 1);
+          if (!(col < sk && (!causal || col <= row))) sc[4 * j + e] = NEG_INF;
+        }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+    float mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      corr[h] = fast_exp2((m[h] - mx[h]) * c2);
+      m[h] = mx[h];
+      mc[h] = mx[h] * c2;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = fast_exp2(fmaf(sc[4 * j + e], c2, -mc[e >> 1]));
+        sum[e >> 1] += sc[4 * j + e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = corr[h] * l[h] + quad_sum(sum[h]);
+  };
+
+  int s = 0, ph = 0;  // ring A's slot in use and its use's parity
+  for (int i = 0; i < nkb; ++i) {
+    const int k0 = i * BK;
+    // Some key of the tile is unmasked for some row of this warpgroup.
+    const bool live = wg_row0 < sq && !(causal && k0 > wg_row0 + 63);
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+    for (int c = 0; c < nd; ++c) {
+      mbar_wait(&full_a[s], ph);
+      mbar_wait(&ready_a[s], ph);
+      if (live) s_chunk(ring_a + s * A_BYTES);
+      release(&empty_a[s]);
+      if (++s == SA) s = 0, ph ^= 1;
+    }
+    const int b = i % SB;
+    mbar_wait(&full_b[b], (i / SB) & 1);
+    if (live) {
+      softmax(k0);
+#pragma unroll
+      for (int j = 0; j < COLS / 8; ++j) {
+        acc[4 * j] *= corr[0];
+        acc[4 * j + 1] *= corr[0];
+        acc[4 * j + 2] *= corr[1];
+        acc[4 * j + 3] *= corr[1];
+      }
+      pv(ring_b + b * B_BYTES);
+    }
+    release(&empty_b[b]);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) den[h] = fmaxf(l[h], 1e-30f);
+#pragma unroll
+  for (int j = 0; j < COLS / 8; ++j) {
+    acc[4 * j] /= den[0];
+    acc[4 * j + 1] /= den[0];
+    acc[4 * j + 2] /= den[1];
+    acc[4 * j + 3] /= den[1];
+  }
+  store_cols<COLS, T>(o + ((size_t)bh * sq + w0) * d + col0, d, acc, sq - w0,
+                      ncols);
+  if (chunk == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (w0 + g + 8 * h < sq)
+        lse[(size_t)bh * sq + w0 + g + 8 * h] = m[h] * scale + logf(den[h]);
+  }
+}
+
+// The float32 forward at head dim d: maps of 32-column boxes (Q's of 128
+// rows, K's and V's of 64), the grid one block per (row block, chunk of
+// tf32::cols(d, row blocks) of O's columns).
+template <int COLS>
+static int fwd_tf32_launch(const CUtensorMap& mq, const CUtensorMap& mk,
+                           const CUtensorMap& mv, void* o, void* lse, int bh,
+                           int sq, int sk, int d, int causal, float scale,
+                           cudaStream_t stream) {
+  const dim3 grid(bh * ((sq + tf32::ROWS - 1) / tf32::ROWS) *
+                  ((d + COLS - 1) / COLS));
+  return launch(fwd_kernel_tf32<float, COLS>, grid, tf32::THREADS,
+                (size_t)tf32::smem(COLS), stream, mq, mk, mv,
+                static_cast<float*>(o), static_cast<float*>(lse), sq, sk, d,
+                causal, scale);
+}
+
+static int fwd_tf32(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int bh, int sq, int sk, int d, int causal,
+                    float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = sm90::make_map_cols<float>(&mq, q, bh, sq, d, tf32::ROWS,
+                                       tf32::CHUNK);
+  if (!err)
+    err = sm90::make_map_cols<float>(&mk, k, bh, sk, d, tf32::TILE,
+                                     tf32::CHUNK);
+  if (!err)
+    err = sm90::make_map_cols<float>(&mv, v, bh, sk, d, tf32::TILE,
+                                     tf32::CHUNK);
+  if (err) return err;
+  const long blocks = (long)bh * ((sq + tf32::ROWS - 1) / tf32::ROWS);
+  switch (tf32::cols(d, blocks)) {
+    case 32:
+      return fwd_tf32_launch<32>(mq, mk, mv, o, lse, bh, sq, sk, d, causal,
+                                 scale, stream);
+    case 64:
+      return fwd_tf32_launch<64>(mq, mk, mv, o, lse, bh, sq, sk, d, causal,
+                                 scale, stream);
+    case 128:
+      return fwd_tf32_launch<128>(mq, mk, mv, o, lse, bh, sq, sk, d, causal,
+                                  scale, stream);
+    case 256:
+      return fwd_tf32_launch<256>(mq, mk, mv, o, lse, bh, sq, sk, d, causal,
+                                  scale, stream);
+  }
+  return FLASH_ERR_UNSUPPORTED;
 }
 
 // Shared memory of each body (ray_tpu_torch/ops/attention.py's
@@ -790,8 +981,7 @@ static size_t fwd_smem() {
            Tl::STAGES * 2 * sm90::tile_bytes<Tl::TILE, D>() +
            bars * sizeof(uint64_t) + sm90::SMEM_ALIGN;
   } else {
-    constexpr int BS = PlainTiles<D>::STREAM;
-    return ((BLOCK + 2 * BS) * ld<T, D>() + BLOCK * ld<T, BS>()) * sizeof(T);
+    return tf32::smem(tf32::cols(D, tf32::FILL));
   }
 }
 
@@ -811,11 +1001,7 @@ static int fwd(const void* q, const void* k, const void* v, void* o,
                   fwd_smem<T, D>(), stream, mq, mk, mv, static_cast<T*>(o),
                   static_cast<float*>(lse), sq, sk, causal, scale);
   } else {
-    const dim3 grid(bh * ((sq + BLOCK - 1) / BLOCK));
-    return launch(fwd_kernel<T, D>, grid, THREADS, fwd_smem<T, D>(), stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<T*>(o),
-                  static_cast<float*>(lse), sq, sk, causal, scale);
+    return fwd_tf32(q, k, v, o, lse, bh, sq, sk, D, causal, scale, stream);
   }
 }
 
@@ -849,7 +1035,7 @@ static int fwd_sm90_wide(const void* q, const void* k, const void* v,
 }
 
 // Above d 256: the Hopper body in 16 bits (O's column chunks 192 or 256
-// wide), the CUDA-core one in float32.
+// wide), the 3xTF32 one in float32.
 template <typename T>
 static int fwd_wide(const void* q, const void* k, const void* v, void* o,
                     void* lse, int bh, int sq, int sk, int d, int causal,
@@ -861,13 +1047,7 @@ static int fwd_wide(const void* q, const void* k, const void* v, void* o,
     return fwd_sm90_wide<T, 256>(q, k, v, o, lse, bh, sq, sk, d, causal,
                                  scale, stream);
   } else {
-    const size_t smem = wide::fwd_smem<T>(d);
-    if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
-    const dim3 grid(bh * ((sq + wide::ROWS - 1) / wide::ROWS));
-    return launch(fwd_kernel_wide<T>, grid, wide::THREADS, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<T*>(o),
-                  static_cast<float*>(lse), sq, sk, d, causal, scale);
+    return fwd_tf32(q, k, v, o, lse, bh, sq, sk, d, causal, scale, stream);
   }
 }
 
@@ -877,7 +1057,7 @@ static int fwd_wide_smem(int d) {
     return (int)(sm90::wide_cols(d) == 192 ? fwd_smem_sm90_wide<192>()
                                            : fwd_smem_sm90_wide<256>());
   else
-    return (int)wide::fwd_smem<T>(d);
+    return tf32::smem(tf32::cols(d, tf32::FILL));
 }
 
 // q [bh, sq, d], k and v [bh, sk, d] -> o [bh, sq, d], lse [bh, sq] float32.

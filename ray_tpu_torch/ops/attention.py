@@ -14,15 +14,19 @@ CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
 for the other. On the card the body is chosen by type and head dim: bf16
 and float16 run the Hopper bodies (TMA ring, wgmma) of all three kernels at
 every head dim, one instance per d up to 256 and, above, d at run time with
-the output's columns split over the grid; float32 runs the CUDA-core
-bodies, above 256 the wide ones, which take d at run time and keep their
-accumulators in shared memory (`TILES` lists each one's tiles).
+the output's columns split over the grid. float32 runs the forward on the
+tensor cores in 3xTF32 (mma.sync, each float32 operand split into two
+TF32 parts; a TMA ring; d at run time, O's columns split over the grid) at
+every head dim, and the backward pair on the CUDA-core bodies, above 256
+the wide ones, which take d at run time and keep their accumulators in
+shared memory (`TILES` lists each one's tiles).
 The dQ kernel runs first in the backward and also writes delta =
 rowsum(dO * O), which the dK/dV kernel reads.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -43,23 +47,28 @@ class Tile(NamedTuple):
     rows: int     # rows one block owns (queries; keys for dK/dV)
     stream: int   # rows of each tile the block streams past them
     stages: int   # slots of the ring the streamed tiles pass through
-    ring: bool    # TMA ring + wgmma (Hopper body), or the CUDA cores
+    # A TMA ring feeding the tensor cores (wgmma; mma.sync in 3xTF32 in the
+    # float32 forward), or the CUDA cores.
+    ring: bool
     # CUDA-core bodies: warps per 16 owned rows, each with its share of
     # dK's and dV's columns. Ring bodies: consumer warpgroups per 64 owned
     # rows; at 2 (dK/dV above d 128) one accumulates dV and the other dK,
     # and the first hands P^T to the second through shared memory.
     split: int = 1
     wide: bool = False  # d at run time
-    # The 16-bit bodies above d 256 (ring bodies with d at run time): the
-    # columns of the output (O; dQ; dK and dV) one block owns, 192 or 256;
-    # the grid holds one block per chunk of that many columns.
+    # The ring bodies with d at run time (16 bits above d 256, the float32
+    # forward at every d): the columns of the output (O; dQ; dK and dV) one
+    # block owns, 192 or 256 (the float32 forward: a power of two from 32 to
+    # 256, at a grid that fills the card); the grid holds one block per
+    # chunk of that many.
     cols: int = 0
 
 
 def _plain(name: str, d: int) -> Tile:
-    """A CUDA-core body's tiles (csrc/flash_common.cuh BLOCK, PlainTiles):
-    above d = 128 it streams 32-row tiles, and the dK/dV block splits dK's
-    and dV's columns between two warps per 16 keys."""
+    """A float32 backward CUDA-core body's tiles (csrc/flash_common.cuh
+    BLOCK, PlainTiles): above d = 128 it streams 32-row tiles, and the
+    dK/dV block splits dK's and dV's columns between two warps per 16
+    keys."""
     if d <= 128:
         return Tile(64, 64, 1, False)
     return Tile(64, 32, 1, False, 2 if name == "flash_bwd_dkv" else 1)
@@ -84,13 +93,14 @@ _RING = {
                      192: Tile(128, 32, 5, True),
                      256: Tile(128, 32, 3, True)},
 }
-# The float32 wide bodies' tiles (flash_common.cuh, namespace wide: ROWS
-# and the *_STREAM rows): one instance serves every multiple of 64 above
-# 256, up to the largest whose shared memory fits (`WIDE_MAX_D`).
-_WIDE = {"flash_fwd": Tile(16, 16, 1, False, wide=True),
-         "flash_bwd_dq": Tile(16, 16, 1, False, wide=True),
+# The float32 backward pair's wide bodies' tiles (flash_common.cuh,
+# namespace wide: ROWS and the *_STREAM rows): one instance serves every
+# multiple of 64 above 256, up to the largest whose shared memory fits
+# (`WIDE_MAX_D`).
+_WIDE = {"flash_bwd_dq": Tile(16, 16, 1, False, wide=True),
          "flash_bwd_dkv": Tile(16, 8, 1, False, wide=True)}
-_V_STAGES = 2  # the 16-bit forward above d 256: slots of V's tiles
+_V_STAGES = 2  # the 16-bit forward above d 256 and the float32 forward:
+# slots of V's tiles
 # The 16-bit dQ and dK/dV above d 256: slots of ring B, which holds the
 # operand of the block's chunk product (K's columns; Q's and dO's).
 _B_STAGES = 1
@@ -124,8 +134,42 @@ def _ring_wide(name: str, d: int) -> Tile:
     return Tile(64, 64, 4, True, 2, wide=True, cols=cols)
 
 
+# The float32 forward (flash_common.cuh, namespace tf32): a block owns 128
+# query rows and streams 64-key tiles; each of ring A's slots holds a
+# 32-column chunk of Q's rows, of the tile's keys and of their small TF32
+# parts, 4 slots, 3 where a block owns 256 of O's columns; ring
+# B's 2 slots V's [64 x cols] tiles. d at run time at every head dim; O's
+# columns split over the grid (`f32_fwd_cols`).
+_F32_CHUNK = 32   # columns of its TMA boxes: 128 bytes, the 128B swizzle
+_FILL = 132       # blocks an H100 runs at once (tf32::FILL)
+
+
+def _f32_fwd(d: int) -> Tile:
+    """The float32 forward's tiles at head dim d, on a grid that fills the
+    card (tf32::stages: ring A gives up a slot to V's wider tiles)."""
+    cols = f32_fwd_cols(d)
+    return Tile(128, 64, 3 if cols > 128 else 4, True, wide=True, cols=cols)
+
+
+def f32_fwd_cols(d: int, blocks: int = _FILL) -> int:
+    """The columns of O one float32 forward block owns at head dim d, where
+    the grid has `blocks` row blocks (bh x q-blocks of 128 rows; by
+    default enough to fill the card): the power of two from 32 to 256 that
+    covers d; while the grid then holds fewer than 132 blocks, half as
+    many, down to 64 (flash_common.cuh tf32::cols, which the launcher
+    runs)."""
+    w = _F32_CHUNK
+    while w < d and w < 256:
+        w *= 2
+    while w > 64 and blocks * -(-d // w) < _FILL:
+        w //= 2
+    return w
+
+
 def _tile(name: str, dtype: torch.dtype, d: int) -> Tile:
     """The tiles of kernel `name`'s body in this dtype at head dim d."""
+    if name == "flash_fwd" and dtype == torch.float32:
+        return _f32_fwd(d)
     if d > 256:
         return _ring_wide(name, d) if dtype in _HALF else _WIDE[name]
     return _RING[name][d] if dtype in _HALF else _plain(name, d)
@@ -134,6 +178,15 @@ def _tile(name: str, dtype: torch.dtype, d: int) -> Tile:
 def _smem(name: str, t: Tile, d: int, size: int) -> int:
     """Shared memory of one block of kernel `name` with tiles `t` at head
     dim d for elements of `size` bytes (the formulas of csrc/)."""
+    if t.ring and t.wide and name == "flash_fwd" and size == 4:
+        # The float32 forward (tf32::smem): ring A's slots, a 32-column
+        # (128-byte) chunk of Q's rows, of K's streamed rows and of their
+        # small parts each; V's [stream x cols] slots; a full, a ready and
+        # an empty mbarrier a slot of A, a full and an empty one a slot of
+        # B; 1024 bytes to align the swizzle pattern. d sets only cols.
+        return (t.stages * (t.rows + 2 * t.stream) * 128
+                + _V_STAGES * t.stream * t.cols * 4
+                + 8 * (3 * t.stages + 2 * _V_STAGES) + 1024)
     if t.ring and t.wide and name == "flash_fwd":
         # The 16-bit forward above d 256 (fwd_smem_sm90_wide): ring A's
         # slots, a 64-column chunk of Q's rows and of K's streamed rows
@@ -161,11 +214,11 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
         return (ring_a + ring_b + handoff + 8 * 2 * (t.stages + _B_STAGES)
                 + 1024)
     if t.wide:
-        # float32 accumulators (O; dQ; dK and dV) and P / dS tiles, then
-        # the owned and streamed rows padded by 16 bytes; dK/dV keeps the
+        # float32 accumulators (dQ; dK and dV) and dS / P tiles, then the
+        # owned and streamed rows padded by 16 bytes; dK/dV keeps the
         # streamed rows' lse and delta.
         row = (d + 16 // size) * size
-        n_acc, n_p, owned = {"flash_fwd": (1, 1, 1), "flash_bwd_dq": (1, 1, 2),
+        n_acc, n_p, owned = {"flash_bwd_dq": (1, 1, 2),
                              "flash_bwd_dkv": (2, 2, 2)}[name]
         out = 4 * t.rows * (n_acc * d + n_p * t.stream) \
             + (owned * t.rows + 2 * t.stream) * row
@@ -185,13 +238,12 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
         handoff = (2 * t.rows * t.stream * 4 + 8 * 4) if t.split == 2 else 0
         bars = (4 if name == "flash_fwd" and d > 128 else 2) * t.stages
         return owned + t.stages * slot + handoff + 8 * (1 + bars) + 1024
-    # Rows padded by 16 bytes; each warp's rows of P or dS get a tile of
-    # their own; dK/dV keeps lse and delta beside its tiles. Owned: Q
-    # (forward); Q and dO (dQ); K and V (dK/dV).
+    # The float32 backward pair on the CUDA cores: rows padded by 16 bytes;
+    # each warp's rows of dS or P get a tile of their own; dK/dV keeps lse
+    # and delta beside its tiles. Owned: Q and dO (dQ); K and V (dK/dV).
     row = (d + 16 // size) * size
-    owned = 1 if name == "flash_fwd" else 2
     p_tile = t.split * t.rows * (t.stream + 16 // size) * size
-    out = (owned * t.rows + 2 * t.stream) * row + p_tile
+    out = (2 * t.rows + 2 * t.stream) * row + p_tile
     return out + (2 * t.stream * 4 if name == "flash_bwd_dkv" else 0)
 
 
@@ -231,8 +283,9 @@ def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
 
 
 # (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: bf16 and float16 run
-# the Hopper bodies at every head dim, float32 the CUDA-core bodies (above
-# 256 the wide ones).
+# the Hopper bodies at every head dim; float32 the forward's 3xTF32 body at
+# every head dim (`cols` at a grid that fills the card) and the backward
+# pair's CUDA-core bodies (above 256 the wide ones).
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
     (name, dtype): {d: _tile(name, dtype, d) for d in head_dims(dtype)}
     for name in KERNELS for dtype in _DTYPE_CODES
@@ -295,10 +348,11 @@ def mha_reference(q, k, v, causal: bool = True,
 # --------------------------------------------------------------------------- #
 
 
-def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+def _scores(q, k, causal: bool, scale: float,
+            matmul=torch.matmul) -> torch.Tensor:
     """Scaled, masked float32 scores [bh, sq, sk]; the causal mask starts
     both positions at 0, as the kernels' does."""
-    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    s = matmul(q.float(), k.float().transpose(1, 2)) * scale
     if causal:
         mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
                           device=q.device).tril()
@@ -306,15 +360,65 @@ def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
     return s
 
 
-def flash_forward_reference(q, k, v, causal: bool, scale: float
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [bh, sq, d] in q's dtype, lse [bh, sq] float32)."""
-    s = _scores(q, k, causal, scale)
+def _softmax_pv(s, v, matmul=torch.matmul
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(softmax(s) V, lse) in float32 from the scores s."""
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(p, v.float()) / denom
-    return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
+    return matmul(p, v.float()) / denom, (m + torch.log(denom)).squeeze(-1)
+
+
+def flash_forward_reference(q, k, v, causal: bool, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [bh, sq, d] in q's dtype, lse [bh, sq] float32)."""
+    out, lse = _softmax_pv(_scores(q, k, causal, scale), v)
+    return out.to(q.dtype), lse
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (8 exponent and 10 mantissa bits), to
+    nearest with ties away from zero, as cvt.rna.tf32.f32 rounds: the best
+    one TF32 pass can take of x."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def truncate_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x as mma.sync reads a TF32 operand: its 13 low bits
+    dropped (rounded toward zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x = big + small as the float32 forward's products read them
+    (`tf32::split`): big is x truncated, small what is left, truncated;
+    x - (big + small) is at most 2^-20 of x."""
+    big = truncate_tf32(x)
+    return big, truncate_tf32(x.float() - big)
+
+
+def _matmul_tf32(a, b, passes: int) -> torch.Tensor:
+    """a @ b in float32 from TF32 operands: one pass on the rounded
+    operands, or the three products of the split ones, the corrections
+    first."""
+    if passes == 1:
+        return torch.matmul(round_tf32(a), round_tf32(b))
+    (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
+    return (torch.matmul(as_, bb) + torch.matmul(ab, bs)) + torch.matmul(ab, bb)
+
+
+def flash_forward_tf32_reference(q, k, v, causal: bool, scale: float,
+                                 passes: int = 3
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward (float32 inputs) with its two products, Q K^T and
+    P V, on TF32 operands as the tensor cores take them: passes=3 splits
+    them as the float32 kernel does (3xTF32), passes=1 is a single TF32
+    pass, Q, K, V and P rounded once, which the float32 kernel is not: its
+    1e-4 limit must reject that."""
+    matmul = functools.partial(_matmul_tf32, passes=passes)
+    return _softmax_pv(_scores(q, k, causal, scale, matmul), v, matmul)
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool,

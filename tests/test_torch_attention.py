@@ -282,14 +282,17 @@ def test_tile_table_fits_hopper_shared_memory():
             assert t.rows % (64 if t.ring else 16) == 0
             assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
             # The Hopper bodies take the 16-bit types at every head dim, in
-            # all three kernels; the float32 wide CUDA-core bodies take
-            # float32 above 256. Above 256, d is a run-time argument of
-            # every body, and each 16-bit block owns a chunk of the
+            # all three kernels; the float32 forward's 3xTF32 body, a TMA
+            # ring too, takes every float32 head dim, d at run time; the
+            # float32 backward pair runs the CUDA-core bodies, the wide ones
+            # above 256. Above 256, d is a run-time argument of every body.
+            # A block of a ring body with d at run time owns a chunk of the
             # output's columns. From d 192 up, the 16-bit dK/dV block's
             # two warpgroups share its keys (split 2), as the float32
             # CUDA-core block splits its columns at d 192 and 256.
-            assert t.ring == (dtype != torch.float32)
-            assert t.wide == (d > 256)
+            f32_fwd = dtype == torch.float32 and name == "flash_fwd"
+            assert t.ring == (dtype != torch.float32 or f32_fwd)
+            assert t.wide == (d > 256 or f32_fwd)
             assert (t.cols > 0) == (t.ring and t.wide)
             assert t.split == (2 if name == "flash_bwd_dkv" and 128 < d
                                and (d <= 256 or t.ring) else 1)
@@ -336,13 +339,27 @@ def test_tile_table_mirrors_the_cuda_sources():
                       r"D > 128 \? (\d+) : (\d+), SPLIT = D > 128 \? (\d+) "
                       r": (\d+);", src)
     s_big, s_small, split_big, split_small = map(int, plain.groups())
-    # The wide bodies: ROWS, and the streamed rows of each kernel.
+    # The wide backward bodies: ROWS, and the streamed rows of each kernel.
     wide = re.search(r"constexpr int ROWS = (\d+), THREADS = \d+;\s*"
-                     r"constexpr int FWD_STREAM = (\d+), DQ_STREAM = (\d+), "
+                     r"constexpr int DQ_STREAM = (\d+), "
                      r"DKV_STREAM = (\d+);", src)
-    wide_rows, fwd_s, dq_s, dkv_s = map(int, wide.groups())
-    wide_stream = {"flash_fwd": fwd_s, "flash_bwd_dq": dq_s,
-                   "flash_bwd_dkv": dkv_s}
+    wide_rows, dq_s, dkv_s = map(int, wide.groups())
+    wide_stream = {"flash_bwd_dq": dq_s, "flash_bwd_dkv": dkv_s}
+    # The float32 forward (namespace tf32): rows, the keys of a tile, ring
+    # A's slots and V's, one slot of A fewer above `wider` columns of O; its
+    # boxes' columns and the blocks that fill the card, which set O's
+    # column chunks (`f32_fwd_cols`).
+    f32 = tuple(map(int, re.search(
+        r"namespace tf32 \{\s*constexpr int ROWS = (\d+), TILE = (\d+), "
+        r"STAGES = (\d+), V_STAGES = (\d+);", src).groups()))
+    assert f32[3] == tattn._V_STAGES
+    wider = int(re.search(r"return cols > (\d+) \? STAGES - 1 : STAGES;",
+                          src).group(1))
+    assert wider == 128
+    assert int(re.search(r"constexpr int CHUNK = (\d+);", src).group(1)) \
+        == tattn._F32_CHUNK
+    assert int(re.search(r"constexpr int FILL = (\d+);", src).group(1)) \
+        == tattn._FILL
     # The 16-bit forward above 256 (WideFwdTiles): rows, the keys of a
     # tile, ring A's slots and V's; O's column chunks of 192 or 256.
     ring_wide = tuple(map(int, re.search(
@@ -378,7 +395,12 @@ def test_tile_table_mirrors_the_cuda_sources():
         assert set(spec) == {192, 256}
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             for d, t in tattn.TILES[name, dtype].items():
-                if t.ring and t.wide:
+                if dtype == torch.float32 and name == "flash_fwd":
+                    cols = tattn.f32_fwd_cols(d)
+                    assert t == tattn.Tile(
+                        *f32[:2], f32[2] - (cols > wider), True, wide=True,
+                        cols=cols)
+                elif t.ring and t.wide:
                     m = d // 64
                     cols = -(-m // -(-m // 4)) * 64
                     assert dtype != torch.float32
@@ -447,6 +469,126 @@ def test_wide_fwd_ring_shared_memory(d, dtype):
         + 1024
     assert tattn.kernel_smem_bytes(d, dtype)["flash_fwd"] == want
     assert want <= tattn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", tattn.head_dims(torch.float32))
+def test_f32_fwd_ring_shared_memory(d):
+    # The float32 forward (3xTF32), d at run time at every float32 head
+    # dim: each of ring A's slots takes a 32-column (128-byte) chunk of Q's
+    # 128 rows, of K's 64 keys and of those keys' small TF32 parts, 4 slots
+    # (3 beside V's tiles of 256 columns); ring B's 2 slots V's 64 keys x
+    # the block's chunk of O's columns (the power of two from 32 to 256
+    # that covers d: the whole of d up to 256, and above as few chunks of
+    # 256 as cover it); a full, a ready and an empty mbarrier a slot of A,
+    # a full and an empty one a slot of B; 1024 bytes to align the
+    # swizzle. No block grows with d. chip_smoke.py checks these against
+    # what flash_fwd_smem asks for on the card.
+    t = tattn.TILES["flash_fwd", torch.float32][d]
+    cols = {32: 32, 64: 64, 128: 128}.get(d, 256)
+    chunks = -(-d // cols)
+    stages = 3 if cols == 256 else 4
+    assert t == tattn.Tile(128, 64, stages, True, wide=True, cols=cols)
+    assert chunks == -(-d // 256)
+    assert (chunks - 1) * cols < d <= chunks * cols
+    want = stages * (128 + 2 * 64) * 32 * 4 + 2 * 64 * cols * 4 \
+        + 8 * (3 * stages + 2 * 2) + 1024
+    assert tattn.kernel_smem_bytes(d, torch.float32)["flash_fwd"] == want
+    assert want <= tattn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bh,seq,d,cols", [
+    # Grids that fill the card: the power of two that covers d, up to 256.
+    (24, 2048, 64, 64), (24, 2048, 192, 256), (24, 2048, 256, 256),
+    (24, 2048, 384, 256), (24, 2048, 704, 256),
+    # chip_smoke.py's small float32 shapes (4 to 8 row blocks): chunks of
+    # 64 columns; d 32 and 64 have no narrower chunk.
+    (4, 256, 256, 64), (2, 256, 512, 64), (3, 200, 128, 64), (5, 77, 32, 32),
+    (4, 256, 64, 64),
+    # In between: half as many columns while the grid holds fewer than
+    # 132 blocks.
+    (16, 1024, 256, 128), (2, 2048, 704, 128), (6, 2048, 192, 128)])
+def test_f32_fwd_column_chunks_fill_the_card(bh, seq, d, cols):
+    # The launcher splits O's columns further where the row blocks alone
+    # leave the card's 132 SMs idle (flash_common.cuh tf32::cols): every
+    # chunk starts inside d, the chunks cover it, and the grid reaches 132
+    # blocks unless the chunks are down to 64 columns (32 at d 32). The
+    # widths are the four instances the source compiles.
+    blocks = bh * -(-seq // 128)
+    got = tattn.f32_fwd_cols(d, blocks)
+    assert got == cols
+    chunks = -(-d // got)
+    assert (chunks - 1) * got < d <= chunks * got
+    assert blocks * chunks >= 132 or got == min(d, 64)
+    assert got in (32, 64, 128, 256)
+    assert got <= tattn.TILES["flash_fwd", torch.float32][d].cols
+
+
+def _mismatch(got, want, tol):
+    """max |got - want| / (tol * (row rms + |want|)), the row rms floored
+    at a tenth of the tensor's, as chip_smoke.py and the card tests hold
+    the kernels."""
+    typical = torch.maximum(want.square().mean(dim=-1, keepdim=True).sqrt(),
+                            want.square().mean().sqrt() / 10)
+    return ((got - want).abs() / (tol * (typical + want.abs()))).max().item()
+
+
+def test_tf32_split_keeps_float32_accuracy():
+    # The float32 forward splits each operand x into big + small, both TF32
+    # (10 mantissa bits, the 13 low bits 0) as mma reads them: big is x
+    # truncated, and what big + small misses is at most 2^-20 of x, where
+    # big alone misses up to 2^-10 and x rounded once up to 2^-11.
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        4096).astype(np.float32)) * torch.logspace(-20, 20, 4096)
+    big, small = tattn.split_tf32(x)
+    for part in (big, small, tattn.round_tf32(x)):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((big - x).abs() <= 2.0 ** -10 * x.abs()).all()
+    assert (big.abs() <= x.abs()).all() and (small.abs() <= x.abs()).all()
+    assert ((tattn.round_tf32(x) - x).abs() <= 2.0 ** -11 * x.abs()).all()
+    assert ((big + small - x).abs() <= 2.0 ** -20 * x.abs()).all()
+    # Rounding ties go away from zero, as cvt.rna.tf32.f32 rounds.
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)])
+    assert tattn.round_tf32(tie).tolist() == [1 + 2.0 ** -10,
+                                              -(1 + 2.0 ** -10)]
+    assert tattn.truncate_tf32(tie).tolist() == [1.0, -1.0]
+
+
+@pytest.mark.parametrize("d", [64, 256, 704])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_limit_rejects_single_pass_tf32(d, causal):
+    # The float32 forward is held to 1e-4 of its plain version, element by
+    # element against each row's rms (chip_smoke.py TOL, the card tests).
+    # Its 3xTF32 products sit far inside that limit; one TF32 pass (Q, K, V
+    # and P rounded once to 10 mantissa bits) is well outside it, which is
+    # why the kernel splits every operand.
+    q, k, v = (torch.from_numpy(a).reshape(2, 256, d)
+               for a in _inputs(12, n=3, shape=(1, 2, 256, d)))
+    scale = d ** -0.5
+    want, want_lse = tattn.flash_forward_reference(q, k, v, causal, scale)
+    out3, lse3 = tattn.flash_forward_tf32_reference(q, k, v, causal, scale)
+    out1, _ = tattn.flash_forward_tf32_reference(q, k, v, causal, scale,
+                                                 passes=1)
+    assert _mismatch(out3, want, 1e-4) < 0.2
+    assert _mismatch(lse3, want_lse, 1e-4) < 0.2
+    assert _mismatch(out1, want, 1e-4) > 5
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_3xtf32_forward_matches_jax_kernel(interpret, d, causal):
+    # The float32 kernel's arithmetic (3xTF32 products, float32 sums) against
+    # the JAX package's float32 kernel, at its own float32 tolerance.
+    q, k, v = _inputs(14, n=3, shape=(1, 2, 128, d))
+    scale = d ** -0.5
+    out_j, lse_j = jattn._flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal, scale,
+                                        BLOCK, BLOCK)
+    out, lse = tattn.flash_forward_tf32_reference(_t3(q), _t3(k), _t3(v),
+                                                  causal, scale)
+    np.testing.assert_allclose(out.reshape(1, 2, 128, d).numpy(),
+                               np.asarray(out_j), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[..., 0],
+                               **FWD_TOL)
 
 
 def _chunks_cover(d, cols):

@@ -46,8 +46,8 @@ def card():
     # head dim, two boxes a row).
     (torch.bfloat16, True, 200, 64, 6), (torch.bfloat16, True, 200, 128, 8),
     # float16 on the Hopper bodies, and d 192 and 256: all three kernels on
-    # the Hopper bodies in 16 bits, on the CUDA-core bodies in float32 (two
-    # warps a key row in dK/dV).
+    # the Hopper bodies in 16 bits; in float32 the forward's 3xTF32 body
+    # and the backward pair's CUDA-core ones (two warps a key row in dK/dV).
     (torch.float16, True, 1024, 64, 3), (torch.float16, False, 200, 128, 3),
     (torch.float16, True, 130, 32, 3), (torch.bfloat16, True, 300, 192, 3),
     (torch.float16, True, 300, 256, 3), (torch.bfloat16, False, 256, 256, 2),
@@ -60,10 +60,11 @@ def card():
     (torch.float32, False, 64, 704, 1)])
 def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d,
                                               bh):
-    # float32: summation order only (1e-4 forward, 5e-4 gradients); bf16
-    # and float16: the kernels round P and dS to the input type for the
-    # products (bf16 8 significant bits: 2e-2; float16 11: 5e-3). delta is
-    # a float32 sum of the same products in both: 1e-4.
+    # float32: the forward's 3xTF32 products (about 2^-22 of each) and
+    # summation order (1e-4 forward), summation order in the backward pair
+    # (5e-4 gradients); bf16 and float16: the kernels round P and dS to the
+    # input type for the products (bf16 8 significant bits: 2e-2; float16
+    # 11: 5e-3). delta is a float32 sum of the same products in both: 1e-4.
     tol = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2),
            torch.float16: (5e-3, 5e-3)}[dtype]
     gen = torch.Generator(device=card).manual_seed(0)
@@ -215,6 +216,59 @@ def test_wide_backward_on_card(card, d, dtype, causal, sq, sk, bh):
     assert _within(delta_k, delta, 1e-4)
     assert _within(dq, tattn.flash_bwd_dq_reference(*args), tol)
     assert _within(dk, want_dk, tol) and _within(dv, want_dv, tol)
+
+
+# The float32 forward's 3xTF32 body (d at run time at every float32 head
+# dim, O's columns split over the grid): d 32, 64, 192, 256, 320 and 704;
+# ragged, the last tile ending inside the head in several heads (seq 77,
+# 130 and 300); causal and not; seq_q != seq_k; grids of 2 to 15 row
+# blocks, whose columns split into chunks of 64 to fill the card, and one
+# of 320, which keeps the fewest chunks. Held to the float32 limit, 1e-4,
+# on out and lse.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 192, 256, 320, 704])
+@pytest.mark.parametrize("causal,sq,sk,bh", [
+    (True, 300, 300, 3), (True, 77, 77, 5), (False, 130, 130, 2),
+    (False, 200, 333, 2), (True, 1024, 1024, 40)])
+def test_float32_forward_on_card(card, d, causal, sq, sk, bh):
+    gen = torch.Generator(device=card).manual_seed(d + sq + 3 * sk)
+    q = torch.randn(bh, sq, d, generator=gen, device=card)
+    k, v = (torch.randn(bh, sk, d, generator=gen, device=card)
+            for _ in range(2))
+    scale = d ** -0.5
+    t = tattn.TILES["flash_fwd", torch.float32][d]
+    assert t.ring and t.wide and t.cols == tattn.f32_fwd_cols(d)
+    before = tattn.kernel_launches()["flash_fwd"]
+    out, lse = tattn._flash_forward(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert tattn.kernel_launches()["flash_fwd"] == before + 1
+    want_out, want_lse = tattn.flash_forward_reference(q, k, v, causal, scale)
+    assert _within(out, want_out, 1e-4)
+    assert _within(lse, want_lse, 1e-4)
+
+
+# Autograd in float32 through the new forward's lse: K2 and K3 (the
+# CUDA-core bodies; above 256 the wide ones) recompute P from it, so a
+# wrong lse shows in every gradient. Against plain attention, 1e-4 on the
+# output and 5e-4 on the gradients.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 256, 704])
+@pytest.mark.parametrize("causal", [True, False])
+def test_float32_autograd_through_the_new_lse_on_card(card, d, causal):
+    gen = torch.Generator(device=card).manual_seed(d + 7)
+    q, k, v, g = (torch.randn(1, 3, 300, d, generator=gen, device=card)
+                  for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = tattn.kernel_launches()
+    out = tattn.flash_attention(*leaves, causal)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert tattn.kernel_launches() == {n: c + 1 for n, c in before.items()}
+    ref = tattn.mha_reference(*ref_leaves, causal=causal)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, g)
+    assert _within(out, ref, 1e-4)
+    for a, b in zip(grads, ref_grads):
+        assert _within(a, b, 5e-4)
 
 
 @pytest.mark.cuda
