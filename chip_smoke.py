@@ -10,12 +10,11 @@ failed phase, with no phase caught.
    CUDA kernels of `ray_tpu_torch/csrc/`, prints the build time and each
    kernel's registers and spills (the Hopper bodies of all three kernels
    at head dims 192 and 256, in bf16 and float16, and above 256, and the
-   float32 forward at every width of its column chunks, must not
-   spill), and checks that the shared memory each C entry point asks for
-   is what `attention.kernel_smem_bytes` computes from the tile table, that
-   in float32 one multiple of 64 past the largest head dim would not fit a
-   block, and that in 16 bits `flash_attention` refuses d 1088, naming
-   1024.
+   float32 bodies of all three at every width of their column chunks,
+   must not spill), and checks that the shared memory each C entry point
+   asks for is what `attention.kernel_smem_bytes` computes from the tile
+   table, and that `flash_attention` refuses float32 d 768, naming 704,
+   and 16-bit d 1088, naming 1024.
 1b. Runtime: `ray_tpu_torch.init()` must advertise the card (`GPU: 1`);
    runs 16 tasks and an actor, moves a 256 MiB numpy array through
    `put`/`get` in a worker and back (MB/s printed), checks that a CPU task
@@ -49,8 +48,9 @@ failed phase, with no phase caught.
    a block owns one, for O, dQ, dK and dV, P left unnormalised, delta left
    at 0, each sized from the kernel's own tiles) at the main shape, at bf16
    d 256 (bh 24, seq 2048), at d 384 (bf16) and at float32 d 256 and 704
-   (bh 24, seq 2048), and that the float32 limit rejects the forward in
-   one TF32 pass at every float32 case; names the kernels
+   (bh 24, seq 2048), and that the float32 limits reject the forward and
+   the backward pair in one TF32 pass at every float32 case; names the
+   kernels
    `scaled_dot_product_attention` runs for float32 (a profiler trace);
    times each kernel, its plain
    version and
@@ -255,9 +255,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,
 # two TF32 parts; the dropped small * small term is about 2^-22 of a
 # product, float32's own rounding) and its sums in another order over up
 # to 1024 terms: 1e-4 for the forward, which a single TF32 pass (2^-11)
-# breaks (check_single_pass_tf32). The backward pair runs float32 on the
-# CUDA cores; its gradients go through one more product with cancelling
-# terms (dP - delta), so 5e-4.
+# breaks (check_single_pass_tf32). The backward pair runs its products the
+# same way; its gradients go through one more product with cancelling
+# terms (dP - delta), so 5e-4, which one TF32 pass breaks too.
 # float16: the same rounding of P and dS as bf16, to 11 significant bits
 # (2^-12 relative) instead of 8, and one rounding of the result (2^-11):
 # 5e-3 covers both with the same room as bf16's 2e-2.
@@ -323,8 +323,9 @@ F3_CASES = [
 ]
 F3_FAULTS = dict(bh=8, seq=1024, d=384, dtype=torch.bfloat16, causal=True)
 # The planted faults at the widest Hopper instance, and at the float32
-# forward's widest d <= 256 and widest instance (three chunks of O's
-# columns, 256 each), each filling the card.
+# bodies' widest d <= 256 and widest instance (O's columns in three
+# chunks of 256, dQ's, dK's and dV's in six of 128; at d 256 the
+# gradients' in two), each filling the card.
 F10_FAULTS = dict(F1_CASES[2])
 assert F10_FAULTS["d"] == 256 and F10_FAULTS["dtype"] == torch.bfloat16
 F32_FAULTS = [dict(bh=24, seq=2048, d=d, dtype=torch.float32, causal=True)
@@ -333,7 +334,8 @@ assert all(f in F1_CASES + F3_CASES for f in F32_FAULTS)
 # Kernel bodies that must not spill (phase 1), by source: the Hopper bodies
 # at d 192 and 256, and those above d 256, whose instances are named by
 # the columns of the output a block owns (192 and 256), as ptxas_usage
-# names them; and the float32 forward at every chunk of O's columns.
+# names them; and the float32 bodies at every chunk of the output's
+# columns (the backward pair's up to 128).
 NO_SPILL = {src: [f"{body}<{t}, {d}>" for body in bodies
                   for t in ("bf16", "f16") for d in (192, 256)]
             for src, bodies in (
@@ -344,6 +346,10 @@ NO_SPILL = {src: [f"{body}<{t}, {d}>" for body in bodies
                                   "bwd_dkv_kernel_sm90_wide")))}
 NO_SPILL["flash_fwd.cu"] += [f"fwd_kernel_tf32<float, {c}>"
                              for c in (32, 64, 128, 256)]
+NO_SPILL["flash_bwd.cu"] += [f"{body}<float, {c}>"
+                             for body in ("bwd_dq_kernel_tf32",
+                                          "bwd_dkv_kernel_tf32")
+                             for c in (32, 64, 128)]
 # (kernel, output, tolerance) of each output held against its plain
 # version; delta is a float32 sum in both, held to the float32 forward's.
 OUTPUTS = [("flash_fwd", "out", "fwd"), ("flash_fwd", "lse", "fwd"),
@@ -468,10 +474,9 @@ def bound(case, n_products: int, tensors):
 def ptxas_usage(log: str):
     """(kernel, registers, spill line) for each kernel in `nvcc -Xptxas -v`
     output; the kernel is named with its template arguments, read from the
-    mangled name (e.g. `bwd_dq_kernel<bf16, 64>`; the wide bodies, whose d
-    is a run-time argument, `bwd_dq_kernel_wide<float, d>`; the 16-bit
-    bodies above d 256 by the columns of the output a block owns,
-    `fwd_kernel_sm90_wide<bf16, 256>`)."""
+    mangled name (e.g. `bwd_dq_kernel_sm90<bf16, 64>`; the bodies whose d
+    is a run-time argument by the columns of the output a block owns,
+    `fwd_kernel_sm90_wide<bf16, 256>`, `bwd_dkv_kernel_tf32<float, 128>`)."""
     import re
 
     types = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "f16"}
@@ -492,7 +497,7 @@ def ptxas_usage(log: str):
 def check_smem(attn, build) -> None:
     """The shared memory each C entry point asks for must be what the tile
     table gives (`attention.kernel_smem_bytes`); past the largest head dim
-    of each type the kernels must not be offered."""
+    of each type `flash_attention` must refuse, naming it."""
     fwd, bwd = build.load("flash_fwd.cu"), build.load("flash_bwd.cu")
     for dtype, code in attn._DTYPE_CODES.items():
         for d in attn.head_dims(dtype):
@@ -509,17 +514,11 @@ def check_smem(attn, build) -> None:
     most = {str(t).split(".")[-1]: m for t, m in attn.WIDE_MAX_D.items()}
     print(f"  shared memory of every kernel, dtype and head dim matches the "
           f"tile table (largest {largest} B; head dims up to {most})")
-    # float32: one multiple of 64 past the largest, some block would not
-    # fit. bf16 and float16: no block grows with d above 256, so the cap is
-    # the tile table's own; flash_attention must refuse past it, naming it.
-    for dtype, code in attn._DTYPE_CODES.items():
+    # No block grows with d above 256, so each type's cap is the tile
+    # table's own (WIDE_MAX_D); flash_attention must refuse past it, naming
+    # it.
+    for dtype in attn._DTYPE_CODES:
         d = attn.WIDE_MAX_D[dtype] + 64
-        if dtype == torch.float32:
-            if max(fwd.flash_fwd_smem(d, code),
-                   bwd.flash_bwd_smem(0, d, code),
-                   bwd.flash_bwd_smem(1, d, code)) <= attn.SMEM_LIMIT:
-                raise AssertionError(f"d={d} {dtype} would fit a block")
-            continue
         q = torch.zeros(1, 1, 8, d, dtype=dtype, device="cuda")
         try:
             attn.flash_attention(q, q, q)
@@ -529,9 +528,9 @@ def check_smem(attn, build) -> None:
                                      f"{attn.WIDE_MAX_D[dtype]}: {err}")
         else:
             raise AssertionError(f"flash_attention took d={d} {dtype}")
-    print(f"  past the largest head dims: float32's blocks would not fit; "
-          f"bf16 and float16 refused at d "
-          f"{attn.WIDE_MAX_D[torch.bfloat16] + 64}")
+    print(f"  past the largest head dims: refused at d "
+          f"{attn.WIDE_MAX_D[torch.float32] + 64} in float32, "
+          f"{attn.WIDE_MAX_D[torch.bfloat16] + 64} in bf16 and float16")
 
 
 def run_kernels(attn, q, k, v, do, causal: bool, scale: float) -> dict:
@@ -545,7 +544,16 @@ def run_kernels(attn, q, k, v, do, causal: bool, scale: float) -> dict:
 
 def run_plain(attn, q, k, v, do, got, causal: bool, scale: float) -> dict:
     """The plain versions on the same inputs; the backward ones take the
-    kernel's out and lse, as K2 and K3 do."""
+    kernel's out and lse, as K2 and K3 do. float32 cases run them in
+    float64: at a causal row's first key dS = P (dP - delta) is 0 in exact
+    arithmetic, so that row of dQ is all rounding, held to a tenth of the
+    tensor's rms, and the plain versions in float32 miss the float64
+    answer there by about the limit itself (check_single_pass_tf32 prints
+    how far): no kernel could be judged against them. The limits are the
+    same."""
+    if q.dtype == torch.float32:
+        q, k, v, do = (t.double() for t in (q, k, v, do))
+        got = {key: t.double() for key, t in got.items()}
     out, lse = attn.flash_forward_reference(q, k, v, causal, scale)
     delta = attn.bwd_delta(got["out"], do)
     dq = attn.flash_bwd_dq_reference(q, k, v, do, got["lse"], delta, causal,
@@ -608,7 +616,8 @@ def check_kernels(attn) -> dict:
         label = case_label(case)
         errs = report(compare(got, want, case["dtype"]), label)
         if case["dtype"] == torch.float32:
-            check_single_pass_tf32(attn, q, k, v, causal, scale, want, label)
+            check_single_pass_tf32(attn, q, k, v, do, causal, scale, got,
+                                   want, label)
         if case is not MAIN:
             continue
         check_planted_faults(attn, q, k, v, do, got["lse"], want["delta"],
@@ -696,7 +705,8 @@ def check_instances(attn, records, cases, seed: int) -> None:
             check_planted_faults(attn, q, k, v, do, got["lse"],
                                  want["delta"], scale, got, want, errs)
         if case["dtype"] == torch.float32:
-            check_single_pass_tf32(attn, q, k, v, causal, scale, want, label)
+            check_single_pass_tf32(attn, q, k, v, do, causal, scale, got,
+                                   want, label)
         if case == F32_FAULTS[0]:
             records["flash_fwd"]["sdpa_float32_kernels"] = sdpa_kernels(
                 q, k, v, causal, scale, label)
@@ -771,12 +781,13 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
       - delta, the last q-block leaves its rows at 0;
       - dK and dV, the first key block skips one Q/dO tile in the middle;
       - where a block owns a chunk of the output's columns narrower than
-        d (the 16-bit bodies above d 256, the float32 forward above 256 at
-        these shapes), each skipped tile again, in chunk 0's block alone
-        (O, dQ, dK and dV).
+        d (the 16-bit bodies above d 256; in float32 the forward above
+        256 and the backward pair above 128, at these shapes), each skipped
+        tile again, in chunk 0's block alone (O, dQ, dK and dV).
     The last q-block averages the most keys, and the first key block takes
     rows from every q-block, so one tile is the smallest share there."""
     s, d = q.shape[1], q.shape[2]
+    delta = delta.float()  # float64 beside float32 inputs (run_plain)
     fwd, dq_t, dkv = (attn.TILES[name, q.dtype][d] for name in attn.KERNELS)
     tol_f, tol_b = TOL[q.dtype, "fwd"], TOL[q.dtype, "bwd"]
     tol_d = TOL[torch.float32, "fwd"]
@@ -846,13 +857,13 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
         *([("flash_bwd_dq", f"dQ: the last q-block's columns 0.."
             f"{dq_t.cols - 1} skip keys {rows(drop_q)}", "dq", tol_b,
             planted_cols(got["dq"], last_q, dq_t.cols, dq_drop[:, last_q]))]
-          if dq_t.cols else []),
+          if 0 < dq_t.cols < d else []),
         *([("flash_bwd_dkv", f"d{key[1].upper()}: the first key block's "
             f"columns 0..{dkv.cols - 1} skip queries {rows(drop_k)}", key,
             tol_b,
             planted_cols(got[key], first_k, dkv.cols, drop[:, first_k]))
            for key, drop in (("dk", dk_drop), ("dv", dv_drop))]
-          if dkv.cols else []),
+          if 0 < dkv.cols < d else []),
     ]
     for name, what, key, tol, bad in faults:
         ratio = mismatch(bad, want[key], tol)
@@ -864,22 +875,39 @@ def check_planted_faults(attn, q, k, v, do, lse, delta, scale, got, want,
                                  f"fault ({what})")
 
 
-def check_single_pass_tf32(attn, q, k, v, causal, scale, want,
+def check_single_pass_tf32(attn, q, k, v, do, causal, scale, got, want,
                            label: str) -> None:
-    """The float32 forward's check must reject a kernel that runs its
-    products in one TF32 pass: the plain math with Q, K, V and P rounded to
-    TF32 (`flash_forward_tf32_reference(passes=1)`) must mismatch the plain
-    float32 version above 1 of the float32 limit, which the 3xTF32 kernel
-    passes."""
+    """The float32 checks must reject kernels that run their products in
+    one TF32 pass: the plain math with every operand rounded to TF32
+    (`flash_forward_tf32_reference` and `flash_bwd_tf32_reference` with
+    passes=1, the backward on the kernel's out and lse, as `run_plain`'s)
+    must mismatch the plain versions (run in float64) above 1 of the
+    float32 limits, on out and on each of dQ, dK and dV, which the 3xTF32
+    kernels pass. Prints beside them how far the plain versions run in
+    float32 land from float64 (`run_plain` says why that is not the
+    yardstick)."""
+    delta = attn.bwd_delta(got["out"], do)
     out, _ = attn.flash_forward_tf32_reference(q, k, v, causal, scale,
                                                passes=1)
-    ratio = mismatch(out, want["out"], TOL[torch.float32, "fwd"])
-    print(f"  planted fault, out in one TF32 pass at {label}: mismatch="
-          f"{ratio:.4f} of its limit "
-          f"{'rejected' if ratio > 1.0 else 'NOT REJECTED'}")
-    if not ratio > 1.0:
-        raise AssertionError(f"the float32 check passes single-pass TF32 "
-                             f"at {label}")
+    grads = attn.flash_bwd_tf32_reference(q, k, v, do, got["lse"], delta,
+                                          causal, scale, passes=1)
+    for key, one, kind in (("out", out, "fwd"),
+                           *zip(("dq", "dk", "dv"), grads, ("bwd",) * 3)):
+        ratio = mismatch(one, want[key], TOL[torch.float32, kind])
+        print(f"  planted fault, {key} in one TF32 pass at {label}: "
+              f"mismatch={ratio:.4f} of its limit "
+              f"{'rejected' if ratio > 1.0 else 'NOT REJECTED'}")
+        if not ratio > 1.0:
+            raise AssertionError(f"the float32 check passes single-pass "
+                                 f"TF32 ({key}) at {label}")
+    args = (q, k, v, do, got["lse"], delta, causal, scale)
+    plain = dict(zip(("dq", "dk", "dv"), (
+        attn.flash_bwd_dq_reference(*args),
+        *attn.flash_bwd_dkv_reference(*args))))
+    tol = TOL[torch.float32, "bwd"]
+    print(f"  the plain versions in float32 against float64 at {label}: "
+          + ", ".join(f"{key} {mismatch(t, want[key], tol):.4f}"
+                      for key, t in plain.items()) + " of the limit")
 
 
 def sdpa_kernels(q, k, v, causal, scale, label: str) -> list:
@@ -3067,9 +3095,8 @@ def main() -> int:
         if bad:
             raise AssertionError(f"spilled or not built: {bad}")
         print(f"  {src}: no spills in its {len(NO_SPILL[src])} Hopper "
-              f"instances at d 192 and 256 (and above 256)"
-              + (" and float32 forward ones" if src == "flash_fwd.cu"
-                 else ""))
+              f"instances at d 192 and 256 (and above 256) and float32 "
+              f"ones")
     check_smem(attn, _build)
 
     print("== 1b. runtime: ray_tpu_torch.init, tasks, objects, GPU grants")

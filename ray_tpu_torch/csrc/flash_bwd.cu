@@ -86,17 +86,6 @@
 //   resident (48 and 64 KB), and Q and dO stream in tiles of 64 queries
 //   through 3 slots at d 192 and 2 at d 256.
 //
-// float32 at every d <= 256 (bwd_dq_kernel, bwd_dkv_kernel): 64
-// rows and 4 warps of 16 per block; dQ streams K/V tiles up to the diagonal
-// (and sums delta first, as the Hopper body does), dK/dV streams Q/dO tiles
-// from the diagonal down with the same transposed products. Each tile of
-// PlainTiles<D>::STREAM rows is copied into shared memory between two
-// barriers and shared by the block's warps; the products run on the CUDA
-// cores in float32 (flash_common.cuh says why), and dS goes through shared
-// memory, in the input type, to feed the next product. Above d = 128 the
-// dK/dV block runs two warps per 16 keys, each accumulating half of dK's
-// and dV's columns (PlainTiles::SPLIT).
-//
 // bf16 and float16 at d > 256, a multiple of 64 (bwd_dq_kernel_sm90_wide,
 // bwd_dkv_kernel_sm90_wide): the Hopper machinery with d at run time, on
 // the wide forward's answer (flash_fwd.cu). Neither a D-wide accumulator
@@ -113,110 +102,27 @@
 // 1024 (0.117, 0.156 and 0.313 ms at 989 TFLOP/s), dK/dV 155, 206 and 413
 // GFLOP (0.156, 0.209 and 0.417 ms); by operations.
 //
-// float32 at d > 256 (bwd_dq_kernel_wide, bwd_dkv_kernel_wide): on the
-// CUDA cores in float32, d a run-time argument, 16 owned rows a block. dQ
-// streams K/V tiles of 16 keys (delta summed first by the 8 lanes of each
-// query row); dK/dV streams Q/dO tiles of 8 queries with their lse and
-// delta. Each thread computes its entries of S and dP, P and dS go through
-// shared memory in float32, and the D-wide accumulators (dQ; dK and dV)
-// stay in shared memory, each thread adding into its own columns with the
-// streamed tile's column in registers.
+// float32 at every head dim (bwd_dq_kernel_tf32, bwd_dkv_kernel_tf32), d a
+// run-time argument: the forward's float32 shape (fwd_kernel_tf32) in 3xTF32, a
+// TMA ring of 32-column chunks, the gradients' columns split over the grid
+// (flash_common.cuh, namespace tf32, gives the tiles and why). A block owns 128
+// rows (queries; keys), 64 a consumer warpgroup, and each warpgroup builds dP
+// (dP^T) and then S (S^T) of a streamed tile of 64 rows on wgmma in two passes
+// over d, dP waiting in shared memory, and runs the products that contract over
+// the streamed rows (dS K; P^T dO and dS^T Q) on mma.sync from ring B's [64 x
+// COLS] tiles (COLS up to 128), each tile's share summed from 0 and added to
+// the gradient in float32; dQ's dP splits its operands to nearest, and delta is
+// summed in double, since dQ holds dP's error whole at a causal row's first
+// key. Bounds at bh 24, seq 2048, causal, at 165 TFLOP/s (the tensor cores'
+// TF32 rate over its three products): dQ 19.3, 38.7, 58.0 and 77.4 GFLOP at d
+// 64, 128, 192 and 256 (0.117, 0.234, 0.352 and 0.469 ms), dK/dV 25.8, 51.6,
+// 77.4 and 103.1 GFLOP (0.156, 0.313, 0.469 and 0.625 ms), against 76 to 302 MB
+// of inputs and outputs (0.023 to 0.090 ms at 3.35 TB/s): by operations, as
+// above 256 (d 704: 1.289 and 1.719 ms).
 
 #include "flash_common.cuh"
 
 using namespace flash;
-
-// The CUDA-core body.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const T* __restrict__ o, const float* __restrict__ lse,
-              float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-              int causal, float scale) {
-  constexpr int BS = PlainTiles<D>::STREAM;  // keys a streamed tile
-  constexpr int LD = ld<T, D>();
-  constexpr int LDP = ld<T, BS>();
-  constexpr int NTD = D / 8;
-  constexpr int NTK = BS / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + BLOCK * LD;
-  T* Ks = dOs + BLOCK * LD;
-  T* Vs = Ks + BS * LD;
-  T* Ss = Vs + BS * LD;  // [BLOCK][LDP]: dS, each warp its own 16 rows
-
-  const int nqb = (sq + BLOCK - 1) / BLOCK;  // grid as in flash_fwd.cu
-  const int bh = blockIdx.x / nqb;
-  const int q0 = (nqb - 1 - blockIdx.x % nqb) * BLOCK;  // heaviest first
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  q += (size_t)bh * sq * D;
-  dout += (size_t)bh * sq * D;
-  o += (size_t)bh * sq * D;
-  dq += (size_t)bh * sq * D;
-  k += (size_t)bh * sk * D;
-  v += (size_t)bh * sk * D;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-
-  load_tile<T, D>(Qs, q, q0, sq);
-  load_tile<T, D>(dOs, dout, q0, sq);
-  __syncthreads();  // dOs is read below
-  const int w0 = q0 + warp * 16;
-  const int rows[2] = {w0 + g, w0 + g + 8};
-  const T* Qw = Qs + warp * 16 * LD;
-  const T* dOw = dOs + warp * 16 * LD;
-  T* Sw = Ss + warp * 16 * LDP;
-  // delta = rowsum(dO * O) of this warp's rows: the four lanes of a row
-  // each sum every fourth column, then combine; one lane writes it for the
-  // dK/dV kernel.
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float sum = 0.f;
-    if (rows[i] < sq)
-      for (int c = t; c < D; c += 4)
-        sum = fmaf(to_float(dOw[(g + 8 * i) * LD + c]),
-                   to_float(o[(size_t)rows[i] * D + c]), sum);
-    row_delta[i] = quad_sum(sum);
-    row_lse[i] = rows[i] < sq ? lse[rows[i]] : 0.f;
-    if (t == 0 && rows[i] < sq) delta[rows[i]] = row_delta[i];
-  }
-
-  float acc[NTD][4];
-  zero(acc);
-  int nkb = (sk + BS - 1) / BS;
-  if (causal) nkb = min(nkb, (q0 + BLOCK - 1) / BS + 1);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BS;
-    __syncthreads();
-    load_tile<T, D, BS>(Ks, k, k0, sk);
-    load_tile<T, D, BS>(Vs, v, k0, sk);
-    __syncthreads();
-
-    float s[NTK][4], dp[NTK][4];
-    zero(s);
-    zero(dp);
-    warp_gemm<true, NTK, D>(s, Qw, LD, Ks, LD);    // S = Q K^T
-    warp_gemm<true, NTK, D>(dp, dOw, LD, Vs, LD);  // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < NTK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1), i = e >> 1;
-        const bool ok =
-            rows[i] < sq && col < sk && (!causal || col <= rows[i]);
-        const float p = ok ? expf(s[nt][e] * scale - row_lse[i]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - row_delta[i]) * scale;  // dS
-      }
-    store_acc<T>(Sw, LDP, s, 16);
-    __syncwarp();
-    warp_gemm<false, NTD, BS>(acc, Sw, LDP, Ks, LD);  // dQ += dS K
-    __syncwarp();
-  }
-  store_acc<T>(dq + (size_t)w0 * D, D, acc, sq - w0);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
@@ -484,100 +390,6 @@ bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] *= scale;
   store_rows<D, T>(dq + ((size_t)bh * sq + w0) * D, acc, sq - w0);
-}
-
-// The CUDA-core body: warp w holds keys 16 (w % WARPS).. and, of dK and dV,
-// the columns of group w / WARPS.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS * PlainTiles<D>::SPLIT)
-bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
-               int causal, float scale) {
-  constexpr int BS = PlainTiles<D>::STREAM;  // queries a streamed tile
-  constexpr int SPLIT = PlainTiles<D>::SPLIT;
-  constexpr int NT = THREADS * SPLIT;
-  constexpr int DC = D / SPLIT;  // dK and dV columns of one warp
-  constexpr int LD = ld<T, D>();
-  constexpr int LDP = ld<T, BS>();
-  constexpr int NTD = DC / 8;
-  constexpr int NTQ = BS / 8;  // accumulator tiles across a query tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BLOCK * LD;
-  T* Qs = Vs + BLOCK * LD;
-  T* dOs = Qs + BS * LD;
-  T* Ps = dOs + BS * LD;  // [SPLIT * BLOCK][LDP]: P^T then dS^T, per warp
-  float* lse_s = reinterpret_cast<float*>(Ps + SPLIT * BLOCK * LDP);
-  float* delta_s = lse_s + BS;
-
-  const int nkb = (sk + BLOCK - 1) / BLOCK;
-  const int bh = blockIdx.x / nkb;
-  const int k0 = (blockIdx.x % nkb) * BLOCK;  // low k-blocks: most work
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  q += (size_t)bh * sq * D;
-  dout += (size_t)bh * sq * D;
-  k += (size_t)bh * sk * D;
-  v += (size_t)bh * sk * D;
-  dk += (size_t)bh * sk * D;
-  dv += (size_t)bh * sk * D;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-
-  load_tile<T, D, BLOCK, NT>(Ks, k, k0, sk);
-  load_tile<T, D, BLOCK, NT>(Vs, v, k0, sk);
-  const int rw = warp % WARPS, c0 = (warp / WARPS) * DC;
-  const int w0 = k0 + rw * 16;  // this warp's first key row
-  const int keys[2] = {w0 + g, w0 + g + 8};
-  const T* Kw = Ks + rw * 16 * LD;
-  const T* Vw = Vs + rw * 16 * LD;
-  T* Pw = Ps + warp * 16 * LDP;
-
-  float dk_acc[NTD][4], dv_acc[NTD][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  const int nqb = (sq + BS - 1) / BS;
-  // Causal: q-tiles that end before this block's first key add nothing.
-  for (int qb = causal ? k0 / BS : 0; qb < nqb; ++qb) {
-    const int q0 = qb * BS;
-    __syncthreads();
-    load_tile<T, D, BS, NT>(Qs, q, q0, sq);
-    load_tile<T, D, BS, NT>(dOs, dout, q0, sq);
-    for (int i = threadIdx.x; i < BS; i += NT) {
-      lse_s[i] = q0 + i < sq ? lse[q0 + i] : 0.f;
-      delta_s[i] = q0 + i < sq ? delta[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float s[NTQ][4], dp[NTQ][4];
-    zero(s);
-    zero(dp);
-    warp_gemm<true, NTQ, D>(s, Kw, LD, Qs, LD);    // S^T = K Q^T
-    warp_gemm<true, NTQ, D>(dp, Vw, LD, dOs, LD);  // dP^T = V dO^T
-#pragma unroll
-    for (int nt = 0; nt < NTQ; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t + (e & 1), col = q0 + c;
-        const int key = keys[e >> 1];
-        const bool ok = col < sq && key < sk && (!causal || key <= col);
-        s[nt][e] = ok ? expf(s[nt][e] * scale - lse_s[c]) : 0.f;  // P^T
-        dp[nt][e] = s[nt][e] * (dp[nt][e] - delta_s[c]) * scale;   // dS^T
-      }
-    store_acc<T>(Pw, LDP, s, 16);
-    __syncwarp();
-    // dV += P^T dO and dK += dS^T Q, this warp's columns c0..
-    warp_gemm<false, NTD, BS>(dv_acc, Pw, LDP, dOs + c0, LD);
-    __syncwarp();
-    store_acc<T>(Pw, LDP, dp, 16);
-    __syncwarp();
-    warp_gemm<false, NTD, BS>(dk_acc, Pw, LDP, Qs + c0, LD);
-    __syncwarp();
-  }
-  store_acc<T>(dk + (size_t)w0 * D + c0, D, dk_acc, sk - w0);
-  store_acc<T>(dv + (size_t)w0 * D + c0, D, dv_acc, sk - w0);
 }
 
 template <typename T, int D>
@@ -1466,148 +1278,512 @@ bwd_dkv_kernel_sm90_wide(const __grid_constant__ CUtensorMap map_q,
                       d, acc, sk - w0, ncols);
 }
 
-// The float32 bodies above d 256 (flash_common.cuh, namespace wide).
-template <typename T>
-__global__ void __launch_bounds__(wide::THREADS)
-bwd_dq_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const T* __restrict__ o, const float* __restrict__ lse,
-                   float* __restrict__ delta, T* __restrict__ dq, int sq,
-                   int sk, int d, int causal, float scale) {
-  constexpr int R = wide::ROWS, BS = wide::DQ_STREAM;
-  const int LD = wide::ld<T>(d);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dQs = reinterpret_cast<float*>(smem);  // [R][d]
-  float* dSs = dQs + R * d;                      // [R][BS]
-  T* Qs = reinterpret_cast<T*>(dSs + R * BS);    // [R][LD]
-  T* dOs = Qs + R * LD;                          // [R][LD]
-  T* Ks = dOs + R * LD;                          // [BS][LD]
-  T* Vs = Ks + BS * LD;                          // [BS][LD]
+// dQ in float32 (flash_common.cuh, namespace tf32, says why this shape),
+// every head dim, d at run time: a block owns 128 query rows, two consumer
+// warpgroups of 64, and one chunk of COLS of dQ's columns from col0 =
+// chunk * COLS. For each key tile i of 64 keys it builds dP_i = dO V_i^T
+// over all d from the 32-column chunks of dO and V_i that the producer
+// streams through ring A (one chunk of each a slot, V_i's small parts
+// written beside it by the converters) and parks it in this thread's share
+// of the P buffer; then S_i = Q K_i^T from the chunks of Q and K_i; forms
+// P = 2^(S c2 - lse log2 e) and dS = P (dP - delta) in registers, masking
+// only a tile that crosses the diagonal or the end of the keys; and adds
+// dQ += dS_i K_i for its columns from K_i's [64 x COLS] tile in ring B.
+// delta = rowsum(dO O) is summed in the prologue from device memory by
+// every chunk's block in one order, so all agree bit for bit; chunk 0's
+// blocks write it for the dK/dV kernel. A warpgroup whose rows all lie
+// above a causal tile, or past the end of the queries, only waits for the
+// tile's slots and releases them.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(tf32::THREADS, 1)
+bwd_dq_kernel_tf32(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const T* __restrict__ dout, const T* __restrict__ out,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   T* __restrict__ dq, int sq, int sk, int d, int causal,
+                   float scale) {
+  static_assert(std::is_same<T, float>::value, "the float32 body");
+  static_assert(COLS <= tf32::DQ_WIDEST, "dQ fits in registers");
+  using namespace sm90;
+  constexpr int BQ = tf32::ROWS, BK = tf32::TILE, C = tf32::CHUNK;
+  constexpr int SA = tf32::BWD_STAGES, SB = tf32::bwd_b_stages(COLS);
+  constexpr uint32_t OWN = BQ * C * 4;     // a chunk of dO or Q
+  constexpr uint32_t STR = BK * C * 4;     // one of V_i or K_i, or its
+                                           // small parts
+  constexpr uint32_t A_BYTES = OWN + 2 * STR;
+  constexpr uint32_t B_BYTES = STR * (COLS / C);  // K_i's columns, in boxes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* ring_a = aligned_smem(smem_raw);
+  uint8_t* ring_b = ring_a + SA * A_BYTES;
+  float4* pbuf = reinterpret_cast<float4*>(ring_b + SB * B_BYTES);
+  // Each owned row's lse (times log2 e) and delta, [BQ][2].
+  float* rowstat = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(pbuf) + tf32::PBUF_BYTES);
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(rowstat + BQ * 2);
+  uint64_t* ready_a = full_a + SA;  // the streamed chunk's small parts are in
+  uint64_t* empty_a = ready_a + SA;
+  uint64_t* full_b = empty_a + SA;
+  uint64_t* empty_b = full_b + SB;
 
-  const int nqb = (sq + R - 1) / R;
-  const int bh = blockIdx.x / nqb;
-  const int q0 = (nqb - 1 - blockIdx.x % nqb) * R;
-  q += (size_t)bh * sq * d;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-  dout += (size_t)bh * sq * d;
-  o += (size_t)bh * sq * d;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-  dq += (size_t)bh * sq * d;
+  const int nd = d / C, nc = (d + COLS - 1) / COLS;
+  const WideBlock blk = wide_block((sq + BQ - 1) / BQ, nc, true);
+  const int bh = blk.bh, q0 = blk.row0 * BQ, chunk = blk.chunk;
+  const int col0 = chunk * COLS, ncols = min(COLS, d - col0);
+  int nkb = (sk + BK - 1) / BK;
+  if (causal) nkb = min(nkb, (q0 + BQ - 1) / BK + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  wide::load_rows(Qs, q, q0, R, sq, d);
-  wide::load_rows(dOs, dout, q0, R, sq, d);
-  for (int i = threadIdx.x; i < R * d; i += wide::THREADS) dQs[i] = 0.f;
-  __syncthreads();
-  // This thread's query row and its two key columns of each tile; the 8
-  // lanes of the row sum its delta = rowsum(dO * O) first.
-  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, row = q0 + r;
-  float dl = 0.f, lr = 0.f;
-  if (row < sq) {
-    for (int j = c; j < d; j += 8)
-      dl = fmaf(to_float(dOs[r * LD + j]), to_float(o[(size_t)row * d + j]),
-                dl);
-    lr = lse[row];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&ready_a[s], tf32::CONVERTERS);
+      mbar_init(&empty_a[s], tf32::WARPS);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full_b[s], 1);
+      mbar_init(&empty_b[s], tf32::WARPS);
+    }
+    mbar_fence_init();
   }
-  dl = wide::oct_sum(dl);
-  if (c == 0 && row < sq) delta[row] = dl;
-
-  int nkb = (sk + BS - 1) / BS;
-  if (causal) nkb = min(nkb, (q0 + R - 1) / BS + 1);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BS;
-    __syncthreads();  // every thread is done with the previous tiles and dS
-    wide::load_rows(Ks, k, k0, BS, sk, d);
-    wide::load_rows(Vs, v, k0, BS, sk, d);
-    __syncthreads();
-
-    float s0 = 0.f, s1 = 0.f, dp0 = 0.f, dp1 = 0.f;
-    wide::dot2(Qs + r * LD, Ks + c * LD, Ks + (c + 8) * LD, d, s0, s1);
-    wide::dot2(dOs + r * LD, Vs + c * LD, Vs + (c + 8) * LD, d, dp0, dp1);
-    const int c0 = k0 + c, c1 = k0 + c + 8;
-    const float p0 =
-        c0 < sk && (!causal || c0 <= row) ? expf(s0 * scale - lr) : 0.f;
-    const float p1 =
-        c1 < sk && (!causal || c1 <= row) ? expf(s1 * scale - lr) : 0.f;
-    dSs[r * BS + c] = p0 * (dp0 - dl) * scale;
-    dSs[r * BS + c + 8] = p1 * (dp1 - dl) * scale;
-    __syncthreads();
-    wide::add_wb<BS>(dQs, dSs, Ks, d);  // dQ += dS K
-  }
   __syncthreads();
-  wide::store_rows(dq, dQs, q0, sq, d, 1.f);
+
+  if (warp >= tf32::WARPS) {  // the producer warpgroup
+    reg_dealloc<tf32::PRODUCER_REGS>();
+    if (warp == tf32::WARPS && lane == 0) {
+      int s = 0, ph = 0;  // ring A's next slot, and its use's parity
+      for (int i = 0, n = 0; i < nkb; ++i) {
+        for (int pass = 0; pass < 2; ++pass)  // dO, V_i; then Q, K_i
+          for (int c = 0; c < nd; ++c, ++n) {
+            if (n >= SA) mbar_wait(&empty_a[s], ph ^ 1);
+            uint8_t* slot = ring_a + s * A_BYTES;
+            mbar_expect_tx(&full_a[s], OWN + STR);
+            tma_load(slot, pass ? &map_q : &map_do, &full_a[s], C * c, q0, bh);
+            tma_load(slot + OWN, pass ? &map_k : &map_v, &full_a[s], C * c,
+                     i * BK, bh);
+            if (++s == SA) s = 0, ph ^= 1;
+          }
+        const int b = i % SB;  // K_i's columns of this chunk
+        if (i >= SB) mbar_wait(&empty_b[b], (i / SB - 1) & 1);
+        mbar_expect_tx(&full_b[b], ncols / C * STR);
+        for (int j = 0; j < ncols / C; ++j)
+          tma_load(ring_b + b * B_BYTES + j * STR, &map_k, &full_b[b],
+                   col0 + C * j, i * BK, bh);
+      }
+    } else if (warp > tf32::WARPS) {  // the converters
+      const int ct = threadIdx.x - (tf32::WARPS + 1) * 32;
+      int s = 0, ph = 0;
+      for (int n = 0; n < nkb * 2 * nd; ++n) {  // dP's V_i to nearest
+        mbar_wait(&full_a[s], ph);
+        tf32::write_small_parts(ring_a + s * A_BYTES, ct, n % (2 * nd) < nd);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready_a[s]);
+        if (++s == SA) s = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumer warp `warp` owns rows w0 .. w0 + 15, its warpgroup rows
+  // wg_row0 .. wg_row0 + 63.
+  reg_alloc<tf32::CONSUMER_REGS>();
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + warp * 16, wg_row0 = q0 + (warp / 4) * 64;
+  const float c2 = scale * LOG2E;  // raw scores to base-2 exponents
+
+  // Each thread's two rows: lse in base 2, and delta = rowsum(dO * O), the
+  // four lanes of a row each summing every fourth float4 of both rows,
+  // kept in rowstat, beside the registers' dQ. delta is summed in double:
+  // where dS = P (dP - delta) is 0 in exact arithmetic (a causal row's
+  // first key), dQ then holds dP's rounding alone (score_chunk says how
+  // that is kept small). Rows past the end read nothing.
+  float2* mystat = reinterpret_cast<float2*>(rowstat) + warp * 16 + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    double sum = 0.0;
+    float lse2 = 0.f;
+    if (w0 + g + 8 * h < sq) {
+      const size_t row = (size_t)bh * sq + w0 + g + 8 * h;
+      const float4* a = reinterpret_cast<const float4*>(dout + row * d);
+      const float4* b = reinterpret_cast<const float4*>(out + row * d);
+      for (int j = t; j < d / 4; j += 4) {
+        const float4 x = a[j], y = b[j];
+        sum += (double)x.x * y.x + (double)x.y * y.y + (double)x.z * y.z +
+               (double)x.w * y.w;
+      }
+      lse2 = lse[row] * LOG2E;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (t == 0) mystat[8 * h] = make_float2(lse2, (float)sum);
+    if (chunk == 0 && t == 0 && w0 + g + 8 * h < sq)
+      delta[(size_t)bh * sq + w0 + g + 8 * h] = (float)sum;
+  }
+  __syncwarp();
+
+  float acc[COLS / 2];  // dQ / scale, [16 x COLS] across the warp
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];  // dP_i, then S_i, P_i and dS_i
+  // This thread's dP_i: 8 float4, a consumer thread's stride apart.
+  float4* mine = pbuf + threadIdx.x;
+
+  auto release = [&](uint64_t* bar) {  // this warp is done with a slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  int s = 0, ph = 0;  // ring A's slot in use and its use's parity
+  for (int i = 0; i < nkb; ++i) {
+    const int k0 = i * BK;
+    // Some key of the tile is unmasked for some row of this warpgroup.
+    const bool live = wg_row0 < sq && !(causal && k0 > wg_row0 + 63);
+    for (int pass = 0; pass < 2; ++pass) {  // dP_i, then S_i
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+      for (int c = 0; c < nd; ++c) {
+        mbar_wait(&full_a[s], ph);
+        mbar_wait(&ready_a[s], ph);
+        if (live && pass == 0)  // dP: split to nearest (see score_chunk)
+          tf32::score_chunk<true>(sc, ring_a + s * A_BYTES, warp, g, t);
+        else if (live)
+          tf32::score_chunk<false>(sc, ring_a + s * A_BYTES, warp, g, t);
+        release(&empty_a[s]);
+        if (++s == SA) s = 0, ph ^= 1;
+      }
+      if (pass == 0 && live) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          mine[j * tf32::WARPS * 32] =
+              make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2],
+                          sc[4 * j + 3]);
+      }
+    }
+    if (live) {
+      if (k0 + BK > sk || (causal && k0 + BK - 1 > w0)) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            const int row = w0 + g + 8 * (e >> 1);
+            if (!(col < sk && (!causal || col <= row))) sc[4 * j + e] = NEG_INF;
+          }
+      }
+      const float2 st[2] = {mystat[0], mystat[8]};  // (lse2, delta)
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float4 dp = mine[j * tf32::WARPS * 32];
+        const float p[4] = {dp.x, dp.y, dp.z, dp.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] =
+              fast_exp2(fmaf(sc[4 * j + e], c2, -st[e >> 1].x)) *
+              (p[e] - st[e >> 1].y);
+      }
+    }
+    const int b = i % SB;
+    mbar_wait(&full_b[b], (i / SB) & 1);
+    if (live)
+      tf32::col_product<COLS>(acc, sc, ring_b + b * B_BYTES, ncols / C, g, t);
+    release(&empty_b[b]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) acc[i] *= scale;
+  store_cols<COLS, T>(dq + ((size_t)bh * sq + w0) * d + col0, d, acc,
+                      sq - w0, ncols);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(wide::THREADS)
-bwd_dkv_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int sq, int sk, int d, int causal,
-                    float scale) {
-  constexpr int R = wide::ROWS, BS = wide::DKV_STREAM;
-  const int LD = wide::ld<T>(d);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dKs = reinterpret_cast<float*>(smem);  // [R][d]
-  float* dVs = dKs + R * d;                      // [R][d]
-  float* Ps = dVs + R * d;                       // [R][BS], keys x queries
-  float* dSs = Ps + R * BS;                      // [R][BS]
-  float* lse_s = dSs + R * BS;                   // [BS]
-  float* delta_s = lse_s + BS;                   // [BS]
-  T* Ks = reinterpret_cast<T*>(delta_s + BS);    // [R][LD]
-  T* Vs = Ks + R * LD;                           // [R][LD]
-  T* Qs = Vs + R * LD;                           // [BS][LD]
-  T* dOs = Qs + BS * LD;                         // [BS][LD]
+// dK/dV in float32 (flash_common.cuh, namespace tf32, says why this
+// shape), every head dim, d at run time: a block owns 128 keys, two
+// consumer warpgroups of 64, and one chunk of COLS of dK's and dV's
+// columns. For each tile i of 64 queries, from the diagonal down, each
+// warpgroup builds dP^T_i = V dO_i^T over all d from ring A's chunks of V
+// and dO_i and parks it in the P buffer, then S^T_i = K Q_i^T from the
+// chunks of K and Q_i; forms P^T = 2^(S^T c2 - lse log2 e) in registers,
+// masking only a tile that crosses the diagonal or either sequence's end,
+// and adds dV += P^T dO_i for its columns; then forms dS^T = P^T (dP^T -
+// delta) and adds dK += dS^T Q_i. Ring B holds the tile's columns of Q_i
+// and dO_i of the chunk, and its lse and delta, copied by TMA from one-
+// dimensional maps of the [bh, seq] vectors. scale is applied to dK once,
+// at the end.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(tf32::THREADS, 1)
+bwd_dkv_kernel_tf32(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_lse,
+                    const __grid_constant__ CUtensorMap map_delta,
+                    T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
+                    int d, int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "the float32 body");
+  static_assert(COLS <= tf32::DKV_WIDEST, "dK and dV fit in registers");
+  using namespace sm90;
+  constexpr int BKEY = tf32::ROWS, BQ = tf32::TILE, C = tf32::CHUNK;
+  constexpr int SA = tf32::BWD_STAGES, SB = tf32::bwd_b_stages(2 * COLS);
+  constexpr uint32_t OWN = BKEY * C * 4;   // a chunk of V or K
+  constexpr uint32_t STR = BQ * C * 4;     // one of dO_i or Q_i, or its
+                                           // small parts
+  constexpr uint32_t A_BYTES = OWN + 2 * STR;
+  constexpr uint32_t TB = STR * (COLS / C);  // Q_i's or dO_i's columns
+  constexpr uint32_t B_BYTES = 2 * TB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* ring_a = aligned_smem(smem_raw);
+  uint8_t* ring_b = ring_a + SA * A_BYTES;
+  // Ring B's lse and delta, [SB][2][STAT_LD], from the 16-byte aligned
+  // element at or before the tile's first (tf32::STAT says why).
+  constexpr int STAT = tf32::STAT, STAT_LD = tf32::STAT_LD;
+  float* stats = reinterpret_cast<float*>(ring_b + SB * B_BYTES);
+  float4* pbuf = reinterpret_cast<float4*>(stats + SB * 2 * STAT_LD);
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(pbuf) + tf32::PBUF_BYTES);
+  uint64_t* ready_a = full_a + SA;
+  uint64_t* empty_a = ready_a + SA;
+  uint64_t* full_b = empty_a + SA;
+  uint64_t* empty_b = full_b + SB;
 
-  // The first key blocks see the most causal queries: issued first.
-  const int nkb = (sk + R - 1) / R;
-  const int bh = blockIdx.x / nkb;
-  const int k0 = (blockIdx.x % nkb) * R;
-  q += (size_t)bh * sq * d;
-  k += (size_t)bh * sk * d;
-  v += (size_t)bh * sk * d;
-  dout += (size_t)bh * sq * d;
-  lse += (size_t)bh * sq;
-  delta += (size_t)bh * sq;
-  dk += (size_t)bh * sk * d;
-  dv += (size_t)bh * sk * d;
+  const int nd = d / C, nc = (d + COLS - 1) / COLS;
+  const WideBlock blk = wide_block((sk + BKEY - 1) / BKEY, nc, false);
+  const int bh = blk.bh, k0 = blk.row0 * BKEY, chunk = blk.chunk;
+  const int col0 = chunk * COLS, ncols = min(COLS, d - col0);
+  // Causal: q-tiles that end before this block's first key add nothing.
+  const int qb0 = causal ? k0 / BQ : 0;
+  const int n_iter = max(0, (sq + BQ - 1) / BQ - qb0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  wide::load_rows(Ks, k, k0, R, sk, d);
-  wide::load_rows(Vs, v, k0, R, sk, d);
-  for (int i = threadIdx.x; i < 2 * R * d; i += wide::THREADS) dKs[i] = 0.f;
-  // This thread's key row and its one query column of each tile.
-  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, key = k0 + r;
-
-  const int nqb = (sq + BS - 1) / BS;
-  for (int qb = causal ? k0 / BS : 0; qb < nqb; ++qb) {
-    const int q0 = qb * BS;
-    __syncthreads();  // every thread is done with the previous tiles, P, dS
-    wide::load_rows(Qs, q, q0, BS, sq, d);
-    wide::load_rows(dOs, dout, q0, BS, sq, d);
-    if (threadIdx.x < BS) {
-      const bool in = q0 + threadIdx.x < sq;
-      lse_s[threadIdx.x] = in ? lse[q0 + threadIdx.x] : 0.f;
-      delta_s[threadIdx.x] = in ? delta[q0 + threadIdx.x] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&ready_a[s], tf32::CONVERTERS);
+      mbar_init(&empty_a[s], tf32::WARPS);  // one arrival per consumer warp
     }
-    __syncthreads();
-
-    const float s = wide::dot(Ks + r * LD, Qs + c * LD, d);
-    const float dp = wide::dot(Vs + r * LD, dOs + c * LD, d);
-    const int qrow = q0 + c;
-    const float p = qrow < sq && key < sk && (!causal || key <= qrow)
-                        ? expf(s * scale - lse_s[c])
-                        : 0.f;
-    Ps[r * BS + c] = p;
-    dSs[r * BS + c] = p * (dp - delta_s[c]) * scale;
-    __syncthreads();
-    wide::add_wb<BS>(dVs, Ps, dOs, d);  // dV += P^T dO
-    wide::add_wb<BS>(dKs, dSs, Qs, d);  // dK += dS^T Q
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full_b[s], 1);
+      mbar_init(&empty_b[s], tf32::WARPS);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  wide::store_rows(dk, dKs, k0, sk, d, 1.f);
-  wide::store_rows(dv, dVs, k0, sk, d, 1.f);
+
+  if (warp >= tf32::WARPS) {  // the producer warpgroup
+    reg_dealloc<tf32::PRODUCER_REGS>();
+    if (warp == tf32::WARPS && lane == 0) {
+      int s = 0, ph = 0;  // ring A's next slot, and its use's parity
+      for (int i = 0, n = 0; i < n_iter; ++i) {
+        const int q0 = (qb0 + i) * BQ;
+        for (int pass = 0; pass < 2; ++pass)  // V, dO_i; then K, Q_i
+          for (int c = 0; c < nd; ++c, ++n) {
+            if (n >= SA) mbar_wait(&empty_a[s], ph ^ 1);
+            uint8_t* slot = ring_a + s * A_BYTES;
+            mbar_expect_tx(&full_a[s], OWN + STR);
+            tma_load(slot, pass ? &map_k : &map_v, &full_a[s], C * c, k0, bh);
+            tma_load(slot + OWN, pass ? &map_q : &map_do, &full_a[s], C * c,
+                     q0, bh);
+            if (++s == SA) s = 0, ph ^= 1;
+          }
+        // Q_i's and dO_i's columns of this chunk, and the tile's lse and
+        // delta from the 16-byte aligned element at or before its first
+        // (rows past the head's end are masked by the consumers).
+        const int b = i % SB;
+        if (i >= SB) mbar_wait(&empty_b[b], (i / SB - 1) & 1);
+        uint8_t* slot = ring_b + b * B_BYTES;
+        mbar_expect_tx(&full_b[b], 2 * (ncols / C) * STR + 2 * STAT * 4);
+        for (int j = 0; j < ncols / C; ++j) {
+          tma_load(slot + j * STR, &map_q, &full_b[b], col0 + C * j, q0, bh);
+          tma_load(slot + TB + j * STR, &map_do, &full_b[b], col0 + C * j,
+                   q0, bh);
+        }
+        const int x0 = (bh * sq + q0) & ~3;
+        tma_load_1d(stats + b * 2 * STAT_LD, &map_lse, &full_b[b], x0);
+        tma_load_1d(stats + (b * 2 + 1) * STAT_LD, &map_delta, &full_b[b],
+                    x0);
+      }
+    } else if (warp > tf32::WARPS) {  // the converters
+      const int ct = threadIdx.x - (tf32::WARPS + 1) * 32;
+      int s = 0, ph = 0;
+      for (int n = 0; n < n_iter * 2 * nd; ++n) {
+        mbar_wait(&full_a[s], ph);
+        tf32::write_small_parts(ring_a + s * A_BYTES, ct, false);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready_a[s]);
+        if (++s == SA) s = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumer warp `warp` owns keys w0 .. w0 + 15, its warpgroup keys
+  // wg_key0 .. wg_key0 + 63.
+  reg_alloc<tf32::CONSUMER_REGS>();
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = k0 + warp * 16, wg_key0 = k0 + (warp / 4) * 64;
+  const float c2 = scale * LOG2E;
+
+  float dk_acc[COLS / 2], dv_acc[COLS / 2];  // [16 x COLS] across the warp
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float sc[BQ / 2];  // dP^T_i, then S^T_i, P^T_i and dS^T_i
+  float4* mine = pbuf + threadIdx.x;  // this thread's dP^T_i
+
+  auto release = [&](uint64_t* bar) {  // this warp is done with a slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  int s = 0, ph = 0;  // ring A's slot in use and its use's parity
+  for (int i = 0; i < n_iter; ++i) {
+    const int q0 = (qb0 + i) * BQ;
+    // Some query of the tile is unmasked for some key of this warpgroup.
+    const bool live = wg_key0 < sk && !(causal && q0 + BQ - 1 < wg_key0);
+    for (int pass = 0; pass < 2; ++pass) {  // dP^T_i, then S^T_i
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) sc[j] = 0.f;
+      for (int c = 0; c < nd; ++c) {
+        mbar_wait(&full_a[s], ph);
+        mbar_wait(&ready_a[s], ph);
+        if (live)
+          tf32::score_chunk<false>(sc, ring_a + s * A_BYTES, warp, g, t);
+        release(&empty_a[s]);
+        if (++s == SA) s = 0, ph ^= 1;
+      }
+      if (pass == 0 && live) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+          mine[j * tf32::WARPS * 32] =
+              make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2],
+                          sc[4 * j + 3]);
+      }
+    }
+    const int b = i % SB;
+    mbar_wait(&full_b[b], (i / SB) & 1);
+    if (live) {
+      const uint8_t* slot = ring_b + b * B_BYTES;
+      const float* lse = stats + b * 2 * STAT_LD + ((bh * sq + q0) & 3);
+      const float* dlt = lse + STAT_LD;
+      if (q0 + BQ > sq || w0 + 16 > sk || (causal && q0 < w0 + 15)) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = q0 + 8 * j + 2 * t + (e & 1);
+            const int key = w0 + g + 8 * (e >> 1);
+            if (!(q < sq && key < sk && (!causal || key <= q)))
+              sc[4 * j + e] = NEG_INF;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = fast_exp2(fmaf(
+              sc[4 * j + e], c2, -lse[8 * j + 2 * t + (e & 1)] * LOG2E));
+      tf32::col_product<COLS>(dv_acc, sc, slot + TB, ncols / C, g, t);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float4 dp = mine[j * tf32::WARPS * 32];
+        const float p[4] = {dp.x, dp.y, dp.z, dp.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] *= p[e] - dlt[8 * j + 2 * t + (e & 1)];
+      }
+      tf32::col_product<COLS>(dk_acc, sc, slot, ncols / C, g, t);
+    }
+    release(&empty_b[b]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < COLS / 2; ++i) dk_acc[i] *= scale;
+  const size_t at = ((size_t)bh * sk + w0) * d + col0;
+  store_cols<COLS, T>(dk + at, d, dk_acc, sk - w0, ncols);
+  store_cols<COLS, T>(dv + at, d, dv_acc, sk - w0, ncols);
+}
+
+// The float32 pair's launchers: maps of 32-column boxes (the owned rows'
+// of 128, the streamed rows' of 64), the grid one block per (row block,
+// chunk of COLS of the gradients' columns), COLS from tf32::cols at the
+// grid's row blocks (dK/dV's at most DKV_WIDEST). Their shared memory at a
+// grid that fills the card (flash_bwd_smem reports it).
+static int tf32_dq_smem(int d) {
+  return tf32::bwd_smem(tf32::cols(d, tf32::FILL, tf32::DQ_WIDEST), false);
+}
+static int tf32_dkv_smem(int d) {
+  return tf32::bwd_smem(2 * tf32::cols(d, tf32::FILL, tf32::DKV_WIDEST),
+                        true);
+}
+
+// Calls go(std::integral_constant<int, COLS>()) for the widths compiled
+// (tf32::DQ_WIDEST and DKV_WIDEST are 128).
+template <typename Go>
+static int with_cols(int cols, Go go) {
+  switch (cols) {
+    case 32: return go(std::integral_constant<int, 32>());
+    case 64: return go(std::integral_constant<int, 64>());
+    case 128: return go(std::integral_constant<int, 128>());
+  }
+  return FLASH_ERR_UNSUPPORTED;
+}
+
+static int bwd_dq_tf32(const void* q, const void* k, const void* v,
+                       const void* dout, const void* out, const void* lse,
+                       void* delta, void* dq, int bh, int sq, int sk, int d,
+                       int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int err = sm90::make_map_cols<float>(&mq, q, bh, sq, d, tf32::ROWS,
+                                       tf32::CHUNK);
+  if (!err)
+    err = sm90::make_map_cols<float>(&mk, k, bh, sk, d, tf32::TILE,
+                                     tf32::CHUNK);
+  if (!err)
+    err = sm90::make_map_cols<float>(&mv, v, bh, sk, d, tf32::TILE,
+                                     tf32::CHUNK);
+  if (!err)
+    err = sm90::make_map_cols<float>(&mdo, dout, bh, sq, d, tf32::ROWS,
+                                     tf32::CHUNK);
+  if (err) return err;
+  const long blocks = (long)bh * ((sq + tf32::ROWS - 1) / tf32::ROWS);
+  return with_cols(tf32::cols(d, blocks, tf32::DQ_WIDEST), [&](auto width) {
+    constexpr int COLS = decltype(width)::value;
+    return launch(bwd_dq_kernel_tf32<float, COLS>,
+                  dim3(blocks * ((d + COLS - 1) / COLS)), tf32::THREADS,
+                  (size_t)tf32::bwd_smem(COLS, false), stream, mq, mk, mv, mdo,
+                  static_cast<const float*>(dout),
+                  static_cast<const float*>(out),
+                  static_cast<const float*>(lse), static_cast<float*>(delta),
+                  static_cast<float*>(dq), sq, sk, d, causal, scale);
+  });
+}
+
+static int bwd_dkv_tf32(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int bh, int sq, int sk, int d,
+                        int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo, mlse, mdelta;
+  int err = sm90::make_map_cols<float>(&mq, q, bh, sq, d, tf32::TILE,
+                                       tf32::CHUNK);
+  if (!err)
+    err = sm90::make_map_cols<float>(&mk, k, bh, sk, d, tf32::ROWS,
+                                     tf32::CHUNK);
+  if (!err)
+    err = sm90::make_map_cols<float>(&mv, v, bh, sk, d, tf32::ROWS,
+                                     tf32::CHUNK);
+  if (!err)
+    err = sm90::make_map_cols<float>(&mdo, dout, bh, sq, d, tf32::TILE,
+                                     tf32::CHUNK);
+  if (!err) err = sm90::make_map_1d(&mlse, lse, (long)bh * sq, tf32::STAT);
+  if (!err)
+    err = sm90::make_map_1d(&mdelta, delta, (long)bh * sq, tf32::STAT);
+  if (err) return err;
+  const long blocks = (long)bh * ((sk + tf32::ROWS - 1) / tf32::ROWS);
+  return with_cols(
+      tf32::cols(d, blocks, tf32::DKV_WIDEST), [&](auto width) {
+        constexpr int COLS = decltype(width)::value;
+        return launch(bwd_dkv_kernel_tf32<float, COLS>,
+                      dim3(blocks * ((d + COLS - 1) / COLS)), tf32::THREADS,
+                      (size_t)tf32::bwd_smem(2 * COLS, true), stream, mq, mk,
+                      mv, mdo, mlse, mdelta, static_cast<float*>(dk),
+                      static_cast<float*>(dv), sq, sk, d, causal, scale);
+      });
 }
 
 // Shared memory of each body (ray_tpu_torch/ops/attention.py's
@@ -1620,9 +1796,7 @@ static size_t dq_smem() {
            Tl::STAGES * 2 * sm90::tile_bytes<Tl::TILE, D>() +
            (1 + 2 * Tl::STAGES) * sizeof(uint64_t) + sm90::SMEM_ALIGN;
   } else {
-    constexpr int BS = PlainTiles<D>::STREAM;
-    return ((2 * BLOCK + 2 * BS) * ld<T, D>() + BLOCK * ld<T, BS>()) *
-           sizeof(T);
+    return tf32_dq_smem(D);
   }
 }
 
@@ -1637,10 +1811,7 @@ static size_t dkv_smem() {
            (1 + 2 * Tl::STAGES + (D <= 128 ? 0 : 4)) * sizeof(uint64_t) +
            sm90::SMEM_ALIGN;
   } else {
-    using Tl = PlainTiles<D>;
-    return ((2 * BLOCK + 2 * Tl::STREAM) * ld<T, D>() +
-            Tl::SPLIT * BLOCK * ld<T, Tl::STREAM>()) * sizeof(T) +
-           2 * Tl::STREAM * sizeof(float);
+    return tf32_dkv_smem(D);
   }
 }
 
@@ -1666,13 +1837,8 @@ static int bwd_dq(const void* q, const void* k, const void* v,
                   static_cast<float*>(delta), static_cast<T*>(dq), sq, sk,
                   causal, scale);
   } else {
-    const dim3 grid(bh * ((sq + BLOCK - 1) / BLOCK));
-    return launch(bwd_dq_kernel<T, D>, grid, THREADS, dq_smem<T, D>(), stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout),
-                  static_cast<const T*>(out), static_cast<const float*>(lse),
-                  static_cast<float*>(delta), static_cast<T*>(dq), sq, sk,
-                  causal, scale);
+    return bwd_dq_tf32(q, k, v, dout, out, lse, delta, dq, bh, sq, sk, D,
+                       causal, scale, stream);
   }
 }
 
@@ -1703,14 +1869,8 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
                     delta_f, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
                     causal, scale);
   } else {
-    const dim3 grid(bh * ((sk + BLOCK - 1) / BLOCK));
-    return launch(bwd_dkv_kernel<T, D>, grid,
-                  THREADS * PlainTiles<D>::SPLIT, dkv_smem<T, D>(),
-                  stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout),
-                  static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dk),
-                  static_cast<T*>(dv), sq, sk, causal, scale);
+    return bwd_dkv_tf32(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, D,
+                        causal, scale, stream);
   }
 }
 
@@ -1783,7 +1943,7 @@ static int bwd_dkv_sm90_wide(const void* q, const void* k, const void* v,
 }
 
 // Above d 256: the Hopper bodies in 16 bits (the gradients' column chunks
-// 192 or 256 wide), the CUDA-core ones in float32.
+// 192 or 256 wide), the 3xTF32 ones in float32.
 template <typename T>
 static int bwd_dq_wide(const void* q, const void* k, const void* v,
                        const void* dout, const void* out, const void* lse,
@@ -1796,15 +1956,8 @@ static int bwd_dq_wide(const void* q, const void* k, const void* v,
     return bwd_dq_sm90_wide<T, 256>(q, k, v, dout, out, lse, delta, dq, bh,
                                     sq, sk, d, causal, scale, stream);
   } else {
-    const size_t smem = wide::dq_smem<T>(d);
-    if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
-    const dim3 grid(bh * ((sq + wide::ROWS - 1) / wide::ROWS));
-    return launch(bwd_dq_kernel_wide<T>, grid, wide::THREADS, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout),
-                  static_cast<const T*>(out), static_cast<const float*>(lse),
-                  static_cast<float*>(delta), static_cast<T*>(dq), sq, sk, d,
-                  causal, scale);
+    return bwd_dq_tf32(q, k, v, dout, out, lse, delta, dq, bh, sq, sk, d,
+                       causal, scale, stream);
   }
 }
 
@@ -1820,15 +1973,8 @@ static int bwd_dkv_wide(const void* q, const void* k, const void* v,
     return bwd_dkv_sm90_wide<T, 256>(q, k, v, dout, lse, delta, dk, dv, bh,
                                      sq, sk, d, causal, scale, stream);
   } else {
-    const size_t smem = wide::dkv_smem<T>(d);
-    if (smem > wide::SMEM_LIMIT) return FLASH_ERR_SMEM;
-    const dim3 grid(bh * ((sk + wide::ROWS - 1) / wide::ROWS));
-    return launch(bwd_dkv_kernel_wide<T>, grid, wide::THREADS, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout),
-                  static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dk),
-                  static_cast<T*>(dv), sq, sk, d, causal, scale);
+    return bwd_dkv_tf32(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
+                        causal, scale, stream);
   }
 }
 
@@ -1838,7 +1984,7 @@ static int dq_wide_smem(int d) {
     return (int)(sm90::wide_cols(d) == 192 ? dq_smem_sm90_wide<192>()
                                            : dq_smem_sm90_wide<256>());
   else
-    return (int)wide::dq_smem<T>(d);
+    return tf32_dq_smem(d);
 }
 
 template <typename T>
@@ -1847,7 +1993,7 @@ static int dkv_wide_smem(int d) {
     return (int)(sm90::wide_cols(d) == 192 ? dkv_smem_sm90_wide<192>()
                                            : dkv_smem_sm90_wide<256>());
   else
-    return (int)wide::dkv_smem<T>(d);
+    return tf32_dkv_smem(d);
 }
 
 // q, dout, out [bh, sq, d]; k, v [bh, sk, d]; lse [bh, sq] float32
@@ -1857,7 +2003,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* lse, void* delta, void* dq, int bh,
                             int sq, int sk, int d, int causal, float scale,
                             int dtype, void* stream) {
-  if (wide::head_dim(d))
+  if (int err = bind_device()) return err;
+  if (wide_head_dim(d))
     FLASH_DISPATCH_WIDE(bwd_dq_wide, dtype, q, k, v, dout, out, lse, delta,
                         dq, bh, sq, sk, d, causal, scale,
                         static_cast<cudaStream_t>(stream));
@@ -1872,7 +2019,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* delta, void* dk, void* dv, int bh,
                              int sq, int sk, int d, int causal, float scale,
                              int dtype, void* stream) {
-  if (wide::head_dim(d))
+  if (int err = bind_device()) return err;
+  if (wide_head_dim(d))
     FLASH_DISPATCH_WIDE(bwd_dkv_wide, dtype, q, k, v, dout, lse, delta, dk,
                         dv, bh, sq, sk, d, causal, scale,
                         static_cast<cudaStream_t>(stream));
@@ -1883,7 +2031,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 // Shared memory one block of flash_bwd_dq (kernel 0) or flash_bwd_dkv
 // (kernel 1) takes at this head dim and dtype.
 extern "C" int flash_bwd_smem(int kernel, int d, int dtype) {
-  if (wide::head_dim(d)) {
+  if (wide_head_dim(d)) {
     if (kernel == 0) FLASH_DISPATCH_WIDE(dq_wide_smem, dtype, d);
     FLASH_DISPATCH_WIDE(dkv_wide_smem, dtype, d);
   }

@@ -4,7 +4,8 @@
 // contiguous; lse and delta are [bh, seq] float32. Inputs are bf16, float16
 // or float32; every product accumulates in float32.
 //
-// Three families of kernel bodies live on these pieces:
+// Every body runs its products on the tensor cores, fed through a ring of
+// shared-memory slots by TMA. Two families:
 //
 // - The Hopper bodies (namespace flash::sm90 below): all three kernels in
 //   16 bits (bf16 and float16) at every head dim, at D <= 256 one instance
@@ -15,25 +16,20 @@
 //   block's two warpgroups share its keys, one accumulating dV and the
 //   other dK, the first handing P^T to the second through shared memory
 //   (flash_bwd.cu says why).
-// - The float32 forward (namespace flash::tf32 below, fwd_kernel_tf32 in
-//   flash_fwd.cu): every float32 head dim, d at run time. Its products run
-//   on the tensor cores in 3xTF32: each float32 operand is split in
+// - The float32 bodies (namespace flash::tf32 below: fwd_kernel_tf32 in
+//   flash_fwd.cu, bwd_dq_kernel_tf32 and bwd_dkv_kernel_tf32 in
+//   flash_bwd.cu): all three kernels at every float32 head dim, d at run
+//   time. Their products run in 3xTF32: each float32 operand is split in
 //   registers into two TF32 values, x = big + small, and a product is
 //   big*big + big*small + small*big, accumulated in float32. The dropped
 //   small*small term is about 2^-22 of the product, float32's own
 //   accuracy, where a single TF32 pass (three decimal digits) misses the
-//   1e-4 the float32 instances are held to. A producer warpgroup streams
-//   tiles into a ring with TMA, as the Hopper bodies' does; two consumer
-//   warpgroups run S on wgmma and P V on mma.sync (m16n8k8 .tf32),
-//   splitting the operands they hold in registers themselves.
-// - The CUDA-core bodies of the backward pair: every float32 instance at
-//   D <= 256. A block owns BLOCK = 64 rows, 4 warps of 16 rows, and streams
-//   tiles of PlainTiles<D>::STREAM rows past them; every operand of a tile
-//   product is read from shared memory by `warp_gemm`, which runs the 16x8
-//   mma.sync accumulator layout on the CUDA cores in float32.
-// - The wide bodies (namespace flash::wide): the float32 backward pair at
-//   head dims above 256 that are a multiple of 64, d a run-time argument,
-//   accumulators in shared memory, on the CUDA cores.
+//   1e-4 and 5e-4 the float32 instances are held to. A producer warpgroup
+//   streams tiles into a ring with TMA, as the Hopper bodies' does; two
+//   consumer warpgroups run the products that contract over d (S, dP) on
+//   wgmma and those that contract over the streamed rows (P V; dS K; P^T
+//   dO and dS^T Q) on mma.sync (m16n8k8 .tf32), splitting the operands
+//   they hold in registers themselves.
 //
 // Accumulator layout (the mma.sync C fragment, which is also the layout of
 // each warp's 16 rows of a wgmma accumulator), lane = 4 * g + t:
@@ -53,88 +49,13 @@
 
 namespace flash {
 
-constexpr int BLOCK = 64;          // rows of every tile (queries or keys)
-constexpr int WARPS = 4;           // 16 rows per warp
-constexpr int THREADS = WARPS * 32;
 constexpr float NEG_INF = -1e30f;  // mask fill, as in the TPU kernels
 
-// Tiles of the CUDA-core bodies (mirrored by TILES in ray_tpu_torch/ops/
-// attention.py): a block owns BLOCK rows and streams STREAM rows a tile.
-// Above D = 128 the streamed tile halves, so that the tiles fit in shared
-// memory and S, dP and the D-wide accumulators in registers, and the dK/dV
-// block runs SPLIT = 2 warps per 16 keys, each holding the dK and dV
-// accumulators of half the columns: at D = 256 the two accumulators of
-// all D columns would take 256 floats a thread, more than a thread's 255
-// registers.
-template <int D>
-struct PlainTiles {
-  static constexpr int STREAM = D > 128 ? 32 : 64, SPLIT = D > 128 ? 2 : 1;
-};
-
-// One element as float32.
-__device__ __forceinline__ float to_float(float x) { return x; }
+// One 16-bit element as float32.
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-
-// Shared-memory row stride in elements: 16 bytes of padding per row keeps
-// the fragment loads below free of bank conflicts.
-template <typename T, int D>
-__host__ __device__ constexpr int ld() { return D + 16 / (int)sizeof(T); }
-
-// Copy rows [row0, row0 + ROWS) of a [seq, D] matrix into shared memory
-// with 16-byte vectors, NT threads taking turns; rows at or past `seq` are
-// zero-filled.
-template <typename T, int D, int ROWS = BLOCK, int NT = THREADS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int seq) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NT) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld<T, D>() + c) = val;
-  }
-}
-
-// One warp, in float32 on the CUDA cores: C[16 x 8*NT] += A[16 x K] *
-// B[K x 8*NT], in the 16x8 mma.sync accumulator layout; 16-bit operands are
-// widened to float32 as they are read.
-// A is row-major in shared memory (A(m, k) = A[m * lda + k]).
-// B_NK: B(k, n) = B[n * ldb + k] (B stored as N x K, e.g. K for Q.K^T);
-// otherwise B(k, n) = B[k * ldb + n] (stored as K x N, e.g. V for P.V).
-template <bool B_NK, int NT, int K, typename T>
-__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const T* A,
-                                          int lda, const T* B, int ldb) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float a0 = to_float(A[g * lda + k]);
-    const float a1 = to_float(A[(g + 8) * lda + k]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = nt * 8 + 2 * t;
-      const float b0 = to_float(B_NK ? B[n * ldb + k] : B[k * ldb + n]);
-      const float b1 =
-          to_float(B_NK ? B[(n + 1) * ldb + k] : B[k * ldb + n + 1]);
-      c[nt][0] = fmaf(a0, b0, c[nt][0]);
-      c[nt][1] = fmaf(a0, b1, c[nt][1]);
-      c[nt][2] = fmaf(a1, b0, c[nt][2]);
-      c[nt][3] = fmaf(a1, b1, c[nt][3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-}
 
 // Two neighbouring elements (p even-aligned) in one store.
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
@@ -147,22 +68,6 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// Write a warp's [16 x 8*NT] accumulator into a row-major T matrix
-// (shared or global) whose row 0 is the warp's first row; rows at or past
-// `rows` are dropped.
-template <typename T, int NT>
-__device__ __forceinline__ void store_acc(T* dst, int ldd, const float (&c)[NT][4],
-                                          int rows) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = nt * 8 + 2 * t;
-    if (g < rows) store_pair(dst + g * ldd + col, c[nt][0], c[nt][1]);
-    if (g + 8 < rows) store_pair(dst + (g + 8) * ldd + col, c[nt][2], c[nt][3]);
-  }
-}
-
 // Sum (or max) over the four lanes that hold one accumulator row.
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
@@ -171,6 +76,18 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Make the current device's primary context current on the calling thread,
+// before the entry points encode tensor maps: cuTensorMapEncodeTiled
+// refused every map on a thread that had made no CUDA call yet (autograd's
+// backward thread, where the attention backward was its first work).
+// Returns 0 or CUDA's error.
+inline int bind_device() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  return (int)err;
 }
 
 // Set a dynamic shared-memory size on a kernel and launch it; returns the
@@ -191,7 +108,6 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 #define FLASH_ERR_UNSUPPORTED 1000  // dtype or head dimension not compiled
 #define FLASH_ERR_NO_ENCODER 1001   // libcuda has no cuTensorMapEncodeTiled
 #define FLASH_ERR_TENSOR_MAP 1002   // cuTensorMapEncodeTiled refused a map
-#define FLASH_ERR_SMEM 1003         // a wide body's tiles exceed 227 KB
 
 // --------------------------------------------------------------------------
 // Hopper pieces: TMA, mbarriers and wgmma, as short inline PTX.
@@ -427,6 +343,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(row0), "r"(bh)
+      : "memory");
+}
+
+// One TMA box of a one-dimensional map (make_map_1d): elements x0.., x0 a
+// multiple of 16 bytes, into dst, a multiple of 128. Elements past the end
+// are zero-filled.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x0)
       : "memory");
 }
 
@@ -744,7 +672,7 @@ __device__ __forceinline__ void store_rows(T* dst,
   }
 }
 
-// Write a warp's 16 rows of a [64 x N] accumulator as 16-bit rows of a
+// Write a warp's 16 rows of a [64 x N] accumulator as rows of T of a
 // row-major matrix with row stride ldd, whose element 0 is the warp's
 // first row at the accumulator's first column; rows at or past `rows` and
 // columns at or past `cols` (a multiple of 8) are dropped.
@@ -814,6 +742,24 @@ static int make_map_cols(CUtensorMap* map, const void* ptr, int bh, int seq,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : FLASH_ERR_TENSOR_MAP;
 }
+// The map of a contiguous float32 vector of n elements (lse or delta,
+// [bh, seq] read as one row), one box = `box` elements (a multiple of 4),
+// unswizzled: a two-dimensional map's rows would need seq to be a multiple
+// of 4. Returns 0 or a FLASH_ERR_ code.
+static int make_map_1d(CUtensorMap* map, const void* ptr, long n, int box) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return FLASH_ERR_NO_ENCODER;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unread at rank 1
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t elem[1] = {1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims,
+      strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : FLASH_ERR_TENSOR_MAP;
+}
 // The same at a compile-time head dim D, one chunk of columns a box.
 template <typename T, int D>
 static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
@@ -832,7 +778,7 @@ __device__ __forceinline__ uint8_t* aligned_smem(unsigned char* p) {
 }  // namespace flash
 
 // --------------------------------------------------------------------------
-// The float32 forward's pieces: 3xTF32 products on mma.sync.
+// The float32 bodies' pieces: 3xTF32 products on wgmma and mma.sync.
 // --------------------------------------------------------------------------
 //
 // Tiles of fwd_kernel_tf32 (flash_fwd.cu), mirrored by TILES in
@@ -866,20 +812,22 @@ constexpr int CHUNK = 32;                   // columns of a box, 128 bytes
 constexpr int FILL = 132;
 
 // O's columns a block owns at head dim d when the grid has `blocks` row
-// blocks (bh x q-blocks): the power of two from 32 to 256 that covers d,
-// so that a block owns all of d up to 256 and above that as few chunks as
-// 256 columns each allow (a thread holds COLS / 2 floats of O); the last
-// chunk may run past d. Where that leaves fewer blocks than FILL, half as
-// many columns, down to 64: each block still builds all of S for its
-// rows, so c chunks cost (c + 1) / 2 of the minimum FLOPs, but c blocks
-// share the P V products of a row block, and the card, which the row
-// blocks alone leave idle (bh 4, seq 256: 8 blocks on 132 SMs), fills.
-// (Chunks of 192 columns, which d 192, 320, 384 and 576 would take at one
-// width, spilled 16 bytes of registers in ptxas, so the widths are powers
-// of two.)
-__host__ __device__ constexpr int cols(int d, long blocks) {
+// blocks (bh x q-blocks): the power of two from 32 to `widest` (256) that
+// covers d, so that a block owns all of d up to 256 and above that as few
+// chunks as 256 columns each allow (a thread holds COLS / 2 floats of O);
+// the last chunk may run past d. The backward pair's blocks take the same
+// chunks of their gradients' columns (dK/dV's at most DKV_WIDEST). Where
+// that leaves fewer blocks than FILL, half as many columns, down to 64:
+// each block still builds all of S for its rows, so c chunks cost (c + 1)
+// / 2 of the minimum FLOPs, but c blocks share the P V products of a row
+// block, and the card, which the row blocks alone leave idle (bh 4, seq
+// 256: 8 blocks on 132 SMs), fills. (Chunks of 192 columns, which d 192,
+// 320, 384 and 576 would take at one width, spilled 16 bytes of registers
+// in ptxas, so the widths are powers of two.)
+__host__ __device__ constexpr int cols(int d, long blocks,
+                                       int widest = 256) {
   int w = CHUNK;
-  while (w < d && w < 256) w *= 2;
+  while (w < d && w < widest) w *= 2;
   while (w > 64 && blocks * ((d + w - 1) / w) < FILL) w /= 2;
   return w;
 }
@@ -942,6 +890,23 @@ __device__ __forceinline__ float small_part(float x) {
   return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
 }
 
+// x rounded to nearest TF32 (cvt.rna.tf32.f32), as a float.
+__device__ __forceinline__ float round_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+// x = big + small with both parts rounded to nearest, where split truncates
+// them: big + small misses x by at most 2^-23 of it (2^-20 for split), for
+// one more instruction an operand. dQ's dP takes it (score_chunk says
+// why).
+__device__ __forceinline__ void split_rn(float x, uint32_t& big,
+                                         uint32_t& small) {
+  const float b = round_tf32(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(round_tf32(x - b));
+}
+
 // Make this thread's shared-memory writes visible to wgmma's reads.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -970,174 +935,227 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-}  // namespace tf32
-}  // namespace flash
-
-// --------------------------------------------------------------------------
-// The wide bodies: head dims above 256 that are a multiple of 64.
-// --------------------------------------------------------------------------
-//
-// One float32 instance per backward kernel serves every such head dim: d
-// is a run-time argument (bf16 and float16 run the Hopper bodies there:
-// bwd_dq_kernel_sm90_wide and bwd_dkv_kernel_sm90_wide; the float32
-// forward runs fwd_kernel_tf32). A block of 4 warps owns ROWS = 16 rows
-// (queries; keys for dK/dV) and streams tiles of *_STREAM rows past them.
-// The D-wide float32 accumulators (dQ; dK and dV) and the tile products
-// (P, dS) live in dynamic shared memory, not in registers, so the block's
-// shared memory grows with d (dq_smem, dkv_smem below, mirrored by
-// kernel_smem_bytes in ray_tpu_torch/ops/attention.py): it fits the 227 KB
-// a block may take up to d 704. Every product runs on the CUDA cores in
-// float32.
-namespace flash {
-namespace wide {
-
-constexpr int ROWS = 16, THREADS = 128;
-constexpr int DQ_STREAM = 16, DKV_STREAM = 8;
+// The float32 backward pair (bwd_dq_kernel_tf32 and bwd_dkv_kernel_tf32 in
+// flash_bwd.cu), d at run time at every float32 head dim, on the forward's
+// pieces. A block owns ROWS rows (queries for dQ, keys for dK/dV), 16 a
+// warp and 64 a consumer warpgroup, and one chunk of COLS of its
+// gradients' columns; it streams tiles of TILE rows (keys; queries). Each
+// warpgroup builds both score tiles of its own rows: dP (dP^T for dK/dV)
+// over all d in a first pass through ring A, then S (S^T) in a second,
+// one 32-column chunk of the owned rows (dO, then Q; V, then K) and one of
+// the streamed rows (V, then K; dO, then Q) with the latter's small parts
+// a slot, as the forward's ring A holds Q and K. dP waits for S in the
+// thread's share of a shared-memory buffer (PBUF_BYTES), P and dS form in
+// registers, and the products that contract over the streamed rows (dS K;
+// P^T dO and dS^T Q) take the tile's columns of the block's chunk from
+// ring B: K's for dQ, Q's and dO's (with the tile's lse and delta) for
+// dK/dV. Why this shape:
+// - registers: a consumer thread holds its gradient chunk (dQ's COLS / 2
+//   floats; dK's and dV's COLS / 2 each), 32 floats of a score tile and
+//   the split A fragments of a chunk (32), as the forward holds O, S and
+//   Q's fragments; S and dP both in registers at once would add 32 more,
+//   so dP waits in shared memory, and so do dQ's rows' lse and delta. A
+//   chunk of a score tile's products sums on the tensor cores from 0 into
+//   32 more floats (score_chunk). dQ's chunks go up to DQ_WIDEST = 128
+//   columns (64 floats; at 256, with dP's operands split to nearest,
+//   ptxas spilled 24 bytes) and dK/dV's up to DKV_WIDEST = 128 (64 + 64).
+// - dK/dV's warpgroups own 64 keys each, as dQ's own 64 queries, rather
+//   than sharing 64 keys (one on dK, one on dV, as the 16-bit bodies from
+//   d 192 up): each streamed tile then serves 128 keys, so ring A and B
+//   carry half the bytes a key, the two kernels share one pass structure,
+//   and ring B's [64 x 2 COLS] tile of Q's and dO's columns fits beside
+//   ring A (at COLS 256 two slots of 64 KB each would not).
+// - shared memory: 4 slots of ring A (32 KB each), ring B's slots (one
+//   where a slot holds more than 128 columns, else two), the P buffer (32
+//   KB), the lse and delta, and the barriers: at most 232,064 bytes
+//   (dK/dV at COLS 64), and no block grows with d.
+// - the sums: no sum runs over all d or all the streamed rows on the
+//   tensor cores, whose accumulator truncates as it adds (the forward's
+//   pv): a chunk's share of S or dP, and a streamed tile's share of a
+//   gradient, are summed there from 0 and added in float32 (score_chunk,
+//   col_product).
+// - accuracy: where dS = P (dP - delta) is 0 in exact arithmetic (a causal
+//   row's first key), dQ holds dP's error whole, so dQ's dP splits its
+//   operands to nearest and delta is summed in double (score_chunk).
+// With c chunks S and dP are built c times: dQ does (2c + 1) / 3 of the
+// minimum FLOPs and dK/dV (c + 1) / 2.
+constexpr int BWD_STAGES = 4;
+constexpr int DQ_WIDEST = 128, DKV_WIDEST = 128;
+constexpr int PBUF_BYTES = WARPS * 32 * (TILE / 2) * 4;  // 32 floats a thread
+// dK/dV's lse and delta of a streamed tile come by TMA from a one-
+// dimensional map. A box must start on a 16-byte boundary of the vector
+// and land on a 128-byte boundary of shared memory (either fault stops the
+// kernel on an H100): STAT = TILE + 4 elements from the aligned element at
+// or before the tile's first cover the tile, and each lies STAT_LD floats
+// (384 bytes) after the last.
+constexpr int STAT = TILE + 4, STAT_LD = 96;
 constexpr int SMEM_LIMIT = 232448;  // bytes one block may opt in to
-
-__host__ __device__ constexpr bool head_dim(int d) {
-  return d > 256 && d % 64 == 0;
+// Ring B's slots when a slot holds b_cols columns of the streamed rows
+// (dQ: COLS of K; dK/dV: COLS of Q and COLS of dO).
+__host__ __device__ constexpr int bwd_b_stages(int b_cols) {
+  return b_cols > 128 ? 1 : 2;
 }
-
-// Shared-memory row stride in elements: 16 bytes of padding, as ld<T, D>.
-template <typename T>
-__host__ __device__ inline int ld(int d) {
-  return d + 16 / (int)sizeof(T);
+// Shared memory of a backward block whose ring B holds b_cols columns a
+// slot: ring A's slots (a chunk of the owned rows, one of the streamed rows
+// and its small parts each), ring B's, the P buffer, the rows' lse and
+// delta (dQ: the owned rows', once; dK/dV: the tile's, in each slot of B),
+// a full, a ready and an empty mbarrier a slot of A, a full and an empty
+// one a slot of B, and the swizzle's alignment. (ray_tpu_torch/ops/
+// attention.py's kernel_smem_bytes mirrors it.)
+__host__ __device__ constexpr int bwd_smem(int b_cols, bool dkv) {
+  return BWD_STAGES * (ROWS + 2 * TILE) * CHUNK * 4 +
+         bwd_b_stages(b_cols) * TILE * b_cols * 4 + PBUF_BYTES +
+         (dkv ? bwd_b_stages(b_cols) * STAT_LD : ROWS) * 2 * 4 +
+         (3 * BWD_STAGES + 2 * bwd_b_stages(b_cols)) * 8 + sm90::SMEM_ALIGN;
 }
+static_assert(bwd_smem(DQ_WIDEST, false) <= SMEM_LIMIT &&
+                  bwd_smem(DQ_WIDEST / 2, false) <= SMEM_LIMIT,
+              "dQ's blocks fit");
+static_assert(bwd_smem(2 * DKV_WIDEST, true) <= SMEM_LIMIT &&
+                  bwd_smem(DKV_WIDEST, true) <= SMEM_LIMIT,
+              "dK/dV's blocks fit");
 
-template <typename T>
-size_t dq_smem(int d) {  // dQ; dS; Q and dO; K and V tiles
-  return (size_t)ROWS * d * 4 + ROWS * DQ_STREAM * 4 +
-         (size_t)(2 * ROWS + 2 * DQ_STREAM) * ld<T>(d) * sizeof(T);
-}
-template <typename T>
-size_t dkv_smem(int d) {  // dK, dV; P, dS; lse, delta; K, V; Q and dO tiles
-  return (size_t)2 * ROWS * d * 4 + 2 * ROWS * DKV_STREAM * 4 +
-         2 * DKV_STREAM * 4 +
-         (size_t)(2 * ROWS + 2 * DKV_STREAM) * ld<T>(d) * sizeof(T);
-}
-
-// Copy rows [row0, row0 + rows) of a [seq, d] matrix into shared memory
-// (row stride ld<T>(d)) with 16-byte vectors; rows at or past `seq` are
-// zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
-                                          int rows, int seq, int d) {
-  const int per_row = d / (16 / (int)sizeof(T)), lds = ld<T>(d);
-  for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i % per_row) * (16 / (int)sizeof(T));
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + c);
-    *reinterpret_cast<uint4*>(dst + r * lds + c) = val;
-  }
-}
-
-// Sixteen bytes of a 16-byte aligned row as float32.
-template <typename T>
-__device__ __forceinline__ void unpack(const T* p, float (&x)[16 / sizeof(T)]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 16 / (int)sizeof(T); ++i) x[i] = to_float(e[i]);
-}
-
-// a . b0 and a . b1 over d elements of shared-memory rows.
-template <typename T>
-__device__ __forceinline__ void dot2(const T* a, const T* b0, const T* b1,
-                                     int d, float& s0, float& s1) {
-  constexpr int V = 16 / sizeof(T);
-  for (int j = 0; j < d; j += V) {
-    float x[V], y0[V], y1[V];
-    unpack(a + j, x);
-    unpack(b0 + j, y0);
-    unpack(b1 + j, y1);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      s0 = fmaf(x[i], y0[i], s0);
-      s1 = fmaf(x[i], y1[i], s1);
+// The converters' share of one slot of the backward pair's ring A (thread
+// ct of the three warps): the small part of each element of the slot's
+// chunk of streamed rows, written beside it in the same swizzled layout,
+// for the correction product big(A) small(B); with `nearest`, the element
+// rounded to nearest TF32 in place and the small part of that (split_rn).
+__device__ __forceinline__ void write_small_parts(uint8_t* slot, int ct,
+                                                  bool nearest) {
+  float* br = reinterpret_cast<float*>(slot + ROWS * CHUNK * 4);
+  for (int e = ct; e < TILE * CHUNK; e += CONVERTERS * 32) {
+    const float x = br[e];
+    if (nearest) {
+      const float big = round_tf32(x);
+      br[e] = big;
+      br[TILE * CHUNK + e] = round_tf32(x - big);
+    } else {
+      br[TILE * CHUNK + e] = small_part(x);
     }
   }
+  fence_async_smem();
 }
 
-// a . b over d elements of shared-memory rows.
-template <typename T>
-__device__ __forceinline__ float dot(const T* a, const T* b, int d) {
-  constexpr int V = 16 / sizeof(T);
-  float s = 0.f;
-  for (int j = 0; j < d; j += V) {
-    float x[V], y[V];
-    unpack(a + j, x);
-    unpack(b + j, y);
+// sc += A B^T from one slot of the backward pair's ring A, on wgmma: A is
+// this warp's 16 rows (warp 16 ..) of the slot's [ROWS x 32] chunk, split
+// in registers; B is the slot's [TILE x 32] chunk as TMA wrote it (read
+// truncated: its big part) and its small parts beside it, both K-major.
+// The chunk's 12 products sum from 0 on the tensor cores, the 8 correction
+// products before the 4 big * big ones, and are then added to sc in
+// float32: the accumulator truncates as it adds, by up to an ulp of what
+// it holds, so no sum over all d stays on it (the forward's pv says the
+// same of O), and small terms added after a big one would each cost such
+// an ulp. NEAREST splits A to nearest (split_rn; the converters wrote B
+// so), for dQ's dP: where dS = P (dP - delta) is 0 in exact arithmetic, at
+// a causal row's first key, dQ holds dP's error whole, and with both
+// operands truncated (2^-20 of each) that row of dQ broke the 5e-4 limit
+// at d 704, seq 2048, on an H100.
+// This lane's columns of its rows lie at (g << 2) | t in the swizzled rows
+// (the forward's s_chunk says how); that offset is made opaque here, so
+// that the offsets built from it are not hoisted into registers of their
+// own.
+template <bool NEAREST>
+__device__ __forceinline__ void score_chunk(float (&sc)[TILE / 2],
+                                            const uint8_t* slot, int warp,
+                                            int g, int t) {
+  const float* as_rows =
+      reinterpret_cast<const float*>(slot) + warp * 16 * CHUNK;
+  const int x = sm90::opaque((g << 2) | t);
+  uint32_t ab[CHUNK / 8][4], as[CHUNK / 8][4];
+  auto split_a = [](float v, uint32_t& big, uint32_t& small) {
+    if constexpr (NEAREST)
+      split_rn(v, big, small);
+    else
+      split(v, big, small);
+  };
 #pragma unroll
-    for (int i = 0; i < V; ++i) s = fmaf(x[i], y[i], s);
+  for (int kk = 0; kk < CHUNK / 8; ++kk) {  // columns 8 kk .. 8 kk + 7
+    const int c0 = (8 * kk) ^ x, c1 = (8 * kk + 4) ^ x;  // 8 kk + t, + 4
+    split_a(as_rows[g * CHUNK + c0], ab[kk][0], as[kk][0]);
+    split_a(as_rows[(g + 8) * CHUNK + c0], ab[kk][1], as[kk][1]);
+    split_a(as_rows[g * CHUNK + c1], ab[kk][2], as[kk][2]);
+    split_a(as_rows[(g + 8) * CHUNK + c1], ab[kk][3], as[kk][3]);
   }
-  return s;
-}
-
-// Sum over the 8 lanes that share one row (lanes 8r .. 8r + 7).
-__device__ __forceinline__ float oct_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-__device__ __forceinline__ void store_one(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_one(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ void store_one(__half* p, float x) {
-  *p = __float2half_rn(x);
-}
-
-// acc[rr][j] += sum_c w[rr][c] * B[c][j] for the block's ROWS rows and all
-// d columns: thread x takes columns x, x + THREADS, ..., and holds the
-// column of B in registers. w is [ROWS][S] float32, B [S][ld] in shared
-// memory.
-template <int S, typename T>
-__device__ __forceinline__ void add_wb(float* acc, const float* w,
-                                       const T* B, int d) {
-  const int lds = ld<T>(d);
-  for (int j = threadIdx.x; j < d; j += THREADS) {
-    float b[S];
+  const uint64_t bd =
+      sm90::k_major<TILE, 64>(sm90::smem_u32(slot + ROWS * CHUNK * 4), 0);
+  const uint64_t bsd = bd + ((TILE * CHUNK * 4) >> 4);  // the small parts
+  float part[TILE / 2];
 #pragma unroll
-    for (int c = 0; c < S; ++c) b[c] = to_float(B[c * lds + j]);
-#pragma unroll 4
-    for (int rr = 0; rr < ROWS; ++rr) {
-      float a = acc[rr * d + j];
+  for (int i = 0; i < TILE / 2; ++i) part[i] = 0.f;
+  sm90::fence_regs(part);
+  sm90::wg_fence();
 #pragma unroll
-      for (int c = 0; c < S; ++c) a = fmaf(w[rr * S + c], b[c], a);
-      acc[rr * d + j] = a;
+  for (int kk = 0; kk < CHUNK / 8; ++kk) {
+    wgmma_rs(part, as[kk], sm90::k_major_at<TILE, 64>(bd, kk));
+    wgmma_rs(part, ab[kk], sm90::k_major_at<TILE, 64>(bsd, kk));
+  }
+#pragma unroll
+  for (int kk = 0; kk < CHUNK / 8; ++kk)
+    wgmma_rs(part, ab[kk], sm90::k_major_at<TILE, 64>(bd, kk));
+  sm90::wg_commit();
+  sm90::wg_wait<0>();
+  sm90::fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < TILE / 2; ++i) sc[i] += part[i];
+}
+
+// acc += X B for this warp's 16 rows, on mma.sync: X is a [16 x TILE] tile
+// in the accumulator layout (P, dS; P^T, dS^T), whose columns are the
+// streamed rows, and B ring B's [TILE x COLS] tile of the block's
+// columns, 32-column boxes of 128-byte swizzled rows as TMA wrote them;
+// boxes from `nbox` on were not loaded (they feed only columns past d) and
+// are skipped. A lane holds X's columns 2t and 2t + 1 where the A fragment
+// wants t and t + 4, so each 8 streamed rows are taken in that order (row
+// 2t as k = t, 2t + 1 as k = t + 4) and this lane's B fragment is B's rows
+// 2t and 2t + 1: no shuffle (the forward's pv says where a column lies in
+// a swizzled row). Each box's products sum from 0 over the tile, 24
+// products, and are then added to acc in float32.
+template <int COLS>
+__device__ __forceinline__ void col_product(float (&acc)[COLS / 2],
+                                            const float (&x)[TILE / 2],
+                                            const uint8_t* tile, int nbox,
+                                            int g, int t) {
+  const float* bs_rows = reinterpret_cast<const float*>(tile) + 2 * t * CHUNK;
+  const int tg = sm90::opaque((t << 3) | g);
+#pragma unroll
+  for (int box = 0; box < COLS / CHUNK; ++box) {
+    if (box >= nbox) break;
+    float part[CHUNK / 2];
+#pragma unroll
+    for (int e = 0; e < CHUNK / 2; ++e) part[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {  // streamed rows 8 j .. 8 j + 7
+      uint32_t ab[4], as[4];
+      split(x[4 * j], ab[0], as[0]);      // row g,     streamed row 2t
+      split(x[4 * j + 2], ab[1], as[1]);  // row g + 8, streamed row 2t
+      split(x[4 * j + 1], ab[2], as[2]);  // row g,     streamed row 2t + 1
+      split(x[4 * j + 3], ab[3], as[3]);  // row g + 8, streamed row 2t + 1
+      const float* b0 = bs_rows + (box * TILE + 8 * j) * CHUNK;  // row 8 j + 2t
+#pragma unroll
+      for (int n = 0; n < CHUNK / 8; ++n) {  // the box's columns 8 n ..
+        const int e = (n << 3) ^ tg;
+        uint32_t bb[2], bs[2];
+        split(b0[e], bb[0], bs[0]);
+        split(b0[CHUNK + (e ^ 4)], bb[1], bs[1]);
+        mma3(&part[4 * n], ab, as, bb, bs);
+      }
     }
+#pragma unroll
+    for (int e = 0; e < CHUNK / 2; ++e) acc[box * (CHUNK / 2) + e] += part[e];
   }
 }
 
-// Write the block's float32 [ROWS][d] accumulator to rows row0.. of a
-// [seq, d] matrix, times `mul` (each row's own, or 1); rows at or past
-// `seq` are dropped. Lane c of a row's 8 takes columns c, c + 8, ....
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, const float* acc, int row0,
-                                           int seq, int d, float mul) {
-  const int r = threadIdx.x >> 3, c = threadIdx.x & 7;
-  if (row0 + r >= seq) return;
-  for (int j = c; j < d; j += 8)
-    store_one(dst + (size_t)(row0 + r) * d + j, acc[r * d + j] * mul);
-}
-
-}  // namespace wide
+}  // namespace tf32
 }  // namespace flash
 
 // The C entry points take dtype 0 = float32, 1 = bfloat16, 2 = float16,
 // and a head dimension of 32, 64, 128, 192 or 256, or a multiple of 64
-// above 256 whose wide tiles fit; anything else returns
-// FLASH_ERR_UNSUPPORTED or FLASH_ERR_SMEM. Each shared library built from
-// a source that includes this header exports its own copy.
+// above 256 (ray_tpu_torch/ops/attention.py caps it: WIDE_MAX_D); anything
+// else returns FLASH_ERR_UNSUPPORTED. Each shared library built from a
+// source that includes this header exports its own copy.
 extern "C" const char* flash_error_string(int code) {
   if (code == FLASH_ERR_UNSUPPORTED)
     return "unsupported dtype or head dimension";
-  if (code == FLASH_ERR_SMEM)
-    return "the head dimension's tiles exceed a block's 227 KB of shared "
-           "memory";
   if (code == FLASH_ERR_NO_ENCODER)
     return "libcuda has no cuTensorMapEncodeTiled";
   if (code == FLASH_ERR_TENSOR_MAP)
@@ -1162,7 +1180,8 @@ extern "C" const char* flash_error_string(int code) {
     if (dtype == 2) FLASH_DISPATCH_D(fn, __half, d, __VA_ARGS__);          \
     return FLASH_ERR_UNSUPPORTED;                                          \
   } while (0)
-// The same for the wide bodies: calls `fn<T>(args...)`, d among the args.
+// The same above 256 (wide_head_dim): calls `fn<T>(args...)`, d among the
+// args.
 #define FLASH_DISPATCH_WIDE(fn, dtype, ...)                                \
   do {                                                                     \
     if (dtype == 0) return fn<float>(__VA_ARGS__);                         \
@@ -1172,13 +1191,18 @@ extern "C" const char* flash_error_string(int code) {
   } while (0)
 
 namespace flash {
-// Whether the instance <T, D> of a kernel runs a Hopper body (sm90) or
-// another: every kernel takes the 16-bit types up to D 256 (above, the
-// 16-bit kernels run the *_sm90_wide bodies, d at run time). In float32
-// the forward runs fwd_kernel_tf32 and the backward pair the CUDA-core
-// bodies.
+// Whether the instance <T, D> of a kernel runs a Hopper body (sm90) or a
+// float32 one (tf32): every kernel takes the 16-bit types up to D 256 on a
+// body of its own (above, the 16-bit kernels run the *_sm90_wide bodies,
+// d at run time); in float32 each runs its 3xTF32 body, d at run time, at
+// every head dim.
 template <typename T, int D>
 constexpr bool hopper_body() {
   return sizeof(T) == 2 && D <= 256;
+}
+// The head dims above 256 (multiples of 64) that the entry points pass on
+// with d at run time: the 16-bit *_sm90_wide bodies and the float32 ones.
+__host__ __device__ constexpr bool wide_head_dim(int d) {
+  return d > 256 && d % 64 == 0;
 }
 }  // namespace flash

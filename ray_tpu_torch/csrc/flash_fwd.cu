@@ -1064,7 +1064,8 @@ static int fwd_wide_smem(int d) {
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int sq, int sk, int d,
                          int causal, float scale, int dtype, void* stream) {
-  if (wide::head_dim(d))
+  if (int err = bind_device()) return err;
+  if (wide_head_dim(d))
     FLASH_DISPATCH_WIDE(fwd_wide, dtype, q, k, v, o, lse, bh, sq, sk, d,
                         causal, scale, static_cast<cudaStream_t>(stream));
   FLASH_DISPATCH(fwd, dtype, d, q, k, v, o, lse, bh, sq, sk, causal, scale,
@@ -1073,6 +1074,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
 
 // Shared memory one block of flash_fwd takes at this head dim and dtype.
 extern "C" int flash_fwd_smem(int d, int dtype) {
-  if (wide::head_dim(d)) FLASH_DISPATCH_WIDE(fwd_wide_smem, dtype, d);
+  if (wide_head_dim(d)) FLASH_DISPATCH_WIDE(fwd_wide_smem, dtype, d);
   FLASH_DISPATCH(fwd_smem, dtype, d, );
 }

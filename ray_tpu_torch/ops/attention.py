@@ -11,15 +11,14 @@ Public layout as in the JAX package: q, k, v are [batch, heads, seq,
 head_dim]. The kernels and their plain PyTorch versions work on
 [batch * heads, seq, head_dim]. Each wrapper launches its kernel for a
 CUDA tensor and runs the plain version for a CPU tensor; it never swaps one
-for the other. On the card the body is chosen by type and head dim: bf16
-and float16 run the Hopper bodies (TMA ring, wgmma) of all three kernels at
-every head dim, one instance per d up to 256 and, above, d at run time with
-the output's columns split over the grid. float32 runs the forward on the
-tensor cores in 3xTF32 (mma.sync, each float32 operand split into two
-TF32 parts; a TMA ring; d at run time, O's columns split over the grid) at
-every head dim, and the backward pair on the CUDA-core bodies, above 256
-the wide ones, which take d at run time and keep their accumulators in
-shared memory (`TILES` lists each one's tiles).
+for the other. On the card every body runs on the tensor cores, fed by a
+TMA ring, chosen by type and head dim: bf16 and float16 run the Hopper
+bodies (wgmma) of all three kernels at every head dim, one instance per d
+up to 256 and, above, d at run time with the output's columns split over
+the grid. float32 runs the 3xTF32 bodies of all three kernels (each
+float32 operand split into two TF32 parts; wgmma and mma.sync) at every
+head dim, d at run time, the output's columns split over the grid
+(`TILES` lists each one's tiles).
 The dQ kernel runs first in the backward and also writes delta =
 rowsum(dO * O), which the dK/dV kernel reads.
 """
@@ -46,32 +45,18 @@ class Tile(NamedTuple):
     """Tiles of one kernel body, as its source fixes them."""
     rows: int     # rows one block owns (queries; keys for dK/dV)
     stream: int   # rows of each tile the block streams past them
-    stages: int   # slots of the ring the streamed tiles pass through
-    # A TMA ring feeding the tensor cores (wgmma; mma.sync in 3xTF32 in the
-    # float32 forward), or the CUDA cores.
-    ring: bool
-    # CUDA-core bodies: warps per 16 owned rows, each with its share of
-    # dK's and dV's columns. Ring bodies: consumer warpgroups per 64 owned
-    # rows; at 2 (dK/dV above d 128) one accumulates dV and the other dK,
-    # and the first hands P^T to the second through shared memory.
+    stages: int   # slots of the TMA ring the streamed tiles pass through
+    # Consumer warpgroups per 64 owned rows; at 2 (16-bit dK/dV above d
+    # 128) one accumulates dV and the other dK, and the first hands P^T to
+    # the second through shared memory.
     split: int = 1
     wide: bool = False  # d at run time
-    # The ring bodies with d at run time (16 bits above d 256, the float32
-    # forward at every d): the columns of the output (O; dQ; dK and dV) one
-    # block owns, 192 or 256 (the float32 forward: a power of two from 32 to
-    # 256, at a grid that fills the card); the grid holds one block per
-    # chunk of that many.
+    # The bodies with d at run time (16 bits above d 256, float32 at every
+    # d): the columns of the output (O; dQ; dK and dV) one block owns, 192
+    # or 256 (float32: a power of two from 32 up to 256, 128 in the
+    # backward pair, at a grid that fills the card); the grid holds one
+    # block per chunk of that many.
     cols: int = 0
-
-
-def _plain(name: str, d: int) -> Tile:
-    """A float32 backward CUDA-core body's tiles (csrc/flash_common.cuh
-    BLOCK, PlainTiles): above d = 128 it streams 32-row tiles, and the
-    dK/dV block splits dK's and dV's columns between two warps per 16
-    keys."""
-    if d <= 128:
-        return Tile(64, 64, 1, False)
-    return Tile(64, 32, 1, False, 2 if name == "flash_bwd_dkv" else 1)
 
 
 # The Hopper bodies' tiles (flash_common.cuh FwdTiles, DqTiles, DkvTiles):
@@ -81,24 +66,18 @@ def _plain(name: str, d: int) -> Tile:
 # keys through as many as fit beside Q and dO, and dK/dV's two warpgroups
 # share 64 keys (split 2) and stream 64 queries.
 _RING = {
-    "flash_fwd": {**dict.fromkeys((32, 64, 128), Tile(128, 128, 3, True)),
-                  192: Tile(128, 64, 3, True), 256: Tile(128, 64, 2, True)},
-    "flash_bwd_dkv": {32: Tile(128, 64, 3, True), 64: Tile(128, 64, 3, True),
-                      128: Tile(128, 32, 3, True),
-                      192: Tile(64, 64, 3, True, 2),
-                      256: Tile(64, 64, 2, True, 2)},
-    "flash_bwd_dq": {32: Tile(128, 128, 4, True),
-                     64: Tile(128, 128, 4, True),
-                     128: Tile(128, 64, 4, True),
-                     192: Tile(128, 32, 5, True),
-                     256: Tile(128, 32, 3, True)},
+    "flash_fwd": {**dict.fromkeys((32, 64, 128), Tile(128, 128, 3)),
+                  192: Tile(128, 64, 3), 256: Tile(128, 64, 2)},
+    "flash_bwd_dkv": {32: Tile(128, 64, 3), 64: Tile(128, 64, 3),
+                      128: Tile(128, 32, 3),
+                      192: Tile(64, 64, 3, 2),
+                      256: Tile(64, 64, 2, 2)},
+    "flash_bwd_dq": {32: Tile(128, 128, 4),
+                     64: Tile(128, 128, 4),
+                     128: Tile(128, 64, 4),
+                     192: Tile(128, 32, 5),
+                     256: Tile(128, 32, 3)},
 }
-# The float32 backward pair's wide bodies' tiles (flash_common.cuh,
-# namespace wide: ROWS and the *_STREAM rows): one instance serves every
-# multiple of 64 above 256, up to the largest whose shared memory fits
-# (`WIDE_MAX_D`).
-_WIDE = {"flash_bwd_dq": Tile(16, 16, 1, False, wide=True),
-         "flash_bwd_dkv": Tile(16, 8, 1, False, wide=True)}
 _V_STAGES = 2  # the 16-bit forward above d 256 and the float32 forward:
 # slots of V's tiles
 # The 16-bit dQ and dK/dV above d 256: slots of ring B, which holds the
@@ -128,57 +107,98 @@ def _ring_wide(name: str, d: int) -> Tile:
     product's operand through `_B_STAGES` more slots."""
     cols = wide_chunks(d)[1]
     if name == "flash_fwd":
-        return Tile(128, 64, 6, True, wide=True, cols=cols)
+        return Tile(128, 64, 6, wide=True, cols=cols)
     if name == "flash_bwd_dq":
-        return Tile(128, 64, 4, True, wide=True, cols=cols)
-    return Tile(64, 64, 4, True, 2, wide=True, cols=cols)
+        return Tile(128, 64, 4, wide=True, cols=cols)
+    return Tile(64, 64, 4, 2, wide=True, cols=cols)
 
 
-# The float32 forward (flash_common.cuh, namespace tf32): a block owns 128
-# query rows and streams 64-key tiles; each of ring A's slots holds a
-# 32-column chunk of Q's rows, of the tile's keys and of their small TF32
-# parts, 4 slots, 3 where a block owns 256 of O's columns; ring
-# B's 2 slots V's [64 x cols] tiles. d at run time at every head dim; O's
-# columns split over the grid (`f32_fwd_cols`).
+# The float32 bodies (flash_common.cuh, namespace tf32): a block owns 128
+# rows (queries; keys for dK/dV) and streams 64-row tiles (keys; queries),
+# d at run time at every head dim, the output's columns split over the
+# grid (`f32_cols`). The forward: each of ring A's slots holds a 32-column
+# chunk of Q's rows, of the tile's keys and of their small TF32 parts, 4
+# slots, 3 where a block owns 256 of O's columns; ring B's 2 slots V's
+# [64 x cols] tiles. The backward pair: ring A's 4 slots the same, a
+# chunk of the owned rows (dO, then Q; V, then K) and of the tile's rows
+# with their small parts; ring B's slots the tile's columns of the block's
+# chunk (K's; Q's and dO's with the tile's lse and delta), one slot where
+# that is more than 128 columns, else 2; a float32 buffer of the block's
+# [128 x 64] dP (dP^T); dQ's rows' lse and delta.
 _F32_CHUNK = 32   # columns of its TMA boxes: 128 bytes, the 128B swizzle
 _FILL = 132       # blocks an H100 runs at once (tf32::FILL)
+_F32_BWD_STAGES = 4  # tf32::BWD_STAGES
+_F32_STAT_LD = 96    # tf32::STAT_LD: floats of dK/dV's lse (delta) a slot
+# The widest chunk of the output's columns a float32 block owns: 128 in the
+# backward pair (tf32::DQ_WIDEST, DKV_WIDEST).
+_F32_WIDEST = {"flash_fwd": 256, "flash_bwd_dq": 128, "flash_bwd_dkv": 128}
 
 
-def _f32_fwd(d: int) -> Tile:
-    """The float32 forward's tiles at head dim d, on a grid that fills the
-    card (tf32::stages: ring A gives up a slot to V's wider tiles)."""
-    cols = f32_fwd_cols(d)
-    return Tile(128, 64, 3 if cols > 128 else 4, True, wide=True, cols=cols)
+def _f32(name: str, d: int) -> Tile:
+    """The float32 tiles of kernel `name` at head dim d, on a grid that
+    fills the card (tf32::stages: the forward's ring A gives up a slot to
+    V's wider tiles)."""
+    cols = f32_cols(name, d)
+    if name == "flash_fwd":
+        stages = 3 if cols > 128 else 4
+    else:
+        stages = _F32_BWD_STAGES
+    return Tile(128, 64, stages, wide=True, cols=cols)
 
 
-def f32_fwd_cols(d: int, blocks: int = _FILL) -> int:
-    """The columns of O one float32 forward block owns at head dim d, where
-    the grid has `blocks` row blocks (bh x q-blocks of 128 rows; by
-    default enough to fill the card): the power of two from 32 to 256 that
-    covers d; while the grid then holds fewer than 132 blocks, half as
-    many, down to 64 (flash_common.cuh tf32::cols, which the launcher
-    runs)."""
+def f32_cols(name: str, d: int, blocks: int = _FILL) -> int:
+    """The columns of the output one float32 block of kernel `name` owns
+    at head dim d, where the grid has `blocks` row blocks (bh x blocks of
+    128 rows; by default enough to fill the card): the power of two from
+    32 to `_F32_WIDEST[name]` that covers d; while the grid then holds
+    fewer than 132 blocks, half as many, down to 64 (flash_common.cuh
+    tf32::cols, which the launchers run)."""
     w = _F32_CHUNK
-    while w < d and w < 256:
+    while w < d and w < _F32_WIDEST[name]:
         w *= 2
     while w > 64 and blocks * -(-d // w) < _FILL:
         w //= 2
     return w
 
 
+def _f32_b_stages(name: str, cols: int) -> int:
+    """Ring B's slots of a float32 backward block owning `cols` columns
+    (tf32::bwd_b_stages)."""
+    b_cols = cols * (2 if name == "flash_bwd_dkv" else 1)
+    return 1 if b_cols > 128 else 2
+
+
 def _tile(name: str, dtype: torch.dtype, d: int) -> Tile:
     """The tiles of kernel `name`'s body in this dtype at head dim d."""
-    if name == "flash_fwd" and dtype == torch.float32:
-        return _f32_fwd(d)
+    if dtype == torch.float32:
+        return _f32(name, d)
     if d > 256:
-        return _ring_wide(name, d) if dtype in _HALF else _WIDE[name]
-    return _RING[name][d] if dtype in _HALF else _plain(name, d)
+        return _ring_wide(name, d)
+    return _RING[name][d]
 
 
 def _smem(name: str, t: Tile, d: int, size: int) -> int:
     """Shared memory of one block of kernel `name` with tiles `t` at head
     dim d for elements of `size` bytes (the formulas of csrc/)."""
-    if t.ring and t.wide and name == "flash_fwd" and size == 4:
+    if size == 4 and name != "flash_fwd":
+        # The float32 backward pair (tf32::bwd_smem): ring A's slots, a
+        # 32-column (128-byte) chunk of the owned rows, of the streamed
+        # rows and of their small parts each; ring B's, the streamed rows x
+        # cols (K's; Q's and dO's); the float32 dP buffer of rows x stream;
+        # lse and delta of the owned rows (dQ) or of each slot's streamed
+        # rows (dK/dV); a full, a ready and an empty mbarrier a slot of A,
+        # a full and an empty one a slot of B; 1024 bytes to align the
+        # swizzle pattern. d sets only cols.
+        dkv = name == "flash_bwd_dkv"
+        sb = _f32_b_stages(name, t.cols)
+        ring_b = sb * t.stream * t.cols * (2 if dkv else 1) * 4
+        # dK/dV's lse and delta: _F32_STAT_LD floats each a slot, for the
+        # tile's rows from the 16-byte boundary at or before its first.
+        stats = (sb * _F32_STAT_LD if dkv else t.rows) * 2 * 4
+        return (t.stages * (t.rows + 2 * t.stream) * 128 + ring_b
+                + t.rows * t.stream * 4 + stats
+                + 8 * (3 * t.stages + 2 * sb) + 1024)
+    if size == 4:
         # The float32 forward (tf32::smem): ring A's slots, a 32-column
         # (128-byte) chunk of Q's rows, of K's streamed rows and of their
         # small parts each; V's [stream x cols] slots; a full, a ready and
@@ -187,7 +207,7 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
         return (t.stages * (t.rows + 2 * t.stream) * 128
                 + _V_STAGES * t.stream * t.cols * 4
                 + 8 * (3 * t.stages + 2 * _V_STAGES) + 1024)
-    if t.ring and t.wide and name == "flash_fwd":
+    if t.wide and name == "flash_fwd":
         # The 16-bit forward above d 256 (fwd_smem_sm90_wide): ring A's
         # slots, a 64-column chunk of Q's rows and of K's streamed rows
         # each; V's [stream x cols] slots; a full and an empty mbarrier a
@@ -195,7 +215,7 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
         ring_a = t.stages * (t.rows + t.stream) * 64 * size
         ring_b = _V_STAGES * t.stream * t.cols * size
         return ring_a + ring_b + 8 * 2 * (t.stages + _V_STAGES) + 1024
-    if t.ring and t.wide:
+    if t.wide:
         # The 16-bit dQ and dK/dV above d 256 (dq_smem_sm90_wide,
         # dkv_smem_sm90_wide): ring A's slots, a 64-column chunk of two
         # owned and two streamed row blocks each (Q, dO, K, V; K, V, Q,
@@ -213,67 +233,39 @@ def _smem(name: str, t: Tile, d: int, size: int) -> int:
             handoff = t.rows * t.stream * 4 + 8 * 2
         return (ring_a + ring_b + handoff + 8 * 2 * (t.stages + _B_STAGES)
                 + 1024)
-    if t.wide:
-        # float32 accumulators (dQ; dK and dV) and dS / P tiles, then the
-        # owned and streamed rows padded by 16 bytes; dK/dV keeps the
-        # streamed rows' lse and delta.
-        row = (d + 16 // size) * size
-        n_acc, n_p, owned = {"flash_bwd_dq": (1, 1, 2),
-                             "flash_bwd_dkv": (2, 2, 2)}[name]
-        out = 4 * t.rows * (n_acc * d + n_p * t.stream) \
-            + (owned * t.rows + 2 * t.stream) * row
-        return out + (2 * t.stream * 4 if name == "flash_bwd_dkv" else 0)
-    if t.ring:
-        # Tiles are unpadded (TMA swizzles them); one 8-byte mbarrier per
-        # resident load and two per slot (four in the forward above d 128,
-        # where K and V are released apart); 1024 bytes to align the swizzle
-        # pattern. Resident: Q (forward); Q, dO and, up to d 128, O (dQ); K
-        # and V (dK/dV). At split 2, two float32 buffers of P^T with a full
-        # and an empty mbarrier each.
-        owned = {"flash_fwd": 1, "flash_bwd_dq": 3 if d <= 128 else 2,
-                 "flash_bwd_dkv": 2}[name] * t.rows * d * size
-        slot = 2 * t.stream * d * size
-        if name == "flash_bwd_dkv":
-            slot += 2 * t.stream * 4       # lse and delta
-        handoff = (2 * t.rows * t.stream * 4 + 8 * 4) if t.split == 2 else 0
-        bars = (4 if name == "flash_fwd" and d > 128 else 2) * t.stages
-        return owned + t.stages * slot + handoff + 8 * (1 + bars) + 1024
-    # The float32 backward pair on the CUDA cores: rows padded by 16 bytes;
-    # each warp's rows of dS or P get a tile of their own; dK/dV keeps lse
-    # and delta beside its tiles. Owned: Q and dO (dQ); K and V (dK/dV).
-    row = (d + 16 // size) * size
-    p_tile = t.split * t.rows * (t.stream + 16 // size) * size
-    out = (2 * t.rows + 2 * t.stream) * row + p_tile
-    return out + (2 * t.stream * 4 if name == "flash_bwd_dkv" else 0)
+    # Tiles are unpadded (TMA swizzles them); one 8-byte mbarrier per
+    # resident load and two per slot (four in the forward above d 128,
+    # where K and V are released apart); 1024 bytes to align the swizzle
+    # pattern. Resident: Q (forward); Q, dO and, up to d 128, O (dQ); K
+    # and V (dK/dV). At split 2, two float32 buffers of P^T with a full
+    # and an empty mbarrier each.
+    owned = {"flash_fwd": 1, "flash_bwd_dq": 3 if d <= 128 else 2,
+             "flash_bwd_dkv": 2}[name] * t.rows * d * size
+    slot = 2 * t.stream * d * size
+    if name == "flash_bwd_dkv":
+        slot += 2 * t.stream * 4       # lse and delta
+    handoff = (2 * t.rows * t.stream * 4 + 8 * 4) if t.split == 2 else 0
+    bars = (4 if name == "flash_fwd" and d > 128 else 2) * t.stages
+    return owned + t.stages * slot + handoff + 8 * (1 + bars) + 1024
 
 
-# The largest head dim the 16-bit kernels take. None of their blocks grows
-# with d above 256 (each owns a chunk of the output's columns), so shared
-# memory sets no limit there, and a search for the largest d that fits
-# would not end; the cost of recomputing S (and dP) once per chunk does
-# grow, to 3x the minimum FLOPs of dQ at d 1024. The cap keeps the set of
-# head dims these types have always taken, the widest of which the card
-# tests check (tests/test_torch_cuda.py).
+# The largest head dim the kernels take. None of their blocks grows with d
+# above 256 (each owns a chunk of the output's columns), so shared memory
+# sets no limit there, and a search for the largest d that fits would not
+# end; the cost of recomputing S (and dP) once per chunk does grow, to 3x
+# the minimum FLOPs of the 16-bit dQ at d 1024 and 3.5x of the float32
+# dK/dV at d 704. Each cap keeps the set of head dims its types have always
+# taken, the widest of which the card tests check (tests/test_torch_cuda.py):
+# 1024 in bf16 and float16; 704 in float32, where it was the largest d
+# whose blocks fit a block's shared memory while the float32 backward pair
+# kept its accumulators there.
 HALF_WIDE_MAX_D = 1024
+F32_WIDE_MAX_D = 704
 
-
-def _wide_max_d(dtype: torch.dtype) -> int:
-    """The largest multiple of 64 the kernels take: in float32, the largest
-    at which the three wide blocks fit; in 16 bits, `HALF_WIDE_MAX_D`."""
-    if dtype in _HALF:
-        return HALF_WIDE_MAX_D
-    size = torch.tensor([], dtype=dtype).element_size()
-    d = 256
-    while all(_smem(n, _tile(n, dtype, d + 64), d + 64, size) <= SMEM_LIMIT
-              for n in KERNELS):
-        d += 64
-    return d
-
-
-# dtype -> the largest head dim the kernels take: 704 in float32 (the wide
-# dK/dV block's shared memory bounds it) and 1024 in bf16 and float16.
-WIDE_MAX_D: Dict[torch.dtype, int] = {dt: _wide_max_d(dt)
-                                      for dt in _DTYPE_CODES}
+# dtype -> the largest head dim the kernels take.
+WIDE_MAX_D: Dict[torch.dtype, int] = {torch.float32: F32_WIDE_MAX_D,
+                                      torch.bfloat16: HALF_WIDE_MAX_D,
+                                      torch.float16: HALF_WIDE_MAX_D}
 
 
 def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
@@ -283,9 +275,8 @@ def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
 
 
 # (kernel, dtype) -> {head dim: Tile}, mirroring csrc/: bf16 and float16 run
-# the Hopper bodies at every head dim; float32 the forward's 3xTF32 body at
-# every head dim (`cols` at a grid that fills the card) and the backward
-# pair's CUDA-core bodies (above 256 the wide ones).
+# the Hopper bodies at every head dim; float32 the 3xTF32 bodies at every
+# head dim (`cols` at a grid that fills the card).
 TILES: Dict[Tuple[str, torch.dtype], Dict[int, Tile]] = {
     (name, dtype): {d: _tile(name, dtype, d) for d in head_dims(dtype)}
     for name in KERNELS for dtype in _DTYPE_CODES
@@ -299,15 +290,10 @@ def _refuse_head_dim(d: int, dtype: torch.dtype) -> None:
                          f"float16, not {dtype}")
     if d in TILES[KERNELS[0], dtype]:
         return
-    if d > 256 and d % 64 == 0 and dtype in _HALF:
+    if d > 256 and d % 64 == 0:
         raise ValueError(
             f"head dim {d}: the kernels in {dtype} take the multiples of 64 "
             f"up to {WIDE_MAX_D[dtype]}")
-    if d > 256 and d % 64 == 0:
-        raise ValueError(
-            f"head dim {d}: above {WIDE_MAX_D[dtype]} the kernels' tiles "
-            f"in {dtype} exceed the {SMEM_LIMIT} bytes of shared memory a "
-            f"block may take")
     raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS} and the "
                      f"multiples of 64 up to {WIDE_MAX_D[dtype]}")
 
@@ -344,15 +330,21 @@ def mha_reference(q, k, v, causal: bool = True,
 
 
 # --------------------------------------------------------------------------- #
-# Plain versions of the kernels: [bh, seq, d], float32 arithmetic
+# Plain versions of the kernels: [bh, seq, d], float32 arithmetic (float64
+# for float64 inputs, which only checks pass them)
 # --------------------------------------------------------------------------- #
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or in float64 where it is float64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def _scores(q, k, causal: bool, scale: float,
             matmul=torch.matmul) -> torch.Tensor:
     """Scaled, masked float32 scores [bh, sq, sk]; the causal mask starts
     both positions at 0, as the kernels' does."""
-    s = matmul(q.float(), k.float().transpose(1, 2)) * scale
+    s = matmul(_wide(q), _wide(k).transpose(1, 2)) * scale
     if causal:
         mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
                           device=q.device).tril()
@@ -366,7 +358,7 @@ def _softmax_pv(s, v, matmul=torch.matmul
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return matmul(p, v.float()) / denom, (m + torch.log(denom)).squeeze(-1)
+    return matmul(p, _wide(v)) / denom, (m + torch.log(denom)).squeeze(-1)
 
 
 def flash_forward_reference(q, k, v, causal: bool, scale: float
@@ -392,7 +384,7 @@ def truncate_tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x = big + small as the float32 forward's products read them
+    """x = big + small as the float32 kernels' products read them
     (`tf32::split`): big is x truncated, small what is left, truncated;
     x - (big + small) is at most 2^-20 of x."""
     big = truncate_tf32(x)
@@ -421,24 +413,46 @@ def flash_forward_tf32_reference(q, k, v, causal: bool, scale: float,
     return _softmax_pv(_scores(q, k, causal, scale, matmul), v, matmul)
 
 
+def _bwd_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float,
+              matmul=torch.matmul) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(p, ds) in float32: p = exp(s - lse), ds = p * (dO V^T - delta) *
+    scale."""
+    p = torch.exp(_scores(q, k, causal, scale, matmul) - lse.unsqueeze(-1))
+    dp = matmul(_wide(do), _wide(v).transpose(1, 2))
+    return p, p * (dp - delta.unsqueeze(-1)) * scale
+
+
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool,
                            scale: float) -> torch.Tensor:
     """dQ = (p * (dO V^T - delta) * scale) K with p = exp(s - lse)."""
-    p = torch.exp(_scores(q, k, causal, scale) - lse.unsqueeze(-1))
-    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
-    ds = p * (dp - delta.unsqueeze(-1)) * scale
-    return torch.matmul(ds, k.float()).to(q.dtype)
+    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale)
+    return torch.matmul(ds, _wide(k)).to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool,
                             scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK = dS^T Q and dV = p^T dO."""
-    p = torch.exp(_scores(q, k, causal, scale) - lse.unsqueeze(-1))
-    dv = torch.matmul(p.transpose(1, 2), do.float())
-    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
-    ds = p * (dp - delta.unsqueeze(-1)) * scale
-    dk = torch.matmul(ds.transpose(1, 2), q.float())
+    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.matmul(p.transpose(1, 2), _wide(do))
+    dk = torch.matmul(ds.transpose(1, 2), _wide(q))
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_tf32_reference(q, k, v, do, lse, delta, causal: bool,
+                             scale: float, passes: int = 3
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of the plain backward pair (float32 inputs) with its
+    six products, S, dP, dS K, p^T dO and dS^T Q, on TF32 operands as the
+    tensor cores take them: passes=3 splits them as the float32 kernels do
+    (3xTF32), passes=1 is a single TF32 pass, every operand rounded once,
+    which the float32 kernels are not: their 5e-4 limit must reject that.
+    For tests and checks; the backward counterpart of
+    `flash_forward_tf32_reference`."""
+    matmul = functools.partial(_matmul_tf32, passes=passes)
+    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, matmul)
+    return (matmul(ds, k.float()), matmul(ds.transpose(1, 2), q.float()),
+            matmul(p.transpose(1, 2), do.float()))
 
 
 # --------------------------------------------------------------------------- #
@@ -554,7 +568,7 @@ def _bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
 def bwd_delta(out, do) -> torch.Tensor:
     """delta_i = rowsum(dO * O), the softmax-jacobian diagonal term
     (float32 [bh, sq]): the plain version of what K2 computes on the card."""
-    return (do.float() * out.float()).sum(dim=-1)
+    return (_wide(do) * _wide(out)).sum(dim=-1)
 
 
 def _flash_backward(q, k, v, out, lse, do, causal: bool, scale: float
@@ -623,10 +637,8 @@ def flash_attention(q, k, v, causal: bool = True,
     is not a multiple of 64 and has no kernel here (16, 48, 80, 96, ...).
     The choice depends on the shape alone, never on whether a kernel built
     or launched, so it hides no kernel. A multiple of 64 above
-    `WIDE_MAX_D` raises: in float32 above 704 the wide kernels' tiles no
-    longer fit the 227 KB of shared memory a block may take, a resource
-    limit as the TPU kernels' VMEM is; bf16 and float16 stop at 1024
-    (`HALF_WIDE_MAX_D`). Each kernel's
+    `WIDE_MAX_D` raises: float32 stops at 704 (`F32_WIDE_MAX_D`), bf16
+    and float16 at 1024 (`HALF_WIDE_MAX_D`). Each kernel's
     tiles are fixed by its source for each type and head dim (`TILES`);
     the kernels mask a ragged last tile, so any sequence length takes
     them."""

@@ -10,7 +10,9 @@ GPT-2-small's batch 24 times 12 heads), as well as the plain PyTorch delta
 = rowsum(dO * O) that the dQ kernel computes (`bwd_delta`), and prints one
 JSON line for each head dim given: each time in ms (the median over five rounds of the mean of ten
 back-to-back launches, from CUDA events), the shape, and the card's name
-and power limit. To compare two versions of a kernel, run this from each
+and power limit; and each call's device time alone (`<name>_device_ms`,
+the kernels of one call in a torch.profiler trace), which at small shapes
+sits under the call's time, the rest being the host's. To compare two versions of a kernel, run this from each
 checkout in one call to the card, in turns. Exits non-zero where there is
 no card.
 """
@@ -42,6 +44,19 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn) -> float:
+    """The device time of one call (after a warm-up call): the CUDA
+    kernels' time in a torch.profiler trace of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / 1e3
 
 
 def main(argv=None) -> int:
@@ -93,6 +108,7 @@ def time_head_dim(args, d: int, card: str) -> dict:
               "dtype": args.dtype, "causal": causal, "card": card}
     for name in args.only.split(","):
         result[name] = time_ms(calls[name])
+        result[name + "_device_ms"] = device_ms(calls[name])
     return result
 
 

@@ -279,23 +279,19 @@ def test_tile_table_fits_hopper_shared_memory():
         for d, t in by_d.items():
             # wgmma's M is 64 rows per warpgroup, and the dK/dV kernel starts
             # its causal q loop at key0 / stream: both must divide evenly.
-            assert t.rows % (64 if t.ring else 16) == 0
-            assert t.rows % t.stream == 0 and t.stages >= (2 if t.ring else 1)
-            # The Hopper bodies take the 16-bit types at every head dim, in
-            # all three kernels; the float32 forward's 3xTF32 body, a TMA
-            # ring too, takes every float32 head dim, d at run time; the
-            # float32 backward pair runs the CUDA-core bodies, the wide ones
-            # above 256. Above 256, d is a run-time argument of every body.
-            # A block of a ring body with d at run time owns a chunk of the
-            # output's columns. From d 192 up, the 16-bit dK/dV block's
-            # two warpgroups share its keys (split 2), as the float32
-            # CUDA-core block splits its columns at d 192 and 256.
-            f32_fwd = dtype == torch.float32 and name == "flash_fwd"
-            assert t.ring == (dtype != torch.float32 or f32_fwd)
-            assert t.wide == (d > 256 or f32_fwd)
-            assert (t.cols > 0) == (t.ring and t.wide)
+            assert t.rows % 64 == 0
+            assert t.rows % t.stream == 0 and t.stages >= 2
+            # Every body is a TMA ring feeding the tensor cores: the Hopper
+            # bodies in 16 bits, the 3xTF32 ones in float32. Above 256, d
+            # is a run-time argument of every body, and in float32 at every
+            # head dim; a block of a body with d at run time owns a chunk of
+            # the output's columns. From d 192 up, the 16-bit dK/dV block's
+            # two warpgroups share its keys (split 2); the float32 dK/dV
+            # block's own 64 keys each, as dQ's own their queries.
+            assert t.wide == (d > 256 or dtype == torch.float32)
+            assert (t.cols > 0) == t.wide
             assert t.split == (2 if name == "flash_bwd_dkv" and 128 < d
-                               and (d <= 256 or t.ring) else 1)
+                               and dtype != torch.float32 else 1)
     assert len(tattn.TILES) == 3 * len(tattn.KERNELS)
     assert set(tattn.HEAD_DIMS) == {32, 64, 128, 192, 256}
     # One wide instance a type serves every multiple of 64 above 256 up to
@@ -311,8 +307,7 @@ def test_tile_table_fits_hopper_shared_memory():
             assert max(smem.values()) <= tattn.SMEM_LIMIT
     with pytest.raises(ValueError):
         tattn.kernel_smem_bytes(96)
-    # Past that limit the tiles do not fit a block: a resource limit, named
-    # in the message, as the reference's VMEM is one.
+    # Past that cap the kernels refuse the head dim, naming the cap.
     for dtype, d in ((torch.float32, 768), (torch.bfloat16, 1088)):
         q = torch.randn(1, 2, 32, d, dtype=dtype)
         with pytest.raises(ValueError,
@@ -325,30 +320,20 @@ def test_tile_table_fits_hopper_shared_memory():
 def test_tile_table_mirrors_the_cuda_sources():
     # The Hopper bodies fix their tiles in flash_common.cuh (FwdTiles,
     # DqTiles, DkvTiles, each specialised at 192 and 256; above d 256
-    # WideFwdTiles, WideDqTiles and WideDkvTiles), the CUDA-core bodies in
-    # BLOCK and PlainTiles; the table the wrappers and chip_smoke.py read
-    # must agree.
+    # WideFwdTiles, WideDqTiles and WideDkvTiles), the float32 bodies in
+    # namespace tf32; the table the wrappers and chip_smoke.py read must
+    # agree.
     import os
     import re
 
     src = open(os.path.join(os.path.dirname(tattn.__file__), os.pardir,
                             "csrc", "flash_common.cuh")).read()
-    block = int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1))
-    # PlainTiles: STREAM = D > 128 ? a : b, SPLIT = D > 128 ? c : e.
-    plain = re.search(r"PlainTiles \{\s*static constexpr int STREAM = "
-                      r"D > 128 \? (\d+) : (\d+), SPLIT = D > 128 \? (\d+) "
-                      r": (\d+);", src)
-    s_big, s_small, split_big, split_small = map(int, plain.groups())
-    # The wide backward bodies: ROWS, and the streamed rows of each kernel.
-    wide = re.search(r"constexpr int ROWS = (\d+), THREADS = \d+;\s*"
-                     r"constexpr int DQ_STREAM = (\d+), "
-                     r"DKV_STREAM = (\d+);", src)
-    wide_rows, dq_s, dkv_s = map(int, wide.groups())
-    wide_stream = {"flash_bwd_dq": dq_s, "flash_bwd_dkv": dkv_s}
-    # The float32 forward (namespace tf32): rows, the keys of a tile, ring
-    # A's slots and V's, one slot of A fewer above `wider` columns of O; its
-    # boxes' columns and the blocks that fill the card, which set O's
-    # column chunks (`f32_fwd_cols`).
+    # The float32 bodies (namespace tf32): rows, the rows of a streamed
+    # tile, the forward's ring A slots and V's, one slot of A fewer above
+    # `wider` columns of O; the backward pair's ring A slots, the widest
+    # chunk of dK/dV's columns, and ring B's slots (one above 128 columns a
+    # slot, else two); the boxes' columns and the blocks that fill the
+    # card, which set the output's column chunks (`f32_cols`).
     f32 = tuple(map(int, re.search(
         r"namespace tf32 \{\s*constexpr int ROWS = (\d+), TILE = (\d+), "
         r"STAGES = (\d+), V_STAGES = (\d+);", src).groups()))
@@ -356,6 +341,23 @@ def test_tile_table_mirrors_the_cuda_sources():
     wider = int(re.search(r"return cols > (\d+) \? STAGES - 1 : STAGES;",
                           src).group(1))
     assert wider == 128
+    bwd_stages = int(re.search(r"constexpr int BWD_STAGES = (\d+);",
+                               src).group(1))
+    assert bwd_stages == tattn._F32_BWD_STAGES
+    dq_widest, dkv_widest = map(int, re.search(
+        r"constexpr int DQ_WIDEST = (\d+), DKV_WIDEST = (\d+);",
+        src).groups())
+    assert tattn._F32_WIDEST == {"flash_fwd": 256, "flash_bwd_dq": dq_widest,
+                                 "flash_bwd_dkv": dkv_widest}
+    assert int(re.search(r"constexpr int STAT = TILE \+ 4, STAT_LD = (\d+);",
+                         src).group(1)) == tattn._F32_STAT_LD
+    b_wider = int(re.search(r"return b_cols > (\d+) \? 1 : 2;",
+                            src).group(1))
+    assert b_wider == 128
+    for name, per_col in (("flash_bwd_dq", 1), ("flash_bwd_dkv", 2)):
+        for cols in (32, 64, 128, 256):
+            assert tattn._f32_b_stages(name, cols) == (
+                1 if per_col * cols > b_wider else 2)
     assert int(re.search(r"constexpr int CHUNK = (\d+);", src).group(1)) \
         == tattn._F32_CHUNK
     assert int(re.search(r"constexpr int FILL = (\d+);", src).group(1)) \
@@ -395,39 +397,30 @@ def test_tile_table_mirrors_the_cuda_sources():
         assert set(spec) == {192, 256}
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             for d, t in tattn.TILES[name, dtype].items():
-                if dtype == torch.float32 and name == "flash_fwd":
-                    cols = tattn.f32_fwd_cols(d)
-                    assert t == tattn.Tile(
-                        *f32[:2], f32[2] - (cols > wider), True, wide=True,
-                        cols=cols)
-                elif t.ring and t.wide:
+                if dtype == torch.float32:
+                    cols = tattn.f32_cols(name, d)
+                    n = (f32[2] - (cols > wider) if name == "flash_fwd"
+                         else bwd_stages)
+                    assert t == tattn.Tile(*f32[:2], n, wide=True,
+                                           cols=cols)
+                    assert cols <= tattn._F32_WIDEST[name]
+                elif t.wide:
                     m = d // 64
                     cols = -(-m // -(-m // 4)) * 64
-                    assert dtype != torch.float32
                     if name == "flash_fwd":
-                        assert t == tattn.Tile(*ring_wide[:3], True,
+                        assert t == tattn.Tile(*ring_wide[:3],
                                                wide=True, cols=cols)
                     else:
                         assert t == tattn.Tile(
-                            *ring_wide_bwd[name], True,
+                            *ring_wide_bwd[name],
                             2 if name == "flash_bwd_dkv" else 1, wide=True,
                             cols=cols)
-                elif t.wide:
-                    assert t == tattn.Tile(wide_rows, wide_stream[name], 1,
-                                           False, wide=True)
-                elif t.ring and d in spec:
+                elif d in spec:
                     assert t == tattn.Tile(
-                        *spec[d], True,
-                        2 if name == "flash_bwd_dkv" else 1)
-                elif t.ring:
-                    want = tile128 if d == 128 and tile128 else tile
-                    assert t == tattn.Tile(int(rows), int(want), int(stages),
-                                           True)
+                        *spec[d], 2 if name == "flash_bwd_dkv" else 1)
                 else:
-                    split = split_big if d > 128 else split_small
-                    assert t == tattn.Tile(
-                        block, s_big if d > 128 else s_small, 1, False,
-                        split if name == "flash_bwd_dkv" else 1)
+                    want = tile128 if d == 128 and tile128 else tile
+                    assert t == tattn.Tile(int(rows), int(want), int(stages))
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 192, 256])
@@ -442,7 +435,7 @@ def test_fwd_ring_shared_memory(d, dtype):
     # the card.
     t = tattn.TILES["flash_fwd", dtype][d]
     stream, stages = {192: (64, 3), 256: (64, 2)}.get(d, (128, 3))
-    assert t == tattn.Tile(128, stream, stages, True)
+    assert t == tattn.Tile(128, stream, stages)
     bars = (4 if d > 128 else 2) * stages
     want = 128 * d * 2 + stages * 2 * stream * d * 2 + 8 * (1 + bars) + 1024
     assert tattn.kernel_smem_bytes(d, dtype)["flash_fwd"] == want
@@ -464,7 +457,7 @@ def test_wide_fwd_ring_shared_memory(d, dtype):
     cols = -(-(d // 64) // chunks) * 64
     assert tattn.wide_chunks(d) == (chunks, cols)
     assert cols in (192, 256) and (chunks - 1) * cols < d <= chunks * cols
-    assert t == tattn.Tile(128, 64, 6, True, wide=True, cols=cols)
+    assert t == tattn.Tile(128, 64, 6, wide=True, cols=cols)
     want = 6 * (128 + 64) * 64 * 2 + 2 * 64 * cols * 2 + 8 * 2 * (6 + 2) \
         + 1024
     assert tattn.kernel_smem_bytes(d, dtype)["flash_fwd"] == want
@@ -487,7 +480,7 @@ def test_f32_fwd_ring_shared_memory(d):
     cols = {32: 32, 64: 64, 128: 128}.get(d, 256)
     chunks = -(-d // cols)
     stages = 3 if cols == 256 else 4
-    assert t == tattn.Tile(128, 64, stages, True, wide=True, cols=cols)
+    assert t == tattn.Tile(128, 64, stages, wide=True, cols=cols)
     assert chunks == -(-d // 256)
     assert (chunks - 1) * cols < d <= chunks * cols
     want = stages * (128 + 2 * 64) * 32 * 4 + 2 * 64 * cols * 4 \
@@ -514,13 +507,78 @@ def test_f32_fwd_column_chunks_fill_the_card(bh, seq, d, cols):
     # blocks unless the chunks are down to 64 columns (32 at d 32). The
     # widths are the four instances the source compiles.
     blocks = bh * -(-seq // 128)
-    got = tattn.f32_fwd_cols(d, blocks)
+    got = tattn.f32_cols("flash_fwd", d, blocks)
     assert got == cols
     chunks = -(-d // got)
     assert (chunks - 1) * got < d <= chunks * got
     assert blocks * chunks >= 132 or got == min(d, 64)
     assert got in (32, 64, 128, 256)
     assert got <= tattn.TILES["flash_fwd", torch.float32][d].cols
+
+
+@pytest.mark.parametrize("d", tattn.head_dims(torch.float32))
+@pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_f32_bwd_ring_shared_memory(name, d):
+    # The float32 backward pair (3xTF32), d at run time at every float32
+    # head dim: a block owns 128 rows (queries; keys) and one chunk of its
+    # gradients' columns, the power of two from 32 that covers d, up to
+    # 128 (a dK/dV block holds two gradients). Ring A's 4
+    # slots each take a 32-column (128-byte) chunk of the owned rows, of
+    # the 64 streamed rows and of their small TF32 parts, as the forward's;
+    # ring B's slots the streamed rows x the block's columns (K's; Q's and
+    # dO's, with lse and delta from the 16-byte boundary at or before the
+    # tile's first row, 96 floats each), 1 slot where that is
+    # more than 128 columns, else 2; a float32 buffer of the block's
+    # [128 x 64] dP; dQ's 128 rows' lse and delta; a full, a ready and an
+    # empty mbarrier a slot of A, a full and an empty one a slot of B;
+    # 1024 bytes to align the swizzle. No block grows with d. chip_smoke.py
+    # checks these against what flash_bwd_smem asks for on the card.
+    dkv = name == "flash_bwd_dkv"
+    t = tattn.TILES[name, torch.float32][d]
+    widest = 128
+    cols = {32: 32, 64: 64}.get(d, 128)
+    assert t == tattn.Tile(128, 64, 4, wide=True, cols=cols)
+    chunks = -(-d // cols)
+    assert chunks == -(-d // widest) and (chunks - 1) * cols < d
+    b_cols = cols * (2 if dkv else 1)
+    b_slots = 1 if b_cols > 128 else 2
+    want = (4 * (128 + 2 * 64) * 32 * 4
+            + b_slots * (64 * b_cols * 4 + (2 * 96 * 4 if dkv else 0))
+            + 128 * 64 * 4 + (0 if dkv else 128 * 2 * 4)
+            + 8 * (3 * 4 + 2 * b_slots) + 1024)
+    assert tattn.kernel_smem_bytes(d, torch.float32)[name] == want
+    assert want <= tattn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name,bh,seq,d,cols", [
+    # Grids that fill the card: the power of two that covers d, up to 128.
+    ("flash_bwd_dq", 24, 2048, 64, 64), ("flash_bwd_dq", 24, 2048, 192, 128),
+    ("flash_bwd_dq", 24, 2048, 704, 128),
+    ("flash_bwd_dkv", 24, 2048, 128, 128),
+    ("flash_bwd_dkv", 24, 2048, 256, 128),
+    ("flash_bwd_dkv", 24, 2048, 704, 128),
+    # chip_smoke.py's small float32 shapes (4 to 8 row blocks): chunks of
+    # 64 columns; d 32 has no narrower chunk.
+    ("flash_bwd_dq", 4, 256, 256, 64), ("flash_bwd_dkv", 2, 256, 512, 64),
+    ("flash_bwd_dkv", 5, 77, 32, 32),
+    # In between: half as many columns while the grid holds fewer than 132
+    # blocks.
+    ("flash_bwd_dq", 16, 1024, 256, 128), ("flash_bwd_dq", 2, 2048, 704, 128),
+    ("flash_bwd_dkv", 2, 1024, 128, 64)])
+def test_f32_bwd_column_chunks_fill_the_card(name, bh, seq, d, cols):
+    # The launchers split the gradients' columns further where the row
+    # blocks alone leave the card's 132 SMs idle (tf32::cols, as the
+    # forward's): every chunk starts inside d, the chunks cover it, and the
+    # grid reaches 132 blocks unless the chunks are down to 64 columns (32
+    # at d 32). The widths are the instances the source compiles.
+    blocks = bh * -(-seq // 128)
+    got = tattn.f32_cols(name, d, blocks)
+    assert got == cols
+    chunks = -(-d // got)
+    assert (chunks - 1) * got < d <= chunks * got
+    assert blocks * chunks >= 132 or got == min(d, 64)
+    assert got in (32, 64, 128)
+    assert got <= tattn.TILES[name, torch.float32][d].cols
 
 
 def _mismatch(got, want, tol):
@@ -591,6 +649,59 @@ def test_f32_3xtf32_forward_matches_jax_kernel(interpret, d, causal):
                                **FWD_TOL)
 
 
+def _f32_backward_inputs(seed, shape, causal):
+    """float32 q, k, v, dO, lse and delta [bh, seq, d] from numpy, the
+    forward's from its plain version."""
+    q, k, v, do = (torch.from_numpy(a).reshape(-1, *shape[2:])
+                   for a in _inputs(seed, shape=shape))
+    scale = shape[-1] ** -0.5
+    out, lse = tattn.flash_forward_reference(q, k, v, causal, scale)
+    return q, k, v, do, lse, tattn.bwd_delta(out, do), scale
+
+
+@pytest.mark.parametrize("d", [64, 256, 704])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_limit_rejects_single_pass_tf32_backward(d, causal):
+    # The float32 backward pair is held to 5e-4 of its plain version,
+    # element by element against each row's rms (chip_smoke.py TOL, the
+    # card tests). Its 3xTF32 products sit inside that limit (causal dQ,
+    # whose row 0 is 0 in exact arithmetic, the closest); one TF32 pass
+    # (every operand rounded once to 10 mantissa bits) breaks it on each of
+    # dQ, dK and dV, which is why the kernels split every operand.
+    q, k, v, do, lse, delta, scale = _f32_backward_inputs(
+        16, (1, 2, 256, d), causal)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    want = (tattn.flash_bwd_dq_reference(*args),
+            *tattn.flash_bwd_dkv_reference(*args))
+    three = tattn.flash_bwd_tf32_reference(*args)
+    one = tattn.flash_bwd_tf32_reference(*args, passes=1)
+    for got3, got1, w in zip(three, one, want):
+        assert _mismatch(got3, w, 5e-4) < 0.5
+        assert _mismatch(got1, w, 5e-4) > 2
+
+
+@pytest.mark.parametrize("d", [64, 256, 704])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_3xtf32_backward_matches_jax_kernel(interpret, d, causal):
+    # The float32 backward kernels' arithmetic (3xTF32 products, float32
+    # sums) against the JAX package's float32 backward kernels, from the
+    # JAX forward's out and lse, at their own float32 tolerance.
+    q, k, v, g = _inputs(17, shape=(1, 2, 128, d))
+    scale = d ** -0.5
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out_j, lse_j = jattn._flash_forward(jq, jk, jv, causal, scale, BLOCK,
+                                        BLOCK)
+    grads_j = jattn._flash_backward(jq, jk, jv, out_j, lse_j, jg, causal,
+                                    scale, BLOCK, BLOCK)
+    lse = torch.from_numpy(np.asarray(lse_j)[..., 0].copy())
+    delta = tattn.bwd_delta(_t3(np.asarray(out_j)), _t3(g))
+    grads = tattn.flash_bwd_tf32_reference(_t3(q), _t3(k), _t3(v), _t3(g),
+                                           lse, delta, causal, scale)
+    for got, want in zip(grads, grads_j):
+        np.testing.assert_allclose(got.reshape(1, 2, 128, d).numpy(),
+                                   np.asarray(want), **GRAD_TOL)
+
+
 def _chunks_cover(d, cols):
     """The 16-bit blocks above d 256 own chunks of `cols` of the output's
     columns, as few as 256 columns each allow: each chunk starts inside d,
@@ -614,7 +725,7 @@ def test_wide_dq_ring_shared_memory(d, dtype):
     t = tattn.TILES["flash_bwd_dq", dtype][d]
     cols = -(-(d // 64) // -(-d // 256)) * 64
     _chunks_cover(d, cols)
-    assert t == tattn.Tile(128, 64, 4, True, wide=True, cols=cols)
+    assert t == tattn.Tile(128, 64, 4, wide=True, cols=cols)
     want = 4 * 2 * (128 + 64) * 64 * 2 + 1 * 64 * cols * 2 \
         + 8 * 2 * (4 + 1) + 1024
     assert tattn.kernel_smem_bytes(d, dtype)["flash_bwd_dq"] == want
@@ -634,7 +745,7 @@ def test_wide_dkv_ring_shared_memory(d, dtype):
     t = tattn.TILES["flash_bwd_dkv", dtype][d]
     cols = -(-(d // 64) // -(-d // 256)) * 64
     _chunks_cover(d, cols)
-    assert t == tattn.Tile(64, 64, 4, True, 2, wide=True, cols=cols)
+    assert t == tattn.Tile(64, 64, 4, 2, wide=True, cols=cols)
     want = (4 * 2 * (64 + 64) * 64 * 2
             + 1 * (2 * 64 * cols * 2 + 2 * 64 * 4)
             + 64 * 64 * 4 + 8 * 2 + 8 * 2 * (4 + 1) + 1024)
@@ -676,7 +787,7 @@ def test_dq_ring_shared_memory(d):
     # these against what flash_bwd_smem asks for on the card.
     t = tattn.TILES["flash_bwd_dq", torch.bfloat16][d]
     stages = {192: 5, 256: 3}.get(d, 4)
-    assert t.ring and (t.rows, t.stages) == (128, stages)
+    assert (t.rows, t.stages) == (128, stages)
     resident = 3 if d <= 128 else 2
     want = (resident * 128 * d * 2 + stages * 2 * t.stream * d * 2
             + 8 * (1 + 2 * stages) + 1024)
@@ -697,7 +808,7 @@ def test_dkv_ring_shared_memory(d, dtype):
     # flash_bwd_smem asks for on the card.
     t = tattn.TILES["flash_bwd_dkv", dtype][d]
     rows = 128 if d <= 128 else 64
-    assert t.ring and t.rows == rows and t.split == (1 if d <= 128 else 2)
+    assert t.rows == rows and t.split == (1 if d <= 128 else 2)
     slot = 2 * t.stream * d * 2 + 2 * t.stream * 4
     handoff = 0 if d <= 128 else 2 * 64 * t.stream * 4 + 4 * 8
     want = (2 * rows * d * 2 + t.stages * slot + handoff

@@ -46,23 +46,22 @@ def card():
     # head dim, two boxes a row).
     (torch.bfloat16, True, 200, 64, 6), (torch.bfloat16, True, 200, 128, 8),
     # float16 on the Hopper bodies, and d 192 and 256: all three kernels on
-    # the Hopper bodies in 16 bits; in float32 the forward's 3xTF32 body
-    # and the backward pair's CUDA-core ones (two warps a key row in dK/dV).
+    # the Hopper bodies in 16 bits, on the 3xTF32 ones in float32.
     (torch.float16, True, 1024, 64, 3), (torch.float16, False, 200, 128, 3),
     (torch.float16, True, 130, 32, 3), (torch.bfloat16, True, 300, 192, 3),
     (torch.float16, True, 300, 256, 3), (torch.bfloat16, False, 256, 256, 2),
     (torch.float32, True, 200, 256, 2), (torch.float32, False, 130, 192, 2),
     # Above 256, d at run time, up to the largest head dim whose tiles fit
-    # (1024 in 16 bits, 704 in float32): the forward's Hopper body in 16
-    # bits, whose lse K2 and K3 read here, and the wide bodies the rest.
+    # (1024 in 16 bits, 704 in float32): the Hopper bodies with d at run
+    # time in 16 bits, the 3xTF32 ones in float32.
     (torch.bfloat16, True, 300, 384, 3), (torch.float16, False, 200, 384, 2),
     (torch.float32, True, 130, 384, 2), (torch.bfloat16, True, 77, 1024, 1),
     (torch.float32, False, 64, 704, 1)])
 def test_kernels_match_plain_versions_on_card(card, dtype, causal, seq, d,
                                               bh):
-    # float32: the forward's 3xTF32 products (about 2^-22 of each) and
-    # summation order (1e-4 forward), summation order in the backward pair
-    # (5e-4 gradients); bf16 and float16: the kernels round P and dS to the
+    # float32: 3xTF32 products (about 2^-22 of each) and summation order
+    # (1e-4 forward; 5e-4 gradients, which go through one more product
+    # with cancelling terms, dP - delta); bf16 and float16: the kernels round P and dS to the
     # input type for the products (bf16 8 significant bits: 2e-2; float16
     # 11: 5e-3). delta is a float32 sum of the same products in both: 1e-4.
     tol = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2),
@@ -107,7 +106,7 @@ def test_backward_pair_at_head_dims_192_and_256_on_card(card, d, dtype,
     q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device=card,
                                dtype=dtype) for _ in range(4))
     scale = d ** -0.5
-    assert all(tattn.TILES[name, dtype][d].ring
+    assert all(not tattn.TILES[name, dtype][d].wide
                for name in ("flash_bwd_dq", "flash_bwd_dkv"))
     out, lse = tattn.flash_forward_reference(q, k, v, causal, scale)
     before = tattn.kernel_launches()
@@ -141,7 +140,7 @@ def test_forward_at_head_dims_192_and_256_on_card(card, d, dtype, causal,
     q, k, v = (torch.randn(bh, seq, d, generator=gen, device=card,
                            dtype=dtype) for _ in range(3))
     scale = d ** -0.5
-    assert tattn.TILES["flash_fwd", dtype][d].ring
+    assert not tattn.TILES["flash_fwd", dtype][d].wide
     before = tattn.kernel_launches()["flash_fwd"]
     out, lse = tattn._flash_forward(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -169,7 +168,7 @@ def test_wide_forward_on_card(card, d, dtype, causal, sq, sk, bh):
             for _ in range(2))
     scale = d ** -0.5
     t = tattn.TILES["flash_fwd", dtype][d]
-    assert t.ring and t.wide and t.cols in (192, 256)
+    assert t.wide and t.cols in (192, 256)
     before = tattn.kernel_launches()["flash_fwd"]
     out, lse = tattn._flash_forward(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -201,7 +200,7 @@ def test_wide_backward_on_card(card, d, dtype, causal, sq, sk, bh):
     scale = d ** -0.5
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         t = tattn.TILES[name, dtype][d]
-        assert t.ring and t.wide and t.cols in (192, 256)
+        assert t.wide and t.cols in (192, 256)
     out, lse = tattn.flash_forward_reference(q, k, v, causal, scale)
     before = tattn.kernel_launches()
     dq, delta_k = tattn._bwd_dq(q, k, v, do, out, lse, causal, scale)
@@ -237,7 +236,7 @@ def test_float32_forward_on_card(card, d, causal, sq, sk, bh):
             for _ in range(2))
     scale = d ** -0.5
     t = tattn.TILES["flash_fwd", torch.float32][d]
-    assert t.ring and t.wide and t.cols == tattn.f32_fwd_cols(d)
+    assert t.wide and t.cols == tattn.f32_cols("flash_fwd", d)
     before = tattn.kernel_launches()["flash_fwd"]
     out, lse = tattn._flash_forward(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -247,10 +246,52 @@ def test_float32_forward_on_card(card, d, causal, sq, sk, bh):
     assert _within(lse, want_lse, 1e-4)
 
 
-# Autograd in float32 through the new forward's lse: K2 and K3 (the
-# CUDA-core bodies; above 256 the wide ones) recompute P from it, so a
-# wrong lse shows in every gradient. Against plain attention, 1e-4 on the
-# output and 5e-4 on the gradients.
+# The float32 backward pair's 3xTF32 bodies (d at run time at every
+# float32 head dim, the gradients' columns split over the grid): d 32, 64,
+# 192, 256, 320 and 704 (one to six column chunks, the last running past d
+# at 320 and 704 in dQ); ragged, the last tile ending inside the head in
+# several heads (seq 77, 130 and 300); causal and not; seq_q != seq_k both
+# ways; grids of 2 to 15 row blocks, whose columns split into chunks of 64
+# to fill the card, and one of 320 that keeps the fewest chunks. Held to
+# the float32 limits, 5e-4 on dQ, dK and dV and 1e-4 on delta, with the
+# plain forward's out and lse as inputs, against the plain versions in
+# float64: at a causal row's first key dQ is all rounding (chip_smoke.py's
+# run_plain says why float32 ones cannot judge it).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 192, 256, 320, 704])
+@pytest.mark.parametrize("causal,sq,sk,bh", [
+    (True, 300, 300, 3), (True, 77, 77, 5), (False, 130, 130, 2),
+    (False, 200, 333, 2), (False, 333, 200, 2), (True, 1024, 1024, 40)])
+def test_float32_backward_on_card(card, d, causal, sq, sk, bh):
+    gen = torch.Generator(device=card).manual_seed(d + 2 * sq + 5 * sk)
+    q, do = (torch.randn(bh, sq, d, generator=gen, device=card)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=gen, device=card)
+            for _ in range(2))
+    scale = d ** -0.5
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        t = tattn.TILES[name, torch.float32][d]
+        assert t.wide and t.cols == tattn.f32_cols(name, d)
+    out, lse = tattn.flash_forward_reference(q, k, v, causal, scale)
+    before = tattn.kernel_launches()
+    dq, delta_k = tattn._bwd_dq(q, k, v, do, out, lse, causal, scale)
+    dk, dv = tattn._bwd_dkv(q, k, v, do, lse, delta_k, causal, scale)
+    torch.cuda.synchronize()
+    after = tattn.kernel_launches()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    q, k, v, do, out, lse = (t.double() for t in (q, k, v, do, out, lse))
+    delta = tattn.bwd_delta(out, do)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    want_dk, want_dv = tattn.flash_bwd_dkv_reference(*args)
+    assert _within(delta_k, delta, 1e-4)
+    assert _within(dq, tattn.flash_bwd_dq_reference(*args), 5e-4)
+    assert _within(dk, want_dk, 5e-4) and _within(dv, want_dv, 5e-4)
+
+
+# Autograd in float32 through the forward's lse: K2 and K3 recompute P
+# from it, so a wrong lse shows in every gradient. Against plain
+# attention, 1e-4 on the output and 5e-4 on the gradients.
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 256, 704])
 @pytest.mark.parametrize("causal", [True, False])
