@@ -67,6 +67,20 @@ failed phase, with no phase caught.
    same steps run in this process (`profile_train_step.build`, no
    trainer) before and after, as the yardstick for tokens/s through the
    actor.
+4e. Tune (run right after phase 4): `tune.Tuner` over
+   `TorchTrainer(...).as_trainable()` on phase 4's GPT-2-small, lr on a
+   grid of 1e-4, 3e-4, 1e-3 and 3e-3, ASHA (max_t 6, grace 2, factor 2),
+   `max_concurrent_trials=1`, each trial's worker granted the card and
+   reporting every step. Every trial must end TERMINATED with no error,
+   each stop must be ASHA's rung rule on the losses the trials reported,
+   each worker another process seeing card "0" that launches each kernel
+   once a layer a step (counted there), every earlier trial's worker gone
+   when a trial asks for the card (checked in the trial actor, before its
+   trainer asks), the best trial's loss finite and falling, and after the
+   sweep a `num_gpus=1` task granted the card within 60 s. Prints each
+   trial's lr, start, runtime and where it went, steps, last loss and
+   tokens/s after step 2, the best config and the sweep's wall time
+   against the sum of the trials' runtimes.
 4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
    seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
    goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
@@ -191,8 +205,9 @@ failed phase, with no phase caught.
    lr / 10 (phase 11b's limits), and no kernel of the port launched.
 12. Results (phase 5 before phases 6 and 7 came): prints the serving and
    training numbers, the `{"data": {...}}` line (phases 4c, 4d, 11c), the
-   `{"rllib": {...}}` line, the `{"kernels": [...]}` line (launches summed
-   over the paths of phases 4, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
+   `{"tune": {...}}` line (phase 4e), the `{"rllib": {...}}` line, the
+   `{"kernels": [...]}` line (launches summed over the paths of phases 4,
+   4e, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
@@ -203,8 +218,8 @@ failed phase, with no phase caught.
    under `sdpa_backward_ms`, at the main shape, at seq 8192 and at each
    instance of phase 2), then the device line last.
 
-Phases 4c, 8, 10 and 11 also train in worker actors through
-`TorchTrainer.fit`. Each phase frees what it allocated before the next starts, and the script
+Phases 4c, 4e, 8, 10 and 11 also train in worker actors through
+`TorchTrainer`. Each phase frees what it allocated before the next starts, and the script
 shuts the runtime and its worker template down before it exits.
 """
 
@@ -1136,6 +1151,233 @@ def in_driver_steps(name: str) -> float:
     gc.collect()
     torch.cuda.empty_cache()
     return b * s * leg.steps / dt
+
+
+# Phase 4e: a Tune sweep of GPT-2-small trials, one at a time on the card.
+TUNE_LRS = [1e-4, 3e-4, 1e-3, 3e-3]
+TUNE_MAX_T, TUNE_GRACE, TUNE_ETA = 6, 2, 2   # ASHA's max_t, grace, factor
+
+
+def tune_loop(config):
+    """Phase 4e's loop, run in each trial's worker actor: phase 4's
+    GPT-2-small (`profile_train_step.build`, seed 0, its fixed batch)
+    under AdamW at the trial's learning rate, reporting after every step
+    its loss, the time, the kernel launches since the loop started
+    (counted in this worker), this process's pid and CUDA_VISIBLE_DEVICES,
+    and the wall-clock times at which the loop started and the model was
+    built. It appends its pid to `pid_file` first, and trains until Tune
+    stops the trial."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.profile_train_step import build
+    from ray_tpu_torch.train import session
+
+    loop_start = time.time()
+    with open(config["pid_file"], "a") as f:
+        f.write(f"{os.getpid()}\n")
+    device = session.get_device()
+    attn.reset_kernel_launches()
+    model, _, _, batch = build("gpt2", device)
+    step = gpt2.make_train_step(model, gpt2.adamw(model, lr=config["lr"]))
+    built = time.time()
+    b, s = batch["input_ids"].shape
+    while True:
+        loss = step(batch).item()  # waits for the device
+        session.report({
+            "loss": loss, "t": time.perf_counter(), "wall": time.time(),
+            "tokens": b * s, "launches": attn.kernel_launches(),
+            "pid": os.getpid(), "loop_start": loop_start, "built": built,
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def tune_trainable(inner, pid_file: str):
+    """`inner` (a TorchTrainer's trainable), run only once every worker an
+    earlier trial started has exited: checked in the trial actor before
+    the trainer asks for its worker, so before the card is granted to it.
+    Each check, with the wall-clock time it was made, is appended to
+    `pid_file`.checks."""
+    def trainable(config):
+        from ray_tpu_torch.train.worker_group import process_exited
+
+        earlier = []
+        if os.path.exists(pid_file):
+            with open(pid_file) as f:
+                earlier = [int(x) for x in f.read().split()]
+        alive = [pid for pid in earlier if not process_exited(pid)]
+        with open(pid_file + ".checks", "a") as f:
+            f.write(json.dumps({"lr": config["lr"], "earlier": earlier,
+                                "alive": alive, "wall": time.time()})
+                    + "\n")
+        if alive:
+            raise AssertionError(f"earlier trials' workers {alive} still "
+                                 "alive when this trial asks for the card")
+        return inner(config)
+
+    trainable.__name__ = "GPT2Trial"
+    return trainable
+
+
+def asha_stops(histories) -> list:
+    """The step at which ASHA's rung rule stops each trial, for trials run
+    one after another with these losses (one per step): at each rung
+    (TUNE_GRACE, TUNE_GRACE * TUNE_ETA, ... below TUNE_MAX_T) a trial's
+    loss joins the losses recorded there, and once the rung holds
+    TUNE_ETA or more the trial stops unless its loss is within the best
+    1/TUNE_ETA of them; every trial stops at TUNE_MAX_T."""
+    rungs, r = [], TUNE_GRACE
+    while r < TUNE_MAX_T:
+        rungs.append(r)
+        r *= TUNE_ETA
+    recorded = {r: [] for r in rungs}
+    stops = []
+    for losses in histories:
+        stop = TUNE_MAX_T
+        for r in rungs:
+            if len(losses) < r:
+                break
+            recorded[r].append(losses[r - 1])
+            ranked = sorted(recorded[r])
+            if len(ranked) >= TUNE_ETA and losses[r - 1] > \
+                    ranked[max(1, int(len(ranked) / TUNE_ETA)) - 1]:
+                stop = r
+                break
+        stops.append(stop)
+    return stops
+
+
+def tune_phase(attn, per_step: dict, card: str, workdir: str) -> dict:
+    """Phase 4e: `tune.Tuner` over `TorchTrainer(tune_loop).as_trainable()`
+    on GPT-2-small, a grid of TUNE_LRS, ASHA, one trial at a time, each
+    trial's worker granted the card. Every trial must end TERMINATED with
+    no error, stopped where ASHA's rung rule puts it for the losses the
+    trials reported (`asha_stops`); each worker must be another process
+    seeing card "0" that launches each kernel `per_step[kernel]` times a
+    step, and must have exited before the next trial asks for the card;
+    the best trial's loss must be finite and fall; and after the sweep a
+    `num_gpus=1` task must be granted the card within 60 s. Returns the
+    sweep's record, with the launches of every reported step."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    driver_launches = attn.kernel_launches()
+    pid_file = os.path.join(workdir, "tune_worker_pids")
+    trainer = TorchTrainer(
+        tune_loop, train_loop_config={"pid_file": pid_file},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="gpt2_trial", storage_path=workdir))
+    t0 = time.perf_counter()
+    results = tune.Tuner(
+        tune_trainable(trainer.as_trainable(), pid_file),
+        param_space={"lr": tune.grid_search(TUNE_LRS)},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", max_concurrent_trials=1,
+            scheduler=tune.ASHAScheduler(
+                max_t=TUNE_MAX_T, grace_period=TUNE_GRACE,
+                reduction_factor=TUNE_ETA)),
+        run_config=RunConfig(name="gpt2_sweep", storage_path=workdir)).fit()
+    wall_s = time.perf_counter() - t0
+    if attn.kernel_launches() != driver_launches:
+        raise AssertionError("this process launched kernels during the "
+                             "sweep")
+    with open(pid_file + ".checks") as f:
+        checks = [json.loads(line) for line in f]
+    trials = sorted(results, key=lambda r: r.start_time)
+    launches = collections.Counter()
+    out = []
+    for r, check in zip(trials, checks):
+        hist = r.metrics_history
+        losses = [m["loss"] for m in hist]
+        last = hist[-1] if hist else {}
+        timed = hist[2:]
+        tps = (sum(m["tokens"] for m in timed)
+               / (timed[-1]["t"] - hist[1]["t"]) if timed else None)
+        rec = {"lr": r.config["lr"], "status": r.status, "error": r.error,
+               "start_time": r.start_time, "runtime_s": r.runtime_s,
+               "steps": len(hist), "losses": losses,
+               "tokens_per_sec_after_2": tps, "pid": last.get("pid"),
+               "cuda_visible_devices": last.get("cuda_visible_devices"),
+               "launches": last.get("launches")}
+        if hist:
+            # Where the trial's time went, by wall clock: the trial actor's
+            # start, the worker's (spawn, imports, the trainer's setup),
+            # the model's build, the first step, the rest.
+            rec["split_s"] = {
+                "trial_actor": check["wall"] - r.start_time,
+                "worker_start": hist[0]["loop_start"] - check["wall"],
+                "build": hist[0]["built"] - hist[0]["loop_start"],
+                "first_step": hist[0]["wall"] - hist[0]["built"],
+                "later_steps": hist[-1]["wall"] - hist[0]["wall"]}
+        out.append(rec)
+        print(f"  trial lr {rec['lr']:g}: started {rec['start_time']:.3f}, "
+              f"runtime {rec['runtime_s']:.2f} s, {rec['steps']} steps, "
+              f"last loss {losses[-1] if losses else float('nan'):.4f}, "
+              "tokens/s after step 2 "
+              + (f"{tps:.1f}" if tps else "n/a (stopped at step 2)")
+              + f", worker pid {rec['pid']} CUDA_VISIBLE_DEVICES="
+              f"{rec['cuda_visible_devices']!r}, status {rec['status']}; "
+              "s: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                rec.get("split_s", {}).items()))
+        if r.status != "TERMINATED" or r.error is not None:
+            raise AssertionError(f"trial lr {rec['lr']}: {r.status}, "
+                                 f"{r.error}")
+        if rec["pid"] == os.getpid() or rec["cuda_visible_devices"] != "0":
+            raise AssertionError(f"trial lr {rec['lr']}: not trained in a "
+                                 "worker granted card 0")
+        for i, m in enumerate(hist, 1):
+            want = {k: per_step[k] * i for k in m["launches"]}
+            if m["launches"] != want:
+                raise AssertionError(
+                    f"trial lr {rec['lr']}: {m['launches']} launches after "
+                    f"{i} steps, expected {per_step} a step")
+        launches.update(rec["launches"])
+    want_stops = asha_stops([rec["losses"] for rec in out])
+    print(f"  steps run {[rec['steps'] for rec in out]}, ASHA's rung rule "
+          f"on the reported losses {want_stops}")
+    if [rec["steps"] for rec in out] != want_stops:
+        raise AssertionError("the trials' stops disagree with ASHA's rule")
+    print(f"  earlier workers at each trial's request for the card: "
+          f"{[(c['earlier'], c['alive']) for c in checks]}")
+    # Trial i's check must have seen the workers of trials 0..i-1, all
+    # gone.
+    if [c["earlier"] for c in checks] != \
+            [[rec["pid"] for rec in out[:i]] for i in range(len(out))] or \
+            any(c["alive"] for c in checks):
+        raise AssertionError(f"a trial asked for the card while an earlier "
+                             f"worker was alive: {checks}")
+    best = results.get_best_result()
+    best_losses = [m["loss"] for m in best.metrics_history]
+    print(f"  best config {best.config}, loss {best_losses[-1]:.4f} "
+          f"(first {best_losses[0]:.4f})")
+    if not all(math.isfinite(x) for x in best_losses) or \
+            not best_losses[-1] < best_losses[0]:
+        raise AssertionError(f"best trial's loss not finite and falling: "
+                             f"{best_losses}")
+    trial_s = sum(rec["runtime_s"] for rec in out)
+    print(f"  sweep wall time {wall_s:.2f} s, sum of the trials' runtimes "
+          f"{trial_s:.2f} s")
+
+    def visible():
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    t0 = time.perf_counter()
+    grant = ray_tpu_torch.get(
+        ray_tpu_torch.remote(num_gpus=1)(visible).remote(), timeout=60)
+    grant_s = time.perf_counter() - t0
+    print(f"  a num_gpus=1 task after the sweep: CUDA_VISIBLE_DEVICES="
+          f"{grant!r} in {grant_s:.2f} s; launches {dict(launches)}, card "
+          f"{card}")
+    if grant != "0":
+        raise AssertionError(f"the card was not granted after the sweep: "
+                             f"{grant!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"trials": out, "best_config": best.config, "wall_s": wall_s,
+            "trials_runtime_s": trial_s, "regrant_s": grant_s,
+            "launches": dict(launches), "card": card}
 
 
 # Phases 4c and 4d: the Data-fed path. The corpus is the nanoGPT layout,
@@ -3062,6 +3304,12 @@ def offline_phase(attn, card: str, workdir: str) -> dict:
     return res
 
 
+def phase(started: float, title: str) -> None:
+    """A phase's header, with the seconds since the script started."""
+    print(f"== {title} (at {time.perf_counter() - started:.1f} s)",
+          flush=True)
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3072,7 +3320,7 @@ def main() -> int:
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as attn
 
-    print("== 1. device and build")
+    phase(started, "1. device and build")
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3099,20 +3347,21 @@ def main() -> int:
               f"ones")
     check_smem(attn, _build)
 
-    print("== 1b. runtime: ray_tpu_torch.init, tasks, objects, GPU grants")
+    phase(started,
+          "1b. runtime: ray_tpu_torch.init, tasks, objects, GPU grants")
     runtime = runtime_phase()
 
-    print("== 2. kernels against their plain versions")
+    phase(started, "2. kernels against their plain versions")
     records = check_kernels(attn)
     print("  head dims 192 and 256, float16, float32 filling the card:")
     check_instances(attn, records, F1_CASES, 200)
     print("  head dims above 256 (the wide instances):")
     check_instances(attn, records, F3_CASES, 300)
 
-    print("== 3. small GPT-2, kernels against plain attention")
+    phase(started, "3. small GPT-2, kernels against plain attention")
     check_model(gpt2)
 
-    print("== 4. main path: TorchTrainer.fit, GPT-2-small, in a worker "
+    phase(started, "4. main path: TorchTrainer.fit, GPT-2-small, in a worker "
           "actor")
     n_layer = gpt2.GPT2Config.small().n_layer
     yardstick = [in_driver_steps("gpt2")]
@@ -3128,7 +3377,13 @@ def main() -> int:
     runtime.update(actor_tokens_per_sec=main_leg["tokens_per_sec"],
                    in_driver_tokens_per_sec=yardstick, actor_ratio=ratio)
 
-    print("== 4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
+    phase(started, "4e. Tune: GPT-2-small trials through tune.Tuner and ASHA, "
+          "one at a time on the card")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        sweep = tune_phase(attn, dict.fromkeys(attn.KERNELS, n_layer), card,
+                           d)
+
+    phase(started, "4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
           "small on a shuffled token corpus")
     small = gpt2.GPT2Config.small()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3144,21 +3399,21 @@ def main() -> int:
               f"phase 4's synthetic batches {main_leg['tokens_per_sec']:.1f}"
               f" (ratio {data_leg['phase4_ratio']:.4f})")
 
-        print("== 4d. BatchPredictor: 4c's checkpoint scored in a pool "
+        phase(started, "4d. BatchPredictor: 4c's checkpoint scored in a pool "
               "actor granted the card")
         scoring = score_phase(attn, small, files, data_ckpt, card,
                               data_leg["pid"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    print("== 6. Llama-7B forward, flash kernel against plain attention")
+    phase(started, "6. Llama-7B forward, flash kernel against plain attention")
     from ray_tpu_torch import inference
     from ray_tpu_torch.models import llama
 
     model, llama_launches, records["flash_fwd"]["llama7b_prefill"] = \
         llama_forward(attn, llama)
 
-    print("== 7. main path: Llama-7B serving through InferenceEngine")
+    phase(started, "7. main path: Llama-7B serving through InferenceEngine")
     attn.reset_kernel_launches()
     serving = serve_llama(inference, llama, model, card)
     serve_launches = attn.kernel_launches()
@@ -3168,7 +3423,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("== 7b. Serve: LLMServer (Llama-7B) and GPT2Sampler in one-GPU "
+    phase(started,
+          "7b. Serve: LLMServer (Llama-7B) and GPT2Sampler in one-GPU "
           "replicas")
     print(f"  this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
           f" GiB of the card before the replicas start")
@@ -3176,7 +3432,8 @@ def main() -> int:
               "gpt2_sampler": serve_gpt2(gpt2, card)}
     serving.pop("solo_tokens")
 
-    print("== 8. long context: TorchTrainer.fit, GPT-2-small at seq 8192, "
+    phase(started,
+          "8. long context: TorchTrainer.fit, GPT-2-small at seq 8192, "
           "remat")
     legs = {"gpt2-long": train_phase(
         attn, "gpt2-long",
@@ -3187,10 +3444,11 @@ def main() -> int:
         records[name]["gpt2_long"] = rec
     long_check = check_long_model(attn, gpt2)
 
-    print("== 9. remat on the card: small GPT-2, float32, remat on and off")
+    phase(started,
+          "9. remat on the card: small GPT-2, float32, remat on and off")
     remat_bit_equal = check_remat(attn, gpt2)
 
-    print("== 10. Llama-small training: TorchTrainer.fit")
+    phase(started, "10. Llama-small training: TorchTrainer.fit")
     from ray_tpu_torch.models import moe
 
     n = llama.LlamaConfig.small().n_layer
@@ -3198,7 +3456,8 @@ def main() -> int:
         attn, "llama-small",
         dict.fromkeys(attn.KERNELS, n), card)
 
-    print("== 11. MoE-small training: TorchTrainer.fit, make_moe_train_step")
+    phase(started,
+          "11. MoE-small training: TorchTrainer.fit, make_moe_train_step")
     cfg = moe.MoEConfig.small()
     m = legs["moe-small"] = train_phase(
         attn, "moe-small",
@@ -3210,18 +3469,20 @@ def main() -> int:
     if not math.isfinite(m["router_loss"]):
         raise AssertionError(f"router loss not finite: {m['router_loss']}")
 
-    print("== 11b. RLlib on the card: PPO's learner at Atari width, IMPALA "
+    phase(started,
+          "11b. RLlib on the card: PPO's learner at Atari width, IMPALA "
           "with a remote learner, DQN")
     rllib = rllib_phase(attn, card)
 
-    print("== 11c. offline BC through Data: write_batches, read_batches, "
+    phase(started,
+          "11c. offline BC through Data: write_batches, read_batches, "
           "one BC update on the card against the CPU")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         offline = offline_phase(attn, card, d)
 
     stop_runtime()
 
-    print("== 12. results")
+    phase(started, "12. results")
     print(f"all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"serving": serving, "serve": served}))
@@ -3231,7 +3492,9 @@ def main() -> int:
                           str(k): v for k, v in remat_bit_equal.items()}}))
     print(json.dumps({"data": {"train": data_leg, "score": scoring,
                                "offline": offline}}))
-    paths = [launches, data_leg["launches"], scoring["launches"],
+    print(json.dumps({"tune": sweep}))
+    paths = [launches, sweep["launches"], data_leg["launches"],
+             scoring["launches"],
              llama_launches, serve_launches,
              served["llm_server"]["replica_launches"],
              served["gpt2_sampler"]["launches"], rllib["launches"],

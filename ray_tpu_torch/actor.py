@@ -14,6 +14,7 @@ from ray_tpu_torch.core import serialization
 from ray_tpu_torch.core.common import TaskSpec, normalize_resources
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
 from ray_tpu_torch.core.ids import ActorID, TaskID
+from ray_tpu_torch.exceptions import RaySystemError
 from ray_tpu_torch.object_ref import ObjectRef
 
 _VALID_ACTOR_OPTIONS = {
@@ -208,5 +209,17 @@ class ActorClass:
             runtime_env=opts.get("runtime_env"),
             nested_refs=nested_refs,
         )
-        runtime.create_actor(spec)
+        try:
+            runtime.create_actor(spec)
+        except RaySystemError:
+            if not (name and opts.get("get_if_exists")):
+                raise
+            # Another creator registered the name between our lookup and
+            # our registration: get_if_exists returns its actor.
+            try:
+                actor_id, _ = runtime.get_named_actor(name, namespace)
+            except ValueError:
+                raise RaySystemError(
+                    f"actor {name!r} could be neither created nor found"
+                ) from None
         return ActorHandle(actor_id, self._cls.__name__)

@@ -1003,7 +1003,10 @@ class GcsServer:
                     "mailbox": [
                         (k, s["posted"], s["consumers"], len(s["waiters"]))
                         for k, s in rec["mailbox"].items()],
-                    "pending_barriers": len(rec["barriers"])}
+                    "pending_barriers": len(rec["barriers"]),
+                    "barrier_arrivals": {
+                        seq: sorted(st["arrived"])
+                        for seq, st in rec["barriers"].items()}}
 
     def handle_collective_post(self, conn: Connection, data: Dict[str, Any]):
         """Publish one mailbox value for `consumers` takers. The slot is

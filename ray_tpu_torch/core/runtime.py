@@ -1265,6 +1265,16 @@ class CoreRuntime:
 
     def kill_actor(self, actor_id: ActorID, no_restart: bool = True):
         self.gcs.call("kill_actor", {"actor_id": actor_id, "no_restart": no_restart})
+        if no_restart:
+            # The GCS has marked the actor dead. Its worker may still be
+            # running its exit, so calls from this process must not reach
+            # it over a cached connection: they fail from now on.
+            key = actor_id.binary()
+            with self._lock:
+                self._actor_clients.pop(key, None)
+                self._actor_states[key] = {
+                    "state": "DEAD", "address": None, "error_blob": None,
+                    "reason": "killed by ray_tpu_torch.kill"}
 
     def get_named_actor(self, name: str, namespace: Optional[str] = None):
         resp = self.gcs.call("get_named_actor",

@@ -491,7 +491,24 @@ class IMPALA:
 
     @staticmethod
     def as_trainable(base_config: "IMPALAConfig") -> Callable:
-        """Not ported yet: Tune has no port (ROADMAP M10)."""
-        raise NotImplementedError(
-            "IMPALA.as_trainable needs ray_tpu_torch.tune, which is not "
-            "ported yet (ROADMAP M10)")
+        """A Tune trainable: IMPALA from `base_config` with the trial's
+        overrides, reporting each `train()` until the trial is stopped,
+        then `stop()`."""
+        def trainable(config: Dict[str, Any]):
+            import copy
+
+            from ray_tpu_torch import tune
+
+            cfg = copy.deepcopy(base_config)
+            for k, v in (config or {}).items():
+                if hasattr(cfg, k):
+                    setattr(cfg, k, v)
+            algo = IMPALA(cfg)
+            try:
+                while True:
+                    tune.report(algo.train())
+            finally:
+                algo.stop()
+
+        trainable.__name__ = "IMPALA"
+        return trainable

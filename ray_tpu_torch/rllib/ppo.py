@@ -266,7 +266,25 @@ class PPO:
 
     @staticmethod
     def as_trainable(base_config: PPOConfig) -> Callable:
-        """Not ported yet: Tune has no port (ROADMAP M10)."""
-        raise NotImplementedError(
-            "PPO.as_trainable needs ray_tpu_torch.tune, which is not ported "
-            "yet (ROADMAP M10)")
+        """A Tune trainable: PPO from `base_config` with the trial's
+        overrides (`lambda` sets `lambda_`), reporting each `train()`
+        until the trial is stopped, then `stop()`."""
+        def trainable(config: Dict[str, Any]):
+            import copy
+
+            from ray_tpu_torch import tune
+
+            cfg = copy.deepcopy(base_config)
+            for k, v in (config or {}).items():
+                key = "lambda_" if k == "lambda" else k
+                if hasattr(cfg, key):
+                    setattr(cfg, key, v)
+            algo = PPO(cfg)
+            try:
+                while True:
+                    tune.report(algo.train())
+            finally:
+                algo.stop()
+
+        trainable.__name__ = "PPO"
+        return trainable

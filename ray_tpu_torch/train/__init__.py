@@ -27,6 +27,7 @@ from ray_tpu_torch.train.config import (
 from ray_tpu_torch.train.session import (
     broadcast_params,
     get_checkpoint,
+    get_collective,
     get_context,
     get_dataset_shard,
     get_device,
@@ -52,7 +53,7 @@ __all__ = [
     "DataParallelTrainer", "FailureConfig", "Result", "RunConfig",
     "ScalingConfig", "TorchBackend", "TorchConfig", "TorchTrainer",
     "TrainWorker", "TrainingFailedError", "WorkerGroup", "broadcast_params",
-    "get_checkpoint", "get_context", "get_dataset_shard", "get_device",
-    "get_ingest_stats", "get_local_rank",
+    "get_checkpoint", "get_collective", "get_context", "get_dataset_shard",
+    "get_device", "get_ingest_stats", "get_local_rank",
     "get_world_rank", "get_world_size", "report", "sync_gradients",
 ]

@@ -10,6 +10,7 @@ results back; whole-group restart on failure (FailureConfig).
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import ray_tpu_torch
@@ -105,10 +106,14 @@ class BackendExecutor:
                   datasets_per_worker, experiment_name):
         wg = self.worker_group
         self.backend.on_training_start(wg, self.backend_config)
+        # Run-unique tag shared by all ranks: the host-collective group is
+        # named per run, so concurrent runs (or a restart of this one) can
+        # never interleave joins into one group.
+        run_nonce = os.urandom(4).hex()
         ray_tpu_torch.get([w.start_training.remote(
             train_fn, config, checkpoint, device,
             datasets_per_worker[i] if datasets_per_worker else None,
-            experiment_name)
+            experiment_name, run_nonce)
             for i, w in enumerate(wg.workers)])
         done = [False] * len(wg.workers)
         while not all(done):
@@ -132,13 +137,28 @@ class BackendExecutor:
                         self.latest_checkpoint = res["checkpoint"]
             if round_results:
                 yield round_results
+        # Every rank's loop ended: each leaves its host collective group
+        # (a graceful leave, which aborts no peer) before the group is
+        # shut down. The run is over: a rank lost now restarts nothing.
+        try:
+            ray_tpu_torch.get([w.finish.remote() for w in wg.workers])
+        except RayActorError:
+            logger.warning("a train worker died after its loop ended",
+                           exc_info=True)
+
+    def worker_ids(self) -> List[str]:
+        """The actor ids (hex) of the current group's workers."""
+        wg = self.worker_group
+        return [w._actor_id.hex() for w in wg.workers] if wg else []
 
     def shutdown(self):
+        """Shut the group down, its worker processes gone on return (see
+        WorkerGroup.shutdown, which raises if one outlives the wait)."""
         if self.worker_group is not None:
             try:
                 self.backend.on_shutdown(self.worker_group,
                                          self.backend_config)
             except Exception:
                 pass
-            self.worker_group.shutdown()
-            self.worker_group = None
+            wg, self.worker_group = self.worker_group, None
+            wg.shutdown()

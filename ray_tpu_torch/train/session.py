@@ -1,5 +1,5 @@
 """Per-worker training session: report(), ranks, dataset shards, the
-device, and the torch.distributed group.
+device, the torch.distributed group and the host collective plane.
 
 The port's copy of `ray_tpu/train/session.py` (the reference's
 `session.report`/`get_dataset_shard`, `python/ray/air/session.py:43,359`,
@@ -7,7 +7,10 @@ and `_TrainSession`, `python/ray/train/_internal/session.py:63`).
 `get_device()` stands where the JAX package's `get_mesh()` does, and
 `sync_gradients` and `broadcast_params` run over the torch.distributed
 group that the backend formed (NCCL on the card, gloo on the CPU) where
-the JAX package uses its host collective plane.
+the JAX package uses its host collective plane. That plane is here too:
+`get_collective()` is the run-wide `ray_tpu_torch.collective` group of
+the training workers (host memory, over the object store), for what a
+loop exchanges outside torch.distributed.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ class _TrainSession:
 
     def __init__(self, context: TrainContext, device=None,
                  datasets: Optional[Dict[str, Any]] = None,
-                 checkpoint: Optional[Checkpoint] = None):
+                 checkpoint: Optional[Checkpoint] = None,
+                 collective_factory=None):
         self.context = context
         self.device = device
         self.datasets = datasets or {}
@@ -46,6 +50,31 @@ class _TrainSession:
         self.finished = threading.Event()
         self.error: Optional[BaseException] = None
         self.final_return: Any = None
+        # Host collective plane: joined on first use, so loops that never
+        # ask for it never pay for it.
+        self._collective_factory = collective_factory
+        self._collective = None
+        self._collective_lock = threading.Lock()
+
+    def collective(self):
+        """This worker's handle on the run-wide host collective group
+        (ray_tpu_torch.collective), joined on first use. None when the
+        session runs outside a WorkerGroup of more than one worker (no
+        factory)."""
+        with self._collective_lock:
+            if self._collective is None and self._collective_factory is not None:
+                self._collective = self._collective_factory()
+            return self._collective
+
+    def teardown_collective(self):
+        with self._collective_lock:
+            group, self._collective = self._collective, None
+            self._collective_factory = None  # no join can land after this
+        if group is not None:
+            try:
+                group.leave()
+            except Exception:  # noqa: BLE001 — teardown is best-effort
+                pass
 
     def report(self, metrics: Dict[str, Any],
                checkpoint: Optional[Checkpoint] = None):
@@ -76,6 +105,12 @@ def init_session(session: _TrainSession):
     global _session
     with _session_lock:
         _session = session
+
+
+def shutdown_session():
+    global _session
+    with _session_lock:
+        _session = None
 
 
 def get_session() -> _TrainSession:
@@ -129,6 +164,19 @@ def get_device():
     """The torch device this worker trains on: its granted card
     (`cuda`, which is card 0 of its CUDA_VISIBLE_DEVICES) or the CPU."""
     return get_session().device
+
+
+def get_collective():
+    """The run-wide host collective group (`ray_tpu_torch.collective`):
+    ring allreduce, broadcast and barriers between the training workers,
+    through host memory. Raises when the session has no group of peers."""
+    group = get_session().collective()
+    if group is None:
+        raise RuntimeError(
+            "No host collective available: this session is not running "
+            "under a WorkerGroup of more than one worker (a single-process "
+            "loop has no peers).")
+    return group
 
 
 def _tensors(tree):

@@ -7,9 +7,11 @@ runtime when it is not up and runs the loop in worker actors through the
 BackendExecutor; the workers hold the card (each granted
 `gpus_per_worker` GPUs) unless `device="cpu"` or `use_gpu=False` asks for
 CPU workers. An error in the loop comes back as `Result.error` with the
-metrics reported before it; setup errors (no CUDA, too few GPUs, a bad
-config) raise before any worker starts. A Trainer is convertible to a Tune
-trainable (`as_trainable`).
+metrics reported before it; setup errors (a cluster with too few GPUs, a
+bad config) raise before any worker starts. Whether a process can train on
+its card is checked in the worker the runtime granted it, not in the
+process that calls `fit()`. A Trainer is convertible to a Tune trainable
+(`as_trainable`), whose workers' reports reach the trial as they come.
 """
 
 from __future__ import annotations
@@ -67,19 +69,42 @@ class BaseTrainer:
 
     def as_trainable(self):
         """Wrap as a Tune trainable function (reference: base_trainer.py
-        constructs a Tuner internally; we expose the seam directly)."""
+        constructs a Tuner internally; we expose the seam directly).
+
+        In a Tune trial, each round of the workers' reports reaches the
+        trial as it comes (`tune.report` of rank 0's metrics and
+        checkpoint), so a scheduler can stop the run between steps; the
+        trainable then returns nothing more. Called outside a trial, it
+        returns the last metrics. `tune_gpus` is the GPUs a run holds,
+        which caps how many trials Tune runs at once by default."""
+        from ray_tpu_torch.train import session
+
         trainer = self
 
         def trainable(config: Dict[str, Any]):
             merged = trainer._with_config_overrides(config)
             merged._check_setup()
-            result = merged.training_loop()
+            trial = session._session  # a Tune trial's session, or None
+
+            def on_report(metrics, checkpoint, workers):
+                # The trial's controller kills these workers should the
+                # trial actor die before its trainer shut them down.
+                trial.trainer_workers = workers
+                session.report(metrics, checkpoint=checkpoint)
+
+            result = merged.training_loop(
+                on_report=on_report if trial is not None else None)
             if result.error:
                 raise result.error
-            return result.metrics
+            return None if trial is not None else result.metrics
 
         trainable.__name__ = type(self).__name__
+        trainable.tune_gpus = self._run_gpus()
         return trainable
+
+    def _run_gpus(self) -> float:
+        """The GPUs one run of this trainer holds."""
+        return 0.0
 
     def _with_config_overrides(self, config: Dict[str, Any]) -> "BaseTrainer":
         if config and hasattr(self, "train_loop_config"):
@@ -127,14 +152,16 @@ class DataParallelTrainer(BaseTrainer):
         sc = self.scaling_config
         if sc.num_workers < 1:
             raise ValueError(f"num_workers={sc.num_workers}: at least 1")
-        if self._worker_device() == "cuda":
-            if not sc.gpus_per_worker > 0:
-                raise ValueError("a worker on the card takes "
-                                 "gpus_per_worker > 0; pass device='cpu' "
-                                 "or use_gpu=False otherwise")
-            from ray_tpu_torch._torch_env import resolve_device
+        if self._worker_device() == "cuda" and not sc.gpus_per_worker > 0:
+            raise ValueError("a worker on the card takes gpus_per_worker > "
+                             "0; pass device='cpu' or use_gpu=False "
+                             "otherwise")
 
-            resolve_device("cuda")  # raises where CUDA is absent
+    def _run_gpus(self) -> float:
+        sc = self.scaling_config
+        if self._worker_device() != "cuda":
+            return 0.0
+        return sc.num_workers * sc.gpus_per_worker
 
     def _split_datasets(self) -> Optional[List[Dict[str, Any]]]:
         """Per-worker dataset shards: ray_tpu_torch.data Datasets are
@@ -163,20 +190,28 @@ class DataParallelTrainer(BaseTrainer):
                     per_worker[i][name] = splits[i]
         return per_worker
 
-    def training_loop(self) -> Result:
+    def training_loop(self, on_report: Optional[Callable] = None
+                      ) -> Result:
+        """Run the loop in the worker group. `on_report(metrics,
+        checkpoint, workers)` gets each round's rank-0 report as it comes,
+        with the actor ids of the workers that run the loop (a Tune
+        trial's `report`); an exception it raises ends the run, its
+        workers shut down."""
         import ray_tpu_torch
 
         device = self._worker_device()
         scaling = dataclasses.replace(self.scaling_config,
                                       use_gpu=device == "cuda")
         if scaling.use_gpu:
-            want = scaling.num_workers * scaling.gpus_per_worker
+            want = self._run_gpus()
             have = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
             if have < want:
                 raise RuntimeError(
                     f"{scaling.num_workers} workers x "
                     f"{scaling.gpus_per_worker} GPUs need {want} GPUs; the "
-                    f"cluster has {have}")
+                    f"cluster advertises {have}, so no worker can be "
+                    "granted a CUDA card: pass device='cpu' or "
+                    "use_gpu=False to train on the CPU")
         backend_config = self.backend_config
         if isinstance(backend_config, TorchConfig) \
                 and backend_config.backend is None:
@@ -197,7 +232,11 @@ class DataParallelTrainer(BaseTrainer):
         executor = BackendExecutor(
             backend_config, scaling,
             max_failures=run_config.failure_config.max_failures)
-        executor.start()
+        try:
+            executor.start()
+        except BaseException:
+            executor.shutdown()  # no worker of a failed start lives on
+            raise
         history: List[Dict[str, Any]] = []
         last_metrics: Dict[str, Any] = {}
         last_ckpt: Optional[Checkpoint] = None
@@ -220,6 +259,10 @@ class DataParallelTrainer(BaseTrainer):
                 if ckpt is not None:
                     path = manager.register(ckpt, last_metrics)
                     last_ckpt = Checkpoint.from_directory(path)
+                if on_report is not None:
+                    on_report(last_metrics,
+                              last_ckpt if ckpt is not None else None,
+                              executor.worker_ids())
                 for cb in run_config.callbacks or []:
                     try:
                         cb(last_metrics)

@@ -7,14 +7,18 @@ training loop both run through them. A worker granted GPUs sees exactly
 its cards (the raylet sets its CUDA_VISIBLE_DEVICES) and trains on
 `cuda`. A group of more than one worker is watched by the `shardgroup`
 gang monitor: when a rank dies, the next `execute*` call fails at once,
-naming the rank, instead of at the collective's timeout.
+naming the rank, instead of at the collective's timeout. `shutdown()`
+returns once the worker processes on this host have exited, so a card
+they held is free when it returns.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import socket
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import ray_tpu_torch
@@ -22,6 +26,7 @@ from ray_tpu_torch.train.session import (
     TrainContext,
     _TrainSession,
     init_session,
+    shutdown_session,
 )
 
 logger = logging.getLogger(__name__)
@@ -57,19 +62,56 @@ class TrainWorker:
     def start_training(self, train_fn: Callable, config: Dict[str, Any],
                        checkpoint=None, device: str = "cuda",
                        datasets: Optional[Dict[str, Any]] = None,
-                       experiment_name: str = ""):
+                       experiment_name: str = "", run_nonce: str = ""):
         """Run `train_fn` in a thread of this actor, on `device` ("cuda",
         the card this worker was granted, or "cpu"), with this worker's
-        dataset shards (`session.get_dataset_shard`)."""
+        dataset shards (`session.get_dataset_shard`). Whether this process
+        can train on the card is checked here, where the card is: a worker
+        that cannot raises, naming itself."""
         assert self._thread is None or not self._thread.is_alive(), \
             "training already running"
         from ray_tpu_torch._torch_env import resolve_device
 
+        try:
+            torch_device = resolve_device(device)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"train worker rank {self.rank} (pid {os.getpid()}, "
+                "CUDA_VISIBLE_DEVICES="
+                f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}) cannot train "
+                f"on {device!r}: {e}") from None
         context = TrainContext(world_rank=self.rank,
                                world_size=self.world_size,
                                experiment_name=experiment_name)
-        session = _TrainSession(context, device=resolve_device(device),
-                                datasets=datasets, checkpoint=checkpoint)
+        collective_factory = None
+        if self.world_size > 1:
+            rank, world = self.rank, self.world_size
+            # Run-unique name (nonce from the executor): concurrent runs
+            # with the same experiment name can never share a group.
+            group_name = (f"train:{experiment_name or 'run'}"
+                          f":{run_nonce or 'default'}")
+
+            def collective_factory():
+                from ray_tpu_torch import collective as _collective
+                from ray_tpu_torch.exceptions import CollectiveError
+
+                try:
+                    return _collective.init_collective_group(
+                        world, rank, group_name=group_name)
+                except CollectiveError:
+                    # A crashed previous run left the name broken (its
+                    # members died, the record stayed). Clear it — only
+                    # if still broken, so a peer's fresh incarnation
+                    # survives the race — and join the new epoch.
+                    ray_tpu_torch._require_runtime().gcs.call(
+                        "collective_destroy",
+                        {"name": group_name, "if_broken": True}, timeout=10)
+                    return _collective.init_collective_group(
+                        world, rank, group_name=group_name)
+
+        session = _TrainSession(context, device=torch_device,
+                                datasets=datasets, checkpoint=checkpoint,
+                                collective_factory=collective_factory)
         self._session = session
         init_session(session)
 
@@ -117,6 +159,48 @@ class TrainWorker:
                 if timeout <= 0:
                     return {"done": False, "timeout": True}
 
+    def finish(self):
+        if self._session is not None:
+            self._session.teardown_collective()
+        shutdown_session()
+        self._session = None
+        return True
+
+
+def process_exited(pid: int) -> bool:
+    """Whether process `pid` has exited: gone, or a zombie its parent has
+    not reaped yet (which holds no memory and no card)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+    except OSError:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return True
+        except PermissionError:
+            pass
+        return False
+
+
+def wait_exited(procs: List[Dict[str, Any]],
+                timeout: float = 30.0) -> List[int]:
+    """Wait until each process of `procs` (`TrainWorker.node_info()`
+    records) that runs on this host has exited. The runtime hands a killed
+    worker's resources on at once, before its process has ended; waiting
+    here means the next holder of its card starts on a card no process of
+    this group still holds. Returns the pids still alive at `timeout`."""
+    host = socket.gethostname()
+    pids = [p["pid"] for p in procs if p.get("hostname") == host
+            and not process_exited(p["pid"])]
+    deadline = time.monotonic() + timeout
+    while pids and time.monotonic() < deadline:
+        time.sleep(0.02)
+        pids = [pid for pid in pids if not process_exited(pid)]
+    return pids
+
 
 class WorkerGroup:
     def __init__(self, num_workers: int,
@@ -131,6 +215,9 @@ class WorkerGroup:
         # Bumped on every successful (re)creation.
         self.incarnation = 0
         self.workers: List[Any] = []
+        # Each worker's node_info(): its host and pid, which shutdown()
+        # waits on.
+        self.procs: List[Dict[str, Any]] = []
         self._pg = None
         self._dead_rank: Optional[int] = None
         self._monitor = None
@@ -197,6 +284,8 @@ class WorkerGroup:
                         f"creating train worker rank {rank}/{num_workers} "
                         f"failed: {type(e).__name__}: {e}") from e
                 self.workers.append(handle)
+            self.procs = ray_tpu_torch.get(
+                [w.node_info.remote() for w in self.workers])
         except Exception:
             # All-or-nothing: a mid-gang failure releases every
             # already-created worker AND the placement group's bundles.
@@ -302,8 +391,17 @@ class WorkerGroup:
             self.workers[rank].execute.remote(fn, *args, **kwargs))
 
     def shutdown(self):
+        """Kill every worker and release the placement group; returns once
+        the worker processes on this host have exited (`wait_exited`).
+        Raises RuntimeError if one is still alive 30 s after its kill: a
+        card it holds is not free."""
         if self._monitor is not None:
             self._monitor.stop()
             self._monitor.group._dead = True
             self._monitor = None
         self._abort_gang()
+        procs, self.procs = self.procs, []
+        alive = wait_exited(procs)
+        if alive:
+            raise RuntimeError(f"train worker processes {alive} still alive "
+                               "30 s after their group was shut down")

@@ -1300,11 +1300,16 @@ def test_pool_actors_take_with_resources_and_reads_stay_on_cpu():
 
 def test_node_removed_mid_shuffle_recovers_by_recompute(cluster):
     # Two worker nodes hold every task of the pipeline (the "churn"
-    # resource pins them there); the one holding the most blocks is
-    # removed after the second batch. The epoch completes with every row
-    # once, the lost blocks are recomputed, and no more than the removed
-    # node's resident blocks plus one per partition are.
+    # resource pins them there). After the second batch, once every
+    # partition the shuffle has submitted but not yet handed out is sealed,
+    # the node holding the most of those partitions is removed: it provably
+    # holds blocks the rest of the epoch needs. The epoch completes with
+    # every row once, the lost blocks are recomputed, and no more than the
+    # removed node's resident blocks plus one per partition are.
+    from ray_tpu_torch.core.ids import ObjectID
+    from ray_tpu_torch.data.query.locality import locations_batch
     from ray_tpu_torch.data.streaming.lineage import core_reconstructions
+    from ray_tpu_torch.object_ref import ObjectRef
 
     nodes = [cluster.add_node(num_cpus=2, resources={"churn": 4})
              for _ in range(2)]
@@ -1322,15 +1327,31 @@ def test_node_removed_mid_shuffle_recovers_by_recompute(cluster):
         for i, batch in enumerate(ds.iter_batches(batch_size=250)):
             seen.append(batch["data"][:, 0])
             if i == 1:
-                victim = max(nodes, key=lambda r:
-                             r.store.stats()["num_objects"])
+                # The partitions still to come: each submitted reduce's
+                # recipe stays in the lineage until its block is handed
+                # out. Wait until all are sealed, then find their nodes.
+                pending = [ObjectRef(ObjectID(key))
+                           for key in ds._lineage._records]
+                assert pending
+                ready, _ = ray_tpu_torch.wait(
+                    pending, num_returns=len(pending), timeout=60)
+                assert len(ready) == len(pending)
+                held = {r.node_id.hex(): 0 for r in nodes}
+                for entry in locations_batch(pending):
+                    for node in entry["nodes"]:
+                        if node in held:
+                            held[node] += 1
+                victim = max(nodes, key=lambda r: held[r.node_id.hex()])
+                removed["needed"] = held[victim.node_id.hex()]
                 removed["resident"] = victim.store.stats()["num_objects"]
+                del pending
                 cluster.remove_node(victim)
                 nodes.remove(victim)
         ids = np.sort(np.concatenate(seen))
         np.testing.assert_array_equal(ids, np.arange(2000, dtype=np.float64))
         recomputed = core_reconstructions() - base + (
             ds._lineage.recomputed_blocks if ds._lineage else 0)
+        assert removed["needed"] >= 1, removed
         assert removed["resident"] > 0
         assert 1 <= recomputed <= removed["resident"] + n_parts, \
             (recomputed, removed)
