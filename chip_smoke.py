@@ -81,6 +81,22 @@ failed phase, with no phase caught.
    trial's lr, start, runtime and where it went, steps, last loss and
    tokens/s after step 2, the best config and the sweep's wall time
    against the sum of the trials' runtimes.
+4f. A submitted job (after 4e, on phase 1b's runtime): `python
+   gpt2_job.py 4` (the script `JOB_SCRIPT`, in a working_dir) goes through
+   `JobSubmissionClient.submit_job` with a pip environment of one wheel
+   made here (`--no-index --find-links`: nothing is fetched), env_vars and
+   metadata; the job's driver runs `TorchTrainer.fit()` on phase 4's
+   GPT-2-small for 4 steps in one worker granted the card. Its logs must
+   stream through `tail_job_logs` while it runs, its status go SUBMITTED,
+   RUNNING, SUCCEEDED, its driver and worker import the wheel, its losses
+   be finite and fall, its worker be another process seeing card "0" that
+   launches each kernel once a layer a step, and its driver open no CUDA
+   context. The same script with 200 steps is stopped once its first
+   step's loss is in its logs: it must end STOPPED, its driver's and
+   worker's processes exit (waited on by pid), and a `num_gpus=1` task be
+   granted the card after. `util.accelerators.detect_local_generation()`
+   must be "h100". Prints each job's statuses, its log chunks, where its
+   time went and the times from the stop to the exit and to the grant.
 4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
    seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
    goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
@@ -205,9 +221,10 @@ failed phase, with no phase caught.
    lr / 10 (phase 11b's limits), and no kernel of the port launched.
 12. Results (phase 5 before phases 6 and 7 came): prints the serving and
    training numbers, the `{"data": {...}}` line (phases 4c, 4d, 11c), the
-   `{"tune": {...}}` line (phase 4e), the `{"rllib": {...}}` line, the
+   `{"tune": {...}}` line (phase 4e), the `{"jobs": {...}}` line (phase
+   4f), the `{"rllib": {...}}` line, the
    `{"kernels": [...]}` line (launches summed over the paths of phases 4,
-   4e, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
+   4e, 4f, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
@@ -218,7 +235,7 @@ failed phase, with no phase caught.
    under `sdpa_backward_ms`, at the main shape, at seq 8192 and at each
    instance of phase 2), then the device line last.
 
-Phases 4c, 4e, 8, 10 and 11 also train in worker actors through
+Phases 4c, 4e, 4f, 8, 10 and 11 also train in worker actors through
 `TorchTrainer`. Each phase frees what it allocated before the next starts, and the script
 shuts the runtime and its worker template down before it exits.
 """
@@ -1378,6 +1395,316 @@ def tune_phase(attn, per_step: dict, card: str, workdir: str) -> dict:
     return {"trials": out, "best_config": best.config, "wall_s": wall_s,
             "trials_runtime_s": trial_s, "regrant_s": grant_s,
             "launches": dict(launches), "card": card}
+
+
+# Phase 4f: a submitted job. Its working_dir holds JOB_SCRIPT, its pip
+# environment one wheel made here (a wheel is a zip: nothing is fetched).
+JOB_STEPS = 4          # the job that trains to its end
+JOB_STOP_STEPS = 200   # the job stopped after its first step
+JOB_PKG, JOB_PKG_VALUE = "rtjobpkg", 4242
+JOB_SCRIPT = '''\
+"""Phase 4f's job: GPT-2-small through TorchTrainer.fit in one worker
+granted the card, for argv[1] steps. Prints a JOBDRIVER line at its start,
+a JOBSTEP line for each report as it comes and a JOBRESULT line at its
+end. It touches no card itself."""
+import json
+import os
+import sys
+import time
+import traceback
+
+import rtjobpkg  # from the job's pip environment
+
+from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+print("JOBDRIVER " + json.dumps({"pid": os.getpid(), "start": time.time(),
+                                 "pip": rtjobpkg.VALUE}), flush=True)
+
+
+def loop(config):
+    import os
+    import time
+
+    import rtjobpkg
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.profile_train_step import build
+    from ray_tpu_torch.train import session
+
+    loop_start = time.time()
+    device = session.get_device()
+    attn.reset_kernel_launches()
+    _, step, _, batch = build("gpt2", device)
+    built = time.time()
+    for i in range(config["steps"]):
+        loss = step(batch).item()  # waits for the device
+        session.report({
+            "step": i, "loss": loss, "wall": time.time(),
+            "launches": attn.kernel_launches(), "pid": os.getpid(),
+            "loop_start": loop_start, "built": built,
+            "pip": rtjobpkg.VALUE, "tag": os.environ.get("JOB_TAG"),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def on_report(metrics):
+    print("JOBSTEP " + json.dumps(metrics), flush=True)
+
+
+result = TorchTrainer(
+    loop, train_loop_config={"steps": int(sys.argv[1])},
+    scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+    run_config=RunConfig(name="gpt2_job",
+                         storage_path=os.environ["JOB_STORAGE"],
+                         callbacks=[on_report])).fit()
+torch = sys.modules.get("torch")
+print("JOBRESULT " + json.dumps({
+    "error": None if result.error is None else "".join(
+        traceback.format_exception(result.error)),
+    "losses": [m["loss"] for m in result.metrics_history],
+    "torch_imported": torch is not None,
+    "cuda_initialized": torch is not None and torch.cuda.is_initialized(),
+    "end": time.time()}), flush=True)
+sys.exit(0 if result.error is None else 1)
+'''
+
+
+def make_wheel(wheelhouse: str, name: str, value: int) -> str:
+    """A pure-Python wheel of one package, `name.VALUE = value`."""
+    import zipfile
+
+    os.makedirs(wheelhouse, exist_ok=True)
+    whl = os.path.join(wheelhouse, f"{name}-1.0-py3-none-any.whl")
+    dist = f"{name}-1.0.dist-info"
+    with zipfile.ZipFile(whl, "w") as zf:
+        zf.writestr(f"{name}/__init__.py", f"VALUE = {value}\n")
+        zf.writestr(f"{dist}/METADATA",
+                    f"Metadata-Version: 2.1\nName: {name}\nVersion: 1.0\n")
+        zf.writestr(f"{dist}/WHEEL",
+                    "Wheel-Version: 1.0\nGenerator: chip_smoke\n"
+                    "Root-Is-Purelib: true\nTag: py3-none-any\n")
+        zf.writestr(f"{dist}/RECORD", "")
+    return whl
+
+
+def job_lines(logs: str, tag: str) -> list:
+    """The JSON objects of a job's `tag` lines."""
+    return [json.loads(line[len(tag) + 1:]) for line in logs.splitlines()
+            if line.startswith(tag + " ")]
+
+
+def follow_job(client, sid: str, submitted: float, stop_after_step=False):
+    """Follow a job with `tail_job_logs` to its end: the statuses seen
+    (the first read just after the submit, then one after each chunk of
+    logs), each chunk's arrival and the status after it, and the time
+    `stop_job` was called where `stop_after_step` asks to stop it once
+    its first step's loss is in its logs."""
+    from ray_tpu_torch.job_submission import JobStatus
+
+    seen = [(client.get_job_status(sid), time.time())]
+    chunks, logs, stopped_at = [], "", None
+    for chunk in client.tail_job_logs(sid, poll_s=0.05):
+        logs += chunk
+        status = client.get_job_status(sid)
+        now = time.time()
+        chunks.append({"at": now - submitted, "status": status,
+                       "steps": chunk.count("JOBSTEP ")})
+        if status != seen[-1][0]:
+            seen.append((status, now))
+        if stop_after_step and stopped_at is None and "JOBSTEP " in logs:
+            stopped_at = time.time()
+            if not client.stop_job(sid):
+                raise AssertionError(f"stop_job({sid}) refused")
+    status = client.get_job_status(sid)
+    if status != seen[-1][0]:
+        seen.append((status, time.time()))
+    if status not in JobStatus.TERMINAL:
+        raise AssertionError(f"job {sid} followed to {status}")
+    return seen, chunks, logs, stopped_at
+
+
+def jobs_phase(attn, per_step: dict, card: str, workdir: str) -> dict:
+    """Phase 4f: a GPT-2-small training script submitted as a job through
+    `JobSubmissionClient` to the runtime of phase 1b, with a working_dir, a
+    pip environment built offline from a local wheel, env_vars and
+    metadata. The first job trains JOB_STEPS steps: its logs must stream
+    while it runs, its status go SUBMITTED, RUNNING, SUCCEEDED, its driver
+    and worker import the wheel, its losses be finite and fall, its worker
+    be another process seeing card "0" that launches each kernel
+    `per_step[kernel]` times a step, and its driver open no CUDA context.
+    The second is stopped once its first step's loss is in its logs: it
+    must end STOPPED, its driver and worker processes exit, and the card
+    then be granted to a `num_gpus=1` task. Last, `detect_local_generation`
+    must name this card. Returns the record of both jobs."""
+    import socket
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+    from ray_tpu_torch.train.worker_group import wait_exited
+    from ray_tpu_torch.util.accelerators import detect_local_generation
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    driver_launches = attn.kernel_launches()
+    jobdir = os.path.join(workdir, "job")
+    os.makedirs(jobdir)
+    with open(os.path.join(jobdir, "gpt2_job.py"), "w") as f:
+        f.write(JOB_SCRIPT)
+    wheelhouse = os.path.join(workdir, "wheels")
+    make_wheel(wheelhouse, JOB_PKG, JOB_PKG_VALUE)
+    runtime_env = {"working_dir": jobdir, "pip": [JOB_PKG],
+                   "pip_wheelhouse": wheelhouse,
+                   "env_vars": {"JOB_TAG": "chip-smoke-4f",
+                                "JOB_STORAGE": os.path.join(workdir,
+                                                            "results")}}
+    client = JobSubmissionClient(rt._global_runtime.gcs.address)
+    out = {"card": card}
+    host = socket.gethostname()
+
+    # The job that trains to its end.
+    submitted = time.time()
+    sid = client.submit_job(
+        entrypoint=f"{sys.executable} gpt2_job.py {JOB_STEPS}",
+        runtime_env=runtime_env, metadata={"phase": "4f", "steps": "4"})
+    seen, chunks, logs, _ = follow_job(client, sid, submitted)
+    info = client.get_job_info(sid)
+    statuses = [s for s, _ in seen]
+    driver = job_lines(logs, "JOBDRIVER")
+    steps = job_lines(logs, "JOBSTEP")
+    result = job_lines(logs, "JOBRESULT")
+    print(f"  job {sid}: statuses {statuses}, {len(chunks)} chunks of logs "
+          f"(at s after submit / status / steps: "
+          + ", ".join(f"{c['at']:.2f} {c['status']} {c['steps']}"
+                      for c in chunks) + f"), card {card}")
+    if info.status != JobStatus.SUCCEEDED or len(driver) != 1 or \
+            len(result) != 1:
+        raise AssertionError(f"job {sid} {info.status} ({info.message}): "
+                             f"{logs[-3000:]}")
+    driver, result = driver[0], result[0]
+    if statuses[0] not in (JobStatus.PENDING, JobStatus.SUBMITTED) or \
+            statuses[1:] != [JobStatus.RUNNING, JobStatus.SUCCEEDED]:
+        raise AssertionError(f"job {sid}: statuses {statuses}")
+    if not any(c["steps"] and c["status"] == JobStatus.RUNNING
+               for c in chunks):
+        raise AssertionError("no step's line reached the logs while the "
+                             "job ran: the logs did not stream")
+    if info.metadata != {"phase": "4f", "steps": "4"} or \
+            not info.runtime_env["working_dir"].startswith("kv://"):
+        raise AssertionError(f"job {sid}'s record: {info}")
+    losses = [m["loss"] for m in steps]
+    worker = steps[-1]
+    running_at = next(t for s, t in seen if s == JobStatus.RUNNING)
+    split = {"to_running": running_at - submitted,
+             "driver_start": driver["start"] - submitted,
+             "worker_start": worker["loop_start"] - driver["start"],
+             "build": worker["built"] - worker["loop_start"],
+             "first_step": steps[0]["wall"] - worker["built"],
+             "later_steps": steps[-1]["wall"] - steps[0]["wall"],
+             "to_end": info.end_time - submitted}
+    print(f"  driver pid {driver['pid']} imported {JOB_PKG}.VALUE "
+          f"{driver['pip']}; worker pid {worker['pid']} (this process "
+          f"{os.getpid()}) CUDA_VISIBLE_DEVICES="
+          f"{worker['cuda_visible_devices']!r}, {JOB_PKG}.VALUE "
+          f"{worker['pip']}, JOB_TAG {worker['tag']!r}")
+    print("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    print("  s after submit: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in split.items())
+          + f"; card {card}")
+    print(f"  the driver: torch imported {result['torch_imported']}, CUDA "
+          f"initialised {result['cuda_initialized']}")
+    if driver["pip"] != JOB_PKG_VALUE or worker["pip"] != JOB_PKG_VALUE or \
+            worker["tag"] != "chip-smoke-4f":
+        raise AssertionError("the job's environment did not reach its "
+                             "driver and worker")
+    if worker["pid"] in (os.getpid(), driver["pid"]) or \
+            worker["cuda_visible_devices"] != "0":
+        raise AssertionError("the job did not train in a worker granted "
+                             "card 0")
+    if result["cuda_initialized"] or result["error"] is not None:
+        raise AssertionError(f"the job's driver: {result}")
+    if len(losses) != JOB_STEPS or result["losses"] != losses or \
+            not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"the job's losses not finite and falling: "
+                             f"{losses}")
+    for i, m in enumerate(steps, 1):
+        if m["launches"] != {k: per_step[k] * i for k in m["launches"]}:
+            raise AssertionError(f"the job's worker launched {m['launches']}"
+                                 f" in {i} steps, expected {per_step} a "
+                                 "step")
+    launches = collections.Counter(worker["launches"])
+    out["trained"] = {"submission_id": sid, "statuses": statuses,
+                      "chunks": chunks, "losses": losses, "split_s": split,
+                      "driver_pid": driver["pid"],
+                      "worker_pid": worker["pid"],
+                      "driver_torch_imported": result["torch_imported"],
+                      "driver_cuda_initialized": result["cuda_initialized"],
+                      "launches": worker["launches"]}
+
+    # The job stopped after its first step.
+    submitted = time.time()
+    sid = client.submit_job(
+        entrypoint=f"{sys.executable} gpt2_job.py {JOB_STOP_STEPS}",
+        runtime_env=runtime_env, metadata={"phase": "4f", "steps": "stop"})
+    seen, chunks, logs, stopped_at = follow_job(client, sid, submitted,
+                                                stop_after_step=True)
+    statuses = [s for s, _ in seen]
+    driver = job_lines(logs, "JOBDRIVER")
+    steps = job_lines(logs, "JOBSTEP")
+    if statuses[-1] != JobStatus.STOPPED or JobStatus.RUNNING not in \
+            statuses or stopped_at is None or not driver or not steps:
+        raise AssertionError(f"job {sid}: statuses {statuses}: "
+                             f"{logs[-3000:]}")
+    pids = {"driver": driver[0]["pid"], "worker": steps[-1]["pid"]}
+    alive = wait_exited([{"pid": p, "hostname": host}
+                         for p in pids.values()], timeout=60)
+    exited_s = time.time() - stopped_at
+    if alive:
+        raise AssertionError(f"{alive} of the stopped job's processes "
+                             f"{pids} alive 60 s after the stop")
+
+    def visible():
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    t0 = time.time()
+    grant = rt.get(rt.remote(num_gpus=1)(visible).remote(), timeout=60)
+    regrant_s = time.time() - stopped_at
+    print(f"  job {sid}: statuses {statuses}, {len(steps)} steps before the "
+          f"stop (losses {[round(m['loss'], 4) for m in steps]}); driver "
+          f"{pids['driver']} and worker {pids['worker']} gone "
+          f"{exited_s:.2f} s after stop_job; a num_gpus=1 task then got "
+          f"CUDA_VISIBLE_DEVICES={grant!r} in {time.time() - t0:.2f} s, "
+          f"{regrant_s:.2f} s after stop_job; card {card}")
+    if grant != "0":
+        raise AssertionError(f"the card was not granted after the stop: "
+                             f"{grant!r}")
+    for i, m in enumerate(steps, 1):
+        if m["launches"] != {k: per_step[k] * i for k in m["launches"]}:
+            raise AssertionError(f"the stopped job's worker launched "
+                                 f"{m['launches']} in {i} steps")
+    launches.update(steps[-1]["launches"])
+    out["stopped"] = {"submission_id": sid, "statuses": statuses,
+                      "steps_before_stop": len(steps),
+                      "to_running_s": next(t for s, t in seen
+                                           if s == JobStatus.RUNNING)
+                      - submitted,
+                      "stop_to_exit_s": exited_s,
+                      "stop_to_regrant_s": regrant_s, "pids": pids}
+    client.close()
+    if attn.kernel_launches() != driver_launches:
+        raise AssertionError("this process launched kernels while the jobs "
+                             "trained")
+
+    smi_name = card.split(",")[0].strip()
+    generation = detect_local_generation()
+    print(f"  detect_local_generation() {generation!r}; nvidia-smi's card "
+          f"{smi_name!r}")
+    if generation != "h100":
+        raise AssertionError(f"detect_local_generation() gave {generation!r}"
+                             f" for {smi_name!r}")
+    out.update(generation=generation, launches=dict(launches))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # Phases 4c and 4d: the Data-fed path. The corpus is the nanoGPT layout,
@@ -3383,6 +3710,12 @@ def main() -> int:
         sweep = tune_phase(attn, dict.fromkeys(attn.KERNELS, n_layer), card,
                            d)
 
+    phase(started, "4f. a submitted job: JobSubmissionClient, GPT-2-small "
+          "through TorchTrainer.fit, a pip env, a stop")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        jobs = jobs_phase(attn, dict.fromkeys(attn.KERNELS, n_layer), card,
+                          d)
+
     phase(started, "4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
           "small on a shuffled token corpus")
     small = gpt2.GPT2Config.small()
@@ -3493,7 +3826,9 @@ def main() -> int:
     print(json.dumps({"data": {"train": data_leg, "score": scoring,
                                "offline": offline}}))
     print(json.dumps({"tune": sweep}))
-    paths = [launches, sweep["launches"], data_leg["launches"],
+    print(json.dumps({"jobs": jobs}))
+    paths = [launches, sweep["launches"], jobs["launches"],
+             data_leg["launches"],
              scoring["launches"],
              llama_launches, serve_launches,
              served["llm_server"]["replica_launches"],

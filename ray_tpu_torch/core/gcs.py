@@ -1910,8 +1910,17 @@ class GcsServer:
     def job_manager(self):
         """Lazy JobManager (spawns driver subprocesses for submitted jobs,
         reference job_manager.py:507)."""
-        raise NotImplementedError(
-            "job submission is not ported yet (ROADMAP M4c)")
+        with self._lock:
+            if getattr(self, "_job_manager", None) is None:
+                import tempfile
+
+                from ray_tpu_torch.job_submission.manager import JobManager
+
+                self._job_manager = JobManager(
+                    self.address,
+                    log_dir=os.path.join(tempfile.gettempdir(),
+                                         "ray_tpu_torch_jobs"))
+            return self._job_manager
 
     def handle_submit_job(self, conn: Connection, data: Dict[str, Any]):
         if not GLOBAL_CONFIG.job_agent_enabled:

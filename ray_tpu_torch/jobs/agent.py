@@ -22,19 +22,24 @@ Contract with the GCS (which owns the job table):
   raylet restart: RUNNING jobs the GCS thinks live here but the fresh
   agent doesn't know are marked FAILED instead of hanging forever.
 
-The driver inherits the job's runtime_env two ways: `env_vars` go into
-its process environment directly, and the full prepared runtime_env
-rides in `RAY_TPU_TORCH_JOB_RUNTIME_ENV` so the driver-side runtime adopts it
-as the default for every task/actor it submits (that's what points the
+The driver inherits the job's runtime_env three ways: `env_vars` go into
+its process environment directly, a `pip` spec's venv goes ahead on its
+PYTHONPATH (the JAX package's agent leaves pip to the job's workers),
+and the full prepared runtime_env rides in
+`RAY_TPU_TORCH_JOB_RUNTIME_ENV` so the driver-side runtime adopts it as
+the default for every task/actor it submits (that's what points the
 job's tasks at the right per-env forge template).
 """
 
 from __future__ import annotations
 
+import codecs
 import io
 import json
+import locale
 import logging
 import os
+import select
 import subprocess
 import threading
 import time
@@ -200,10 +205,17 @@ class JobAgent:
 
     def _pump_logs(self, sid: str, proc: subprocess.Popen) -> None:
         """Stream the driver's output to the GCS log plane in batched
-        flushes. Runs on the runner thread until EOF (process exit)."""
+        flushes. Runs on the runner thread until EOF (process exit).
+
+        The pipe is polled with a timeout of one flush interval, so a
+        line that no other line follows is flushed within the interval."""
         assert proc.stdout is not None
+        fd = proc.stdout.fileno()
+        decoder = codecs.getincrementaldecoder(
+            locale.getpreferredencoding(False))(errors="replace")
         buf: List[str] = []
         dropped = 0
+        pending = ""  # text after the last newline
         last_flush = time.monotonic()
 
         def flush():
@@ -215,11 +227,25 @@ class JobAgent:
                 buf, dropped = [], 0
             last_flush = time.monotonic()
 
-        for raw in io.TextIOWrapper(proc.stdout, errors="replace"):
-            if len(buf) >= _BUFFER_CAP_LINES:
-                dropped += 1  # print storm: count, don't buffer unbounded
-            else:
-                buf.append(raw.rstrip("\n"))
+        eof = False
+        while not eof:
+            if select.select([fd], [], [], _FLUSH_INTERVAL_S)[0]:
+                chunk = os.read(fd, 1 << 16)
+                eof = not chunk
+                text = pending + decoder.decode(chunk, final=eof)
+                # Universal newlines, as a text stream reads them; a "\r"
+                # at the end may be the first half of a "\r\n".
+                held = "\r" if text.endswith("\r") and not eof else ""
+                lines = text[:len(text) - len(held)].replace(
+                    "\r\n", "\n").replace("\r", "\n").split("\n")
+                pending = lines.pop() + held
+                if eof and pending:
+                    lines.append(pending)
+                for line in lines:
+                    if len(buf) >= _BUFFER_CAP_LINES:
+                        dropped += 1  # print storm: count, don't buffer
+                    else:
+                        buf.append(line)
             if len(buf) >= _FLUSH_MAX_LINES or \
                     time.monotonic() - last_flush >= _FLUSH_INTERVAL_S:
                 flush()
@@ -248,6 +274,21 @@ class JobAgent:
         pp = env.get("PYTHONPATH", "")
         if pkg_root not in pp.split(os.pathsep):
             env["PYTHONPATH"] = pkg_root + (os.pathsep + pp if pp else "")
+        pip = runtime_env.get("pip")
+        if pip:
+            # The driver runs in the job's pip environment too, as the
+            # job's workers do: the venv (content-addressed under the
+            # session dir, shared with the workers' materialization) goes
+            # ahead on its PYTHONPATH, the base site-packages stay
+            # importable behind it.
+            from ray_tpu_torch.core.runtime_env import (
+                _ensure_venv, _venv_site_packages)
+
+            venv = _ensure_venv(
+                pip, os.path.join(self._session_dir, "runtime_env"))
+            env["PYTHONPATH"] = _venv_site_packages(venv) + os.pathsep + \
+                env["PYTHONPATH"]
+            env["VIRTUAL_ENV"] = venv
         for k, v in (runtime_env.get("env_vars") or {}).items():
             env[str(k)] = str(v)
         if runtime_env:

@@ -23,6 +23,9 @@ class ScalingConfig:
       `use_gpu=False` the workers run on the CPU and see no card.
     - `placement_strategy`: how the workers' bundles are placed (PACK,
       SPREAD, STRICT_PACK, STRICT_SPREAD).
+    - `topology`: a node shape ("h100-16": 2 hosts of 8 H100s, see
+      `util/accelerators.py`); when set, it gives one worker per host
+      holding all of that host's cards, spread one to a host.
     """
 
     num_workers: int = 1
@@ -30,7 +33,19 @@ class ScalingConfig:
     gpus_per_worker: float = 1
     resources_per_worker: Optional[Dict[str, float]] = None
     cpus_per_worker: float = 1.0
+    topology: Optional[str] = None
     placement_strategy: str = "PACK"
+
+    def __post_init__(self):
+        if self.topology:
+            from ray_tpu_torch.util.accelerators import (
+                shape_gpu_count, shape_host_count)
+
+            self.num_workers = shape_host_count(self.topology)
+            self.gpus_per_worker = \
+                shape_gpu_count(self.topology) // self.num_workers
+            self.use_gpu = True
+            self.placement_strategy = "STRICT_SPREAD"
 
     def worker_resources(self) -> Dict[str, float]:
         out = {"CPU": float(self.cpus_per_worker)}

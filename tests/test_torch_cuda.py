@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, Llama (its
 GQA training backward too), the serving engine, RLlib's learner update and
-V-trace, and TorchPredictor against the CPU's, on a card.
+V-trace, TorchPredictor against the CPU's, and the accelerator registry's
+name for the card, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -595,6 +596,27 @@ def test_torch_predictor_on_card_matches_cpu(card, tmp_path):
                                        "flash_bwd_dkv": 0}
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_detect_local_generation_names_the_card(card):
+    """`util.accelerators.detect_local_generation()` names the generation of
+    the card nvidia-smi lists first, as torch names it too."""
+    import subprocess
+
+    from ray_tpu_torch.util.accelerators import (GPU_GENERATIONS,
+                                                 detect_local_generation,
+                                                 generation_of)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout
+    name = smi.strip().splitlines()[0]
+    gen = detect_local_generation()
+    assert gen is not None and gen == generation_of(name), name
+    assert gen == generation_of(torch.cuda.get_device_name(0))
+    major, minor = torch.cuda.get_device_capability(0)
+    assert GPU_GENERATIONS[gen].compute_capability == (major, minor)
 
 
 def test_engine_defaults_to_the_card():
