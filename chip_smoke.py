@@ -97,6 +97,31 @@ failed phase, with no phase caught.
    granted the card after. `util.accelerators.detect_local_generation()`
    must be "h100". Prints each job's statuses, its log chunks, where its
    time went and the times from the stop to the exit and to the grant.
+4g. The mesh and sequence parallelism (after 4f, on phase 1b's runtime):
+   (a) `initialize_distributed(..., device="cuda")` forms a one-rank NCCL
+   group in this process and `build_mesh(MeshSpec({"sp": 1}))` a CUDA
+   DeviceMesh over it (an all-reduce over its sp group must run);
+   `ring_attention_sharded` on it, and the ring of its one rank, must be
+   bit-equal to `flash_attention` at GPT-2-small's attention shape ([24,
+   12, 1024, 64] bf16, causal), forward and backward. (b) The sp 4 ring
+   schedule at full width, bf16, causal, at GPT-2-small's long-context
+   shape (bh 4 x 12, seq 8192, d 64) and Llama-7B's attention (bh 32, seq
+   8192, d 128): the four ranks' `ring_forward_step` and
+   `ring_backward_step` stepped in lockstep in this process, each rank
+   handed the chunk it would receive; O, dQ, dK and dV are held element by
+   element against `flash_attention` over the whole sequence and against
+   the plain versions over it in float64, each error printed beside its
+   limit; K1, K2 and K3 must launch 10 times each (the schedule's count);
+   the busiest rank's kernel time is printed beside `flash_attention`'s
+   over the whole sequence. (c) `TorchTrainer.fit` with
+   `ScalingConfig(mesh=MeshSpec({"sp": 1}), use_gpu=True)` trains
+   Llama-small (phase 10's model, batch 8, seq 2048) for 2 + 3 steps with
+   `sp_mesh=train.get_mesh()` in a worker granted the card, whose mesh must
+   be a CUDA DeviceMesh over an NCCL group, then the same steps from the
+   same seed without a mesh: the losses must fall and agree within 1e-3
+   relative (whether they are bit-equal is printed), and K1, K2 and K3 run
+   12 times a step in both. Prints the `{"mesh": {...}}` line in phase 12.
+   NCCL at sp > 1 needs more than one card and is not run here.
 4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
    seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
    goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
@@ -222,9 +247,10 @@ failed phase, with no phase caught.
 12. Results (phase 5 before phases 6 and 7 came): prints the serving and
    training numbers, the `{"data": {...}}` line (phases 4c, 4d, 11c), the
    `{"tune": {...}}` line (phase 4e), the `{"jobs": {...}}` line (phase
-   4f), the `{"rllib": {...}}` line, the
+   4f), the `{"mesh": {...}}` line (phase 4g), the `{"rllib": {...}}`
+   line, the
    `{"kernels": [...]}` line (launches summed over the paths of phases 4,
-   4e, 4f, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
+   4e, 4f, 4g, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
@@ -235,7 +261,7 @@ failed phase, with no phase caught.
    under `sdpa_backward_ms`, at the main shape, at seq 8192 and at each
    instance of phase 2), then the device line last.
 
-Phases 4c, 4e, 4f, 8, 10 and 11 also train in worker actors through
+Phases 4c, 4e, 4f, 4g, 8, 10 and 11 also train in worker actors through
 `TorchTrainer`. Each phase frees what it allocated before the next starts, and the script
 shuts the runtime and its worker template down before it exits.
 """
@@ -1705,6 +1731,403 @@ def jobs_phase(attn, per_step: dict, card: str, workdir: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# Phase 4g: the mesh and sequence parallelism. The card holds one rank, and
+# NCCL takes no two ranks on one device, so the card runs what one rank
+# can: (a) an sp 1 mesh over a one-rank NCCL group; (b) the work of every
+# rank of an sp 4 ring, stepped in lockstep in this process at full width,
+# each rank handed the chunk it would receive; (c) the trainer's mesh at sp
+# 1. The ring's exchange at sp > 1 is held on the CPU, in gloo processes
+# (tests/test_torch_ring_attention.py).
+RING_SP = 4
+# (label, bh, seq, d), bf16, causal: GPT-2-small at phase 8's long-context
+# shape (batch 4 x 12 heads) and Llama-7B's attention (32 heads, d 128).
+RING_SHAPES = (("gpt2_small_long", 4 * 12, 8192, 64),
+               ("llama7b", 32, 8192, 128))
+# The ring is held element by element against flash_attention over the
+# whole sequence (`mismatch`, the bf16 kernels' own limit), and against the
+# plain versions over the whole sequence in float64 (the backward ones from
+# the ring's out and lse, as `run_plain` holds the kernels). Each chunk is
+# one kernel call whose bf16 result (O, or a dQ, dK or dV contribution)
+# the ring adds in float32, so a ring result carries up to RING_SP
+# roundings where one pass carries one. Against float64 it is held to the
+# sum of its chunks' own limits: tol * sum over chunks of (typical + |part|),
+# part being the chunk's float64 contribution (`ring_plain`); at sp 1 that
+# is the kernels' limit. Its mismatch against a single pass's limit is
+# printed beside it.
+RING_TOL = TOL[torch.bfloat16, "fwd"]
+RING_PLAIN_HEADS = 8          # the float64 plain version, heads at a time
+MESH_STEPS = 5                # (c): Llama-small, 2 + 3 steps a leg
+MESH_LOSS_RTOL = 1e-3
+
+
+def ring_lockstep(ring, q, k, v, do, sp: int, causal: bool, scale: float):
+    """Phase 4g (b): the `sp` ranks of a ring stepped in lockstep in this
+    process: at step i rank `my` folds chunk (my - i) mod sp, the one it
+    would receive there, into its state (`ring_forward_step`), and in the
+    backward adds to that chunk's traveling dK/dV in the order the ring
+    does (`ring_backward_step`). q, k, v, do: whole [bh, seq, d]. Returns
+    (out, lse, dq, dk, dv), whole, in the inputs' type (lse float32)."""
+    c = q.shape[1] // sp
+    qs, ks, vs, dos = ([x.contiguous() for x in t.split(c, dim=1)]
+                       for t in (q, k, v, do))
+    states = [None] * sp
+    for i in range(sp):
+        for my in range(sp):
+            src = (my - i) % sp
+            states[my] = ring.ring_forward_step(
+                states[my], qs[my], ks[src], vs[src], my * c, src * c,
+                causal, scale)
+    outs = [st[0].to(q.dtype) for st in states]
+    grads = [[torch.zeros(qs[0].shape, dtype=torch.float32, device=q.device)
+              for _ in range(sp)] for _ in range(3)]
+    dq, dk, dv = grads
+    for i in range(sp):
+        for my in range(sp):
+            src = (my - i) % sp
+            dq_c, dk[src], dv[src] = ring.ring_backward_step(
+                dk[src], dv[src], qs[my], ks[src], vs[src], dos[my],
+                outs[my], states[my][1], my * c, src * c, causal, scale)
+            if dq_c is not None:
+                dq[my] += dq_c
+    return (torch.cat(outs, dim=1), torch.cat([st[1] for st in states], 1),
+            *(torch.cat(g, dim=1).to(q.dtype) for g in grads))
+
+
+def busiest_rank_ms(ring, q, k, v, do, out, lse, sp: int, scale: float):
+    """Phase 4g (b): the kernel time of the ring's busiest rank (the last:
+    its own chunk causal, every other one whole), forward steps and
+    backward steps, on the shards it holds; no exchange runs on one card.
+    Returns (forward ms, backward ms)."""
+    c = q.shape[1] // sp
+    my = sp - 1
+    qs, ks, vs, dos, outs = ([x.contiguous() for x in t.split(c, dim=1)]
+                             for t in (q, k, v, do, out))
+    lse_my = lse[:, my * c:].contiguous()
+    acc = [torch.zeros(qs[0].shape, dtype=torch.float32, device=q.device)
+           for _ in range(2 * sp + 1)]
+
+    def fwd():
+        state = None
+        for i in range(sp):
+            src = (my - i) % sp
+            state = ring.ring_forward_step(state, qs[my], ks[src], vs[src],
+                                           my * c, src * c, True, scale)
+        return state
+
+    def bwd():
+        for i in range(sp):
+            src = (my - i) % sp
+            dq_c, _, _ = ring.ring_backward_step(
+                acc[2 * src], acc[2 * src + 1], qs[my], ks[src], vs[src],
+                dos[my], outs[my], lse_my, my * c, src * c, True, scale)
+            acc[-1] += dq_c
+
+    return time_ms(fwd, reps=5, rounds=3), time_ms(bwd, reps=5, rounds=3)
+
+
+def ring_plain(attn, q, k, v, do, out, lse, sp: int, scale: float):
+    """The plain attention over the whole sequence in float64, causal, as
+    the sum of the ring's chunk contributions, and each output's limit
+    scale (held at <= RING_TOL * it): the sum over the chunks of each
+    contribution's `mismatch` scale, typical (its row rms, at least a
+    tenth of its rms) + |contribution|. The forward's contributions use
+    the float64 lse, the backward's the ring's `out` and `lse` (delta from
+    that O). Returns (want, limit, float64 lse), whole [bh, seq, ...]."""
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, do))
+    lse64 = torch.empty(lse.shape, dtype=torch.float64, device=q.device)
+    lse_r = lse.double()
+    delta = attn.bwd_delta(out.double(), dod)
+    c = q.shape[1] // sp
+    want = {key: torch.zeros_like(qd) for key in ("out", "dq", "dk", "dv")}
+    limit = {key: torch.zeros_like(qd) for key in want}
+
+    def add(key, rows, part):
+        typical = torch.maximum(part.square().mean(dim=-1, keepdim=True).sqrt(),
+                                part.square().mean().sqrt() / 10)
+        want[key][:, rows] += part
+        limit[key][:, rows] += typical + part.abs()
+
+    mask = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
+    for my in range(sp):
+        mine = slice(my * c, (my + 1) * c)
+        s_all = qd[:, mine] @ kd[:, :(my + 1) * c].transpose(1, 2) * scale
+        s_all[:, :, my * c:] = s_all[:, :, my * c:].masked_fill(
+            ~mask, attn._NEG_INF)
+        lse64[:, mine] = torch.logsumexp(s_all, dim=-1)
+        for src in range(my + 1):
+            theirs = slice(src * c, (src + 1) * c)
+            s = s_all[:, :, theirs]
+            add("out", mine, torch.exp(s - lse64[:, mine, None])
+                @ vd[:, theirs])
+            p = torch.exp(s - lse_r[:, mine, None])
+            ds = p * (dod[:, mine] @ vd[:, theirs].transpose(1, 2)
+                      - delta[:, mine, None]) * scale
+            add("dq", mine, ds @ kd[:, theirs])
+            add("dk", theirs, ds.transpose(1, 2) @ qd[:, mine])
+            add("dv", theirs, p.transpose(1, 2) @ dod[:, mine])
+            del s, p, ds
+        del s_all
+    return want, limit, lse64
+
+
+def ring_shape(attn, ring, label: str, bh: int, seq: int, d: int) -> dict:
+    """Phase 4g (b) at one shape: the sp 4 schedule in lockstep against
+    flash_attention over the whole sequence and the plain versions over
+    it in float64 (RING_PLAIN_HEADS heads at a time), each error beside its
+    limit; its launches against the schedule's; the busiest rank's time
+    beside flash_attention's over the whole sequence."""
+    gen = torch.Generator(device="cuda").manual_seed(400)
+    q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    torch.cuda.synchronize()
+    attn.reset_kernel_launches()
+    got = dict(zip(("out", "lse", "dq", "dk", "dv"),
+                   ring_lockstep(ring, q, k, v, do, RING_SP, True, scale)))
+    torch.cuda.synchronize()
+    launches = attn.kernel_launches()
+    want = RING_SP * (RING_SP + 1) // 2
+    print(f"  {label} (bh {bh}, seq {seq}, d {d}, bf16, causal, sp "
+          f"{RING_SP}, chunks of {seq // RING_SP}): launches {launches}, "
+          f"the schedule's {want} each (the causal chunk of each rank and "
+          "every earlier one)")
+    if launches != dict.fromkeys(attn.KERNELS, want):
+        raise AssertionError(f"{label}: the ring launched {launches}, not "
+                             f"{want} of each kernel")
+    flash = run_kernels(attn, q, k, v, do, True, scale)
+    errs = {}
+    for key in ("out", "dq", "dk", "dv"):
+        errs[key] = {"vs_flash": mismatch(got[key], flash[key], RING_TOL),
+                     "abs_vs_flash": max_err(got[key], flash[key])}
+    plain = collections.defaultdict(list)
+    for c in range(0, bh, RING_PLAIN_HEADS):
+        h = slice(c, c + RING_PLAIN_HEADS)
+        want, limit, lse = ring_plain(attn, q[h], k[h], v[h], do[h],
+                                      got["out"][h], got["lse"][h], RING_SP,
+                                      scale)
+        for key in ("out", "dq", "dk", "dv"):
+            g, w = got[key][h].double(), want[key]
+            plain[key].append((
+                ((g - w).abs() / (RING_TOL * limit[key])).max().item(),
+                mismatch(got[key][h], w, RING_TOL), max_err(g, w)))
+        plain["lse"].append(max_err(got["lse"][h], lse))
+        del want, limit, lse
+    for key in ("out", "dq", "dk", "dv"):
+        rs = plain[key]
+        errs[key].update(vs_float64=worst([r[0] for r in rs]),
+                         vs_float64_one_pass=worst([r[1] for r in rs]),
+                         abs_vs_float64=max(r[2] for r in rs))
+        e = errs[key]
+        ok = all(math.isfinite(x) and x <= 1.0
+                 for x in (e["vs_flash"], e["vs_float64"]))
+        print(f"    {key:3s}: against flash_attention {e['vs_flash']:.4f} "
+              f"of its limit (max_abs_err {e['abs_vs_flash']:.3e}); against "
+              f"the plain version in float64 {e['vs_float64']:.4f} of the "
+              f"chunks' summed limits, {e['vs_float64_one_pass']:.4f} of a "
+              f"single pass's (max_abs_err {e['abs_vs_float64']:.3e}); tol "
+              f"{RING_TOL:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the ring's {key} is past its "
+                                 "limit")
+    lse_err = max(plain["lse"])
+    print(f"    lse: max_abs_err {lse_err:.3e} against float64")
+    if not lse_err < 1e-3:
+        raise AssertionError(f"{label}: the ring's lse is off by {lse_err}")
+    fwd_ms, bwd_ms = busiest_rank_ms(ring, q, k, v, do, got["out"],
+                                     got["lse"], RING_SP, scale)
+    flash_fwd = time_ms(lambda: attn._flash_forward(q, k, v, True, scale),
+                        reps=5, rounds=3)
+    flash_bwd = time_ms(lambda: attn._flash_backward(
+        q, k, v, flash["out"], flash["lse"], do, True, scale), reps=5,
+        rounds=3)
+    print(f"    the busiest rank ({RING_SP - 1}): forward steps "
+          f"{fwd_ms:.4f} ms, backward steps {bwd_ms:.4f} ms; "
+          f"flash_attention over the whole sequence: forward "
+          f"{flash_fwd:.4f} ms, backward {flash_bwd:.4f} ms (ratio "
+          f"{(fwd_ms + bwd_ms) / (flash_fwd + flash_bwd):.4f}; the rank's "
+          f"share of the causal work is {(2 * RING_SP - 1) / RING_SP ** 2:.4f})")
+    del q, k, v, do, got, flash
+    torch.cuda.empty_cache()
+    return {"bh": bh, "seq": seq, "d": d, "errors": errs,
+            "lse_abs_err": lse_err, "launches": launches,
+            "busiest_rank_fwd_ms": fwd_ms, "busiest_rank_bwd_ms": bwd_ms,
+            "flash_fwd_ms": flash_fwd, "flash_bwd_ms": flash_bwd}
+
+
+def mesh_train_loop(config):
+    """Phase 4g (c)'s loop, in a worker granted the card: Llama-small
+    (phase 10's model and batch, seed 0) with `sp_mesh=session.get_mesh()`
+    for MESH_STEPS steps, then the same steps from the same seed without a
+    mesh. Reports both legs' losses and launches, the mesh's type and axes,
+    the group's backend, this process's pid and CUDA_VISIBLE_DEVICES."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.profile_train_step import MODELS
+    from ray_tpu_torch.train import session
+
+    mesh = session.get_mesh()
+    device = session.get_device()
+    leg = MODELS["llama-small"]
+    out = {"mesh_type": mesh.device_type,
+           "mesh_axes": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "backend": dist.get_backend(), "pid": os.getpid(),
+           "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    for name, sp_mesh in (("mesh", mesh), ("no_mesh", None)):
+        cfg = dataclasses.replace(llama.LlamaConfig.small(), sp_mesh=sp_mesh)
+        model = llama.Llama(cfg, device=device, seed=0)
+        step = gpt2.make_train_step(model, gpt2.adamw(model))
+        ids = torch.randint(0, cfg.vocab_size, (leg.batch, leg.seq),
+                            generator=torch.Generator().manual_seed(0)
+                            ).to(device)
+        attn.reset_kernel_launches()
+        losses = [step({"input_ids": ids, "labels": ids})
+                  for _ in range(MESH_STEPS)]
+        out[name] = {"losses": [x.item() for x in losses],
+                     "launches": attn.kernel_launches()}
+        del model, step, losses
+        gc.collect()
+        torch.cuda.empty_cache()
+    session.report(out)
+
+
+def mesh_phase(attn, card: str) -> dict:
+    """Phase 4g: (a) a one-rank NCCL group and an sp 1 DeviceMesh on the
+    card, over which an all-reduce runs, and `ring_attention_sharded` on
+    it, and the ring of that one rank, bit-equal to flash_attention at
+    GPT-2-small's attention shape, forward and backward; (b) the sp 4 ring
+    schedule at RING_SHAPES (`ring_shape`); (c) `TorchTrainer.fit` with
+    `ScalingConfig(mesh=MeshSpec({"sp": 1}))`: Llama-small trains through
+    the mesh in a worker granted the card, its losses within
+    MESH_LOSS_RTOL of the same steps without a mesh, K1, K2 and K3 12
+    times a step. Returns the phase's record, with the launches of its
+    paths (the ring calls of (a), the schedules of (b), the mesh leg of
+    (c)); the comparisons' launches are not counted."""
+    import importlib
+    import socket
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import (MeshSpec, build_mesh,
+                                        distributed as tdist)
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    # The module, which `ray_tpu_torch.ops` shadows with its function.
+    ring = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+    rec = {"card": card}
+    launches = collections.Counter()
+
+    # (a) The mesh on the card.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = tdist.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                       device="cuda")
+    try:
+        mesh = build_mesh(MeshSpec({"sp": 1}))
+        t = torch.arange(8.0, device="cuda")
+        dist.all_reduce(t, group=mesh.get_group("sp"))
+        torch.cuda.synchronize()
+        if mesh.device_type != "cuda" or ctx.backend != "nccl" or \
+                not torch.equal(t, torch.arange(8.0, device="cuda")):
+            raise AssertionError(f"the mesh: {mesh}, backend {ctx.backend}")
+        print(f"  (a) {mesh} over a one-rank {ctx.backend} group; an "
+              "all-reduce over its sp group ran")
+        gen = torch.Generator(device="cuda").manual_seed(401)
+        q, k, v, w = (torch.randn(BATCH, 12, 1024, 64, generator=gen,
+                                  device="cuda", dtype=torch.bfloat16)
+                      for _ in range(4))
+
+        def run(fn):
+            x = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*x)
+            out.backward(w)
+            return [out.detach()] + [t.grad for t in x]
+
+        want = run(lambda *x: attn.flash_attention(*x, True))
+        equal = {}
+        for name, fn in (
+                ("ring_attention_sharded",
+                 lambda *x: ring.ring_attention_sharded(*x, mesh)),
+                ("ring_of_one",
+                 lambda *x: ring.ring_attention(
+                     *x, group=mesh.get_group("sp")))):
+            attn.reset_kernel_launches()
+            got = run(fn)
+            torch.cuda.synchronize()
+            launches.update(attn.kernel_launches())
+            equal[name] = all(torch.equal(g, t) for g, t in zip(got, want))
+        print(f"  (a) sp 1 at [{BATCH}, 12, 1024, 64] bf16, causal, bit-equal "
+              f"to flash_attention (out, dq, dk, dv): {equal}")
+        if not all(equal.values()):
+            raise AssertionError("sp 1 differs from flash_attention")
+        rec["sp1"] = {"bit_equal": equal, "mesh": str(mesh),
+                      "backend": ctx.backend}
+        del q, k, v, w, want, got
+    finally:
+        tdist.shutdown_distributed()
+    torch.cuda.empty_cache()
+
+    # (b) The sp 4 ring schedule at full width, on the kernels.
+    rec["ring"] = {}
+    for label, bh, seq, d in RING_SHAPES:
+        r = rec["ring"][label] = ring_shape(attn, ring, label, bh, seq, d)
+        launches.update(r["launches"])
+
+    # (c) The trainer's mesh.
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    driver_launches = attn.kernel_launches()
+    result = TorchTrainer(
+        mesh_train_loop,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                     mesh=MeshSpec({"sp": 1}))).fit()
+    if result.error is not None:
+        raise AssertionError("4g: the training run with a mesh failed") \
+            from result.error
+    if attn.kernel_launches() != driver_launches:
+        raise AssertionError("4g: this process launched kernels while the "
+                             "worker trained")
+    m = result.metrics
+    n = llama.LlamaConfig.small().n_layer * MESH_STEPS
+    got, base = m["mesh"]["losses"], m["no_mesh"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, base))
+    print(f"  (c) worker pid {m['pid']} (this process {os.getpid()}), "
+          f"CUDA_VISIBLE_DEVICES={m['cuda_visible_devices']!r}, get_mesh(): "
+          f"{m['mesh_type']} {m['mesh_axes']}, group {m['backend']}")
+    print("  (c) Llama-small with sp_mesh, losses: "
+          + ", ".join(f"{x:.6f}" for x in got))
+    print("  (c) the same steps without a mesh:   "
+          + ", ".join(f"{x:.6f}" for x in base))
+    print(f"  (c) largest relative difference {rel:.3e} (limit "
+          f"{MESH_LOSS_RTOL:.0e}); bit-equal: {got == base}; launches "
+          f"{m['mesh']['launches']} with the mesh, "
+          f"{m['no_mesh']['launches']} without")
+    if m["pid"] == os.getpid() or m["cuda_visible_devices"] != "0" or \
+            m["mesh_type"] != "cuda" or m["mesh_axes"] != {"sp": 1} or \
+            m["backend"] != "nccl":
+        raise AssertionError(f"4g: the worker's mesh or card: {m}")
+    if not all(math.isfinite(x) for x in got) or not got[-1] < got[0] or \
+            not rel <= MESH_LOSS_RTOL:
+        raise AssertionError(f"4g: losses {got} against {base}")
+    for leg in ("mesh", "no_mesh"):
+        if m[leg]["launches"] != dict.fromkeys(attn.KERNELS, n):
+            raise AssertionError(f"4g: {leg} launched {m[leg]['launches']}"
+                                 f", not {n} of each")
+    launches.update(m["mesh"]["launches"])
+    rec["trainer"] = {"losses": got, "no_mesh_losses": base,
+                      "max_rel_diff": rel, "bit_equal": got == base,
+                      "mesh": m["mesh_axes"], "backend": m["backend"],
+                      "launches": m["mesh"]["launches"]}
+    rec["launches"] = {name: launches[name] for name in attn.KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 # Phases 4c and 4d: the Data-fed path. The corpus is the nanoGPT layout,
@@ -3716,6 +4139,10 @@ def main() -> int:
         jobs = jobs_phase(attn, dict.fromkeys(attn.KERNELS, n_layer), card,
                           d)
 
+    phase(started, "4g. the mesh and sequence parallelism: an sp 1 mesh, "
+          "the sp 4 ring schedule at full width, the trainer's mesh")
+    meshes = mesh_phase(attn, card)
+
     phase(started, "4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
           "small on a shuffled token corpus")
     small = gpt2.GPT2Config.small()
@@ -3827,7 +4254,9 @@ def main() -> int:
                                "offline": offline}}))
     print(json.dumps({"tune": sweep}))
     print(json.dumps({"jobs": jobs}))
+    print(json.dumps({"mesh": meshes}))
     paths = [launches, sweep["launches"], jobs["launches"],
+             meshes["launches"],
              data_leg["launches"],
              scoring["launches"],
              llama_launches, serve_launches,

@@ -45,7 +45,7 @@ class AdapterManager:
             raise ValueError("lora rank must be >= 1")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: tensor-parallel adapter banks are ROADMAP M8, not "
+                "mesh: tensor-parallel adapter banks are ROADMAP M8b, not "
                 "yet ported")
         self._device = resolve_device(device)
         self._cfg = model_cfg

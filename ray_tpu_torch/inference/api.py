@@ -94,7 +94,7 @@ class LLMServer:
         self._config = EngineConfig(**kwargs)
         # Sharded replica groups: when this replica is a gang rank the
         # shard context was activated before this ctor ran; a tp > 1 gang
-        # needs the mesh of ROADMAP M8 (current_mesh raises there).
+        # needs the mesh of ROADMAP M8b (current_mesh raises there).
         from ray_tpu_torch import shardgroup
 
         self._engine = InferenceEngine(self._config,

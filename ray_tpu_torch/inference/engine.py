@@ -163,7 +163,7 @@ class InferenceEngine:
     dense weights cast to the compute dtype once, here (the same values the
     reference's per-call cast gives). `draft_model` is the speculative
     draft (default: the target's first n_layer // 2 layers, sharing its
-    weights). `mesh` (tensor-parallel serving) waits for ROADMAP M8.
+    weights). `mesh` (tensor-parallel serving) waits for ROADMAP M8b.
     """
 
     def __init__(self, config: EngineConfig, model=None,
@@ -179,7 +179,7 @@ class InferenceEngine:
             raise ValueError("prefill_chunk exceeds the per-seq context")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: tensor-parallel serving is ROADMAP M8, not yet "
+                "mesh: tensor-parallel serving is ROADMAP M8b, not yet "
                 "ported")
         self.config = cfg
         # Explicit config wins, else the global flag table.

@@ -4,16 +4,18 @@ bfloat16 compute on float32 parameters. flax's defaults are pinned:
 LayerNorm eps 1e-6 with its statistics in float32, the tanh GELU, normal(0.02)
 init for dense kernels and `wte`, normal(0.01) for `wpe`, zero biases. The
 output head is tied to `wte`. Attention goes through the flash kernels
-(`ray_tpu_torch.ops.attention.flash_attention`). With `remat`, each block
-runs under `torch.utils.checkpoint` (the counterpart of `nn.remat(Block)`):
-its activations are dropped after the forward and recomputed in the
-backward, flash forward included.
+(`ray_tpu_torch.ops.attention.flash_attention`), or with `use_ring` through
+ring attention over an sp process group, on the caller's sequence shard
+(the reference's `use_ring` inside a caller's `shard_map`). With `remat`,
+each block runs under `torch.utils.checkpoint` (the counterpart of
+`nn.remat(Block)`): its activations are dropped after the forward and
+recomputed in the backward, flash forward included.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,6 +25,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._torch_env import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel.sharding import named_sharding, shard_params
 
 
 @dataclass(frozen=True)
@@ -36,7 +40,7 @@ class GPT2Config:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     use_flash: bool = True
-    use_ring: bool = False           # sequence parallelism: a later slice
+    use_ring: bool = False           # sequence parallelism (the sp group)
     remat: bool = False              # recompute each block in the backward
 
     @staticmethod
@@ -73,9 +77,10 @@ class Dense(nn.Linear):
 
 
 class Block(nn.Module):
-    def __init__(self, config: GPT2Config):
+    def __init__(self, config: GPT2Config, sp_group=None):
         super().__init__()
         self.config = config
+        self.sp_group = sp_group
         e = config.n_embd
         self.ln_1 = LayerNorm(e)
         self.c_attn = Dense(e, 3 * e)
@@ -96,7 +101,9 @@ class Block(nn.Module):
         # [q | k | v] order, head-major, as in the flax model.
         q, k, v = qkv.view(b, s, 3, cfg.n_head, e // cfg.n_head).permute(
             2, 0, 3, 1, 4).unbind(0)
-        if cfg.use_flash:
+        if cfg.use_ring:
+            attn = ring_attention(q, k, v, group=self.sp_group, causal=True)
+        elif cfg.use_flash:
             attn = flash_attention(q, k, v, True)
         else:
             attn = mha_reference(q, k, v, causal=True)
@@ -109,21 +116,24 @@ class Block(nn.Module):
 class GPT2(nn.Module):
     """GPT-2 with a tied head. `device` defaults to the card; parameters are
     drawn on the CPU from `torch.Generator().manual_seed(seed)` and moved
-    there, so one seed gives the same weights on either device."""
+    there, so one seed gives the same weights on either device.
+
+    With `config.use_ring`, the model takes this rank's sequence shard of
+    the ids and attention runs the ring over `sp_group` (the default
+    process group when None). As in the reference, whose `wpe[None, :s]`
+    takes the shard's own length inside `shard_map`, positions restart at
+    0 on every shard."""
 
     def __init__(self, config: GPT2Config,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
+                 seed: int = 0, sp_group=None):
         super().__init__()
-        if config.use_ring:
-            raise NotImplementedError(
-                "use_ring: sequence parallelism is the ROADMAP's multi-axis "
-                "parallelism item, not yet ported")
         dev = resolve_device(device)
         self.config = config
         self.wte = nn.Parameter(torch.empty(config.vocab_size, config.n_embd))
         self.wpe = nn.Parameter(torch.empty(config.n_positions, config.n_embd))
-        self.h = nn.ModuleList(Block(config) for _ in range(config.n_layer))
+        self.h = nn.ModuleList(Block(config, sp_group)
+                               for _ in range(config.n_layer))
         self.ln_f = LayerNorm(config.n_embd)
         self._init_weights(seed)
         self.to(device=dev, dtype=config.param_dtype)
@@ -158,8 +168,54 @@ class GPT2(nn.Module):
 
 
 # --------------------------------------------------------------------------- #
-# Weights from the flax tree, loss, train and eval steps
+# Shardings, weights from the flax tree, loss, train and eval steps
 # --------------------------------------------------------------------------- #
+
+# Logical axes of each dense layer's flax kernel [in, out]: Megatron-style
+# column-then-row parallel over tp (`ray_tpu/models/gpt2.py:59-105`).
+_DENSE_AXES = {"c_attn": ("embed", "mlp"), "c_fc": ("embed", "mlp"),
+               "c_proj": ("mlp", "embed"), "mlp_proj": ("mlp", "embed")}
+
+
+def logical_param_specs(model: "GPT2") -> Dict[str, Tuple]:
+    """Parameter name -> the logical axes of its dims that the reference's
+    `nn.with_logical_partitioning` annotations give it: `wte` (vocab,
+    embed), `wpe` (None, embed), a dense weight its flax kernel's axes
+    reversed (the weight is [out, in]) and its bias the output's axis;
+    LayerNorms carry none, () (replicated)."""
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if name == "wte":
+            axes = ("vocab", "embed")
+        elif name == "wpe":
+            axes = (None, "embed")
+        elif len(parts) == 4 and parts[2] in _DENSE_AXES:
+            kernel = _DENSE_AXES[parts[2]]
+            axes = kernel[::-1] if parts[3] == "weight" else kernel[-1:]
+        else:
+            axes = ()
+        out[name] = axes
+    return out
+
+
+def mesh_shardings_for(model: "GPT2", mesh,
+                       rules: Optional[Dict] = None) -> Dict[str, tuple]:
+    """Parameter name -> its placements on `mesh` (a DeviceMesh): the
+    logical axes through the rules (`rules` overriding the defaults), axes
+    the mesh lacks replicated."""
+    return {name: named_sharding(mesh, *axes, rules=rules)[1]
+            for name, axes in logical_param_specs(model).items()}
+
+
+def init_sharded(config: GPT2Config, mesh, seed: int = 0
+                 ) -> Dict[str, torch.Tensor]:
+    """The model's parameters from `seed`, placed as DTensors in their mesh
+    shardings on the mesh's device type. Every rank draws the same weights
+    (on the CPU, from the seed) and keeps its shards."""
+    model = GPT2(config, device=mesh.device_type, seed=seed)
+    return shard_params(dict(model.named_parameters()), mesh,
+                        logical_param_specs(model))
 
 
 def params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:

@@ -12,7 +12,11 @@ Three forward paths share the parameters:
   (`ray_tpu_torch.ops.attention.flash_attention`) after the GQA repeat of
   K/V, so the backward runs the dQ and dK/dV kernels at the query heads'
   width and autograd sums dK/dV over each KV head's query group. With
-  `remat`, each block runs under `torch.utils.checkpoint`.
+  `remat`, each block runs under `torch.utils.checkpoint`. With `sp_mesh`
+  (a DeviceMesh with an "sp" axis), attention runs the ring over that
+  axis (`ops/ring_attention.ring_attention_sharded`) on the same repeated
+  K/V: every rank holds the whole batch and sequence, and each computes
+  its block of the attention.
 - `decode(input_ids, cache, row_pos)`: incremental forward against a dense
   per-row KV cache.
 - `decode_paged(input_ids, arenas, block_tables, row_pos, write_mask)`: the
@@ -38,6 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._torch_env import resolve_device, same_device
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
+from ray_tpu_torch.parallel.sharding import PartitionSpec
 
 _NEG_INF = -1e30
 
@@ -57,7 +63,11 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32
     use_flash: bool = True
     remat: bool = False              # recompute each block in the backward
-    sp_mesh: Any = None              # sequence parallelism: ROADMAP M8
+    # Sequence parallelism: a DeviceMesh with an "sp" axis routes the
+    # training forward's attention through the ring (ops/ring_attention):
+    # each rank takes a sequence shard and K/V chunks travel its sp group.
+    # None (or a mesh without "sp", or sp 1) keeps the flash/plain path.
+    sp_mesh: Any = None
 
     @staticmethod
     def llama7b() -> "LlamaConfig":
@@ -141,14 +151,18 @@ def qkv_heads(blk: nn.Module, h, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def causal_attention(q, k, v, use_flash: bool):
+def causal_attention(q, k, v, use_flash: bool, sp_mesh=None):
     """Full causal attention of q over k, v after the GQA repeat (query
     head h reads KV head h // groups, as `jnp.repeat(k, groups, axis=1)`;
-    autograd sums dK and dV over each group): the flash kernels, or plain
-    attention."""
+    autograd sums dK and dV over each group): the ring over `sp_mesh`'s sp
+    axis, the flash kernels, or plain attention. The repeat comes before
+    the ring, so every shard's chunks carry the query heads' K/V, the
+    tensors the flash path sees: sp on or off is a change of schedule."""
     groups = q.shape[1] // k.shape[1]
     kf = k.repeat_interleave(groups, dim=1)
     vf = v.repeat_interleave(groups, dim=1)
+    if sp_mesh is not None:
+        return ring_attention_sharded(q, kf, vf, sp_mesh, causal=True)
     if use_flash:
         return flash_attention(q, kf, vf, True)
     return mha_reference(q, kf, vf, causal=True)
@@ -251,7 +265,7 @@ class LlamaBlock(nn.Module):
         q, k, v = qkv_heads(self, h, positions)
         groups = cfg.n_head // cfg.n_kv_head
         if cache is None:
-            attn = causal_attention(q, k, v, cfg.use_flash)
+            attn = causal_attention(q, k, v, cfg.use_flash, cfg.sp_mesh)
         elif len(cache) == 4:
             k_arena, v_arena, block_tables, write_mask = cache
             attn = _paged_attention(q, k, v, positions, k_arena, v_arena,
@@ -297,10 +311,6 @@ class Llama(nn.Module):
                  seed: int = 0,
                  state: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
-        if config.sp_mesh is not None:
-            raise NotImplementedError(
-                "sp_mesh: sequence parallelism is ROADMAP M8, not yet "
-                "ported")
         dev = resolve_device(device)
         self.config = config
         with torch.device("meta"):
@@ -425,7 +435,7 @@ def make_paged_arena(cfg: LlamaConfig, num_blocks: int, block_size: int,
     """Preallocated per-layer (k, v) paged arena [num_blocks, block_size,
     kv_heads, head_dim] in `dtype`. Block 0 is the trash block (never
     allocated to a sequence): masked writes land there and nothing ever
-    reads it. Sharding it over a mesh waits for ROADMAP M8."""
+    reads it. Sharding it over a mesh waits for ROADMAP M8b."""
     dev = resolve_device(device)
     shape = (num_blocks, block_size, cfg.n_kv_head, cfg.head_dim)
     return [(torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -498,6 +508,42 @@ def params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:
             out[f"layers.{i}.{dense}.weight"] = \
                 t(blk[dense]["kernel"]).t().contiguous()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Tensor-parallel widths and the partition rule table
+# --------------------------------------------------------------------------- #
+
+
+def validate_tp(cfg: LlamaConfig, tp: int) -> None:
+    """Fail fast on widths that cannot be sharded evenly: attention heads,
+    KV heads (the paged arena shards with them), the SwiGLU hidden width
+    and the vocab all split over tp."""
+    bad = {name: dim for name, dim in (
+        ("n_head", cfg.n_head), ("n_kv_head", cfg.n_kv_head),
+        ("intermediate", cfg.intermediate), ("vocab_size", cfg.vocab_size))
+        if dim % tp}
+    if bad:
+        raise ValueError(
+            f"tp={tp} does not divide {bad} — pick a tp width that "
+            "divides heads, kv heads, the MLP hidden and the vocab")
+
+
+# The `match_partition_rules` table over a ("sp", "tp") mesh:
+# column-parallel q/k/v/gate/up (output dim over tp), row-parallel wo and
+# w_down (input dim over tp), vocab-sharded embed and lm_head, replicated
+# norms. The reference's table (`ray_tpu/models/llama.py:473-489`) on the
+# port's names: a dense layer's weight is [out, in], the flax kernel's
+# transpose, so each spec names the same dim of the same parameter.
+LLAMA_PARTITION_RULES = (
+    (r"embed$", PartitionSpec("tp")),
+    (r"(wq|wk|wv)\.weight$", PartitionSpec("tp")),
+    (r"wo\.weight$", PartitionSpec(None, "tp")),
+    (r"(w_gate|w_up)\.weight$", PartitionSpec("tp")),
+    (r"w_down\.weight$", PartitionSpec(None, "tp")),
+    (r"lm_head\.weight$", PartitionSpec("tp")),
+    (r"(attn_norm|mlp_norm|final_norm)\.weight$", PartitionSpec()),
+)
 
 
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:

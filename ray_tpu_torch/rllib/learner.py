@@ -469,7 +469,7 @@ class _ShardedLearnerWorker:
         return "nccl" if self._learner.device.type == "cuda" else "gloo"
 
     def get_free_address(self):
-        from ray_tpu_torch.train.backend import get_address_and_port
+        from ray_tpu_torch.parallel.distributed import get_address_and_port
 
         return get_address_and_port()
 

@@ -13,9 +13,10 @@ loop). Protocol:
    CPU.
 
 The reference also builds a `jax.sharding.Mesh` of tp columns here. The
-port has no tensor-parallel mesh yet (ROADMAP M8): :func:`current_mesh`
-is None where no gang is active or every axis is 1, and raises
-`NotImplementedError` naming M8 where a gang asks for tp > 1 or sp > 1.
+port's gangs build no mesh yet (`ray_tpu_torch.parallel` has the
+DeviceMesh; the tp gang's is ROADMAP M8b): :func:`current_mesh` is None
+where no gang is active or every axis is 1, and raises
+`NotImplementedError` naming M8b where a gang asks for tp > 1 or sp > 1.
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ def activate(ctx: Any, rendezvous_timeout_s: float = 30.0) -> ShardContext:
 
         import torch.distributed as dist
 
-        from ray_tpu_torch.train.backend import get_address_and_port
+        from ray_tpu_torch.parallel.distributed import get_address_and_port
 
         if ctx.is_coordinator:
             host, port = get_address_and_port()
@@ -159,12 +160,13 @@ def current() -> Optional[ShardContext]:
 def current_mesh():
     """The active gang's tp mesh — None outside a gang or where every
     axis is 1, the one case the port serves. A gang with tp > 1 or
-    sp > 1 needs the device mesh, which comes with ROADMAP M8."""
+    sp > 1 needs the gang's device mesh, which comes with ROADMAP M8b."""
     if _current is None or (_current.tp == 1 and _current.sp == 1):
         return None
     raise NotImplementedError(
         f"shard group {_current.group_id}: tp={_current.tp}, "
-        f"sp={_current.sp} needs a device mesh, not ported yet (ROADMAP M8)")
+        f"sp={_current.sp} needs the gang's device mesh, not ported yet "
+        "(ROADMAP M8b)")
 
 
 def deactivate() -> None:

@@ -9,8 +9,8 @@ per-rank slice as a `ShardContext` (`shardgroup.runtime`).
 
 GPU mapping: a replica over four hosts of four H100s would be
 ``ShardSpec(tp=16, world_size=4, strategy="STRICT_SPREAD",
-bundle={"GPU": 4})`` — one bundle per host. The port builds no
-tensor-parallel mesh yet (ROADMAP M8): `shardgroup.current_mesh()` raises
+bundle={"GPU": 4})`` — one bundle per host. The port's gangs build no
+tensor-parallel mesh yet (ROADMAP M8b): `shardgroup.current_mesh()` raises
 at tp > 1. `world_size > 1` gangs at tp = 1 exercise every
 gang-scheduling, rendezvous and lifecycle path, with a `torch.distributed`
 group (gloo on the CPU, NCCL on cards) across the ranks.

@@ -33,6 +33,7 @@ from ray_tpu_torch.train.session import (
     get_device,
     get_ingest_stats,
     get_local_rank,
+    get_mesh,
     get_world_rank,
     get_world_size,
     report,
@@ -54,6 +55,6 @@ __all__ = [
     "ScalingConfig", "TorchBackend", "TorchConfig", "TorchTrainer",
     "TrainWorker", "TrainingFailedError", "WorkerGroup", "broadcast_params",
     "get_checkpoint", "get_collective", "get_context", "get_dataset_shard",
-    "get_device", "get_ingest_stats", "get_local_rank",
+    "get_device", "get_ingest_stats", "get_local_rank", "get_mesh",
     "get_world_rank", "get_world_size", "report", "sync_gradients",
 ]

@@ -5,16 +5,21 @@ The port's copy of `ray_tpu/train/backend.py` (the reference's
 implementation runs `dist.init_process_group`, `torch/config.py:69-113`).
 `TorchBackend` forms one torch.distributed group over the worker group:
 NCCL when the workers hold the card, gloo on the CPU. A world of one forms
-no group, as in the JAX package. There is no JaxBackend.
+no group, as in the JAX package, unless the run has a mesh: a DeviceMesh
+needs a group, so one of one rank is formed. The mesh itself is built in
+each worker (`mesh_builder`), where the JAX package's JaxBackend builds
+its `jax.sharding.Mesh`. There is no JaxBackend.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
-import os
-import socket
 from dataclasses import dataclass
 from typing import Optional
+
+from ray_tpu_torch.parallel.distributed import get_address_and_port
+from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -47,26 +52,24 @@ class TorchConfig(BackendConfig):
 
     backend: "nccl" or "gloo"; None picks NCCL when the workers hold the
     card and gloo on the CPU (the trainer decides from its device).
+    mesh: logical mesh laid over the group's ranks, built in each worker.
     """
 
     backend_name: str = "torch"
     backend: Optional[str] = None
     init_timeout_s: int = 120
+    mesh: Optional[MeshSpec] = None
 
     def backend_cls(self):
         return TorchBackend
 
 
-def get_address_and_port() -> tuple:
-    """The address this worker's node advertises (its raylet's host) and a
-    free TCP port, for rank 0 to host the group's rendezvous."""
-    raylet = os.environ.get("RAY_TPU_TORCH_RAYLET_ADDRESS", "127.0.0.1:0")
-    host = raylet.rsplit(":", 1)[0]
-    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-    s.bind((host, 0))
-    port = s.getsockname()[1]
-    s.close()
-    return host, port
+def _mesh_builder_for(spec: Optional[MeshSpec]):
+    """build(device_type) -> the DeviceMesh, run in each worker once the
+    group is formed; None without a mesh."""
+    if spec is None:
+        return None
+    return functools.partial(build_mesh, spec)
 
 
 def _setup_torch_process_group(backend: str, addr: str, port: int,
@@ -94,7 +97,7 @@ class TorchBackend(Backend):
         import ray_tpu_torch
 
         world = len(worker_group)
-        if world <= 1:
+        if world <= 1 and backend_config.mesh is None:
             return
         backend = backend_config.backend or "gloo"
         host, port = worker_group.execute_single(0, get_address_and_port)
@@ -106,6 +109,9 @@ class TorchBackend(Backend):
                                  backend_config.init_timeout_s)
                 for rank, w in enumerate(worker_group.workers)]
         ray_tpu_torch.get(refs)
+
+    def mesh_builder(self, backend_config: "TorchConfig"):
+        return _mesh_builder_for(backend_config.mesh)
 
     def on_shutdown(self, worker_group, backend_config: "TorchConfig"):
         try:

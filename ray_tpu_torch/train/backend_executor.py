@@ -105,6 +105,9 @@ class BackendExecutor:
     def _run_once(self, train_fn, config, checkpoint, device,
                   datasets_per_worker, experiment_name):
         wg = self.worker_group
+        mesh_builder = None
+        if hasattr(self.backend, "mesh_builder"):
+            mesh_builder = self.backend.mesh_builder(self.backend_config)
         self.backend.on_training_start(wg, self.backend_config)
         # Run-unique tag shared by all ranks: the host-collective group is
         # named per run, so concurrent runs (or a restart of this one) can
@@ -113,7 +116,7 @@ class BackendExecutor:
         ray_tpu_torch.get([w.start_training.remote(
             train_fn, config, checkpoint, device,
             datasets_per_worker[i] if datasets_per_worker else None,
-            experiment_name, run_nonce)
+            experiment_name, run_nonce, mesh_builder)
             for i, w in enumerate(wg.workers)])
         done = [False] * len(wg.workers)
         while not all(done):

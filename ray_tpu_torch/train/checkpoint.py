@@ -5,7 +5,7 @@ Equivalent of the reference's AIR `Checkpoint` (`python/ray/air/checkpoint.py:65
 `ray_tpu/train/checkpoint.py` has it. Model state is a torch state dict
 saved with `torch.save` (`from_state_dict`/`get_state_dict`), where the JAX
 package stores pytrees with orbax; its sharded pytrees wait for the port's
-multi-axis parallelism (ROADMAP M8).
+multi-axis parallelism (ROADMAP M8c).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 The port's copy of `ray_tpu/train/config.py` (the reference's AIR configs,
 `python/ray/air/config.py`: RunConfig/ScalingConfig/FailureConfig/
 CheckpointConfig). ScalingConfig speaks GPUs where the JAX package's
-speaks TPU chips, pod slices and meshes.
+speaks TPU chips and pod slices; its mesh is a DeviceMesh over the workers'
+ranks.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+from ray_tpu_torch.parallel.mesh import MeshSpec
 
 
 @dataclass
@@ -26,6 +29,9 @@ class ScalingConfig:
     - `topology`: a node shape ("h100-16": 2 hosts of 8 H100s, see
       `util/accelerators.py`); when set, it gives one worker per host
       holding all of that host's cards, spread one to a host.
+    - `mesh`: logical mesh spec laid over the workers' ranks (one rank a
+      worker); the loop reads the built DeviceMesh with
+      `session.get_mesh()`.
     """
 
     num_workers: int = 1
@@ -34,6 +40,7 @@ class ScalingConfig:
     resources_per_worker: Optional[Dict[str, float]] = None
     cpus_per_worker: float = 1.0
     topology: Optional[str] = None
+    mesh: Optional[MeshSpec] = None
     placement_strategy: str = "PACK"
 
     def __post_init__(self):

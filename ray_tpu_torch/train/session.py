@@ -4,10 +4,12 @@ device, the torch.distributed group and the host collective plane.
 The port's copy of `ray_tpu/train/session.py` (the reference's
 `session.report`/`get_dataset_shard`, `python/ray/air/session.py:43,359`,
 and `_TrainSession`, `python/ray/train/_internal/session.py:63`).
-`get_device()` stands where the JAX package's `get_mesh()` does, and
-`sync_gradients` and `broadcast_params` run over the torch.distributed
-group that the backend formed (NCCL on the card, gloo on the CPU) where
-the JAX package uses its host collective plane. That plane is here too:
+`get_device()` is the card (or CPU) the loop trains on, `get_mesh()` the
+DeviceMesh the backend's mesh spec laid over the group's ranks (where the
+JAX package's is a `jax.sharding.Mesh`), and `sync_gradients` and
+`broadcast_params` run over the torch.distributed group that the backend
+formed (NCCL on the card, gloo on the CPU) where the JAX package uses its
+host collective plane. That plane is here too:
 `get_collective()` is the run-wide `ray_tpu_torch.collective` group of
 the training workers (host memory, over the object store), for what a
 loop exchanges outside torch.distributed.
@@ -41,9 +43,10 @@ class _TrainSession:
     def __init__(self, context: TrainContext, device=None,
                  datasets: Optional[Dict[str, Any]] = None,
                  checkpoint: Optional[Checkpoint] = None,
-                 collective_factory=None):
+                 mesh=None, collective_factory=None):
         self.context = context
         self.device = device
+        self.mesh = mesh
         self.datasets = datasets or {}
         self.loaded_checkpoint = checkpoint
         self.result_queue: "queue.Queue" = queue.Queue()
@@ -164,6 +167,13 @@ def get_device():
     """The torch device this worker trains on: its granted card
     (`cuda`, which is card 0 of its CUDA_VISIBLE_DEVICES) or the CPU."""
     return get_session().device
+
+
+def get_mesh():
+    """The DeviceMesh the backend laid over the training workers' ranks
+    (`ScalingConfig.mesh`), on this worker's device type; None when the
+    trainer was configured without one."""
+    return get_session().mesh
 
 
 def get_collective():

@@ -311,8 +311,10 @@ class TorchTrainer(DataParallelTrainer):
     """The port's training entry point, where the JAX package has
     `JaxTrainer` (reference `TorchTrainer`, `torch/torch_trainer.py:15`):
     the worker group forms a torch.distributed process group (NCCL on the
-    card, gloo on the CPU; none for one worker), and the loop syncs
-    gradients through `session.sync_gradients`."""
+    card, gloo on the CPU; none for one worker without a mesh), and the
+    loop syncs gradients through `session.sync_gradients`. With
+    `ScalingConfig.mesh` (or `TorchConfig.mesh`), each worker builds that
+    DeviceMesh over the group's ranks, which `session.get_mesh()` returns."""
 
     _default_backend_config = TorchConfig()
 
@@ -323,7 +325,8 @@ class TorchTrainer(DataParallelTrainer):
         super().__init__(
             train_loop_per_worker,
             train_loop_config=train_loop_config,
-            backend_config=torch_config or TorchConfig(),
+            backend_config=torch_config or TorchConfig(
+                mesh=(scaling_config or ScalingConfig()).mesh),
             scaling_config=scaling_config, run_config=run_config,
             datasets=datasets, resume_from_checkpoint=resume_from_checkpoint,
             device=device)

@@ -62,12 +62,15 @@ class TrainWorker:
     def start_training(self, train_fn: Callable, config: Dict[str, Any],
                        checkpoint=None, device: str = "cuda",
                        datasets: Optional[Dict[str, Any]] = None,
-                       experiment_name: str = "", run_nonce: str = ""):
+                       experiment_name: str = "", run_nonce: str = "",
+                       mesh_builder: Optional[Callable] = None):
         """Run `train_fn` in a thread of this actor, on `device` ("cuda",
         the card this worker was granted, or "cpu"), with this worker's
-        dataset shards (`session.get_dataset_shard`). Whether this process
-        can train on the card is checked here, where the card is: a worker
-        that cannot raises, naming itself."""
+        dataset shards (`session.get_dataset_shard`) and the mesh that
+        `mesh_builder(device_type=...)` builds over the group's ranks
+        (`session.get_mesh`; every rank builds it here, together). Whether
+        this process can train on the card is checked here, where the card
+        is: a worker that cannot raises, naming itself."""
         assert self._thread is None or not self._thread.is_alive(), \
             "training already running"
         from ray_tpu_torch._torch_env import resolve_device
@@ -80,6 +83,8 @@ class TrainWorker:
                 "CUDA_VISIBLE_DEVICES="
                 f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}) cannot train "
                 f"on {device!r}: {e}") from None
+        mesh = (mesh_builder(device_type=torch_device.type)
+                if mesh_builder is not None else None)
         context = TrainContext(world_rank=self.rank,
                                world_size=self.world_size,
                                experiment_name=experiment_name)
@@ -111,6 +116,7 @@ class TrainWorker:
 
         session = _TrainSession(context, device=torch_device,
                                 datasets=datasets, checkpoint=checkpoint,
+                                mesh=mesh,
                                 collective_factory=collective_factory)
         self._session = session
         init_session(session)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, Llama (its
 GQA training backward too), the serving engine, RLlib's learner update and
-V-trace, TorchPredictor against the CPU's, and the accelerator registry's
-name for the card, on a card.
+V-trace, TorchPredictor against the CPU's, the accelerator registry's
+name for the card, and ring attention's mesh and chunk steps, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -617,6 +617,92 @@ def test_detect_local_generation_names_the_card(card):
     assert gen == generation_of(torch.cuda.get_device_name(0))
     major, minor = torch.cuda.get_device_capability(0)
     assert GPU_GENERATIONS[gen].compute_capability == (major, minor)
+
+
+@pytest.fixture
+def nccl_of_one(card):
+    """A one-rank NCCL group in this process, left when the test ends."""
+    import socket
+
+    from ray_tpu_torch.parallel import distributed as tdist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = tdist.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                       device="cuda")
+    yield ctx
+    tdist.shutdown_distributed()
+
+
+@pytest.mark.cuda
+def test_sp1_mesh_on_card_is_flash_attention_bit_equal(nccl_of_one):
+    """An sp 1 DeviceMesh on the card over a one-rank NCCL group: the
+    sharded ring is flash_attention, and a ring of one rank (no exchange)
+    computes what it does, forward and backward, bit for bit."""
+    from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                                  ring_attention_sharded)
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    assert nccl_of_one.backend == "nccl"
+    mesh = build_mesh(MeshSpec({"sp": 1}))
+    assert mesh.device_type == "cuda" and mesh.mesh_dim_names == ("sp",)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, w = (torch.randn(2, 12, 256, 64, generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(4))
+
+    def run(fn):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*x)
+        out.backward(w)
+        return [out.detach()] + [t.grad for t in x]
+
+    want = run(lambda *x: tattn.flash_attention(*x, True))
+    before = tattn.kernel_launches()
+    for fn in (lambda *x: ring_attention_sharded(*x, mesh),
+               lambda *x: ring_attention(*x)):
+        assert all(torch.equal(g, t) for g, t in zip(run(fn), want))
+    after = tattn.kernel_launches()
+    assert {n: after[n] - before[n] for n in after} == dict.fromkeys(
+        tattn.KERNELS, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_sp4_ring_steps_on_card_match_plain_float64(card, causal):
+    """The 4 ranks of an sp 4 ring stepped in lockstep in this process
+    (bf16, bh 4, seq 512, d 64: chunks of 128) against the plain versions
+    over the whole sequence in float64 (the backward ones from the ring's
+    out and lse), element by element within the bf16 kernels' 2e-2; each chunk on the kernels, 10 (causal) or 16 launches
+    of each."""
+    from test_torch_ring_attention import lockstep_ring
+
+    sp, bh, s, d = 4, 4, 512, 64
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device=card,
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    before = tattn.kernel_launches()
+    out, lse, dq, dk, dv = lockstep_ring(q, k, v, do, sp, causal, scale)
+    after = tattn.kernel_launches()
+    n = sp * (sp + 1) // 2 if causal else sp * sp
+    assert {k_: after[k_] - before[k_] for k_ in after} == dict.fromkeys(
+        tattn.KERNELS, n)
+    wide = [t.double() for t in (q, k, v, do)]
+    want_out, want_lse = tattn.flash_forward_reference(*wide[:3], causal,
+                                                       scale)
+    # The backward from the ring's own out and lse, as chip_smoke.py holds
+    # the kernels: delta from a bf16 O carries O's rounding.
+    delta = tattn.bwd_delta(out.double(), wide[3])
+    want_dq = tattn.flash_bwd_dq_reference(*wide, lse.double(), delta,
+                                           causal, scale)
+    want_dk, want_dv = tattn.flash_bwd_dkv_reference(*wide, lse.double(),
+                                                     delta, causal, scale)
+    assert (lse.double() - want_lse).abs().max().item() < 1e-3
+    for name, got, want in (("out", out, want_out), ("dq", dq, want_dq),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert got.dtype == torch.bfloat16
+        assert _within(got, want, 2e-2), name
 
 
 def test_engine_defaults_to_the_card():

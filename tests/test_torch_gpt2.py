@@ -140,8 +140,9 @@ def test_same_seed_same_weights_and_unported_options_raise():
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert abs(a["h.0.c_attn.weight"].std().item() - 0.02) < 2e-3
     assert abs(a["wpe"].std().item() - 0.01) < 1e-3
-    with pytest.raises(NotImplementedError):
-        tgpt2.GPT2(dataclasses.replace(cfg, use_ring=True), device="cpu")
+    # use_ring is ported (tests/test_torch_ring_attention.py): it builds.
+    assert tgpt2.GPT2(dataclasses.replace(cfg, use_ring=True),
+                      device="cpu").config.use_ring
     # remat is ported (tests/test_torch_remat.py): it builds.
     assert tgpt2.GPT2(dataclasses.replace(cfg, remat=True),
                       device="cpu").config.remat

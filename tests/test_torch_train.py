@@ -26,6 +26,8 @@ import ray_tpu_torch
 from ray_tpu_torch import _torch_env, resolve_device
 from ray_tpu_torch import data as rd
 from ray_tpu_torch.models import gpt2
+from ray_tpu_torch import train as train_api
+from ray_tpu_torch.parallel import MeshSpec
 from ray_tpu_torch.train import (BatchPredictor, Checkpoint,
                                  CheckpointConfig, FailureConfig, RunConfig,
                                  ScalingConfig, TorchPredictor, TorchTrainer,
@@ -163,6 +165,50 @@ def test_broadcast_params_makes_rank_1_equal_rank_0():
                           scaling_config=ScalingConfig(num_workers=2)).fit()
     assert result.error is None, result.error
     assert result.metrics == {"rank": 0, "equal": True}
+
+
+def _mesh_loop(config):
+    """Each rank's mesh (`session.get_mesh()`), gathered to rank 0 over the
+    group the backend formed; and whether a mesh asked for without a
+    device type (so on CUDA, absent here) raises."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    mesh = session.get_mesh()
+    try:
+        build_mesh(MeshSpec(config["axes"]))
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    mine = {"rank": session.get_world_rank(), "raised": raised,
+            "names": list(mesh.mesh_dim_names),
+            "shape": list(mesh.mesh.shape), "type": mesh.device_type,
+            "coordinate": mesh.get_coordinate()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    session.report({"ranks": every})
+
+
+@pytest.mark.parametrize("workers,axes", [(2, {"dp": 2}), (1, {"sp": 1})])
+def test_scaling_config_mesh_reaches_every_worker(workers, axes):
+    """`ScalingConfig(mesh=...)` over CPU workers: each worker's
+    `get_mesh()` is a CPU DeviceMesh with the spec's axes over the group
+    the backend formed (of one rank too); without "cpu" asked for, a mesh
+    needs CUDA and raises."""
+    result = TorchTrainer(
+        _mesh_loop, train_loop_config={"axes": axes}, device="cpu",
+        scaling_config=ScalingConfig(num_workers=workers,
+                                     mesh=MeshSpec(axes))).fit()
+    assert result.error is None, result.error
+    every = result.metrics["ranks"]
+    assert [r["rank"] for r in every] == list(range(workers))
+    for r in every:
+        assert r["names"] == list(axes) and r["shape"] == list(axes.values())
+        assert r["type"] == "cpu"
+        assert list(r["coordinate"]) == [r["rank"]]
+        assert "CUDA is not available" in r["raised"]
+    assert session.get_mesh is train_api.get_mesh
 
 
 def _failing_loop(config):
