@@ -122,6 +122,37 @@ failed phase, with no phase caught.
    relative (whether they are bit-equal is printed), and K1, K2 and K3 run
    12 times a step in both. Prints the `{"mesh": {...}}` line in phase 12.
    NCCL at sp > 1 needs more than one card and is not run here.
+4h. Pipeline parallelism (after 4g, on phase 1b's runtime): (a)
+   `LocalPipelineTrainer` trains Llama-small (phase 10's model, bf16 on
+   float32 parameters, the flash kernels) at batch 8, seq 2048, 4
+   microbatches, lr 1e-2, 3 Adam steps from `seeded_batch(0, step, ...)`,
+   at pp 1, pp 2 and pp 4 under "1f1b" and pp 2 under "sequential", each
+   stage on a thread and a CUDA stream of its own: the losses must be
+   finite, and the losses and merged weights bit-equal to pp 1's (the
+   targets are random tokens, so a loss need not fall), and each step
+   launch K2 and K3 48
+   times and K1 m * (2 * n_layer - L_last) times (48, 72, 84: the stages
+   before the last recompute their forward). Prints ms a step, each
+   stage's busy time and bubble_frac beside the analytic bubble, the pp 2
+   makespan of 1F1B over sequential, peak memory. (b)
+   `make_pipeline_train_fn` at (a)'s width and shape, 2 steps, through
+   `BackendExecutor` in a one-worker gang granted the card (pp 1): its
+   losses must equal (a)'s pp 1 losses, its worker be another process
+   seeing card "0" launching (a)'s pp 1 counts a step, and exit after
+   the gang's shutdown (waited on by pid); step 1's stage checkpoint
+   (~1.5 GB, under the phase's temporary directory) is restored at pp 1,
+   equal to (a)'s pp 1 weights and Adam state after its second step, and
+   at pp 2, each stage equal to the pp 1 restore's split, bit for bit.
+   (c) GPipe: a one-rank NCCL group, a pp 1 DeviceMesh and
+   `make_pp_train_step` at GPT-2-small's width and depth (vocab 50304,
+   float32, plain attention), seq 1024, batch 8, 4 microbatches: the
+   trunk (`gpipe`) bit-equal to the layers applied microbatch by
+   microbatch, the forward within 1e-4 of `sequential_forward` over the
+   whole batch (cuBLAS picks another float32 algorithm for the whole
+   batch's row count than for a microbatch's); 2 Adam steps finite and
+   falling, no kernel of the port launched. Prints the `{"pipeline":
+   {...}}` line in phase 12. NCCL at pp > 1 needs more than one card and is
+   not run here.
 4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
    seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
    goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
@@ -247,10 +278,10 @@ failed phase, with no phase caught.
 12. Results (phase 5 before phases 6 and 7 came): prints the serving and
    training numbers, the `{"data": {...}}` line (phases 4c, 4d, 11c), the
    `{"tune": {...}}` line (phase 4e), the `{"jobs": {...}}` line (phase
-   4f), the `{"mesh": {...}}` line (phase 4g), the `{"rllib": {...}}`
-   line, the
+   4f), the `{"mesh": {...}}` line (phase 4g), the `{"pipeline": {...}}`
+   line (phase 4h), the `{"rllib": {...}}` line, the
    `{"kernels": [...]}` line (launches summed over the paths of phases 4,
-   4e, 4f, 4g, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
+   4e, 4f, 4g, 4h, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
@@ -262,7 +293,7 @@ failed phase, with no phase caught.
    instance of phase 2), then the device line last.
 
 Phases 4c, 4e, 4f, 4g, 8, 10 and 11 also train in worker actors through
-`TorchTrainer`. Each phase frees what it allocated before the next starts, and the script
+`TorchTrainer`, and phase 4h through `BackendExecutor`. Each phase frees what it allocated before the next starts, and the script
 shuts the runtime and its worker template down before it exits.
 """
 
@@ -2128,6 +2159,354 @@ def mesh_phase(attn, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+# Phase 4h: pipeline parallelism. (a) `LocalPipelineTrainer` steps every
+# stage of Llama-small in this process, one thread and one CUDA stream a
+# stage; (b) `make_pipeline_train_fn` in a one-worker gang granted the card,
+# its per-step stage checkpoints restored at pp 2; (c) GPipe over a one-rank
+# NCCL group. NCCL at pp > 1 needs more than one card: GPipe's and
+# `CollectivePipeTransport`'s exchanges at pp > 1 run in gloo processes on
+# the CPU (tests/test_torch_pipeline.py, test_torch_train_pipeline.py).
+PIPE_M, PIPE_STEPS, PIPE_LR = 4, 3, 1e-2
+PIPE_BATCH, PIPE_SEQ = 8, 2048           # phase 10's shape
+PIPE_RUNS = ((1, "1f1b"), (2, "1f1b"), (4, "1f1b"), (2, "sequential"))
+# Eager PyTorch fuses nothing across a stage boundary and the kernels are
+# deterministic, so every pp and schedule must give pp 1's bits.
+PIPE_GANG_STEPS = 2
+# (c): GPT-2-small's width and depth in the JAX package's functional
+# blocks (float32, plain attention), batch 8, seq 1024, 4 microbatches.
+GPIPE = dict(vocab=50304, d_model=768, n_layer=12, n_head=12, d_ff=3072,
+             seq=1024, batch=8, m=4)
+# (c)'s limit on the whole batch's logits against the microbatches' (the
+# reference's own tests/test_pipeline.py limit); float32 sums over k of up
+# to 3072 terms in another order.
+GPIPE_ATOL = 1e-4
+
+
+def pipe_launches_per_step(cfg, pp: int) -> dict:
+    """K1 runs twice in every stage but the last (its forward, then the
+    recompute in its backward): m * (2 * n_layer - L_last); K2 and K3 once
+    a layer a microbatch."""
+    from ray_tpu_torch.models.llama import stage_layer_ranges
+
+    a, b = stage_layer_ranges(cfg, pp)[-1]
+    return {"flash_fwd": PIPE_M * (2 * cfg.n_layer - (b - a)),
+            "flash_bwd_dq": PIPE_M * cfg.n_layer,
+            "flash_bwd_dkv": PIPE_M * cfg.n_layer}
+
+
+def pipeline_run(attn, pipe, cfg, pp: int, schedule: str,
+                 snapshot_step: int = -1) -> dict:
+    """Phase 4h (a): PIPE_STEPS Adam steps of `LocalPipelineTrainer` at
+    `pp`, launches counted a step. Returns the losses, launches, ms a step,
+    the last step's stage stats and makespan, peak memory, the merged
+    params (on the card) and, after step `snapshot_step`, the merged params
+    and Adam state on the host."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = pipe.LocalPipelineTrainer(
+        cfg, pp=pp, num_microbatches=PIPE_M, lr=PIPE_LR, seed=0,
+        schedule=schedule, batch=PIPE_BATCH, seq=PIPE_SEQ, device="cuda")
+    out = {"pp": pp, "schedule": schedule, "losses": [], "launches": [],
+           "ms": []}
+    for step in range(PIPE_STEPS):
+        ids, tg = pipe.seeded_batch(0, step, PIPE_BATCH, PIPE_SEQ,
+                                    cfg.vocab_size)
+        torch.cuda.synchronize()
+        attn.reset_kernel_launches()
+        t0 = time.perf_counter()
+        m = trainer.train_step(ids, tg)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(attn.kernel_launches())
+        out["losses"].append(m["loss"])
+        if step == snapshot_step:
+            out["snapshot"] = {
+                "params": {k: v.cpu() for k, v in
+                           trainer.merged_params().items()},
+                # Copies: Adam's step counts lie on the host already, and
+                # the next step raises them in place.
+                "opt": {k: {n: t.to("cpu", copy=True) for n, t in v.items()}
+                        for k, v in trainer.merged_adam_state().items()}}
+    res = trainer.last_result
+    out["stages"] = [st.as_dict() for st in res.stage_stats]
+    out["makespan_ms"] = res.makespan_s * 1e3
+    out["bubble_frac"] = res.bubble_frac
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["params"] = {k: v.clone() for k, v in trainer.merged_params().items()}
+    del trainer, res
+    return out
+
+
+def _tensors_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        _tensors_equal(a[k], b[k]) if isinstance(a[k], dict)
+        else torch.equal(a[k].to(b[k].device), b[k]) for k in a)
+
+
+def pipeline_gang_loop(config):
+    """Phase 4h (b)'s loop, in a worker granted the card: the pipeline
+    gang's own loop (`make_pipeline_train_fn(**config)`), then one report
+    of its kernel launches, this process's pid, CUDA_VISIBLE_DEVICES and
+    peak memory."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.train import pipeline as pipe
+    from ray_tpu_torch.train import session
+
+    attn.reset_kernel_launches()
+    pipe.make_pipeline_train_fn(**config)(config)
+    session.report({"launches": attn.kernel_launches(), "pid": os.getpid(),
+                    "cuda_visible_devices":
+                        os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+
+def pipeline_phase(attn, card: str, workdir: str) -> dict:
+    """Phase 4h: (a) Llama-small through `LocalPipelineTrainer` at pp 1,
+    2, 4 ("1f1b") and 2 ("sequential"), each against pp 1; (b) the pipeline
+    gang (`make_pipeline_train_fn`) at pp 1 in a worker granted the card,
+    its losses against (a)'s and its step checkpoint restored at pp 1 and
+    pp 2; (c) GPipe over a pp 1 mesh against `sequential_forward`. Returns
+    the phase's record, with the launches of (a)'s runs and (b)'s
+    worker."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import pipeline as pipe
+
+    cfg = llama.LlamaConfig.small()
+    rec = {"card": card, "runs": {}}
+    launches = collections.Counter()
+
+    # (a) The stage trainer.
+    base = None
+    for pp, schedule in PIPE_RUNS:
+        r = pipeline_run(attn, pipe, cfg, pp, schedule,
+                         snapshot_step=PIPE_GANG_STEPS - 1 if pp == 1 else -1)
+        label = f"pp{pp}_{schedule}"
+        want = pipe_launches_per_step(cfg, pp)
+        if any(step != want for step in r["launches"]):
+            raise AssertionError(f"4h {label}: launches {r['launches']}, "
+                                 f"not {want} a step")
+        if base is None:
+            base, snapshot = r, r.pop("snapshot")
+        bit_equal = (r["losses"] == base["losses"] and
+                     _tensors_equal(r["params"], base["params"]))
+        steady = statistics.mean(r["ms"][1:])
+        print(f"  (a) {label}: losses "
+              + ", ".join(f"{x:.6f}" for x in r["losses"])
+              + f"; bit-equal to pp 1 (losses and merged weights): "
+              f"{bit_equal}; ms a step "
+              f"{', '.join(f'{x:.1f}' for x in r['ms'])} (steady "
+              f"{steady:.2f}); peak {r['peak_gib']:.2f} GiB; "
+              f"launches a step {r['launches'][-1]}")
+        for st in r["stages"]:
+            print(f"      stage {st['stage']}: busy {st['busy_s'] * 1e3:.2f} "
+                  f"ms of {st['wall_s'] * 1e3:.2f}, bubble_frac "
+                  f"{st['bubble_frac']:.4f} (analytic "
+                  f"{st['analytic_bubble_frac']:.4f})")
+        if not all(math.isfinite(x) for x in r["losses"]) or not bit_equal:
+            raise AssertionError(f"4h {label}: losses {r['losses']} against "
+                                 f"pp 1's {base['losses']}, bit-equal "
+                                 f"(losses and merged weights) {bit_equal}")
+        for step in r["launches"]:
+            launches.update(step)
+        rec["runs"][label] = {
+            "losses": r["losses"], "bit_equal": bit_equal, "ms": r["ms"], "steady_ms": steady,
+            "makespan_ms": r["makespan_ms"], "bubble_frac": r["bubble_frac"],
+            "stages": r["stages"], "peak_gib": r["peak_gib"],
+            "launches_per_step": r["launches"][-1]}
+        if r is not base:
+            del r["params"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base["params"]
+    runs = rec["runs"]
+    rec["makespan_ratio_1f1b_over_sequential_pp2"] = \
+        runs["pp2_1f1b"]["makespan_ms"] / runs["pp2_sequential"]["makespan_ms"]
+    print(f"  (a) pp 2 makespan, 1F1B / sequential: "
+          f"{rec['makespan_ratio_1f1b_over_sequential_pp2']:.4f}")
+
+    # (b) The pipeline gang, one worker granted the card.
+    from ray_tpu_torch.train.backend import BackendConfig
+    from ray_tpu_torch.train.backend_executor import BackendExecutor
+    from ray_tpu_torch.train.checkpoint import sharded_manifest
+    from ray_tpu_torch.train.config import ScalingConfig
+
+    overrides = {f.name: getattr(cfg, f.name)
+                 for f in dataclasses.fields(cfg) if f.name != "sp_mesh"}
+    config = dict(steps=PIPE_GANG_STEPS, microbatches=PIPE_M,
+                  batch=PIPE_BATCH, seq=PIPE_SEQ, lr=PIPE_LR, seed=0,
+                  ckpt_dir=workdir, cfg_overrides=overrides)
+    driver_launches = attn.kernel_launches()
+    t0 = time.perf_counter()
+    ex = BackendExecutor(BackendConfig(),
+                         ScalingConfig(num_workers=1, use_gpu=True))
+    ex.start()
+    pid = ex.worker_group.procs[0]["pid"]
+    metrics = []
+    try:
+        for rnd in ex.run(pipeline_gang_loop, config, device="cuda",
+                          experiment_name="chip_smoke_pipeline"):
+            metrics += [r["metrics"] for r in rnd]
+        final = ex.latest_checkpoint.to_dict()
+    finally:
+        ex.shutdown()
+    worker = metrics.pop()
+    gang_s = time.perf_counter() - t0
+    exit_s = wait_exited(pid, "the pipeline gang's worker")
+    if attn.kernel_launches() != driver_launches:
+        raise AssertionError("4h: this process launched kernels while the "
+                             "gang trained")
+    losses = [m["loss"] for m in metrics]
+    want = {k: v * PIPE_GANG_STEPS
+            for k, v in pipe_launches_per_step(cfg, 1).items()}
+    print(f"  (b) gang worker pid {pid} (this process {os.getpid()}, "
+          f"CUDA_VISIBLE_DEVICES={worker['cuda_visible_devices']!r}): "
+          f"launches {worker['launches']} (want {want}), peak "
+          f"{worker['peak_gib']:.2f} GiB")
+    if worker["pid"] != pid or pid == os.getpid() or \
+            worker["cuda_visible_devices"] != "0" or \
+            worker["launches"] != want:
+        raise AssertionError(f"4h (b): the gang's worker {worker}")
+    print(f"  (b) gang worker pid {pid} (this process {os.getpid()}): "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)}, (a)'s pp 1 "
+          f"{', '.join(f'{x:.6f}' for x in runs['pp1_1f1b']['losses'][:2])}"
+          f"; {gang_s:.1f} s from start to shutdown, exited "
+          f"{exit_s:.2f} s after")
+    if losses != runs["pp1_1f1b"]["losses"][:PIPE_GANG_STEPS] or \
+            final["step"] != PIPE_GANG_STEPS - 1:
+        raise AssertionError(f"4h (b): the gang's losses {losses} or its "
+                             f"last checkpoint {final}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(final["path"], f))
+                     for f in os.listdir(final["path"]))
+    n_params = sum(math.prod(e["shape"]) for k, e in
+                   sharded_manifest(final["path"])["entries"].items()
+                   if k.startswith("params/"))
+    t0 = time.perf_counter()
+    whole = pipe.restore_pipeline_stage(final["path"], cfg, 0, 1,
+                                        device="cuda")
+    equal = {"pp1_params": _tensors_equal(snapshot["params"],
+                                          whole["params"]),
+             "pp1_adam": _tensors_equal(snapshot["opt"], whole["opt"])}
+    want = llama.split_stage_params(whole["params"], cfg, 2)
+    want_opt = llama.split_stage_params(whole["opt"], cfg, 2)
+    for s in range(2):
+        st = pipe.restore_pipeline_stage(final["path"], cfg, s, 2,
+                                         device="cuda")
+        equal[f"pp2_stage{s}_params"] = _tensors_equal(st["params"], want[s])
+        equal[f"pp2_stage{s}_adam"] = _tensors_equal(st["opt"], want_opt[s])
+        del st
+    restore_s = time.perf_counter() - t0
+    print(f"  (b) step {final['step']}'s checkpoint: {n_params} parameters, "
+          f"{ckpt_bytes / 2 ** 30:.3f} GiB on disk; restored at pp 1 and "
+          f"at pp 2 (each stage) in {restore_s:.2f} s, bit-equal: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"4h (b): a restore differs: {equal}")
+    launches.update(worker["launches"])
+    rec["gang"] = {"losses": losses, "pid": pid, "seconds": gang_s,
+                   "peak_gib": worker["peak_gib"],
+                   "exit_s": exit_s, "checkpoint_gib": ckpt_bytes / 2 ** 30,
+                   "n_params": n_params, "restore_s": restore_s,
+                   "bit_equal": equal}
+    del whole, want, want_opt, snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) GPipe over a pp 1 mesh.
+    rec["gpipe"] = gpipe_leg(attn)
+    rec["launches"] = {name: launches[name] for name in attn.KERNELS}
+    return rec
+
+
+def gpipe_trunk(gp, mesh, params, ids):
+    """(c)'s trunk: `gpipe`'s output on the microbatched embeddings, and the
+    same layers applied to each microbatch in order, without the pipe."""
+    g = GPIPE
+    x = params["embed"][ids] + params["pos"][None, :ids.shape[1]]
+    x_mb = gp.to_microbatches(x, g["m"])
+    run = gp.gpipe(functools.partial(gp.block_apply, n_head=g["n_head"]),
+                   mesh, g["m"])
+    layers = gp.unstack_stage_params(params["stages"])
+    want = []
+    for h in x_mb:
+        for i in range(g["n_layer"]):
+            h = gp.block_apply({k: v[i] for k, v in layers.items()}, h,
+                               g["n_head"])
+        want.append(h)
+    return run(params["stages"], x_mb), torch.stack(want)
+
+
+def gpipe_leg(attn) -> dict:
+    """Phase 4h (c): `make_pp_train_step` at GPIPE's shape over a pp 1
+    mesh of a one-rank NCCL group. Its trunk (`gpipe`) must equal the layer
+    stack applied to each microbatch bit for bit, and its forward
+    `sequential_forward` over the whole batch within GPIPE_ATOL (cuBLAS's
+    float32 products pick, for the whole batch's row count, an algorithm
+    that splits the sum over k through its workspace, and for a
+    microbatch's another). Two Adam steps must give finite, falling
+    losses. The blocks use plain attention: no kernel of the port
+    launches."""
+    import socket
+
+    from ray_tpu_torch.parallel import (MeshSpec, build_mesh,
+                                        distributed as tdist)
+    from ray_tpu_torch.parallel import pipeline as gp
+
+    g = GPIPE
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tdist.initialize_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = build_mesh(MeshSpec({"pp": 1}))
+        params = gp.init_pp_lm(0, g["vocab"], g["d_model"], g["n_layer"],
+                               g["n_head"], g["d_ff"], g["seq"], 1,
+                               device="cuda")
+        ids = torch.randint(0, g["vocab"], (g["batch"], g["seq"]),
+                            generator=torch.Generator().manual_seed(0)).cuda()
+        step, forward = gp.make_pp_train_step(
+            mesh, g["n_head"], g["m"],
+            functools.partial(torch.optim.Adam, lr=1e-3))
+        attn.reset_kernel_launches()
+        with torch.no_grad():
+            got, want = gpipe_trunk(gp, mesh, params, ids)
+            mb_equal = torch.equal(got, want)
+            del got, want
+            whole_diff = (forward(params, ids) - gp.sequential_forward(
+                params, ids, g["n_head"])).abs().max().item()
+        state, losses, ms = None, [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state,
+                                       {"input_ids": ids, "labels": ids})
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launched = attn.kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params, state
+    finally:
+        tdist.shutdown_distributed()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (c) GPipe, pp 1 mesh, {g}: the trunk bit-equal to the "
+          f"layers applied microbatch by microbatch: {mb_equal}; the forward "
+          f"against sequential_forward over "
+          f"the whole batch max diff {whole_diff:.3e} (limit {GPIPE_ATOL:.0e})")
+    print(f"  (c) losses {', '.join(f'{x:.6f}' for x in losses)}; ms a step "
+          f"{', '.join(f'{x:.1f}' for x in ms)}; peak {peak:.2f} GiB; "
+          f"launches {launched}")
+    if not mb_equal or not whole_diff <= GPIPE_ATOL or \
+            not all(math.isfinite(x) for x in losses) or \
+            not losses[1] < losses[0] or any(launched.values()):
+        raise AssertionError(f"4h (c): microbatch bit-equal {mb_equal}, "
+                             f"whole-batch diff {whole_diff}, losses "
+                             f"{losses}, launches {launched}")
+    return {"trunk_bit_equal_per_microbatch": mb_equal,
+            "whole_batch_max_abs_diff": whole_diff,
+            "losses": losses, "ms": ms,
+            "peak_gib": peak, "shape": g}
 
 
 # Phases 4c and 4d: the Data-fed path. The corpus is the nanoGPT layout,
@@ -4143,6 +4522,11 @@ def main() -> int:
           "the sp 4 ring schedule at full width, the trainer's mesh")
     meshes = mesh_phase(attn, card)
 
+    phase(started, "4h. pipeline parallelism: LocalPipelineTrainer at pp 1, "
+          "2 and 4, the pipeline gang and its stage checkpoints, GPipe")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        pipes = pipeline_phase(attn, card, d)
+
     phase(started, "4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
           "small on a shuffled token corpus")
     small = gpt2.GPT2Config.small()
@@ -4255,8 +4639,9 @@ def main() -> int:
     print(json.dumps({"tune": sweep}))
     print(json.dumps({"jobs": jobs}))
     print(json.dumps({"mesh": meshes}))
+    print(json.dumps({"pipeline": pipes}))
     paths = [launches, sweep["launches"], jobs["launches"],
-             meshes["launches"],
+             meshes["launches"], pipes["launches"],
              data_leg["launches"],
              scoring["launches"],
              llama_launches, serve_launches,

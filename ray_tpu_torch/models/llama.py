@@ -27,6 +27,11 @@ The two cache paths write K/V in place: the cache or arena passed in is the
 one returned (the counterpart of the engine's donated buffers, so no step
 copies the arena). The paged gather and scatter are ordinary PyTorch ops,
 as XLA compiled them in the reference, not kernels.
+
+For pipeline parallelism the model splits by layer into `LlamaStage`s
+(`stage_layer_ranges`), whose parameters keep the whole model's names, so
+`split_stage_params` and `merge_stage_params` regroup a state dict at any
+pp by key (`train/pipeline.py` runs them).
 """
 
 from __future__ import annotations
@@ -555,3 +560,163 @@ def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
     n = cfg.n_layer * per_layer + 2 * cfg.vocab_size * cfg.n_embd
     attn = 12 * cfg.n_layer * cfg.n_embd * seq_len
     return 6.0 * n + 2.0 * attn
+
+
+# --------------------------------------------------------------------------- #
+# Pipeline stages: the model partitioned by layer
+# --------------------------------------------------------------------------- #
+
+
+def stage_layer_ranges(cfg: LlamaConfig, pp: int) -> List[Tuple[int, int]]:
+    """[start, end) layer range per pipeline stage: near-even split, the
+    remainder to the EARLIER stages (the last stage already carries the
+    final norm and the vocab-wide lm_head product)."""
+    if not 1 <= pp <= cfg.n_layer:
+        raise ValueError(f"pp={pp} must be in [1, n_layer={cfg.n_layer}]")
+    base, rem = divmod(cfg.n_layer, pp)
+    ranges, start = [], 0
+    for s in range(pp):
+        end = start + base + (1 if s < rem else 0)
+        ranges.append((start, end))
+        start = end
+    return ranges
+
+
+def _param_shapes(cfg: LlamaConfig) -> List[Tuple[str, torch.Size]]:
+    """(name, shape) of every parameter of `Llama(cfg)`, in its order."""
+    with torch.device("meta"):
+        blk = LlamaBlock(cfg)
+    out = [("embed", torch.Size((cfg.vocab_size, cfg.n_embd)))]
+    for i in range(cfg.n_layer):
+        out += [(f"layers.{i}.{name}", p.shape)
+                for name, p in blk.named_parameters()]
+    return out + [("final_norm.weight", torch.Size((cfg.n_embd,))),
+                  ("lm_head.weight", torch.Size((cfg.vocab_size,
+                                                 cfg.n_embd)))]
+
+
+def _stage_of(name: str, ranges: List[Tuple[int, int]]) -> int:
+    """The stage that holds parameter `name` (global names)."""
+    if name == "embed":
+        return 0
+    if name.startswith("layers."):
+        i = int(name.split(".")[1])
+        return next(s for s, (a, b) in enumerate(ranges) if a <= i < b)
+    return len(ranges) - 1           # final_norm, lm_head
+
+
+class LlamaStage(nn.Module):
+    """One pipeline stage of :class:`Llama`: stage 0 owns the embedding and
+    its layer range, the last stage its range, the final norm and lm_head.
+    Parameter names are the whole model's (``layers.{i}`` keeps the GLOBAL
+    layer index), so a full state dict splits into stage dicts, and regroups
+    at any pp, by key alone.
+
+    `seed` draws the same weights `Llama(cfg, seed=seed)` draws on this
+    device: every parameter of the whole model is drawn in its order and
+    only this stage's are kept, so every pp starts from the same model.
+    `state` (a stage dict on `device`) is taken by reference instead.
+    `device="meta"` makes the skeleton alone, for callers that pass the
+    parameters at each call (`torch.func.functional_call`)."""
+
+    def __init__(self, cfg: LlamaConfig, stage: int, pp: int,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0,
+                 state: Optional[Dict[str, torch.Tensor]] = None):
+        super().__init__()
+        ranges = stage_layer_ranges(cfg, pp)
+        if not 0 <= stage < pp:
+            raise ValueError(f"stage {stage} of pp={pp}")
+        meta = device is not None and torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
+        self.config, self.stage, self.pp = cfg, stage, pp
+        self.is_first, self.is_last = stage == 0, stage == pp - 1
+        start, end = ranges[stage]
+        with torch.device("meta"):
+            if self.is_first:
+                self.embed = nn.Parameter(torch.empty(cfg.vocab_size,
+                                                      cfg.n_embd))
+            self.layers = nn.ModuleDict({str(i): LlamaBlock(cfg)
+                                         for i in range(start, end)})
+            if self.is_last:
+                self.final_norm = RMSNorm(cfg.n_embd, cfg.rms_eps, cfg.dtype)
+                self.lm_head = Dense(cfg.n_embd, cfg.vocab_size, cfg.dtype)
+        if meta:
+            return
+        if state is None:
+            self._init_weights(seed, dev, ranges)
+        else:
+            for name, t in state.items():
+                if not same_device(dev, t.device):
+                    raise ValueError(f"state tensor {name} lies on "
+                                     f"{t.device}, the stage on {dev}")
+            self.load_state_dict(state, assign=True)
+
+    @torch.no_grad()
+    def _init_weights(self, seed: int, dev: torch.device,
+                      ranges: List[Tuple[int, int]]) -> None:
+        # Llama._init_weights' draws, in its order, the other stages'
+        # dropped as they are made.
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dt = self.config.param_dtype
+        for name, shape in _param_shapes(self.config):
+            init = torch.empty(shape, dtype=dt, device=dev)
+            if name.endswith("norm.weight"):
+                init.fill_(1.0)
+            else:
+                init.normal_(0.0, 0.02, generator=gen)
+            if _stage_of(name, ranges) == self.stage:
+                _set_param(self, name, init)
+
+    def forward(self, x):
+        """Stage 0 takes token ids [b, s]; later stages take the previous
+        stage's activations [b, s, embd]. The last stage returns logits,
+        every other stage its boundary activations."""
+        cfg = self.config
+        if self.is_first:
+            x = self.embed.to(cfg.dtype)[x]
+        positions = torch.arange(x.shape[1], device=x.device)
+        for blk in self.layers.values():
+            if cfg.remat:
+                x, _, _ = checkpoint(blk, x, positions, use_reentrant=False)
+            else:
+                x, _, _ = blk(x, positions)
+        if self.is_last:
+            return self.lm_head(self.final_norm(x))
+        return x
+
+
+def split_stage_params(params: Dict[str, Any], cfg: LlamaConfig, pp: int
+                       ) -> List[Dict[str, Any]]:
+    """A whole model's dict (``embed``, ``layers.{i}.…``, ``final_norm.…``,
+    ``lm_head.…``) -> one dict per stage. Pure regrouping: values are
+    shared, never copied, and keys keep their global names, so it inverts
+    :func:`merge_stage_params` at ANY pp."""
+    ranges = stage_layer_ranges(cfg, pp)
+    out: List[Dict[str, Any]] = [{} for _ in range(pp)]
+    for name, value in params.items():
+        out[_stage_of(name, ranges)][name] = value
+    return out
+
+
+def merge_stage_params(stage_dicts) -> Dict[str, Any]:
+    """Union of per-stage dicts back into the whole model's (global key
+    names make this a plain dict merge)."""
+    out: Dict[str, Any] = {}
+    for tree in stage_dicts:
+        dup = set(out) & set(tree)
+        if dup:
+            raise ValueError(f"stage dicts overlap on {sorted(dup)}: these "
+                             "are not disjoint stage splits")
+        out.update(tree)
+    return out
+
+
+def shard_stage_params(stage_params: Dict[str, torch.Tensor], mesh
+                       ) -> Dict[str, Any]:
+    """Place one stage's dict on its ("sp", "tp") stage mesh as DTensors by
+    LLAMA_PARTITION_RULES (axes the mesh lacks stay replicated, so a mesh
+    without tp works unchanged)."""
+    from ray_tpu_torch.parallel.sharding import shard_params_by_rules
+
+    return shard_params_by_rules(stage_params, mesh, LLAMA_PARTITION_RULES)

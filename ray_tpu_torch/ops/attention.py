@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -299,16 +300,28 @@ def _refuse_head_dim(d: int, dtype: torch.dtype) -> None:
 
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# The counts are raised from every thread that launches: pipeline stages
+# run on threads of their own, and `+=` on a dict entry is not atomic.
+_launches_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel `name` to its count (the wrappers call it
+    where they launch, and nowhere else)."""
+    with _launches_lock:
+        _launches[name] += 1
 
 
 def kernel_launches() -> Dict[str, int]:
     """How many times each kernel was launched on the card so far."""
-    return dict(_launches)
+    with _launches_lock:
+        return dict(_launches)
 
 
 def reset_kernel_launches() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _launches_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 def mha_reference(q, k, v, causal: bool = True,
@@ -522,7 +535,7 @@ def _flash_forward(q, k, v, causal: bool, scale: float
                              d, int(causal), float(scale),
                              _DTYPE_CODES[q.dtype], _stream())
     _build.check(lib, "flash_fwd", code)
-    _launches["flash_fwd"] += 1
+    count_launch("flash_fwd")
     return out, lse
 
 
@@ -543,7 +556,7 @@ def _bwd_dq(q, k, v, do, out, lse, causal: bool, scale: float
                                 sq, k.shape[1], d, int(causal), float(scale),
                                 _DTYPE_CODES[q.dtype], _stream())
     _build.check(lib, "flash_bwd_dq", code)
-    _launches["flash_bwd_dq"] += 1
+    count_launch("flash_bwd_dq")
     return dq, delta
 
 
@@ -561,7 +574,7 @@ def _bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
                                  sq, k.shape[1], d, int(causal), float(scale),
                                  _DTYPE_CODES[q.dtype], _stream())
     _build.check(lib, "flash_bwd_dkv", code)
-    _launches["flash_bwd_dkv"] += 1
+    count_launch("flash_bwd_dkv")
     return dk, dv
 
 

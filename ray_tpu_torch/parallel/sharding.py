@@ -177,16 +177,24 @@ def match_partition_rules(rules, params: Dict[str, Any]
     return out
 
 
+def placements_by_rules(params: Dict[str, Any], mesh, rules
+                        ) -> Dict[str, Any]:
+    """{name: (mesh, placements)}: the layout `rules` assign each parameter
+    on `mesh` (axes the mesh lacks are pruned to replicated on those dims,
+    so one rule table serves every (tp, sp) submesh)."""
+    specs = match_partition_rules(rules, params)
+    return {name: (mesh, placements_for(specs[name], mesh.mesh_dim_names))
+            for name in params}
+
+
 def shard_params_by_rules(params: Dict[str, Any], mesh, rules
                           ) -> Dict[str, Any]:
     """Place a state dict as DTensors in the layout `rules` assigns on
-    `mesh` (axes the mesh lacks are pruned to replicated on those dims, so
-    one rule table serves every (tp, sp) submesh)."""
+    `mesh` (`placements_by_rules`)."""
     from torch.distributed.tensor import distribute_tensor
 
-    specs = match_partition_rules(rules, params)
-    return {name: distribute_tensor(
-                leaf, mesh, placements_for(specs[name], mesh.mesh_dim_names))
+    placed = placements_by_rules(params, mesh, rules)
+    return {name: distribute_tensor(leaf, *placed[name])
             for name, leaf in params.items()}
 
 

@@ -8,7 +8,11 @@ GPT-2-small at seq 8192 with per-block remat, batch 4 (`gpt2-long`);
 Llama-small at batch 8, seq 2048 (`llama-small`); MoE-small at batch 4,
 seq 2048 (`moe-small`). Each is built from seed 0 (bf16 compute on float32
 parameters, AdamW(3e-4, wd 0.1), a fixed random batch), takes two warm-up
-steps, then three steps are traced with `torch.profiler`. Prints the device
+steps, then three steps are traced with `torch.profiler`. `llama-small-pp1`,
+`-pp2` and `-pp4` are phase 10's Llama-small through the pipeline stage
+trainer (`train/pipeline.py` `LocalPipelineTrainer`, chip_smoke.py phase
+4h): 4 microbatches, each stage on a thread and a CUDA stream of its own,
+Adam(1e-2) leafwise. Prints the device
 time per step by kernel group (the port's flash kernels; float32 matrix
 products, which in MoE are the dense dispatch/combine products and the
 router; the other matrix products; the optimizer; the rest), the top
@@ -48,6 +52,8 @@ MODELS = {
     "gpt2-long": Leg(4, 8192, 2, 5),    # phase 8: bench_gpt2_long's rung
     "llama-small": Leg(8, 2048, 2, 10),  # phase 10
     "moe-small": Leg(4, 2048, 2, 5),    # phase 11
+    # phase 4h: Llama-small through LocalPipelineTrainer, m 4, at pp 1-4
+    **{f"llama-small-pp{pp}": Leg(8, 2048, 1, 2) for pp in (1, 2, 4)},
 }
 # Kernel-name fragments of each group, matched in order. cuBLAS names its
 # float32 kernels (TF32 off) `..._f32f32_f32f32_...` or `sgemm`.
@@ -82,6 +88,22 @@ def build(name: str, device, seed: int = 0):
         cfg = llama.LlamaConfig.small()
         model = llama.Llama(cfg, device=device, seed=seed)
         step = gpt2.make_train_step(model, gpt2.adamw(model))
+        flops = llama.flops_per_token(cfg, seq)
+    elif name.startswith("llama-small-pp"):
+        import types
+
+        from ray_tpu_torch.train import pipeline
+
+        cfg = llama.LlamaConfig.small()
+        trainer = pipeline.LocalPipelineTrainer(
+            cfg, pp=int(name[len("llama-small-pp"):]), num_microbatches=4,
+            seed=seed, batch=batch, seq=seq, device=device)
+        model = types.SimpleNamespace(config=cfg)
+
+        def step(b):
+            ids = b["input_ids"].cpu().numpy()
+            loss = trainer.train_step(ids, b["labels"].cpu().numpy())["loss"]
+            return torch.tensor(loss)
         flops = llama.flops_per_token(cfg, seq)
     elif name == "moe-small":
         cfg = moe.MoEConfig.small()

@@ -30,11 +30,19 @@ class TrainingFailedError(RuntimeError):
 class BackendExecutor:
     def __init__(self, backend_config: BackendConfig,
                  scaling_config: ScalingConfig,
-                 max_failures: int = 0):
+                 max_failures: int = 0,
+                 elastic_world_fn: Optional[Callable[[int, int],
+                                                     Optional[int]]] = None):
         self.backend_config = backend_config
         self.backend: Backend = backend_config.backend_cls()()
         self.scaling_config = scaling_config
         self.max_failures = max_failures
+        # Policy hook for elastic restarts: called with (failure_index,
+        # current_world) before each gang restart; a non-None return
+        # OVERRIDES the restart width (pipeline runs shrink pp this way:
+        # the checkpoint restore re-splits stages at the new width). None
+        # keeps WorkerGroup.restart's same-size-then-shrink-on-placement.
+        self.elastic_world_fn = elastic_world_fn
         self.worker_group: Optional[WorkerGroup] = None
         # Latest checkpoint REPORTED by the run (rank 0), so a gang
         # restart resumes at the last reported step — not from the
@@ -97,7 +105,11 @@ class BackendExecutor:
         except Exception:  # noqa: BLE001 — dead ranks can't shut down
             logger.debug("backend on_shutdown during restart failed",
                          exc_info=True)
-        world = self.worker_group.restart()
+        target = None
+        if self.elastic_world_fn is not None:
+            target = self.elastic_world_fn(len(self.restarts) + 1,
+                                           self.worker_group.num_workers)
+        world = self.worker_group.restart(num_workers=target)
         self.restarts.append({"world_size": world,
                               "incarnation": self.worker_group.incarnation})
         self.backend.on_start(self.worker_group, self.backend_config)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, Llama (its
 GQA training backward too), the serving engine, RLlib's learner update and
 V-trace, TorchPredictor against the CPU's, the accelerator registry's
-name for the card, and ring attention's mesh and chunk steps, on a card.
+name for the card, ring attention's mesh and chunk steps, and the pipeline
+stage trainer and GPipe, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -703,6 +704,79 @@ def test_sp4_ring_steps_on_card_match_plain_float64(card, causal):
                             ("dk", dk, want_dk), ("dv", dv, want_dv)):
         assert got.dtype == torch.bfloat16
         assert _within(got, want, 2e-2), name
+
+
+@pytest.mark.cuda
+def test_pipeline_pp2_on_card_is_pp1_bitwise_and_counts_launches(card):
+    """LocalPipelineTrainer in bf16 with the flash kernels, each stage on a
+    thread and a stream of its own: pp 2 gives pp 1's losses and merged
+    weights bit for bit, and each step launches K2 and K3 once a layer a
+    microbatch and K1 m * (2 * n_layer - L_last) times (the first stage
+    recomputes its forward in its backward)."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train.pipeline import (LocalPipelineTrainer,
+                                              seeded_batch)
+
+    cfg = LlamaConfig(vocab_size=512, n_positions=256, n_embd=256,
+                      n_layer=4, n_head=4, n_kv_head=2, intermediate=512)
+    m, runs = 2, {}
+    for pp in (1, 2):
+        t = LocalPipelineTrainer(cfg, pp=pp, num_microbatches=m, seed=0,
+                                 batch=4, seq=256, device=card)
+        losses, launches = [], []
+        for step in range(2):
+            ids, tg = seeded_batch(0, step, 4, 256, cfg.vocab_size)
+            tattn.reset_kernel_launches()
+            losses.append(t.train_step(ids, tg)["loss"])
+            torch.cuda.synchronize()
+            launches.append(tattn.kernel_launches())
+        runs[pp] = (losses, t.merged_params(), launches)
+        l_last = cfg.n_layer // pp
+        want = {"flash_fwd": m * (2 * cfg.n_layer - l_last),
+                "flash_bwd_dq": m * cfg.n_layer,
+                "flash_bwd_dkv": m * cfg.n_layer}
+        assert launches == [want, want], (pp, launches)
+    assert runs[1][0] == runs[2][0]
+    assert all(np.isfinite(runs[1][0]))
+    assert all(torch.equal(runs[1][1][k], runs[2][1][k]) for k in runs[1][1])
+
+
+@pytest.mark.cuda
+def test_gpipe_pp1_mesh_on_card_is_sequential_forward(nccl_of_one):
+    """GPipe over a pp 1 DeviceMesh on a one-rank NCCL group: the trunk
+    bit-equal to the layers applied microbatch by microbatch, the forward
+    within the reference's 1e-4 of sequential_forward over the whole batch
+    (cuBLAS may split a float32 product's sum over k for one row count and
+    not for the other); Adam steps lower the loss."""
+    import functools
+
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel import pipeline as gp
+
+    mesh = build_mesh(MeshSpec({"pp": 1}))
+    params = gp.init_pp_lm(0, 256, 64, 4, 4, 128, 64, 1, device="cuda")
+    ids = torch.randint(0, 256, (8, 64), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    step, forward = gp.make_pp_train_step(
+        mesh, 4, 4, functools.partial(torch.optim.Adam, lr=1e-2))
+    with torch.no_grad():
+        x_mb = gp.to_microbatches(params["embed"][ids] + params["pos"], 4)
+        got = gp.gpipe(functools.partial(gp.block_apply, n_head=4), mesh,
+                       4)(params["stages"], x_mb)
+        layers = gp.unstack_stage_params(params["stages"])
+        for j, h in enumerate(x_mb):
+            for i in range(4):
+                h = gp.block_apply({k: v[i] for k, v in layers.items()}, h,
+                                   4)
+            assert torch.equal(got[j], h)
+        assert (forward(params, ids) - gp.sequential_forward(
+            params, ids, 4)).abs().max() < 1e-4
+    state, losses = None, []
+    for _ in range(3):
+        params, state, loss = step(params, state,
+                                   {"input_ids": ids, "labels": ids})
+        losses.append(loss.item())
+    assert losses[-1] < losses[0]
 
 
 def test_engine_defaults_to_the_card():

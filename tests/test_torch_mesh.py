@@ -24,7 +24,7 @@ from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.parallel import distributed as tdist
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import sharding as tsharding
-from test_torch_ring_attention import GlooRanks
+from gloo_ranks import GlooRanks
 
 MESHES = [{"dp": 2, "fsdp": 2, "tp": 2}, {"dp": 2, "sp": 2, "tp": 2},
           {"dp": 8}, {"fsdp": 4, "tp": 2}, {"tp": 2, "dp": -1}]
