@@ -153,6 +153,30 @@ failed phase, with no phase caught.
    falling, no kernel of the port launched. Prints the `{"pipeline":
    {...}}` line in phase 12. NCCL at pp > 1 needs more than one card and is
    not run here.
+4i. Tensor, data and fully-sharded parallelism (after 4h, on phase 1b's
+   runtime): (a) `TorchTrainer.fit` with `ScalingConfig(mesh=MeshSpec(
+   {"dp": 1, "fsdp": 1, "tp": 1}), use_gpu=True)` trains GPT-2-small
+   (phase 4's model and batch, AdamW(3e-4, wd 0.1)) for 2 + 3 steps on
+   the mesh (`GPT2(mesh=, state=init_sharded(...))`, `make_train_step(
+   mesh=)`: DTensor parameters, FSDP2 and the vocab-parallel head and
+   loss, all at size 1) in a worker granted the card over a one-rank NCCL
+   group: the losses must fall and agree within 1e-3 relative with phase
+   4's first 5 (the same model, seed, optimizer and batch without a mesh),
+   and K1, K2 and K3 run 12 times a step; ms a step and peak memory beside
+   phase 4's. (b) The same model at dp 1
+   x tp 2 as two processes sharing the card (`CUDA_VISIBLE_DEVICES=0`) over
+   a gloo group on CUDA tensors that this script forms (NCCL refuses two
+   ranks on one device): one step, its loss within 2^-7 relative of (a)'s
+   first, every parameter element within 2 lr of (a)'s after its first
+   step and at least 90% of them within lr / 10 (each rank holds its own
+   shards against the same slices of (a)'s whole tensors: DTensor's
+   `full_tensor()` does not return over gloo on CUDA tensors), K1 at bh 144
+   12 times; 3 more steps timed (ms a step, peak memory) and the c_attn
+   exchange of a step timed alone; then Llama-small at tp 2 (6/2 heads a
+   rank), batch 4, seq 2048, one step, held the same way against the same
+   step at tp 1.
+   Prints the `{"tensor_parallel": {...}}` line in phase 12. NCCL at tp >
+   1 needs more than one card and is not run here.
 4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
    seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
    goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
@@ -196,9 +220,9 @@ failed phase, with no phase caught.
    p50/p99, ms per decode step at 8 busy slots, peak memory, and how far 2
    requests follow a bf16 dense-cache loop. Then a speculative leg on the
    same model (draft length 4, the 16-layer truncated draft, 4 requests of
-   64 tokens): no leaks, one shape per program, its accept rate. Last, on
+   32 tokens): no leaks, one shape per program, its accept rate. Last, on
    the same weights computing in float32, the engine's tokens (2 requests
-   of 128 and 2 of 64) against a dense-cache greedy loop through
+   of 128 and 2 of 32) against a dense-cache greedy loop through
    `Llama.decode`, and the speculative engine's against the plain one's,
    each up to the reference's first near tie. First of all, on an engine of
    its own (freed before the load's), one prompt of 640 tokens (seed 1) is
@@ -279,9 +303,10 @@ failed phase, with no phase caught.
    training numbers, the `{"data": {...}}` line (phases 4c, 4d, 11c), the
    `{"tune": {...}}` line (phase 4e), the `{"jobs": {...}}` line (phase
    4f), the `{"mesh": {...}}` line (phase 4g), the `{"pipeline": {...}}`
-   line (phase 4h), the `{"rllib": {...}}` line, the
+   line (phase 4h), the `{"tensor_parallel": {...}}` line (phase 4i), the
+   `{"rllib": {...}}` line, the
    `{"kernels": [...]}` line (launches summed over the paths of phases 4,
-   4e, 4f, 4g, 4h, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
+   4e, 4f, 4g, 4h, 4i, 4c, 4d, 6, 7, 7b, 8, 10, 11, 11b and 11c;
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
@@ -292,8 +317,9 @@ failed phase, with no phase caught.
    under `sdpa_backward_ms`, at the main shape, at seq 8192 and at each
    instance of phase 2), then the device line last.
 
-Phases 4c, 4e, 4f, 4g, 8, 10 and 11 also train in worker actors through
-`TorchTrainer`, and phase 4h through `BackendExecutor`. Each phase frees what it allocated before the next starts, and the script
+Phases 4c, 4e, 4f, 4g, 4i, 8, 10 and 11 also train in worker actors
+through `TorchTrainer`, phase 4h through `BackendExecutor`, and phase 4i
+(b) in two processes of its own. Each phase frees what it allocated before the next starts, and the script
 shuts the runtime and its worker template down before it exits.
 """
 
@@ -483,7 +509,10 @@ STREAMED, OVER_HTTP = (1, 3), (5, 7)
 SAMPLER_REQUESTS, SAMPLER_NEW = 8, 64
 PROMPT_LEN = (256, 1024)
 N_COMPARED = 2                   # requests held against the dense loop
-SPEC_DRAFT_LEN, SPEC_REQUESTS, SPEC_TOKENS = 4, 4, 64
+# 32 new tokens a speculative request (64 before phase 4i came: the
+# script's time; the float32 agreement ends at the first near tie, 3-40
+# tokens in, PERF.md).
+SPEC_DRAFT_LEN, SPEC_REQUESTS, SPEC_TOKENS = 4, 4, 32
 # Near-tie rule: greedy tokens are compared up to the first step where the
 # reference's top-2 logit gap is below this share of the logit row's rms
 # (sums in another order may pick either side of such a tie). It holds the
@@ -1200,6 +1229,7 @@ def train_phase(attn, name: str, per_step: dict, card: str,
     if launches != want:
         raise AssertionError(f"{name}: expected {per_step} launches a step, "
                              f"got {launches} in {n_steps} steps")
+    m["losses"] = losses
     gc.collect()
     torch.cuda.empty_cache()
     return m
@@ -2507,6 +2537,379 @@ def gpipe_leg(attn) -> dict:
             "whole_batch_max_abs_diff": whole_diff,
             "losses": losses, "ms": ms,
             "peak_gib": peak, "shape": g}
+
+
+# Phase 4i: tensor, data and fully-sharded parallelism on the mesh. (a)
+# GPT-2-small through `TorchTrainer` on a (dp 1, fsdp 1, tp 1) mesh over a
+# one-rank NCCL group: size-1 axes kept, so DTensor parameters, FSDP2 and
+# the vocab-parallel head and loss all run; (b) the same model at dp 1 x tp
+# 2 as two processes sharing the card over a gloo group this script forms
+# itself (NCCL takes no two ranks on one device), then Llama-small's tp 2
+# step against its tp 1 step. NCCL at tp > 1 needs more than one card.
+TP_STEPS = 5                  # (a): 2 warm-up + 3 timed steps a leg
+TP_TIMED = 3                  # (b): steps timed after the checked one
+TP_LLAMA_BATCH = 4            # (b)'s Llama-small: batch 4, seq 2048
+# A bf16 model split over tp rounds its row products' partial sums to bf16
+# before the all-reduce: the loss is held within two bf16 ulps (2^-7
+# relative) of the unsplit model's. AdamW's first step moves each element
+# by lr * g / (|g| + eps), about lr whatever g's size, so two runs whose
+# gradients differ in rounding agree where the signs agree and differ by
+# up to 2 lr where a gradient within that rounding of zero flips: every
+# element within 2 lr (+ 1e-6), and at least TP_ALIKE of them moved alike
+# (within lr / 10).
+TP_LOSS_RTOL = 2.0 ** -7
+TP_ALIKE = 0.9
+TP_LR = 3e-4
+
+
+def tp_train_loop(config):
+    """Phase 4i (a)'s loop, in a worker granted the card: GPT-2-small
+    (phase 4's model, optimizer and batch, seed 0) placed on
+    `session.get_mesh()` (`GPT2(mesh=, state=init_sharded(...))`,
+    `make_train_step(mesh=)`) for TP_STEPS steps, its parameters after the
+    first step saved whole for (b). Reports the losses, launches, ms a
+    step and peak memory, the mesh, the group's backend, this process's
+    pid and CUDA_VISIBLE_DEVICES."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.parallel.sharding import shard_batch
+    from ray_tpu_torch.parallel.tensor_parallel import full_state
+    from ray_tpu_torch.profile_train_step import MODELS
+    from ray_tpu_torch.train import session
+
+    mesh = session.get_mesh()
+    device = session.get_device()
+    cfg, leg = gpt2.GPT2Config.small(), MODELS["gpt2"]
+    ids = torch.randint(0, cfg.vocab_size, (leg.batch, leg.seq),
+                        generator=torch.Generator().manual_seed(0)
+                        ).to(device)
+    out = {"mesh_type": mesh.device_type,
+           "mesh_axes": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "backend": dist.get_backend(), "pid": os.getpid(),
+           "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt2.GPT2(cfg, mesh=mesh,
+                      state=gpt2.init_sharded(cfg, mesh, seed=0))
+    step = gpt2.make_train_step(model, gpt2.adamw(model, TP_LR), mesh=mesh)
+    batch = shard_batch({"input_ids": ids, "labels": ids}, mesh)
+    out["dtensor"] = type(model.wte).__name__
+    out["fsdp"] = type(model).__name__
+    attn.reset_kernel_launches()
+    losses = [step(batch)]
+    torch.save({k: v.cpu() for k, v in full_state(model).items()},
+               config["first_step"])
+    losses += [step(batch) for _ in range(TP_STEPS - TP_TIMED - 1)]
+    losses[-1].item()
+    t0 = time.perf_counter()
+    losses += [step(batch) for _ in range(TP_TIMED)]
+    losses[-1].item()
+    dt = time.perf_counter() - t0
+    out.update(losses=[x.item() for x in losses],
+               launches=attn.kernel_launches(),
+               ms_per_step=1e3 * dt / TP_TIMED,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    session.report(out)
+
+
+def _param_limits(model, want: dict, lr: float) -> dict:
+    """Element by element, every parameter of `model` (this rank's shard
+    of each, against the same slice of the whole tensor in `want`) within
+    2 lr (+ 1e-6), and at least TP_ALIKE of the elements within lr / 10
+    (moved alike).
+    Each rank holds its own shards: no collective."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    worst, alike, total = 0.0, 0, 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            shape, offset = compute_local_shape_and_global_offset(
+                p.shape, p.device_mesh, p.placements)
+            w = want[name][tuple(slice(o, o + n)
+                                 for o, n in zip(offset, shape))]
+            d = (p.to_local().float() - w.to(p.device).float()).abs()
+            worst = max(worst, d.max().item())
+            alike += (d <= lr / 10).sum().item()
+            total += d.numel()
+    return {"max_abs_diff": worst, "limit": 2 * lr + 1e-6,
+            "moved_alike_share": alike / total,
+            "ok": worst <= 2 * lr + 1e-6 and alike / total >= TP_ALIKE}
+
+
+def tp_rank(rank: int, port: int, first_step: str, result_queue) -> None:
+    """Phase 4i (b): one of two tp ranks sharing card 0, over a gloo group
+    on CUDA tensors. GPT-2-small at dp 1 x tp 2 takes one AdamW step on
+    (a)'s batch (K1 at bh 24 x 6 = 144), held against (a)'s first step,
+    then TP_TIMED more, timed; the c_attn exchange is timed alone; then
+    Llama-small (12/4 heads, 6/2 a rank) takes one step at tp 2, held
+    against the same step at tp 1. Parameters are held shard by shard
+    (no gather: DTensor's `full_tensor()` does not return over gloo on CUDA
+    tensors). Puts (rank, error, record)."""
+    import traceback
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    t_start = time.perf_counter()
+
+    def say(what: str) -> None:
+        print(f"  (b) tp rank {rank}: {what} "
+              f"({time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    try:
+        import torch.distributed as dist
+
+        from ray_tpu_torch.models import gpt2, llama
+        from ray_tpu_torch.ops import attention as attn
+        from ray_tpu_torch.parallel import MeshSpec, build_mesh
+        from ray_tpu_torch.parallel.sharding import shard_batch
+        from ray_tpu_torch.profile_train_step import MODELS
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=2)
+        mesh = build_mesh(MeshSpec({"dp": 1, "tp": 2}))
+        rec = {"mesh": str(mesh), "backend": dist.get_backend()}
+        say(f"{mesh} over {dist.get_backend()}")
+        shapes = collections.Counter()
+        flash = gpt2.flash_attention
+
+        def counted(q, k, v, causal):
+            shapes[q.shape[0] * q.shape[1]] += 1
+            return flash(q, k, v, causal)
+
+        gpt2.flash_attention = counted
+        cfg, leg = gpt2.GPT2Config.small(), MODELS["gpt2"]
+        ids = torch.randint(0, cfg.vocab_size, (leg.batch, leg.seq),
+                            generator=torch.Generator().manual_seed(0)
+                            ).cuda()
+        model = gpt2.GPT2(cfg, mesh=mesh, seed=0)
+        step = gpt2.make_train_step(model, gpt2.adamw(model, TP_LR),
+                                    mesh=mesh)
+        batch = shard_batch({"input_ids": ids, "labels": ids}, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        attn.reset_kernel_launches()
+        rec["loss"] = step(batch).item()
+        rec["launches"] = attn.kernel_launches()
+        say(f"GPT-2-small's step, loss {rec['loss']:.6f}")
+        rec["k1_bh"] = dict(shapes)
+        want = torch.load(first_step)
+        rec["params"] = _param_limits(model, want, TP_LR)
+        del want
+        say("parameters held against (a)'s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TP_TIMED):
+            loss = step(batch)
+        loss.item()
+        rec["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / TP_TIMED
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        say(f"{TP_TIMED} steps timed")
+        # The c_attn exchange of one layer alone, forward (gather) and
+        # backward (reduce-scatter), weight and bias: n_layer of them a step.
+        ctx, c_attn = model.mesh_ctx, model.h[0].c_attn
+        parts = [t.to_local().detach().to(cfg.dtype).requires_grad_()
+                 for t in (c_attn.weight, c_attn.bias)]
+
+        def exchange():
+            for t in parts:
+                g = ctx.gather_rows(t)
+                g.backward(torch.ones_like(g))
+                t.grad = None
+
+        rec["exchange_ms_per_step"] = cfg.n_layer * time_ms(
+            exchange, reps=3, rounds=3)
+        del model, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        lcfg = llama.LlamaConfig.small()
+        lids = torch.randint(0, lcfg.vocab_size, (TP_LLAMA_BATCH, 2048),
+                             generator=torch.Generator().manual_seed(0)
+                             ).cuda()
+        lbatch = {"input_ids": lids, "labels": lids}
+        lmodel = llama.Llama(lcfg, mesh=mesh, seed=0)
+        rec["llama_heads"] = lmodel.layers[0].wq.weight.to_local().shape[0] \
+            // lcfg.head_dim
+        lstep = gpt2.make_train_step(lmodel, gpt2.adamw(lmodel, TP_LR),
+                                     mesh=mesh)
+        attn.reset_kernel_launches()
+        rec["llama_loss"] = lstep(shard_batch(lbatch, mesh)).item()
+        say(f"Llama-small's step, loss {rec['llama_loss']:.6f}")
+        rec["llama_launches"] = attn.kernel_launches()
+        del lstep
+        # The same step at tp 1, in each rank (from the same seed): each
+        # holds its own shards against that model's.
+        one = llama.Llama(lcfg, device="cuda", seed=0)
+        rec["llama_tp1_loss"] = gpt2.make_train_step(
+            one, gpt2.adamw(one, TP_LR))(lbatch).item()
+        rec["llama_params"] = _param_limits(
+            lmodel, {k: v.detach() for k, v in one.named_parameters()},
+            TP_LR)
+        say(f"Llama-small at tp 1, loss {rec['llama_tp1_loss']:.6f}")
+        del one, lmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        result_queue.put((rank, None, rec))
+    except BaseException:  # noqa: BLE001 — the phase fails on it
+        result_queue.put((rank, traceback.format_exc(), None))
+
+
+def tensor_parallel_phase(attn, card: str, workdir: str, plain: dict
+                          ) -> dict:
+    """Phase 4i: (a) `TorchTrainer.fit` with `ScalingConfig(mesh=MeshSpec(
+    {"dp": 1, "fsdp": 1, "tp": 1}))` trains GPT-2-small through the mesh
+    step in a worker granted the card: losses within MESH_LOSS_RTOL of the
+    same steps without a mesh (phase 4's, `plain`: the same model, seed,
+    optimizer and batch), falling, K1-K3 12 times a step; (b) dp 1 x tp 2
+    in two processes on the card (`tp_rank`). Returns the phase's record
+    with the launches of its paths ((a), both ranks' tp 2 steps); the
+    comparisons' launches are not counted."""
+    import multiprocessing
+    import socket
+
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    n_layer = gpt2.GPT2Config.small().n_layer
+    rec = {"card": card}
+    launches = collections.Counter()
+    first_step = os.path.join(workdir, "gpt2_first_step.pt")
+
+    # (a) The trainer's mesh at size 1.
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    own_launches = attn.kernel_launches()
+    axes = {"dp": 1, "fsdp": 1, "tp": 1}
+    result = TorchTrainer(
+        tp_train_loop, train_loop_config={"first_step": first_step},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                     mesh=MeshSpec(axes))).fit()
+    if result.error is not None:
+        raise AssertionError("4i (a): the training run on the mesh "
+                             "failed") from result.error
+    if attn.kernel_launches() != own_launches:
+        raise AssertionError("4i: this process launched kernels while the "
+                             "worker trained")
+    m = result.metrics
+    got, base = m["losses"], plain["losses"][:TP_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, base))
+    print(f"  (a) worker pid {m['pid']} (this process {os.getpid()}), "
+          f"CUDA_VISIBLE_DEVICES={m['cuda_visible_devices']!r}, get_mesh(): "
+          f"{m['mesh_type']} {m['mesh_axes']}, group {m['backend']}, "
+          f"parameters {m['dtensor']}s in an {m['fsdp']}")
+    print("  (a) GPT-2-small on the mesh, losses: "
+          + ", ".join(f"{x:.6f}" for x in got))
+    print("  (a) phase 4's steps (no mesh):      "
+          + ", ".join(f"{x:.6f}" for x in base))
+    print(f"  (a) on the mesh: {m['ms_per_step']:.3f} ms a step (steps "
+          f"{TP_STEPS - TP_TIMED + 1}-{TP_STEPS}), peak {m['peak_gib']:.2f} "
+          f"GiB, launches {m['launches']}; phase 4 without a mesh "
+          f"{plain['ms_per_step']:.3f} ms a step, peak "
+          f"{plain['peak_gib']:.2f} GiB; {card}")
+    print(f"  (a) largest relative difference {rel:.3e} (limit "
+          f"{MESH_LOSS_RTOL:.0e}); bit-equal: {got == base}")
+    if m["pid"] == os.getpid() or m["cuda_visible_devices"] != "0" or \
+            m["mesh_type"] != "cuda" or m["mesh_axes"] != axes or \
+            m["backend"] != "nccl" or m["dtensor"] != "DTensor" or \
+            not m["fsdp"].startswith("FSDP"):
+        raise AssertionError(f"4i (a): the worker's mesh or card: {m}")
+    if not all(math.isfinite(x) for x in got) or not got[-1] < got[0] or \
+            not rel <= MESH_LOSS_RTOL:
+        raise AssertionError(f"4i (a): losses {got} against {base}")
+    if m["launches"] != dict.fromkeys(attn.KERNELS, n_layer * TP_STEPS):
+        raise AssertionError(f"4i (a): launched {m['launches']}")
+    launches.update(m["launches"])
+    rec["a"] = {"losses": got, "no_mesh_losses": base, "max_rel_diff": rel,
+                "bit_equal": got == base, "mesh": m["mesh_axes"],
+                "backend": m["backend"], "ms_per_step": m["ms_per_step"],
+                "peak_gib": m["peak_gib"],
+                "no_mesh_ms_per_step": plain["ms_per_step"]}
+
+    # (b) dp 1 x tp 2: two processes on the card over gloo.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp = multiprocessing.get_context("spawn")
+    queue = mp.Queue()
+    procs = [mp.Process(target=tp_rank, args=(r, port, first_step, queue))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        outs = {}
+        deadline = time.monotonic() + 600
+        while len(outs) < len(procs):
+            try:
+                rank, error, value = queue.get(timeout=5)
+            except Exception:  # queue.Empty: is every rank still alive?
+                dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if p.exitcode is not None and r not in outs]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"4i (b): tp ranks ended without a "
+                                         f"result (rank, exit code): {dead}")
+                continue
+            if error is not None:
+                raise AssertionError(f"4i (b): tp rank {rank} failed:\n"
+                                     f"{error}")
+            outs[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    first = got[0]
+    for r in (0, 1):
+        o = outs[r]
+        lrel = abs(o["loss"] - first) / abs(first)
+        print(f"  (b) tp rank {r}: {o['mesh']} over {o['backend']} on CUDA "
+              f"tensors; loss {o['loss']:.6f} against (a)'s first step "
+              f"{first:.6f} (relative {lrel:.3e}, limit {TP_LOSS_RTOL:.3e});"
+              f" parameters after the step: max |diff| "
+              f"{o['params']['max_abs_diff']:.3e} (limit "
+              f"{o['params']['limit']:.3e}), moved alike "
+              f"{o['params']['moved_alike_share']:.4f}; K1 at bh "
+              f"{o['k1_bh']}; launches {o['launches']}")
+        print(f"  (b) tp rank {r}: {o['ms_per_step']:.3f} ms a step (2 "
+              f"processes sharing the card, gloo through the host), peak "
+              f"{o['peak_gib']:.2f} GiB; the c_attn exchange "
+              f"{o['exchange_ms_per_step']:.3f} ms a step; {card}")
+        if not (lrel <= TP_LOSS_RTOL and o["params"]["ok"]
+                and o["k1_bh"] == {BATCH * 6: n_layer}
+                and o["launches"] == dict.fromkeys(attn.KERNELS, n_layer)):
+            raise AssertionError(f"4i (b): tp rank {r}: {o}")
+        if o["llama_heads"] != 6 or o["llama_launches"] != dict.fromkeys(
+                attn.KERNELS, llama.LlamaConfig.small().n_layer):
+            raise AssertionError(f"4i (b): tp rank {r}'s Llama-small: "
+                                 f"heads {o['llama_heads']}, launches "
+                                 f"{o['llama_launches']}")
+        launches.update(o["launches"])
+        launches.update(o["llama_launches"])
+        lrel = abs(o["llama_loss"] - o["llama_tp1_loss"]) / abs(
+            o["llama_tp1_loss"])
+        print(f"  (b) tp rank {r}: Llama-small at tp 2 (6/2 heads a rank), "
+              f"batch {TP_LLAMA_BATCH}, seq 2048: loss "
+              f"{o['llama_loss']:.6f}, at tp 1 {o['llama_tp1_loss']:.6f} "
+              f"(relative {lrel:.3e}, limit {TP_LOSS_RTOL:.3e}); its "
+              f"shards max |diff| {o['llama_params']['max_abs_diff']:.3e}, "
+              f"moved alike {o['llama_params']['moved_alike_share']:.4f}; "
+              f"launches {o['llama_launches']}")
+        if not (lrel <= TP_LOSS_RTOL and o["llama_params"]["ok"]):
+            raise AssertionError(f"4i (b): tp rank {r}'s Llama-small at tp "
+                                 f"2 against tp 1: {o}")
+    print(f"  (b) took {wall:.1f} s")
+    rec["b"] = {"ranks": outs, "wall_s": wall}
+    rec["launches"] = {name: launches[name] for name in attn.KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 # Phases 4c and 4d: the Data-fed path. The corpus is the nanoGPT layout,
@@ -4527,6 +4930,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         pipes = pipeline_phase(attn, card, d)
 
+    phase(started, "4i. tensor, data and fully-sharded parallelism: GPT-2-"
+          "small on a (dp, fsdp, tp) mesh of one rank, tp 2 in two "
+          "processes")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        tensor_par = tensor_parallel_phase(attn, card, d, main_leg)
+
     phase(started, "4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
           "small on a shuffled token corpus")
     small = gpt2.GPT2Config.small()
@@ -4640,8 +5049,9 @@ def main() -> int:
     print(json.dumps({"jobs": jobs}))
     print(json.dumps({"mesh": meshes}))
     print(json.dumps({"pipeline": pipes}))
+    print(json.dumps({"tensor_parallel": tensor_par}))
     paths = [launches, sweep["launches"], jobs["launches"],
-             meshes["launches"], pipes["launches"],
+             meshes["launches"], pipes["launches"], tensor_par["launches"],
              data_leg["launches"],
              scoring["launches"],
              llama_launches, serve_launches,

@@ -45,8 +45,8 @@ class AdapterManager:
             raise ValueError("lora rank must be >= 1")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: tensor-parallel adapter banks are ROADMAP M8b, not "
-                "yet ported")
+                "mesh: tensor-parallel adapter banks (lora_bank_shardings) "
+                "are ROADMAP M8b's serving half, not yet ported")
         self._device = resolve_device(device)
         self._cfg = model_cfg
         self.max_adapters = max_adapters

@@ -93,8 +93,9 @@ class LLMServer:
         self._default_new = default_new_tokens
         self._config = EngineConfig(**kwargs)
         # Sharded replica groups: when this replica is a gang rank the
-        # shard context was activated before this ctor ran; a tp > 1 gang
-        # needs the mesh of ROADMAP M8b (current_mesh raises there).
+        # shard context was activated before this ctor ran. A tp > 1 gang
+        # has its mesh (current_mesh), which the engine refuses until
+        # tensor-parallel serving lands (ROADMAP M8b's serving half).
         from ray_tpu_torch import shardgroup
 
         self._engine = InferenceEngine(self._config,

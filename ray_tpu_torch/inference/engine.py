@@ -163,7 +163,9 @@ class InferenceEngine:
     dense weights cast to the compute dtype once, here (the same values the
     reference's per-call cast gives). `draft_model` is the speculative
     draft (default: the target's first n_layer // 2 layers, sharing its
-    weights). `mesh` (tensor-parallel serving) waits for ROADMAP M8b.
+    weights). `mesh` (tensor-parallel serving, every tp rank's engine
+    stepping in lockstep with rank 0's schedule) is ROADMAP M8b's serving
+    half, queue 1's first item: it raises until then.
     """
 
     def __init__(self, config: EngineConfig, model=None,
@@ -179,8 +181,9 @@ class InferenceEngine:
             raise ValueError("prefill_chunk exceeds the per-seq context")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: tensor-parallel serving is ROADMAP M8b, not yet "
-                "ported")
+                "mesh: tensor-parallel serving (the lockstep engine) is "
+                "ROADMAP M8b's serving half, not yet ported; M8b's "
+                "training half (Llama(mesh=), make_train_step(mesh=)) is")
         self.config = cfg
         # Explicit config wins, else the global flag table.
         self._draft_len = int(

@@ -10,6 +10,14 @@ ring attention over an sp process group, on the caller's sequence shard
 each block runs under `torch.utils.checkpoint` (the counterpart of
 `nn.remat(Block)`): its activations are dropped after the forward and
 recomputed in the backward, flash forward included.
+
+With `mesh` (a training DeviceMesh with any of dp, fsdp, sp and tp), the
+model is placed on it (`parallel/tensor_parallel.py`): parameters are
+DTensors, tp splits the heads, the MLP and the vocab Megatron-style, FSDP2
+shards over fsdp, and sp runs the ring over the mesh's sp group with
+global positions. Each rank then takes its shard of the batch and the
+sequence (`parallel.sharding.shard_batch`) and returns vocab-sharded
+logits; `make_train_step(mesh=)` steps it and returns the global loss.
 """
 
 from __future__ import annotations
@@ -26,7 +34,14 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._torch_env import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel.mesh import (data_parallel_size,
+                                         validate_divisibility)
 from ray_tpu_torch.parallel.sharding import named_sharding, shard_params
+from ray_tpu_torch.parallel.tensor_parallel import (MeshContext, local,
+                                                    next_token_loss_parts,
+                                                    place_module,
+                                                    sync_gradients,
+                                                    vocab_parallel_embedding)
 
 
 @dataclass(frozen=True)
@@ -65,8 +80,9 @@ class LayerNorm(nn.LayerNorm):
         super().__init__(n, eps=1e-6)
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            local(self.weight), local(self.bias),
+                            self.eps).to(x.dtype)
 
 
 class Dense(nn.Linear):
@@ -81,6 +97,7 @@ class Block(nn.Module):
         super().__init__()
         self.config = config
         self.sp_group = sp_group
+        self.mesh_ctx: Optional[MeshContext] = None   # set by GPT2(mesh=)
         e = config.n_embd
         self.ln_1 = LayerNorm(e)
         self.c_attn = Dense(e, 3 * e)
@@ -94,6 +111,8 @@ class Block(nn.Module):
         return F.dropout(x, p, training=True) if p and not deterministic else x
 
     def forward(self, x, deterministic: bool = True):
+        if self.mesh_ctx is not None:
+            return self._forward_mesh(x, deterministic)
         cfg = self.config
         b, s, e = x.shape
         qkv = self.c_attn(self.ln_1(x))
@@ -112,31 +131,110 @@ class Block(nn.Module):
         h = self.mlp_proj(F.gelu(self.c_fc(self.ln_2(x)), approximate="tanh"))
         return x + self._dropout(h, deterministic)
 
+    def _forward_mesh(self, x, deterministic: bool):
+        """The block on this rank's shard (`x` its rows of the batch and
+        sequence, replicated over tp): its n_head / tp heads and 4e / tp of
+        the MLP, one all-reduce over tp after each row product.
+
+        c_attn's tp shard is a contiguous block of its 3e rows, as the
+        reference's ("embed", "mlp") rule gives it, but this rank's heads
+        are the rows [q_r | k_r | v_r]. The weight and bias are gathered
+        over tp (`gather_rows`; the backward reduce-scatters their
+        gradients) and this rank's rows taken from the whole."""
+        cfg, ctx = self.config, self.mesh_ctx
+        b, s, e = x.shape
+        tp, r = ctx.tp_size, ctx.tp_rank
+        heads, hd = cfg.n_head // tp, e // cfg.n_head
+        dt = x.dtype
+        h = ctx.copy_in(self.ln_1(x))
+        w = ctx.gather_rows(local(self.c_attn.weight).to(dt))
+        bias = ctx.gather_rows(local(self.c_attn.bias).to(dt))
+        w = w.view(3, tp, e // tp, e)[:, r].reshape(3 * e // tp, e)
+        bias = bias.view(3, tp, e // tp)[:, r].reshape(3 * e // tp)
+        q, k, v = F.linear(h, w, bias).view(b, s, 3, heads, hd).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        if ctx.sp_size > 1:
+            attn = ring_attention(q, k, v, group=ctx.sp_group, causal=True)
+        elif cfg.use_flash:
+            attn = flash_attention(q, k, v, True)
+        else:
+            attn = mha_reference(q, k, v, causal=True)
+        attn = attn.transpose(1, 2).reshape(b, s, heads * hd)
+        out = ctx.reduce_out(F.linear(attn, local(self.c_proj.weight).to(dt)))
+        x = x + self._dropout(out + local(self.c_proj.bias).to(dt),
+                              deterministic)
+        h = F.gelu(F.linear(ctx.copy_in(self.ln_2(x)),
+                            local(self.c_fc.weight).to(dt),
+                            local(self.c_fc.bias).to(dt)), approximate="tanh")
+        h = ctx.reduce_out(F.linear(h, local(self.mlp_proj.weight).to(dt)))
+        return x + self._dropout(h + local(self.mlp_proj.bias).to(dt),
+                                 deterministic)
+
 
 class GPT2(nn.Module):
     """GPT-2 with a tied head. `device` defaults to the card; parameters are
     drawn on the CPU from `torch.Generator().manual_seed(seed)` and moved
-    there, so one seed gives the same weights on either device.
+    there, so one seed gives the same weights on either device. `state`
+    (a state dict of whole tensors, or of DTensors, which are gathered
+    whole) is loaded instead.
 
     With `config.use_ring`, the model takes this rank's sequence shard of
     the ids and attention runs the ring over `sp_group` (the default
     process group when None). As in the reference, whose `wpe[None, :s]`
     takes the shard's own length inside `shard_map`, positions restart at
-    0 on every shard."""
+    0 on every shard.
+
+    With `mesh`, the model lives on the mesh's device type and is placed on
+    it (module docstring): `forward` takes this rank's [b / data-parallel,
+    s / sp] shard of the ids, positions global, and returns its logits
+    [b / dp, s / sp, vocab / tp]. Every rank passes the same seed or state.
+    `config.use_ring` does not combine with a mesh: sp comes from it."""
 
     def __init__(self, config: GPT2Config,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0, sp_group=None):
+                 seed: int = 0, sp_group=None, mesh=None,
+                 state: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
+        if mesh is not None:
+            if config.use_ring:
+                raise ValueError("use_ring takes an sp group of its own; "
+                                 "on a mesh, sp comes from the mesh")
+            device = mesh.device_type
         dev = resolve_device(device)
         self.config = config
+        self.mesh_ctx: Optional[MeshContext] = None
         self.wte = nn.Parameter(torch.empty(config.vocab_size, config.n_embd))
         self.wpe = nn.Parameter(torch.empty(config.n_positions, config.n_embd))
         self.h = nn.ModuleList(Block(config, sp_group)
                                for _ in range(config.n_layer))
         self.ln_f = LayerNorm(config.n_embd)
         self._init_weights(seed)
+        if state is not None:
+            self.load_state_dict(
+                {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                 for k, v in state.items()})
         self.to(device=dev, dtype=config.param_dtype)
+        if mesh is not None:
+            self._place(mesh)
+
+    def _place(self, mesh) -> None:
+        """Parameters to DTensors on `mesh`: each tp-sharded on the dim its
+        "mlp" or "vocab" axis names, FSDP2 over fsdp on its "embed" dim
+        (dim 0 where it has none)."""
+        cfg = self.config
+        validate_divisibility(mesh, data_parallel_size(mesh),
+                              n_head=cfg.n_head, vocab_size=cfg.vocab_size)
+        ctx = MeshContext.of(mesh)
+        specs = logical_param_specs(self)
+        tp_dims = {n: next((d for d, a in enumerate(ax)
+                            if a in ("mlp", "vocab")), None)
+                   for n, ax in specs.items()}
+        fsdp_dims = {n: ax.index("embed") if "embed" in ax else 0
+                     for n, ax in specs.items()}
+        place_module(self, ctx, tp_dims, fsdp_dims, blocks=list(self.h))
+        self.mesh_ctx = ctx
+        for blk in self.h:
+            blk.mesh_ctx = ctx
 
     @torch.no_grad()
     def _init_weights(self, seed: int):
@@ -152,10 +250,12 @@ class GPT2(nn.Module):
                 p.fill_(1.0)
 
     def forward(self, input_ids, deterministic: bool = True):
-        cfg = self.config
+        cfg, ctx = self.config, self.mesh_ctx
         s = input_ids.shape[1]
-        wte = self.wte.to(cfg.dtype)
-        x = wte[input_ids] + self.wpe.to(cfg.dtype)[None, :s]
+        wte = local(self.wte).to(cfg.dtype)
+        start = ctx.sp_rank * s if ctx is not None else 0
+        x = vocab_parallel_embedding(input_ids, wte, ctx) \
+            + local(self.wpe).to(cfg.dtype)[None, start:start + s]
         for block in self.h:
             if cfg.remat:
                 # Dropout draws from the global generators, which the
@@ -164,6 +264,8 @@ class GPT2(nn.Module):
             else:
                 x = block(x, deterministic)
         x = self.ln_f(x)
+        if ctx is not None:
+            x = ctx.copy_in(x)
         return torch.matmul(x, wte.t())  # tied head: einsum("bse,ve->bsv")
 
 
@@ -267,7 +369,7 @@ def adamw(model: nn.Module, lr: float = 3e-4, weight_decay: float = 0.1
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    loss_fn: Optional[Callable] = None
+                    mesh=None, loss_fn: Optional[Callable] = None
                     ) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
     """step(batch) -> the shown loss (a 0-dim tensor, not synchronised).
 
@@ -276,20 +378,55 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     descends the objective and returns the shown loss. The default is
     next-token cross-entropy for both. Parameters and optimizer state are
     updated in place, the counterpart of the JAX step's donate_argnums=(0,
-    1): no second copy of either is made."""
+    1): no second copy of either is made.
+
+    With `mesh` (the one `model` was placed on, `GPT2(mesh=)` or
+    `Llama(mesh=)`), `batch` is this rank's shard of the global batch
+    (`parallel.sharding.shard_batch`) and the step returns the GLOBAL
+    loss, the same on every rank: the default objective is this rank's
+    share of sum(nll * mask) / sum(mask) over the global batch
+    (`next_token_loss_parts`); a `loss_fn` must likewise return an
+    objective whose gradients, summed over the data axes and sp, are the
+    global objective's. FSDP2 reduce-scatters (and averages) the gradients
+    over fsdp, so the objective is scaled by fsdp's size before the
+    backward; the replicated gradients are summed over dp, dcn_dp and sp
+    (`sync_gradients`)."""
+    if mesh is None:
+        if loss_fn is None:
+            def loss_fn(model, batch):
+                ce = next_token_loss(model(batch["input_ids"]),
+                                     batch["labels"])
+                return ce, ce
+
+        def step(batch):
+            optimizer.zero_grad(set_to_none=True)
+            objective, shown = loss_fn(model, batch)
+            objective.backward()
+            optimizer.step()
+            return shown.detach()
+
+        return step
+
+    ctx = getattr(model, "mesh_ctx", None)
+    if ctx is None or ctx.mesh is not mesh:
+        raise ValueError("make_train_step(mesh=) steps a model placed on "
+                         "that mesh (GPT2(mesh=...), Llama(mesh=...))")
     if loss_fn is None:
         def loss_fn(model, batch):
-            ce = next_token_loss(model(batch["input_ids"]), batch["labels"])
-            return ce, ce
+            return next_token_loss_parts(model(batch["input_ids"]),
+                                         batch["labels"], ctx)
+    scale = ctx.fsdp_size if ctx.fsdp else 1
+    params = list(model.parameters())
 
-    def step(batch):
+    def mesh_step(batch):
         optimizer.zero_grad(set_to_none=True)
         objective, shown = loss_fn(model, batch)
-        objective.backward()
+        (objective * scale if scale != 1 else objective).backward()
+        sync_gradients(params, ctx)
         optimizer.step()
         return shown.detach()
 
-    return step
+    return mesh_step
 
 
 def make_eval_step(model: nn.Module):

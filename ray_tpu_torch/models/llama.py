@@ -32,10 +32,20 @@ For pipeline parallelism the model splits by layer into `LlamaStage`s
 (`stage_layer_ranges`), whose parameters keep the whole model's names, so
 `split_stage_params` and `merge_stage_params` regroup a state dict at any
 pp by key (`train/pipeline.py` runs them).
+
+With `mesh` (a training DeviceMesh), `Llama` and `LlamaStage` run the
+training forward tensor-parallel (`parallel/tensor_parallel.py`): wq, wk,
+wv, w_gate and w_up column-parallel, wo and w_down row-parallel, the
+embedding and the head vocab-parallel, each rank holding n_head / tp query
+heads and n_kv_head / tp KV heads (RoPE and the GQA repeat on its local
+heads), its parameters DTensors; FSDP2 over fsdp and the ring over sp as
+in GPT-2. The cache paths stay single-card (tensor-parallel serving is the
+serving half of ROADMAP M8b).
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -47,8 +57,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._torch_env import resolve_device, same_device
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
-from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
-from ray_tpu_torch.parallel.sharding import PartitionSpec
+from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                              ring_attention_sharded)
+from ray_tpu_torch.parallel.mesh import axis_size
+from ray_tpu_torch.parallel.sharding import (PartitionSpec,
+                                             match_partition_rules,
+                                             named_sharding, shard_params)
+from ray_tpu_torch.parallel.tensor_parallel import (MeshContext, local,
+                                                    place_module,
+                                                    vocab_parallel_embedding)
 
 _NEG_INF = -1e30
 
@@ -105,7 +122,7 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt))
+        return F.linear(x.to(dt), local(self.weight).to(dt))
 
 
 class RMSNorm(nn.Module):
@@ -122,7 +139,7 @@ class RMSNorm(nn.Module):
         xf = x.float()
         var = xf.square().mean(dim=-1, keepdim=True)
         out = xf * torch.rsqrt(var + self.eps)
-        return (out * self.weight.float()).to(self.dtype)
+        return (out * local(self.weight).float()).to(self.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -145,27 +162,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def qkv_heads(blk: nn.Module, h, positions):
     """q [b, heads, s, d] and k, v [b, kv_heads, s, d] of a block's
     attention input `h` [b, s, e], q and k rotated to `positions`. `blk`
-    holds a config `cfg` and the dense layers `wq`, `wk`, `wv`."""
+    holds a config `cfg` and the dense layers `wq`, `wk`, `wv` (under tp,
+    this rank's heads: the head counts come from their widths)."""
     cfg = blk.cfg
     hd = cfg.head_dim
     b, s, _ = h.shape
-    q = blk.wq(h).view(b, s, cfg.n_head, hd).transpose(1, 2)
-    k = blk.wk(h).view(b, s, cfg.n_kv_head, hd).transpose(1, 2)
-    v = blk.wv(h).view(b, s, cfg.n_kv_head, hd).transpose(1, 2)
+    q = blk.wq(h).view(b, s, -1, hd).transpose(1, 2)
+    k = blk.wk(h).view(b, s, -1, hd).transpose(1, 2)
+    v = blk.wv(h).view(b, s, -1, hd).transpose(1, 2)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def causal_attention(q, k, v, use_flash: bool, sp_mesh=None):
+def causal_attention(q, k, v, use_flash: bool, sp_mesh=None, sp_group=None):
     """Full causal attention of q over k, v after the GQA repeat (query
     head h reads KV head h // groups, as `jnp.repeat(k, groups, axis=1)`;
     autograd sums dK and dV over each group): the ring over `sp_mesh`'s sp
-    axis, the flash kernels, or plain attention. The repeat comes before
+    axis (global tensors), the ring over `sp_group` (this rank's sequence
+    shard), the flash kernels, or plain attention. The repeat comes before
     the ring, so every shard's chunks carry the query heads' K/V, the
     tensors the flash path sees: sp on or off is a change of schedule."""
     groups = q.shape[1] // k.shape[1]
     kf = k.repeat_interleave(groups, dim=1)
     vf = v.repeat_interleave(groups, dim=1)
+    if sp_group is not None:
+        return ring_attention(q, kf, vf, group=sp_group, causal=True)
     if sp_mesh is not None:
         return ring_attention_sharded(q, kf, vf, sp_mesh, causal=True)
     if use_flash:
@@ -237,6 +258,7 @@ class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
+        self.mesh_ctx: Optional[MeshContext] = None   # set on a mesh
         hd, e = cfg.head_dim, cfg.n_embd
         self.attn_norm = RMSNorm(e, cfg.rms_eps, cfg.dtype)
         self.wq = Dense(e, cfg.n_head * hd, cfg.dtype)
@@ -263,14 +285,22 @@ class LlamaBlock(nn.Module):
         It is RETURNED, never added to x, so every layer's K/V stays the
         base model's whichever adapter ran (the arena is
         adapter-invariant)."""
-        cfg = self.cfg
-        hd = cfg.head_dim
+        cfg, ctx = self.cfg, self.mesh_ctx
         b, s, _ = x.shape
+        if ctx is not None and (cache is not None or lora is not None):
+            raise NotImplementedError(
+                "a block placed on a mesh runs the training forward only: "
+                "tensor-parallel serving is the serving half of ROADMAP M8b")
         h = self.attn_norm(x)
+        if ctx is not None:
+            h = ctx.copy_in(h)
         q, k, v = qkv_heads(self, h, positions)
         groups = cfg.n_head // cfg.n_kv_head
         if cache is None:
-            attn = causal_attention(q, k, v, cfg.use_flash, cfg.sp_mesh)
+            sp_group = ctx.sp_group if ctx is not None and ctx.sp_size > 1 \
+                else None
+            attn = causal_attention(q, k, v, cfg.use_flash, cfg.sp_mesh,
+                                    sp_group)
         elif len(cache) == 4:
             k_arena, v_arena, block_tables, write_mask = cache
             attn = _paged_attention(q, k, v, positions, k_arena, v_arena,
@@ -279,8 +309,10 @@ class LlamaBlock(nn.Module):
         else:
             attn = _dense_cache_attention(q, k, v, positions, *cache, groups,
                                           cfg.dtype)
-        attn = attn.transpose(1, 2).reshape(b, s, cfg.n_head * hd)
+        attn = attn.transpose(1, 2).reshape(b, s, -1)
         out = self.wo(attn)
+        if ctx is not None:
+            out = ctx.reduce_out(out)
         side = None
         if lora is not None:
             aq, bq, ao, bo, aidx = lora
@@ -297,9 +329,13 @@ class LlamaBlock(nn.Module):
         x = x + out
 
         h2 = self.mlp_norm(x)
+        if ctx is not None:
+            h2 = ctx.copy_in(h2)
         h2 = F.silu(self.w_gate(h2)) * self.w_up(h2)
-        x = x + self.w_down(h2)
-        return x, cache, side
+        down = self.w_down(h2)
+        if ctx is not None:
+            down = ctx.reduce_out(down)
+        return x + down, cache, side
 
 
 class Llama(nn.Module):
@@ -309,15 +345,24 @@ class Llama(nn.Module):
     seeded with `seed` (so one seed gives the same weights on one kind of
     device), unless `state` is given: a state dict whose tensors, on that
     device, become the parameters by reference (no copy) — another model's
-    `state_dict()`, or `params_from_jax`'s on the CPU."""
+    `state_dict()`, or `params_from_jax`'s on the CPU.
+
+    With `mesh`, the model lives on the mesh's device type and is placed
+    on it (module docstring), its shards copied out of the seeded weights
+    or `state`; `forward` takes this rank's shard of the ids and returns
+    its vocab-sharded logits. Every rank passes the same seed or state."""
 
     def __init__(self, config: LlamaConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0,
-                 state: Optional[Dict[str, torch.Tensor]] = None):
+                 state: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None):
         super().__init__()
+        if mesh is not None:
+            device = mesh.device_type
         dev = resolve_device(device)
         self.config = config
+        self.mesh_ctx: Optional[MeshContext] = None
         with torch.device("meta"):
             self.embed = nn.Parameter(torch.empty(config.vocab_size,
                                                   config.n_embd))
@@ -335,6 +380,8 @@ class Llama(nn.Module):
                     raise ValueError(f"state tensor {name} lies on "
                                      f"{t.device}, the model on {dev}")
             self.load_state_dict(state, assign=True)
+        if mesh is not None:
+            self.mesh_ctx = _place_on_mesh(self, mesh, list(self.layers))
 
     @torch.no_grad()
     def _init_weights(self, seed: int, dev: torch.device):
@@ -366,15 +413,17 @@ class Llama(nn.Module):
         return self.embed.to(self.config.dtype)[input_ids]
 
     def forward(self, input_ids):
-        b, s = input_ids.shape
-        x = self._embed(input_ids)
-        positions = torch.arange(s, device=input_ids.device)
+        ctx = self.mesh_ctx
+        x = vocab_parallel_embedding(
+            input_ids, local(self.embed).to(self.config.dtype), ctx)
+        positions = _positions(input_ids.shape[1], input_ids.device, ctx)
         for blk in self.layers:
             if self.config.remat:
                 x, _, _ = checkpoint(blk, x, positions, use_reentrant=False)
             else:
                 x, _, _ = blk(x, positions)
-        return self.lm_head(self.final_norm(x))
+        x = self.final_norm(x)
+        return self.lm_head(ctx.copy_in(x) if ctx is not None else x)
 
     @torch.no_grad()
     def decode(self, input_ids, cache, row_pos):
@@ -429,6 +478,34 @@ def _set_param(module: nn.Module, name: str, value: torch.Tensor) -> None:
     setattr(module, leaf, nn.Parameter(value))
 
 
+def _positions(s: int, device, ctx: Optional[MeshContext]) -> torch.Tensor:
+    """Global positions of this rank's s tokens (its sp shard's offset on
+    a mesh)."""
+    start = ctx.sp_rank * s if ctx is not None else 0
+    return torch.arange(start, start + s, device=device)
+
+
+def _place_on_mesh(module: nn.Module, mesh, blocks) -> MeshContext:
+    """Place a `Llama` or `LlamaStage` on `mesh` (`place_module`): tp
+    shards by LLAMA_PARTITION_RULES, FSDP2 on each parameter's "embed" dim
+    (`logical_param_specs`); every block gets the mesh's context."""
+    cfg = module.config
+    validate_tp(cfg, axis_size(mesh, "tp"))
+    names = [n for n, _ in module.named_parameters()]
+    tp_specs = match_partition_rules(LLAMA_PARTITION_RULES,
+                                     dict(module.named_parameters()))
+    tp_dims = {n: next((d for d, a in enumerate(tp_specs[n]) if a == "tp"),
+                       None) for n in names}
+    axes = _logical_axes(names)
+    fsdp_dims = {n: axes[n].index("embed") if "embed" in axes[n] else 0
+                 for n in names}
+    ctx = MeshContext.of(mesh)
+    place_module(module, ctx, tp_dims, fsdp_dims, blocks)
+    for blk in blocks:
+        blk.mesh_ctx = ctx
+    return ctx
+
+
 # --------------------------------------------------------------------------- #
 # Caches, adapter banks, weights from the flax tree
 # --------------------------------------------------------------------------- #
@@ -440,7 +517,8 @@ def make_paged_arena(cfg: LlamaConfig, num_blocks: int, block_size: int,
     """Preallocated per-layer (k, v) paged arena [num_blocks, block_size,
     kv_heads, head_dim] in `dtype`. Block 0 is the trash block (never
     allocated to a sequence): masked writes land there and nothing ever
-    reads it. Sharding it over a mesh waits for ROADMAP M8b."""
+    reads it. Sharding it over a mesh (`arena_sharding`) is the serving
+    half of ROADMAP M8b."""
     dev = resolve_device(device)
     shape = (num_blocks, block_size, cfg.n_kv_head, cfg.head_dim)
     return [(torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -534,6 +612,52 @@ def validate_tp(cfg: LlamaConfig, tp: int) -> None:
             "divides heads, kv heads, the MLP hidden and the vocab")
 
 
+# Logical axes of each parameter: the reference's `with_logical_partitioning`
+# annotations (`ray_tpu/models/llama.py:78-293`) on the port's names, a
+# dense weight's the flax kernel's reversed (the weight is [out, in]).
+_LOGICAL = (
+    (r"embed$", ("vocab", "embed")),
+    (r"(wq|wk|wv)\.weight$", ("heads", "embed")),
+    (r"wo\.weight$", ("embed", "heads")),
+    (r"(w_gate|w_up)\.weight$", ("mlp", "embed")),
+    (r"w_down\.weight$", ("embed", "mlp")),
+    (r"lm_head\.weight$", ("vocab", "embed")),
+    (r"norm\.weight$", ("embed",)),
+)
+
+
+def _logical_axes(names) -> Dict[str, Tuple]:
+    return {n: next(ax for pattern, ax in _LOGICAL if re.search(pattern, n))
+            for n in names}
+
+
+def logical_param_specs(model: nn.Module) -> Dict[str, Tuple]:
+    """Parameter name -> the logical axes of its dims (the reference's
+    annotations): what `tp_shardings` resolves through the rules."""
+    return _logical_axes([n for n, _ in model.named_parameters()])
+
+
+def tp_shardings(model: nn.Module, mesh) -> Dict[str, tuple]:
+    """Parameter name -> (mesh, placements) on `mesh`: the logical axes
+    through the standard rules (heads, mlp and vocab over tp; embed over
+    fsdp), as the reference's `tp_shardings` resolves them."""
+    return {name: named_sharding(mesh, *axes)
+            for name, axes in logical_param_specs(model).items()}
+
+
+def shard_params_tp(model: nn.Module, params: Dict[str, torch.Tensor], mesh
+                    ) -> Dict[str, Any]:
+    """A state dict placed as DTensors in its `tp_shardings` layout, after
+    `validate_tp` (the reference's `shard_params_tp`). Every rank passes
+    the same values."""
+    validate_tp(model.config, _mesh_tp(mesh))
+    return shard_params(params, mesh, logical_param_specs(model))
+
+
+def _mesh_tp(mesh) -> int:
+    return axis_size(mesh, "tp")
+
+
 # The `match_partition_rules` table over a ("sp", "tp") mesh:
 # column-parallel q/k/v/gate/up (output dim over tp), row-parallel wo and
 # w_down (input dim over tp), vocab-sharded embed and lm_head, replicated
@@ -617,12 +741,18 @@ class LlamaStage(nn.Module):
     only this stage's are kept, so every pp starts from the same model.
     `state` (a stage dict on `device`) is taken by reference instead.
     `device="meta"` makes the skeleton alone, for callers that pass the
-    parameters at each call (`torch.func.functional_call`)."""
+    parameters at each call (`torch.func.functional_call`).
+
+    With `mesh` (the stage's ("sp", "tp") mesh), the stage runs
+    tensor-parallel as `Llama(mesh=)` does: its parameters are placed on
+    the mesh, or, for a meta skeleton, the callers' parameters are the
+    DTensors that `shard_stage_params` places."""
 
     def __init__(self, cfg: LlamaConfig, stage: int, pp: int,
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0,
-                 state: Optional[Dict[str, torch.Tensor]] = None):
+                 state: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None):
         super().__init__()
         ranges = stage_layer_ranges(cfg, pp)
         if not 0 <= stage < pp:
@@ -631,6 +761,7 @@ class LlamaStage(nn.Module):
         dev = torch.device("meta") if meta else resolve_device(device)
         self.config, self.stage, self.pp = cfg, stage, pp
         self.is_first, self.is_last = stage == 0, stage == pp - 1
+        self.mesh_ctx: Optional[MeshContext] = None
         start, end = ranges[stage]
         with torch.device("meta"):
             if self.is_first:
@@ -642,6 +773,10 @@ class LlamaStage(nn.Module):
                 self.final_norm = RMSNorm(cfg.n_embd, cfg.rms_eps, cfg.dtype)
                 self.lm_head = Dense(cfg.n_embd, cfg.vocab_size, cfg.dtype)
         if meta:
+            if mesh is not None:
+                self.mesh_ctx = MeshContext.of(mesh)
+                for blk in self.layers.values():
+                    blk.mesh_ctx = self.mesh_ctx
             return
         if state is None:
             self._init_weights(seed, dev, ranges)
@@ -651,6 +786,9 @@ class LlamaStage(nn.Module):
                     raise ValueError(f"state tensor {name} lies on "
                                      f"{t.device}, the stage on {dev}")
             self.load_state_dict(state, assign=True)
+        if mesh is not None:
+            self.mesh_ctx = _place_on_mesh(self, mesh,
+                                           list(self.layers.values()))
 
     @torch.no_grad()
     def _init_weights(self, seed: int, dev: torch.device,
@@ -672,17 +810,19 @@ class LlamaStage(nn.Module):
         """Stage 0 takes token ids [b, s]; later stages take the previous
         stage's activations [b, s, embd]. The last stage returns logits,
         every other stage its boundary activations."""
-        cfg = self.config
+        cfg, ctx = self.config, self.mesh_ctx
         if self.is_first:
-            x = self.embed.to(cfg.dtype)[x]
-        positions = torch.arange(x.shape[1], device=x.device)
+            x = vocab_parallel_embedding(x, local(self.embed).to(cfg.dtype),
+                                         ctx)
+        positions = _positions(x.shape[1], x.device, ctx)
         for blk in self.layers.values():
             if cfg.remat:
                 x, _, _ = checkpoint(blk, x, positions, use_reentrant=False)
             else:
                 x, _, _ = blk(x, positions)
         if self.is_last:
-            return self.lm_head(self.final_norm(x))
+            x = self.final_norm(x)
+            return self.lm_head(ctx.copy_in(x) if ctx is not None else x)
         return x
 
 

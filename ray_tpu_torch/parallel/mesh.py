@@ -142,8 +142,82 @@ def mesh_shape_summary(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
-def validate_divisibility(mesh, batch_size: int, seq_len: Optional[int] = None):
-    """Fail fast on shapes that cannot be sharded evenly."""
+# The mesh axes the "batch" rule shards over (`sharding.DEFAULT_RULES`), in
+# mesh order: together they are the data-parallel coordinate of a rank.
+DATA_AXES = ("dcn_dp", "dp", "fsdp")
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of axis `name` (1 where the mesh lacks it)."""
+    return mesh_shape_summary(mesh).get(name, 1)
+
+
+def axis_rank(mesh, name: str) -> int:
+    """This rank's coordinate along axis `name` (0 where the mesh lacks
+    it)."""
+    if name not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(name)
+
+
+def axis_group(mesh, name: str):
+    """The process group of this rank's line along axis `name`, or None
+    where the mesh lacks it."""
+    if name not in mesh.mesh_dim_names:
+        return None
+    return mesh.get_group(name)
+
+
+def data_parallel_size(mesh) -> int:
+    """dcn_dp x dp x fsdp: how many distinct batch shards the mesh holds."""
+    return math.prod(axis_size(mesh, a) for a in DATA_AXES)
+
+
+def data_parallel_rank(mesh) -> int:
+    """This rank's batch shard, 0 .. data_parallel_size - 1: its
+    coordinates along dcn_dp, dp and fsdp, the first slowest (the order in
+    which the "batch" rule splits the batch)."""
+    rank = 0
+    for a in DATA_AXES:
+        rank = rank * axis_size(mesh, a) + axis_rank(mesh, a)
+    return rank
+
+
+def data_parallel_coords(spec: MeshSpec, world: int):
+    """[(batch shard, number of shards)] for ranks 0 .. world - 1 of a mesh
+    that `build_mesh(spec)` lays over `world` ranks: what
+    `data_parallel_rank` and `data_parallel_size` return on each rank,
+    computed without a process group (the trainer splits `datasets=` with
+    it before any worker starts). tp and sp peers, and pp stages, of one
+    coordinate share its shard."""
+    axes = spec.resolved(world)
+    names = list(spec.axis_names())
+    if spec.dcn_axes:
+        names = ([n for n in names if n in spec.dcn_axes]
+                 + [n for n in names if n not in spec.dcn_axes])
+    sizes = [axes[n] for n in names]
+    data = [n for n in DATA_AXES if n in names]
+    n_shards = math.prod(axes[n] for n in data)
+    out = []
+    for r in range(world):
+        coord, rem = {}, r
+        for name, size in zip(reversed(names), reversed(sizes)):
+            coord[name] = rem % size
+            rem //= size
+        shard = 0
+        for n in data:
+            shard = shard * axes[n] + coord[n]
+        out.append((shard, n_shards))
+    return out
+
+
+def validate_divisibility(mesh, batch_size: int, seq_len: Optional[int] = None,
+                          n_head: Optional[int] = None,
+                          n_kv_head: Optional[int] = None,
+                          vocab_size: Optional[int] = None):
+    """Fail fast on shapes that cannot be sharded evenly: the batch over
+    dp x fsdp, the sequence over sp, and attention heads, KV heads and
+    the vocab over tp (each rank holds its own heads and vocab rows)."""
     shape = mesh_shape_summary(mesh)
     data_ways = shape.get("dp", 1) * shape.get("fsdp", 1)
     if batch_size % data_ways:
@@ -152,3 +226,10 @@ def validate_divisibility(mesh, batch_size: int, seq_len: Optional[int] = None):
     sp = shape.get("sp", 1)
     if seq_len is not None and seq_len % max(sp, 1):
         raise ValueError(f"sequence length {seq_len} not divisible by sp={sp}")
+    tp = shape.get("tp", 1)
+    bad = {name: dim for name, dim in (("n_head", n_head),
+                                       ("n_kv_head", n_kv_head),
+                                       ("vocab_size", vocab_size))
+           if dim is not None and dim % tp}
+    if bad:
+        raise ValueError(f"tp={tp} does not divide {bad}")

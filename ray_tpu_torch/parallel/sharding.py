@@ -207,3 +207,35 @@ def replicated(mesh):
 def batch_sharding(mesh):
     """Sharding for host data entering the program: batch over dp(+fsdp)."""
     return named_sharding(mesh, "batch")
+
+
+def shard_batch(batch, mesh, logical_axes: Sequence[Optional[str]] = (
+        "batch", "seq")):
+    """This rank's shard of a global batch: a dict of arrays or tensors (or
+    one) whose leading dims carry `logical_axes`, sliced as the rules
+    place them on `mesh` (by default the batch over dcn_dp, dp and fsdp,
+    the sequence over sp; tp and pp peers get the same slice). Every dim
+    must divide evenly. numpy arrays stay numpy: slices are views."""
+    from torch.distributed.tensor import Shard
+
+    _, placements = named_sharding(mesh, *logical_axes)
+
+    def one(x):
+        index = []
+        for dim, size in enumerate(x.shape[:len(logical_axes)]):
+            shard, count = 0, 1
+            for mesh_dim, pl in enumerate(placements):
+                if isinstance(pl, Shard) and pl.dim == dim:
+                    shard = shard * mesh.size(mesh_dim) \
+                        + mesh.get_local_rank(mesh_dim)
+                    count *= mesh.size(mesh_dim)
+            if size % count:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"split {count} ways")
+            n = size // count
+            index.append(slice(shard * n, (shard + 1) * n))
+        return x[tuple(index)]
+
+    if isinstance(batch, dict):
+        return {k: one(v) for k, v in batch.items()}
+    return one(batch)

@@ -12,7 +12,10 @@ steps, then three steps are traced with `torch.profiler`. `llama-small-pp1`,
 `-pp2` and `-pp4` are phase 10's Llama-small through the pipeline stage
 trainer (`train/pipeline.py` `LocalPipelineTrainer`, chip_smoke.py phase
 4h): 4 microbatches, each stage on a thread and a CUDA stream of its own,
-Adam(1e-2) leafwise. Prints the device
+Adam(1e-2) leafwise. `gpt2-mesh` is phase 4i (a)'s GPT-2-small placed on
+a (dp 1, fsdp 1, tp 1) mesh over a one-rank NCCL group (DTensor
+parameters, FSDP2, the vocab-parallel head and loss), stepped by
+`make_train_step(mesh=)`. Prints the device
 time per step by kernel group (the port's flash kernels; float32 matrix
 products, which in MoE are the dense dispatch/combine products and the
 router; the other matrix products; the optimizer; the rest), the top
@@ -20,7 +23,8 @@ kernels, the step's wall time and the share of it the device sat idle.
 
 The cross-entropy, which kernel names do not separate from the other
 elementwise work, is also timed alone with CUDA events on a tensor of the
-step's logits (forward and backward over bf16 [batch, seq, vocab]). Prints
+step's logits (forward and backward over bf16 [batch, seq, vocab]; for
+`gpt2-mesh` the vocab-parallel one too). Prints
 one JSON line last. Exits non-zero when the trace holds no device time.
 """
 
@@ -54,6 +58,7 @@ MODELS = {
     "moe-small": Leg(4, 2048, 2, 5),    # phase 11
     # phase 4h: Llama-small through LocalPipelineTrainer, m 4, at pp 1-4
     **{f"llama-small-pp{pp}": Leg(8, 2048, 1, 2) for pp in (1, 2, 4)},
+    "gpt2-mesh": Leg(24, 1024, 2, 3),   # phase 4i (a)
 }
 # Kernel-name fragments of each group, matched in order. cuBLAS names its
 # float32 kernels (TF32 off) `..._f32f32_f32f32_...` or `sgemm`.
@@ -105,6 +110,12 @@ def build(name: str, device, seed: int = 0):
             loss = trainer.train_step(ids, b["labels"].cpu().numpy())["loss"]
             return torch.tensor(loss)
         flops = llama.flops_per_token(cfg, seq)
+    elif name == "gpt2-mesh":
+        cfg = gpt2.GPT2Config.small()
+        mesh = _mesh_of_one(device)
+        model = gpt2.GPT2(cfg, mesh=mesh, seed=seed)
+        step = gpt2.make_train_step(model, gpt2.adamw(model), mesh=mesh)
+        flops = gpt2.flops_per_token(cfg, seq)
     elif name == "moe-small":
         cfg = moe.MoEConfig.small()
         model = moe.MoE(cfg, device=device, seed=seed)
@@ -116,6 +127,22 @@ def build(name: str, device, seed: int = 0):
                         generator=torch.Generator().manual_seed(seed)
                         ).to(device)
     return model, step, flops, {"input_ids": ids, "labels": ids}
+
+
+def _mesh_of_one(device):
+    """A (dp 1, fsdp 1, tp 1) DeviceMesh over a one-rank group (NCCL on the
+    card), the group formed here unless one is."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh, distributed
+
+    device = torch.device(device)
+    if not dist.is_initialized():
+        host, port = distributed.get_address_and_port()
+        distributed.initialize_distributed(f"{host}:{port}", 1, 0,
+                                           device=device)
+    return build_mesh(MeshSpec({"dp": 1, "fsdp": 1, "tp": 1}),
+                      device_type=device.type)
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -144,6 +171,27 @@ def cross_entropy_ms(batch: int, seq: int, vocab: int, device) -> float:
     def run():
         logits.grad = None
         next_token_loss(logits, ids).backward()
+    ms = time_ms(run)
+    del logits
+    return ms
+
+
+def vocab_parallel_loss_ms(batch: int, seq: int, vocab: int, device
+                           ) -> float:
+    """The mesh step's loss (`next_token_loss_parts` over a one-rank mesh's
+    vocab-parallel logits), forward and backward, over bf16 [batch, seq,
+    vocab]."""
+    from ray_tpu_torch.parallel.tensor_parallel import (MeshContext,
+                                                        next_token_loss_parts)
+
+    ctx = MeshContext.of(_mesh_of_one(device))
+    logits = torch.randn(batch, seq, vocab, device=device,
+                         dtype=torch.bfloat16, requires_grad=True)
+    ids = torch.randint(0, vocab, (batch, seq), device=device)
+
+    def run():
+        logits.grad = None
+        next_token_loss_parts(logits, ids, ctx)[0].backward()
     ms = time_ms(run)
     del logits
     return ms
@@ -209,6 +257,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     alone = {"cross-entropy, forward and backward":
              cross_entropy_ms(b, s, cfg.vocab_size, device)}
+    if args.model == "gpt2-mesh":
+        alone["vocab-parallel cross-entropy, forward and backward"] = \
+            vocab_parallel_loss_ms(b, s, cfg.vocab_size, device)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

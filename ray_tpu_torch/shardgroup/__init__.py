@@ -6,7 +6,8 @@ all-or-nothing gang creation on a placement group, coordinated bring-up
 group), group-level lifecycle (any rank death kills and restarts the
 whole gang, and `GangMonitor` fails the group fast), and a group handle
 the serve router/dataplane treat as a single replica — requests land on
-rank 0. A tp > 1 mesh waits for ROADMAP M8b (`current_mesh` raises).
+rank 0. A gang with tp or sp > 1 builds its stage's ("sp", "tp")
+DeviceMesh, one rank a card (`current_mesh`).
 """
 
 from ray_tpu_torch.shardgroup.gang import create_gang, create_replica_group

@@ -10,18 +10,17 @@ loop). Protocol:
    (`shardgroup:<group>:coordinator`);
 2. every rank polls that key, then joins one `torch.distributed` process
    group at that address: NCCL where the rank holds cards, gloo on the
-   CPU.
-
-The reference also builds a `jax.sharding.Mesh` of tp columns here. The
-port's gangs build no mesh yet (`ray_tpu_torch.parallel` has the
-DeviceMesh; the tp gang's is ROADMAP M8b): :func:`current_mesh` is None
-where no gang is active or every axis is 1, and raises
-`NotImplementedError` naming M8b where a gang asks for tp > 1 or sp > 1.
+   CPU;
+3. a gang with tp or sp > 1 builds its stage's ("sp", "tp") `DeviceMesh`
+   over that group (`_build_stage_mesh`, the reference's
+   `ray_tpu/shardgroup/runtime.py:175-224`), which :func:`current_mesh`
+   returns. One rank holds one card, so a stage is sp x tp ranks.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -62,6 +61,7 @@ class ShardContext:
 
 
 _current: Optional[ShardContext] = None
+_mesh = None
 
 
 def _kv():
@@ -112,7 +112,7 @@ def activate(ctx: Any, rendezvous_timeout_s: float = 30.0) -> ShardContext:
     group_id; a different one raises — one process hosts one rank of one
     gang, ever (the default process group is global).
     """
-    global _current
+    global _current, _mesh
     if isinstance(ctx, dict):
         ctx = ShardContext(**ctx)
     if _current is not None:
@@ -146,6 +146,7 @@ def activate(ctx: Any, rendezvous_timeout_s: float = 30.0) -> ShardContext:
     ctx = ShardContext(group_id=ctx.group_id, rank=ctx.rank,
                        world_size=ctx.world_size, tp=ctx.tp, spmd=spmd,
                        pp=ctx.pp, sp=ctx.sp)
+    _mesh = _build_stage_mesh(ctx)
     _current = ctx
     logger.info("shardgroup: rank %d/%d of %s active (tp=%d, pp=%d, "
                 "sp=%d, spmd=%s)", ctx.rank, ctx.world_size, ctx.group_id,
@@ -153,28 +154,53 @@ def activate(ctx: Any, rendezvous_timeout_s: float = 30.0) -> ShardContext:
     return ctx
 
 
+def _build_stage_mesh(ctx: ShardContext):
+    """The gang's per-stage device mesh: ("sp", "tp") axes, size-1 axes
+    dropped, over the sp x tp ranks of this rank's stage ("pp" is realized
+    as stage processes exchanging activations, never as an axis of the
+    stage's mesh). Every rank of the gang builds the whole (pp, sp, tp)
+    mesh over the process group, together, and keeps its stage's
+    sub-mesh; on the card where it holds one, on the CPU otherwise. None
+    at tp = sp = 1. Raises where the gang has not one rank a card of its
+    stage's mesh."""
+    axes = {name: size for name, size in (("sp", ctx.sp), ("tp", ctx.tp))
+            if size > 1}
+    if not axes:
+        return None
+    need = math.prod(axes.values())
+    per_stage = ctx.world_size // max(1, ctx.pp)
+    if not ctx.spmd or per_stage != need:
+        raise RuntimeError(
+            f"shard group {ctx.group_id}: mesh axes {axes} need {need} "
+            f"ranks a stage, one a card; the gang has {per_stage} "
+            f"(world_size={ctx.world_size}, pp={ctx.pp})")
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    spec = MeshSpec({"pp": ctx.pp, **axes} if ctx.pp > 1 else axes)
+    mesh = build_mesh(spec, device_type="cuda" if _holds_cards() else "cpu")
+    if ctx.pp == 1:
+        return mesh
+    return mesh[tuple(axes)] if len(axes) > 1 else mesh[next(iter(axes))]
+
+
 def current() -> Optional[ShardContext]:
     return _current
 
 
 def current_mesh():
-    """The active gang's tp mesh — None outside a gang or where every
-    axis is 1, the one case the port serves. A gang with tp > 1 or
-    sp > 1 needs the gang's device mesh, which comes with ROADMAP M8b."""
-    if _current is None or (_current.tp == 1 and _current.sp == 1):
-        return None
-    raise NotImplementedError(
-        f"shard group {_current.group_id}: tp={_current.tp}, "
-        f"sp={_current.sp} needs the gang's device mesh, not ported yet "
-        "(ROADMAP M8b)")
+    """The active gang's stage mesh (a `DeviceMesh` with the "sp" and
+    "tp" axes of size > 1) — None outside a gang or where tp = sp = 1.
+    Deployments and trainers read it to take the sharded path."""
+    return _mesh
 
 
 def deactivate() -> None:
     """Test hook: forget the context and leave the process group."""
-    global _current
+    global _current, _mesh
     if _current is not None and _current.spmd:
         import torch.distributed as dist
 
         if dist.is_initialized():
             dist.destroy_process_group()
     _current = None
+    _mesh = None

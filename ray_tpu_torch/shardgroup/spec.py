@@ -7,13 +7,12 @@ data — serve's `DeploymentConfig` carries it, the controller hands it to
 the gang scheduler (`shardgroup.gang`), and every rank receives its
 per-rank slice as a `ShardContext` (`shardgroup.runtime`).
 
-GPU mapping: a replica over four hosts of four H100s would be
-``ShardSpec(tp=16, world_size=4, strategy="STRICT_SPREAD",
-bundle={"GPU": 4})`` — one bundle per host. The port's gangs build no
-tensor-parallel mesh yet (ROADMAP M8b): `shardgroup.current_mesh()` raises
-at tp > 1. `world_size > 1` gangs at tp = 1 exercise every
-gang-scheduling, rendezvous and lifecycle path, with a `torch.distributed`
-group (gloo on the CPU, NCCL on cards) across the ranks.
+GPU mapping: one rank holds one card, so a replica over four hosts of
+four H100s is ``ShardSpec(tp=16, world_size=16, bundle={"GPU": 1})``, the
+placement group packing four ranks to a host. Every gang of more than one
+rank joins a `torch.distributed` group (gloo on the CPU, NCCL on cards),
+and a gang with tp or sp > 1 builds its stage's ("sp", "tp") DeviceMesh
+over it (`shardgroup.current_mesh()`), sp x tp ranks a stage.
 """
 
 from __future__ import annotations
@@ -78,11 +77,12 @@ class ShardSpec:
             raise ValueError(
                 f"pp={self.pp} must divide world_size={self.world_size} "
                 "(each pipeline stage is a contiguous block of ranks)")
-        if self.tp > 1 and self.tp % self.ranks_per_stage:
+        if self.devices_per_stage > 1 and \
+                self.devices_per_stage % self.ranks_per_stage:
             raise ValueError(
-                f"tp={self.tp} must be divisible by the "
-                f"{self.ranks_per_stage} ranks of each stage (every rank "
-                "hosts tp/ranks contiguous mesh columns)")
+                f"sp x tp = {self.devices_per_stage} must be divisible by "
+                f"the {self.ranks_per_stage} ranks of each stage (every "
+                "rank hosts sp x tp / ranks contiguous mesh columns)")
 
     @property
     def ranks_per_stage(self) -> int:

@@ -36,8 +36,9 @@ overlapped by `isend`). Per-stage busy/wall accounting reports the
 measured `bubble_frac` next to the analytic one.
 
 `make_pipeline_train_fn` packages the whole thing as a
-`train_loop_per_worker` for a WorkerGroup run: world size == pp, each rank
-drives one stage, every step checkpoints the stage's disjoint subtree
+`train_loop_per_worker` for a WorkerGroup run: world size == pp x tp, the
+tp ranks of each stage driving it tensor-parallel over their tp group,
+every step checkpoints the stage's disjoint subtree
 (`save_sharded_pytree(own_replicated=True)`), and a gang restart at a
 DIFFERENT world size restores bit-exact from the merged manifest at the
 new pp (`BackendExecutor(elastic_world_fn=)`).
@@ -62,7 +63,11 @@ from ray_tpu_torch._torch_env import resolve_device
 from ray_tpu_torch.models.llama import (LLAMA_PARTITION_RULES, LlamaConfig,
                                         LlamaStage, _param_shapes, _stage_of,
                                         merge_stage_params,
+                                        shard_stage_params,
                                         stage_layer_ranges)
+from ray_tpu_torch.parallel.mesh import MeshSpec
+from ray_tpu_torch.parallel.tensor_parallel import (place_like,
+                                                    vocab_parallel_nll)
 
 __all__ = [
     "StagePrograms",
@@ -85,6 +90,7 @@ __all__ = [
     "save_pipeline_stage",
     "restore_pipeline_stage",
     "make_pipeline_train_fn",
+    "pipeline_mesh_spec",
 ]
 
 SCHEDULES = ("1f1b", "sequential")
@@ -92,8 +98,12 @@ SCHEDULES = ("1f1b", "sequential")
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
 
 
-def token_xent(logits, targets):
-    """Mean next-token cross entropy (log-softmax in float32)."""
+def token_xent(logits, targets, ctx=None):
+    """Mean next-token cross entropy (log-softmax in float32). With a mesh
+    context `ctx`, `logits` are this rank's vocab shard and the
+    vocab-parallel form runs over its tp group."""
+    if ctx is not None:
+        return vocab_parallel_nll(logits, targets.long(), ctx).mean()
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
 
@@ -160,15 +170,17 @@ class StagePrograms:
 
 
 def build_stage_programs(cfg: LlamaConfig, stage: int, pp: int,
-                         device=None) -> StagePrograms:
+                         device=None, mesh=None) -> StagePrograms:
     """The programs for `stage` of a `pp`-deep Llama pipeline on `device`
     (the card unless "cpu" is asked for). Each takes the stage's parameters
     (a dict of the stage's global names) at every call. Recompute-in-
     backward: `bwd` and `fwdbwd` run the forward again under autograd, so
     the only tensors crossing stage boundaries are activations (forward)
-    and their gradients (backward)."""
+    and their gradients (backward). With the stage's tp `mesh`, the
+    parameters are DTensors on it (`shard_stage_params`) and the stage
+    runs tensor-parallel; its boundaries are replicated over tp."""
     dev = resolve_device(device)
-    module = LlamaStage(cfg, stage, pp, device="meta")
+    module = LlamaStage(cfg, stage, pp, device="meta", mesh=mesh)
     first, last = stage == 0, stage == pp - 1
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     progs = StagePrograms(cfg=cfg, stage=stage, pp=pp, module=module,
@@ -195,7 +207,7 @@ def build_stage_programs(cfg: LlamaConfig, stage: int, pp: int,
             with torch.enable_grad():
                 p, x = leaves(params), stage_input(x)
                 loss = token_xent(functional_call(module, p, (x,)),
-                                  _to_device(targets, dev))
+                                  _to_device(targets, dev), module.mesh_ctx)
                 out = differentiate(loss, p, x, None)
             loss = loss.detach()
             return (loss, out) if first else (loss, *out)
@@ -302,28 +314,31 @@ def _from_host(payload) -> torch.Tensor:
 
 
 class CollectivePipeTransport:
-    """Stage links over the collective plane's p2p channels: stage index
-    == group rank, kinds map to tags. Boundaries cross as host numpy (the
-    far side's program copies them onto its device). Sends go out as
-    `isend` so the store write and GCS post overlap the next microbatch's
-    compute; the p2p ack window (collective_p2p_ack_window) is the flow
-    control. `flush()` joins every outstanding post and re-raises the
-    first error: call it at step boundaries."""
+    """Stage links over the collective plane's p2p channels, kinds mapped
+    to tags. Stage s is group rank `stage_rank(s)` (s itself by default;
+    s * tp + t for tp rank t of a tensor-parallel stage, which talks to
+    tp rank t of its neighbours). Boundaries cross as host numpy (the far
+    side's program copies them onto its device). Sends go out as `isend`
+    so the store write and GCS post overlap the next microbatch's compute;
+    the p2p ack window (collective_p2p_ack_window) is the flow control.
+    `flush()` joins every outstanding post and re-raises the first error:
+    call it at step boundaries."""
 
-    def __init__(self, group):
+    def __init__(self, group, stage_rank=None):
         self.group = group
+        self._rank = stage_rank or (lambda s: s)
         self._handles: List[Any] = []
 
     def send(self, src: int, dst: int, kind: str, value) -> None:
-        assert src == self.group.rank, (src, self.group.rank)
-        self._handles.append(self.group.isend(_to_host(value), dst,
-                                              tag=kind))
+        assert self._rank(src) == self.group.rank, (src, self.group.rank)
+        self._handles.append(self.group.isend(_to_host(value),
+                                              self._rank(dst), tag=kind))
         if len(self._handles) >= 32:  # bound handle growth mid-step
             self._handles.pop(0).wait()
 
     def recv(self, src: int, dst: int, kind: str):
-        assert dst == self.group.rank, (dst, self.group.rank)
-        return _from_host(self.group.recv(src, tag=kind))
+        assert self._rank(dst) == self.group.rank, (dst, self.group.rank)
+        return _from_host(self.group.recv(self._rank(src), tag=kind))
 
     def flush(self) -> None:
         handles, self._handles = self._handles, []
@@ -715,8 +730,8 @@ def restore_pipeline_stage(path: str, cfg: LlamaConfig, stage: int, pp: int,
     """Restore ONE stage's subtree at the CURRENT (possibly different)
     width from a merged stage checkpoint, on `device` (the card unless
     "cpu" is asked for): raw-byte assembly, so the round trip is bitwise at
-    any (tp, pp) -> (tp', pp'). With a stage `mesh`, params land as
-    DTensors on it, placed by the Llama partition rules."""
+    any (tp, pp) -> (tp', pp'). With a stage `mesh`, params and Adam's
+    moments land as DTensors on it, placed by the Llama partition rules."""
     from ray_tpu_torch.parallel.sharding import placements_by_rules
     from ray_tpu_torch.train.checkpoint import restore_sharded_pytree
 
@@ -727,8 +742,14 @@ def restore_pipeline_stage(path: str, cfg: LlamaConfig, stage: int, pp: int,
     state = restore_sharded_pytree(path, target=tpl, shardings=shardings)
     if mesh is None:
         state["params"] = {k: v.to(dev) for k, v in state["params"].items()}
-    state["opt"] = {k: {"step": v["step"], "exp_avg": v["exp_avg"].to(dev),
-                        "exp_avg_sq": v["exp_avg_sq"].to(dev)}
+
+    def moment(name, t):
+        like = state["params"][name]
+        return place_like(t, like) if mesh is not None else t.to(dev)
+
+    state["opt"] = {k: {"step": v["step"],
+                        "exp_avg": moment(k, v["exp_avg"]),
+                        "exp_avg_sq": moment(k, v["exp_avg_sq"])}
                     for k, v in state["opt"].items()}
     return state
 
@@ -738,30 +759,34 @@ def restore_pipeline_stage(path: str, cfg: LlamaConfig, stage: int, pp: int,
 # --------------------------------------------------------------------------- #
 
 
+def pipeline_mesh_spec(tp: int = 1) -> MeshSpec:
+    """The mesh a `make_pipeline_train_fn(tp=tp)` run is given
+    (`TorchConfig(mesh=...)`): stages along "pp", as many as the world
+    holds, each of `tp` consecutive ranks along "tp"."""
+    return MeshSpec({"pp": -1, "tp": tp})
+
+
 def make_pipeline_train_fn(steps: int = 6, microbatches: int = 2,
                            batch: int = 4, seq: int = 16, lr: float = 1e-2,
                            seed: int = 0, ckpt_dir: Optional[str] = None,
                            tp: int = 1, schedule: str = "1f1b",
                            cfg_overrides: Optional[Dict[str, Any]] = None):
-    """A train_loop_per_worker where pp == session.get_world_size(): rank r
-    drives stage r over the collective p2p plane, on the session's device,
-    data comes deterministically from (seed, step), and EVERY step
-    checkpoints the stage subtree and merges on rank 0, so when the gang
-    restarts at a different world size (a killed stage, an elastic
-    shrink), the loop resumes from the merged manifest re-split at the NEW
-    pp, bit-exact.
+    """A train_loop_per_worker where pp x tp == session.get_world_size():
+    rank r drives stage r // tp (as its tp rank r % tp) over the collective
+    p2p plane, on the session's device, data comes deterministically from
+    (seed, step), and EVERY step checkpoints the stage subtree and merges
+    on rank 0, so when the gang restarts at a different world size (a
+    killed stage, an elastic shrink), the loop resumes from the merged
+    manifest re-split at the NEW pp, bit-exact.
 
-    tp > 1 (each stage's params sharded over a tp mesh, the JAX package's
-    (tp, pp) layout) needs tp ranks a stage, each stepping DTensor
-    parameters: tensor-parallel execution, which the port does not have
-    yet (ROADMAP M8b), so it raises."""
+    tp > 1 is the JAX package's (tp, pp) layout with tp as processes: the
+    run needs the mesh `pipeline_mesh_spec(tp)` (`TorchConfig(mesh=...)`,
+    which forms the torch.distributed group), each stage's parameters and
+    Adam moments are DTensors on its tp line, the stage runs
+    tensor-parallel, and rank (s, t) exchanges the replicated boundaries
+    with (s +- 1, t)."""
     if ckpt_dir is None:
         raise ValueError("make_pipeline_train_fn needs a ckpt_dir")
-    if tp != 1:
-        raise NotImplementedError(
-            "tp > 1 needs tensor-parallel execution of the stage (ROADMAP "
-            "M8b's tp half); restore_pipeline_stage(mesh=) places a stage "
-            "over tp already")
     overrides = dict(cfg_overrides or {})
 
     def train_fn(config):
@@ -772,28 +797,45 @@ def make_pipeline_train_fn(steps: int = 6, microbatches: int = 2,
         world = session.get_world_size()
         rank = session.get_world_rank()
         device = session.get_device()
-        pp, stage = world, rank
+        if world % tp:
+            raise ValueError(f"world {world} is not a multiple of tp={tp}")
+        pp, stage, tp_rank = world // tp, rank // tp, rank % tp
         cfg = tiny_pipeline_config(**overrides)
+        mesh = None
+        if tp > 1:
+            full = session.get_mesh()
+            if full is None or dict(zip(full.mesh_dim_names,
+                                        full.mesh.shape)) != {"pp": pp,
+                                                              "tp": tp}:
+                raise ValueError(
+                    f"tp={tp} needs the run's mesh pipeline_mesh_spec({tp}) "
+                    f"(TorchConfig(mesh=...)); the session has {full}")
+            mesh = full["tp"]
 
         ckpt = session.get_checkpoint()
         if ckpt is not None:
             d = ckpt.to_dict()
             start = int(d["step"]) + 1
             state = restore_pipeline_stage(d["path"], cfg, stage, pp,
-                                           device=device)
+                                           mesh=mesh, device=device)
             params = state["params"]
         else:
             start, state = 0, None
             params = dict(LlamaStage(cfg, stage, pp, device=device,
                                      seed=seed).named_parameters())
+            if mesh is not None:
+                params = shard_stage_params(
+                    {k: v.detach() for k, v in params.items()}, mesh)
         params = {k: torch.nn.Parameter(v) for k, v in params.items()}
         opt = _adam(params, lr)
         if state is not None:
             load_adam_state(opt, params, state["opt"])
-        programs = build_stage_programs(cfg, stage, pp, device)
+        programs = build_stage_programs(cfg, stage, pp, device, mesh=mesh)
         group = session.get_collective() if world > 1 else None
-        transport = CollectivePipeTransport(group) if group is not None \
-            else None
+        transport = None
+        if group is not None and pp > 1:
+            transport = CollectivePipeTransport(
+                group, stage_rank=lambda s: s * tp + tp_rank)
 
         for step in range(start, steps):
             ids, tg = seeded_batch(seed, step, batch, seq, cfg.vocab_size)
@@ -815,17 +857,18 @@ def make_pipeline_train_fn(steps: int = 6, microbatches: int = 2,
             save_pipeline_stage(
                 path, {"params": {k: v.detach() for k, v in params.items()},
                        "opt": adam_state(params, opt)},
-                stage, pp, step=step)
+                stage, pp, step=step, tp_rank=tp_rank, tp=tp)
             if group is not None:
                 group.barrier()     # every stage saved before the merge
-            metrics = {"step": step, "world": world, **res.stats.as_dict()}
+            metrics = {"step": step, "world": world, "tp": tp,
+                       **res.stats.as_dict()}
             if res.loss_sum is not None:
                 metrics["loss"] = res.loss_sum.item() / microbatches
             if rank == 0:
                 if world > 1:
                     merge_sharded_manifest(path, world)
                 session.report(metrics, checkpoint=Checkpoint.from_dict(
-                    {"path": path, "step": step, "pp": world}))
+                    {"path": path, "step": step, "pp": pp, "tp": tp}))
             else:
                 session.report(metrics)
         return {"final_step": steps - 1, "stage": stage, "world": world}

@@ -23,6 +23,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
+from ray_tpu_torch.parallel.mesh import data_parallel_coords
 from ray_tpu_torch.train.backend import BackendConfig, TorchConfig
 from ray_tpu_torch.train.backend_executor import (BackendExecutor,
                                                   TrainingFailedError)
@@ -169,25 +170,35 @@ class DataParallelTrainer(BaseTrainer):
         worker's prefetch thread pulls the next blocks onto its host ahead
         of the step, with step-stall accounting — see
         ray_tpu_torch/data/streaming/ingest.py); plain lists are
-        round-robin sharded; other values are passed through whole."""
+        round-robin sharded; other values are passed through whole.
+
+        With a mesh (`ScalingConfig.mesh`), the split is over the
+        data-parallel coordinate (dcn_dp x dp x fsdp), not the world: the
+        tp and sp peers (and pp stages) of one coordinate read the same
+        shard. A Dataset whose coordinates hold several workers is split
+        by `Dataset.split` (materialized, balanced), and each of those
+        workers iterates its coordinate's part in the same block order."""
         if not self.datasets:
             return None
         n = self.scaling_config.num_workers
+        spec = getattr(self.backend_config, "mesh", None) \
+            or self.scaling_config.mesh
+        coords = data_parallel_coords(spec, n) if spec is not None \
+            else [(i, n) for i in range(n)]
+        n_shards = coords[0][1]
         per_worker: List[Dict[str, Any]] = [dict() for _ in range(n)]
         for name, ds in self.datasets.items():
             splits = None
             if hasattr(ds, "streaming_split"):
                 from ray_tpu_torch.data.streaming.ingest import ShardIterator
 
-                splits = [ShardIterator(s) for s in ds.streaming_split(n)]
+                parts = ds.streaming_split(n_shards) if n_shards == n \
+                    else ds.split(n_shards)
+                splits = [ShardIterator(part) for part in parts]
             elif isinstance(ds, (list, tuple)):
-                splits = [list(ds[i::n]) for i in range(n)]
-            if splits is None:
-                for i in range(n):
-                    per_worker[i][name] = ds
-            else:
-                for i in range(n):
-                    per_worker[i][name] = splits[i]
+                splits = [list(ds[i::n_shards]) for i in range(n_shards)]
+            for i, (shard, _) in enumerate(coords):
+                per_worker[i][name] = ds if splits is None else splits[shard]
         return per_worker
 
     def training_loop(self, on_report: Optional[Callable] = None
@@ -232,20 +243,21 @@ class DataParallelTrainer(BaseTrainer):
         executor = BackendExecutor(
             backend_config, scaling,
             max_failures=run_config.failure_config.max_failures)
+        # Split once per fit(), before the workers hold their CPUs (a
+        # materialized split runs its tasks now): a gang restart hands the
+        # new workers the same shards, which resume the split's epoch.
+        datasets_per_worker = self._split_datasets()
         try:
             executor.start()
         except BaseException:
             executor.shutdown()  # no worker of a failed start lives on
+            _close_shards(datasets_per_worker)
             raise
         history: List[Dict[str, Any]] = []
         last_metrics: Dict[str, Any] = {}
         last_ckpt: Optional[Checkpoint] = None
         error: Optional[BaseException] = None
-        datasets_per_worker = None
         try:
-            # Split once per fit(): a gang restart hands the new workers
-            # the same shards, which resume the split's epoch.
-            datasets_per_worker = self._split_datasets()
             for round_results in executor.run(
                     self.train_loop_per_worker, self.train_loop_config,
                     checkpoint=self.resume_from_checkpoint, device=device,

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, Llama (its
 GQA training backward too), the serving engine, RLlib's learner update and
 V-trace, TorchPredictor against the CPU's, the accelerator registry's
-name for the card, ring attention's mesh and chunk steps, and the pipeline
-stage trainer and GPipe, on a card.
+name for the card, ring attention's mesh and chunk steps, the pipeline
+stage trainer and GPipe, and GPT-2's mesh step, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -777,6 +777,46 @@ def test_gpipe_pp1_mesh_on_card_is_sequential_forward(nccl_of_one):
                                    {"input_ids": ids, "labels": ids})
         losses.append(loss.item())
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_gpt2_mesh_step_on_card_matches_one_device(nccl_of_one):
+    """chip_smoke.py phase 4i (a) at tiny width: GPT-2 on a (dp 1, fsdp 1,
+    tp 1) DeviceMesh over a one-rank NCCL group (DTensor parameters,
+    FSDP2, the vocab-parallel head and loss, all at size 1), bf16 on
+    float32 parameters, 2 + 3 AdamW steps with the flash kernels: losses
+    within phase 4g's 1e-3 relative of the same steps without a mesh,
+    falling, K1, K2 and K3 once a layer a step."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import shard_batch
+
+    mesh = build_mesh(MeshSpec({"dp": 1, "fsdp": 1, "tp": 1}))
+    cfg = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=256,
+                          n_layer=2, n_head=4)
+    ids = torch.randint(0, cfg.vocab_size, (4, 128), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    batch = {"input_ids": ids, "labels": ids}
+    losses = {}
+    for name in ("mesh", "no_mesh"):
+        if name == "mesh":
+            model = gpt2.GPT2(cfg, mesh=mesh,
+                              state=gpt2.init_sharded(cfg, mesh, seed=0))
+            step = gpt2.make_train_step(model, gpt2.adamw(model), mesh=mesh)
+            b = shard_batch(batch, mesh)
+            assert type(model.wte).__name__ == "DTensor"
+        else:
+            model = gpt2.GPT2(cfg, device="cuda", seed=0)
+            step = gpt2.make_train_step(model, gpt2.adamw(model))
+            b = batch
+        before = tattn.kernel_launches()
+        losses[name] = [step(b).item() for _ in range(5)]
+        after = tattn.kernel_launches()
+        assert {k: after[k] - before[k] for k in after} == dict.fromkeys(
+            tattn.KERNELS, 5 * cfg.n_layer)
+    got, want = losses["mesh"], losses["no_mesh"]
+    assert all(np.isfinite(got)) and got[-1] < got[0]
+    assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-3
 
 
 def test_engine_defaults_to_the_card():

@@ -372,9 +372,13 @@ def test_current_mesh_is_none_at_tp1_and_needs_m8_above():
                           "tp": 1, "spmd": False})
         assert shardgroup.current_mesh() is None
         runtime.deactivate()
-        runtime.activate({"group_id": "g2", "rank": 0, "world_size": 1,
-                          "tp": 2, "spmd": False})
-        with pytest.raises(NotImplementedError, match="M8"):
-            shardgroup.current_mesh()
+        # A tp 2 mesh takes two ranks, one a card: a gang of one cannot
+        # form it, and its bring-up fails (gangs at tp 2 and sp 2 x tp 2:
+        # tests/test_torch_train_pipeline.py).
+        with pytest.raises(RuntimeError, match="one a card"):
+            runtime.activate({"group_id": "g2", "rank": 0, "world_size": 1,
+                              "tp": 2, "spmd": False})
+        assert shardgroup.current() is None
+        assert shardgroup.current_mesh() is None
     finally:
         runtime.deactivate()

@@ -402,6 +402,48 @@ def test_datasets_two_gloo_workers_see_every_row_once(tmp_path):
     ray_tpu_torch.kill(tally)
 
 
+def _mesh_ingest_loop(config):
+    """Reads its whole shard and reports its rows with its mesh
+    coordinates (dp, tp)."""
+    mesh = session.get_mesh()
+    seen = []
+    for batch in session.get_dataset_shard("train").iter_batches(
+            batch_size=8):
+        seen += batch["id"].tolist()
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(
+        every, (list(mesh.get_coordinate()), seen))
+    session.report({"ranks": every})
+
+
+def test_datasets_split_over_the_data_parallel_coordinate():
+    """With `ScalingConfig(mesh=MeshSpec({"dp": 2, "tp": 2}))`, `datasets=`
+    is split over dp, not over the 4 workers: the tp peers of a dp
+    coordinate read the same rows in the same order, the two dp shards are
+    disjoint, and together they hold every row once. (Half a CPU a
+    worker: the split's reads need CPUs beside the 4 workers.)"""
+    result = TorchTrainer(
+        _mesh_ingest_loop, device="cpu",
+        scaling_config=ScalingConfig(num_workers=4, cpus_per_worker=0.5,
+                                     mesh=MeshSpec({"dp": 2, "tp": 2})),
+        datasets={"train": rd.range(64, parallelism=4)}).fit()
+    assert result.error is None, result.error
+    ranks = result.metrics["ranks"]
+    assert [coord for coord, _ in ranks] == [[0, 0], [0, 1], [1, 0], [1, 1]]
+    (a, a_peer), (b, b_peer) = [(ranks[i][1], ranks[i + 1][1])
+                                for i in (0, 2)]
+    assert a == a_peer and b == b_peer and a and b
+    assert not set(a) & set(b)
+    assert sorted(a + b) == list(range(64))
+    trainer = TorchTrainer(
+        _mesh_ingest_loop, device="cpu",
+        scaling_config=ScalingConfig(num_workers=4,
+                                     mesh=MeshSpec({"dp": 2, "tp": 2})),
+        datasets={"a": list(range(7))})
+    assert [s["a"] for s in trainer._split_datasets()] == \
+        [[0, 2, 4, 6], [0, 2, 4, 6], [1, 3, 5], [1, 3, 5]]
+
+
 def test_plain_lists_are_sharded_round_robin():
     trainer = TorchTrainer(_ingest_loop, device="cpu",
                            scaling_config=ScalingConfig(num_workers=3),

@@ -11,8 +11,11 @@ is held to float32 tolerances, stated at each test. The p2p cases drive two
 ranks as threads over the raylets of one module-scoped port cluster (the
 reference's harness); the gang cases run worker processes on it under
 `BackendExecutor`; the checkpoint's tp meshes are 4 spawned gloo ranks.
-JAX is imported only inside the `ref` fixture: the gloo ranks import this
-file.
+Tensor-parallel stages (pp 2 x tp 2) run as a 4-worker gang whose gloo
+group and mesh `TorchConfig(mesh=pipeline_mesh_spec(2))` forms; their
+losses are held to pp 1 x tp 1 within 1e-5 relative (float32 summation
+order over tp). JAX is imported only inside the `ref` fixture: the gloo
+ranks import this file.
 """
 
 import os
@@ -25,7 +28,9 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import Shard
 
+import ray_tpu_torch
 from ray_tpu_torch.cluster_utils import Cluster
 from ray_tpu_torch.collective import CollectiveGroup, RayletTransport
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
@@ -38,6 +43,7 @@ from ray_tpu_torch.train.pipeline import (LocalPipelineTrainer, adam_state,
                                           analytic_bubble,
                                           build_stage_programs,
                                           make_pipeline_train_fn,
+                                          pipeline_mesh_spec,
                                           restore_pipeline_stage,
                                           save_pipeline_stage, seeded_batch,
                                           tiny_pipeline_config, token_xent)
@@ -45,6 +51,7 @@ from ray_tpu_torch.train.pipeline import (LocalPipelineTrainer, adam_state,
 from gloo_ranks import GlooRanks
 
 STALL_S = 10.0
+TP_RTOL = 1e-5
 
 
 def _equal(a, b):
@@ -637,3 +644,271 @@ def test_launch_counters_count_every_thread():
     want = {name: sum(n for i in range(8) if names[i % len(names)] == name)
             for name in names}
     assert {k: after[k] - before[k] for k in names} == want
+
+
+# --------------------------------------------------------------------------- #
+# Tensor-parallel stages: pp 2 x tp 2 gangs, their checkpoints, GPT-2's
+# (dp, tp) checkpoints and the shard gang's mesh
+# --------------------------------------------------------------------------- #
+
+
+def _tp_executor(world, **kw):
+    from ray_tpu_torch.train.backend import TorchConfig
+    from ray_tpu_torch.train.backend_executor import BackendExecutor
+    from ray_tpu_torch.train.config import ScalingConfig
+
+    return BackendExecutor(
+        TorchConfig(backend="gloo", mesh=pipeline_mesh_spec(2)),
+        ScalingConfig(num_workers=world, use_gpu=False), **kw)
+
+
+def _restore_tp2(rank, path):
+    """Restore a merged stage checkpoint at (tp 2, pp 1), ranks 0-1 and
+    2-3 each a tp line: whole params and moments, and the placements."""
+    cfg = tiny_pipeline_config()
+    mesh = tmesh.build_mesh(tmesh.MeshSpec({"dp": 2, "tp": 2}),
+                            device_type="cpu")
+    st = restore_pipeline_stage(path, cfg, 0, 1, mesh=mesh["tp"],
+                                device="cpu")
+    placed = {k: (tuple(v.placements), tuple(st["opt"][k]["exp_avg"]
+                                             .placements))
+              for k, v in st["params"].items()}
+    params = {k: v.full_tensor() for k, v in st["params"].items()}
+    opt = {k: {"step": v["step"], "exp_avg": v["exp_avg"].full_tensor(),
+               "exp_avg_sq": v["exp_avg_sq"].full_tensor()}
+           for k, v in st["opt"].items()}
+    return params, opt, placed
+
+
+def _check_restores(ranks, path, pp):
+    """The merged checkpoint at `path` restores bitwise alike at (tp, pp)
+    = (1, 1), (1, 2) and (2, 1); returns the (1, 1) state."""
+    cfg = tiny_pipeline_config()
+    whole = restore_pipeline_stage(path, cfg, 0, 1, device="cpu")
+    parts = [restore_pipeline_stage(path, cfg, s, 2, device="cpu")
+             for s in range(2)]
+    assert _equal(tllama.merge_stage_params([p["params"] for p in parts]),
+                  whole["params"])
+    assert _equal(tllama.merge_stage_params([p["opt"] for p in parts]),
+                  whole["opt"])
+    for params, opt, placed in ranks.run(_restore_tp2, path):
+        assert _equal(params, whole["params"]) and _equal(opt, whole["opt"])
+        assert placed["layers.0.wq.weight"] == ((Shard(0),), (Shard(0),))
+        assert placed["layers.0.wo.weight"] == ((Shard(1),), (Shard(1),))
+    return whole
+
+
+def test_pipeline_tp2_gang_matches_pp1_and_restores_at_any_width(
+        cluster, ranks, tmp_path):
+    """`make_pipeline_train_fn(tp=2)` at pp 2 x tp 2 (4 gloo workers, each
+    stage over its tp line, boundaries between (s, t) and (s +- 1, t))
+    gives the losses of pp 1 x tp 1 within 1e-5 relative; its merged
+    per-step checkpoint (written by all 4 ranks, DTensor shards and
+    moments) restores bitwise alike at (tp, pp) = (1, 1), (1, 2) and
+    (2, 1), within Adam's noise (2e-4, as the reference test above) of
+    the single-process run's weights."""
+    steps = 4
+    train_fn = make_pipeline_train_fn(
+        steps=steps, microbatches=2, batch=4, seq=16, lr=1e-2, seed=0,
+        ckpt_dir=str(tmp_path / "ck"), tp=2)
+    ex = _tp_executor(4)
+    ex.start()
+    try:
+        per_step = _drain(ex, train_fn, "pipe_tp2")
+        final = ex.latest_checkpoint.to_dict()
+    finally:
+        ex.shutdown()
+    losses, local = _local_run(steps)
+    for s in range(steps):
+        assert per_step[s]["world"] == 4
+        assert abs(per_step[s]["loss"] - losses[s]) <= \
+            TP_RTOL * abs(losses[s]), (s, per_step[s], losses[s])
+    assert (final["step"], final["pp"], final["tp"]) == (steps - 1, 2, 2)
+    manifest = sharded_manifest(final["path"])
+    assert manifest["process_count"] == 4
+    shards = manifest["entries"]["params/layers.0.wq.weight"]["shards"]
+    assert sorted(sh["index"][0] for sh in shards) == [[0, 16], [16, 32]]
+    whole = _check_restores(ranks, final["path"], 2)
+    for name, want in local.merged_params().items():
+        np.testing.assert_allclose(whole["params"][name].numpy(),
+                                   want.numpy(), atol=2e-4, rtol=0,
+                                   err_msg=name)
+
+
+def test_kill_a_tp_stage_resumes_at_pp1_tp2(cluster, ranks, tmp_path):
+    """Kill one rank of a pp 2 x tp 2 gang after a merged checkpoint: the
+    gang restarts at 2 workers (pp 1 x tp 2, `elastic_world_fn`) under
+    the reference's 180 s deadline, restores the pp 2 manifest onto its tp
+    line, and finishes every step; its losses stay within 1e-5 of pp 1 x
+    tp 1's, and the last checkpoint restores bitwise at every width."""
+    steps = 6
+    train_fn = make_pipeline_train_fn(
+        steps=steps, microbatches=2, batch=4, seq=16, lr=1e-2, seed=0,
+        ckpt_dir=str(tmp_path / "ck"), tp=2)
+    deadline = time.monotonic() + 180.0
+    ex = _tp_executor(4, max_failures=2,
+                      elastic_world_fn=lambda fail, world: 2)
+    ex.start()
+    victim = ex.worker_group.procs[3]["pid"]
+
+    def killer():
+        while time.monotonic() < deadline:
+            ck = ex.latest_checkpoint
+            if ck is not None and ck.to_dict().get("step", -1) >= 1:
+                os.kill(victim, signal.SIGKILL)
+                return
+            time.sleep(0.01)
+
+    threading.Thread(target=killer, daemon=True).start()
+    try:
+        per_step = _drain(ex, train_fn, "pipe_tp2_kill")
+        final = ex.latest_checkpoint.to_dict()
+        restarts = list(ex.restarts)
+    finally:
+        ex.shutdown()
+    assert time.monotonic() < deadline, "recovery blew the 180 s deadline"
+    assert restarts and restarts[0]["world_size"] == 2, restarts
+    assert (final["step"], final["pp"], final["tp"]) == (steps - 1, 1, 2)
+    worlds = {s: v["world"] for s, v in per_step.items()}
+    assert 4 in worlds.values() and 2 in worlds.values(), worlds
+    losses, _ = _local_run(steps)
+    for s in range(steps):
+        assert abs(per_step[s]["loss"] - losses[s]) <= \
+            TP_RTOL * abs(losses[s]), (s, per_step[s], losses[s])
+    _check_restores(ranks, final["path"], 1)
+
+
+def _gpt2_checkpoint_rank(rank, path, src, dst):
+    """GPT-2 tiny on mesh `src` takes one AdamW step and saves its DTensor
+    parameters and moments from all 4 ranks (rank 0 merges); then the
+    checkpoint restores on mesh `dst` into a model placed there, and every
+    value must equal the saved one bit for bit, in the new model's
+    placements. Returns the saved state, whole, and what failed."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt2 as tgpt2
+    from ray_tpu_torch.parallel.sharding import shard_batch
+    from ray_tpu_torch.parallel.tensor_parallel import full_state, place_like
+    from ray_tpu_torch.train.checkpoint import restore_sharded_pytree
+
+    cfg = dataclasses.replace(tgpt2.GPT2Config.tiny(seq=16),
+                              dtype=torch.float32)
+    mesh = tmesh.build_mesh(tmesh.MeshSpec(src), device_type="cpu")
+    model = tgpt2.GPT2(cfg, mesh=mesh, seed=0)
+    opt = tgpt2.adamw(model)
+    step = tgpt2.make_train_step(model, opt, mesh=mesh)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 16)))
+    step(shard_batch({"input_ids": ids, "labels": ids}, mesh))
+
+    def moments(m, o):
+        return {n: {"step": o.state[p]["step"],
+                    "exp_avg": o.state[p]["exp_avg"],
+                    "exp_avg_sq": o.state[p]["exp_avg_sq"]}
+                for n, p in m.named_parameters()}
+
+    tree = {"params": dict(model.named_parameters()),
+            "opt": moments(model, opt)}
+    save_sharded_pytree(path, tree, process_index=rank, process_count=4,
+                        meta=src)
+    dist.barrier()
+    if rank == 0:
+        merge_sharded_manifest(path, 4)
+    dist.barrier()
+    saved = {"params": full_state(model),
+             "opt": {n: {k: v.full_tensor() if hasattr(v, "full_tensor")
+                         else v for k, v in st.items()}
+                     for n, st in moments(model, opt).items()}}
+
+    bad = []
+    target = tgpt2.GPT2(cfg, mesh=tmesh.build_mesh(tmesh.MeshSpec(dst),
+                                                   device_type="cpu"),
+                        seed=1)
+    target_opt = tgpt2.adamw(target)
+    whole = restore_sharded_pytree(path)
+    with torch.no_grad():
+        for name, p in target.named_parameters():
+            value = place_like(whole["params"][name], p)
+            if tuple(value.placements) != tuple(p.placements):
+                bad.append(f"{name} placed {value.placements}")
+            p.copy_(value)
+            target_opt.state[p] = {
+                k: place_like(whole["opt"][name][k], p) if k != "step"
+                else whole["opt"][name][k] for k in ("step", "exp_avg",
+                                                     "exp_avg_sq")}
+    got = {"params": full_state(target),
+           "opt": {n: {k: v.full_tensor() if hasattr(v, "full_tensor")
+                       else v for k, v in st.items()}
+                   for n, st in moments(target, target_opt).items()}}
+    if not _equal(got, saved):
+        bad.append(f"restored at {dst}")
+    return saved, bad
+
+
+@pytest.mark.parametrize("src,dst", [
+    ({"dp": 2, "tp": 2}, {"dp": 1, "tp": 4}),
+    ({"fsdp": 2, "tp": 2}, {"dp": 2, "tp": 2})])
+def test_gpt2_mesh_checkpoint_restores_bitwise(ranks, tmp_path, src, dst):
+    """A GPT-2 checkpoint with AdamW's moments saved at (dp 2, tp 2) (each
+    dp replica's copy written once) or at (fsdp 2, tp 2) (FSDP2's shards,
+    strided on the tp-sharded biases) restores bit-exact at (dp, tp) =
+    (1, 1), whole into a model on one device, and at (1, 4) or (2, 2),
+    placed as that mesh's model places its parameters."""
+    from ray_tpu_torch.models import gpt2 as tgpt2
+    from ray_tpu_torch.train.checkpoint import restore_sharded_pytree
+
+    path = str(tmp_path / "gpt2")
+    results = ranks.run(_gpt2_checkpoint_rank, path, src, dst)
+    assert [bad for _, bad in results] == [[]] * 4
+    saved = results[0][0]
+    assert sharded_manifest(path)["meta"] == src
+    whole = restore_sharded_pytree(path)
+    assert _equal(whole, saved)
+    cfg = tgpt2.GPT2Config.tiny(seq=16)
+    model = tgpt2.GPT2(cfg, device="cpu", state=whole["params"])
+    assert _equal({k: v.detach() for k, v in model.named_parameters()},
+                  saved["params"])
+
+
+class _MeshRank:
+    """A gang rank that answers with its stage mesh and a tp all-reduce."""
+
+    def __call__(self, payload):
+        return payload
+
+    def mesh(self):
+        from ray_tpu_torch import shardgroup
+
+        mesh = shardgroup.current_mesh()
+        ones = torch.ones(1) * (dist.get_rank() + 1)
+        dist.all_reduce(ones, group=mesh.get_group("tp"))
+        return (shardgroup.current().rank, tuple(mesh.mesh_dim_names),
+                tuple(mesh.mesh.shape), tuple(mesh.get_coordinate()),
+                mesh.device_type, int(ones.item()))
+
+
+@pytest.mark.parametrize("sp,tp", [(1, 2), (2, 2)])
+def test_gang_current_mesh_at_tp2_and_sp2_tp2(cluster, sp, tp):
+    """A shard gang of sp x tp ranks (one a card; CPU ranks here) builds
+    its ("sp", "tp") DeviceMesh over its gloo group at bring-up, size-1
+    axes dropped, and a collective over its tp group runs."""
+    from ray_tpu_torch import shardgroup
+
+    group = shardgroup.create_replica_group(
+        _MeshRank, shardgroup.ShardSpec(tp=tp, sp=sp, world_size=sp * tp),
+        deployment_name=f"mesh-sp{sp}-tp{tp}",
+        actor_options={"num_cpus": 0.5,
+                       "runtime_env": {"env_vars": {"OMP_NUM_THREADS": "1"}}})
+    try:
+        views = ray_tpu_torch.get([r.handle_request.remote("mesh", (), {})
+                                   for r in group.ranks], timeout=60)
+    finally:
+        group.kill()
+    names = ("sp", "tp") if sp > 1 else ("tp",)
+    shape = (sp, tp) if sp > 1 else (tp,)
+    for rank, view in enumerate(views):
+        coord = (rank // tp, rank % tp) if sp > 1 else (rank,)
+        # The tp line of rank r holds ranks r - r % tp and the next.
+        line = rank - rank % tp
+        assert view == (rank, names, shape, coord, "cpu",
+                        (line + 1) + (line + 2)), view
