@@ -10,6 +10,12 @@ The banks are fixed-shape per-layer tensors ([n_rows, ...], row 0 the zero
 identity) so adapter load/evict is pure data movement: the programs' shapes
 never change. Rows holding adapters with live sequences are pinned:
 eviction can never yank weights out from under a mid-flight generation.
+
+On a tp mesh (`mesh=`) the host banks stay whole and `device_banks()`
+copies out this rank's slice (`lora_bank_shardings`: ao's input dim over
+tp). The scheduling rank's manager also logs each residency change
+(`take_changes`), which the lockstep engine sends to its followers, whose
+managers replay it (`apply_changes`), so every rank holds the same rows.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from ray_tpu_torch._torch_env import resolve_device
-from ray_tpu_torch.models.llama import lora_bank_shapes
+from ray_tpu_torch.models.llama import lora_bank_shapes, lora_bank_shardings
+from ray_tpu_torch.parallel.mesh import axis_rank
+from ray_tpu_torch.parallel.tensor_parallel import local_piece
 
 
 class AdapterLoadError(ValueError):
@@ -33,8 +41,8 @@ class AdapterManager:
     every call happens under the engine lock (submission/step paths).
 
     Host banks are CPU tensors in the model dtype; `device_banks()` copies
-    them to `device` (the card unless the caller asks for the CPU) once
-    after each residency change."""
+    them (this rank's slices, on a mesh) to `device` (the card unless the
+    caller asks for the CPU) once after each residency change."""
 
     def __init__(self, model_cfg, max_adapters: int, rank: int,
                  mesh=None,
@@ -43,10 +51,12 @@ class AdapterManager:
             raise ValueError("max_adapters must be >= 1 when multiplexing")
         if rank < 1:
             raise ValueError("lora rank must be >= 1")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: tensor-parallel adapter banks (lora_bank_shardings) "
-                "are ROADMAP M8b's serving half, not yet ported")
+        self._shardings = (lora_bank_shardings(model_cfg, mesh)
+                           if mesh is not None else None)
+        # Residency changes, logged on the rank that schedules (tp
+        # coordinate 0 of a mesh) for the lockstep engine's records.
+        self._changes: Optional[list] = (
+            [] if mesh is not None and axis_rank(mesh, "tp") == 0 else None)
         self._device = resolve_device(device)
         self._cfg = model_cfg
         self.max_adapters = max_adapters
@@ -99,17 +109,10 @@ class AdapterManager:
                     f"{self.max_adapters} bank rows are pinned by live "
                     "sequences (raise max_adapters)")
             self._evict(victim)
-        row = self._free_rows.pop()
-        try:
-            self._write_row(row, weights)
-        except BaseException:
-            self._zero_row(row)
-            self._free_rows.append(row)
-            raise
-        self._rows[model_id] = row
-        self._last_used[model_id] = time.monotonic()
-        self.loads += 1
-        self._device_banks = None
+        row = self._free_rows[-1]
+        self._install(model_id, row, weights)
+        if self._changes is not None:
+            self._changes.append((model_id, row, weights))
         return row
 
     def evict(self, model_id: str) -> bool:
@@ -135,6 +138,42 @@ class AdapterManager:
         self._zero_row(row)
         self._free_rows.append(row)
         self.evictions += 1
+        if self._changes is not None:
+            self._changes.append((model_id, row, None))
+
+    def take_changes(self) -> list:
+        """The residency changes since the last call, in order: (model_id,
+        row, per-layer rows) for a load, (model_id, row, None) for an
+        eviction. Empty off the scheduling rank."""
+        if self._changes is None:
+            return []
+        out, self._changes = self._changes, []
+        return out
+
+    def apply_changes(self, changes) -> None:
+        """Replay the scheduling rank's residency changes (a lockstep
+        follower): the same rows take the same weights."""
+        for model_id, row, weights in changes:
+            if weights is None:
+                self._evict(model_id)
+                self._device_banks = None
+            else:
+                self._install(model_id, row, weights)
+
+    def _install(self, model_id: str, row: int, weights) -> None:
+        """Write `weights` into free `row` and make `model_id` resident
+        there. A write that fails leaves the row zeroed and free."""
+        self._free_rows.remove(row)
+        try:
+            self._write_row(row, weights)
+        except BaseException:
+            self._zero_row(row)
+            self._free_rows.append(row)
+            raise
+        self._rows[model_id] = row
+        self._last_used[model_id] = time.monotonic()
+        self.loads += 1
+        self._device_banks = None
 
     def _write_row(self, row: int, weights) -> None:
         if len(weights) != len(self._host):
@@ -159,10 +198,17 @@ class AdapterManager:
 
     def device_banks(self):
         """Per-layer [(aq, bq, ao, bo)] tensors on the engine's device for
-        the step programs, cached until residency changes."""
+        the step programs, cached until residency changes; on a mesh this
+        rank's slice of each (`lora_bank_shardings`)."""
         if self._device_banks is None:
+            def piece(bank, i):
+                if self._shardings is None:
+                    return bank
+                return local_piece(bank, *self._shardings[i])
+
             self._device_banks = [
-                tuple(bank.to(self._device, copy=True) for bank in layer)
+                tuple(piece(bank, i).to(self._device, copy=True)
+                      for i, bank in enumerate(layer))
                 for layer in self._host]
         return self._device_banks
 

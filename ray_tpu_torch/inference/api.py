@@ -21,17 +21,31 @@ The engine runs on the card the replica was granted
 (``ray_actor_options={"num_gpus": 1}``) unless the deployment is bound
 with ``device="cpu"``; a replica with neither raises. Tokens and ids cross
 the data plane as Python ints.
+
+On a tp gang (``shard_spec=ShardSpec(tp=n, world_size=n)``, one rank a
+card) every rank builds the lockstep engine on the gang's mesh: rank 0
+(the replica the router sees) runs the `EngineLoop`, and every other rank
+runs the engine's `follow()` on a thread. Draining rank 0
+(`prepare_shutdown`, also the first act of the gang's kill) stops its
+loop, which sends the followers the stop record. A step that fails on the
+mesh fails rank 0's requests at once, and a follower that fails ends its
+process, so the gang restarts as a unit.
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
+import os
+import threading
 from typing import Any, Dict, Optional
 
 from ray_tpu_torch import serve
 from ray_tpu_torch._torch_env import replica_device
 from ray_tpu_torch.inference.engine import (EngineConfig, EngineLoop,
                                             InferenceEngine)
+
+logger = logging.getLogger(__name__)
 
 
 def _parse(payload: Optional[Dict[str, Any]], default_new: int):
@@ -93,9 +107,9 @@ class LLMServer:
         self._default_new = default_new_tokens
         self._config = EngineConfig(**kwargs)
         # Sharded replica groups: when this replica is a gang rank the
-        # shard context was activated before this ctor ran. A tp > 1 gang
-        # has its mesh (current_mesh), which the engine refuses until
-        # tensor-parallel serving lands (ROADMAP M8b's serving half).
+        # shard context was activated before this ctor ran; the gang's tp
+        # mesh turns on the engine's tensor-parallel path (each rank's
+        # shards from the same seed as an unsharded replica's weights).
         from ray_tpu_torch import shardgroup
 
         self._engine = InferenceEngine(self._config,
@@ -103,7 +117,33 @@ class LLMServer:
                                        mesh=shardgroup.current_mesh())
         if self._adapter_specs:
             self._engine.register_adapter_source(self._load_adapter)
-        self._loop = EngineLoop(self._engine)
+        self._loop: Optional[EngineLoop] = None
+        self._follower: Optional[threading.Thread] = None
+        if self._engine.is_leader:
+            self._loop = EngineLoop(self._engine)
+        else:
+            self._follower = threading.Thread(target=self._follow,
+                                              name="inference-follower",
+                                              daemon=True)
+            self._follower.start()
+
+    def _follow(self) -> None:
+        """A follower rank's thread: `follow()` until the stop record. A
+        fault (here, or the leader's records stopping past the group's
+        timeout) ends this rank's process, so the controller restarts the
+        gang as a unit: its ranks are out of step for good."""
+        try:
+            self._engine.follow()
+        except BaseException:  # noqa: BLE001 — the gang restarts on it
+            logger.exception("tp follower failed: ending this rank")
+            logging.shutdown()
+            os._exit(1)
+
+    def _submit(self, *args, **kwargs):
+        if self._loop is None:
+            raise RuntimeError("a tp follower rank takes no requests: "
+                               "rank 0 of the gang serves them")
+        return self._loop.submit(*args, **kwargs)
 
     def _load_adapter(self, model_id: str):
         """Engine adapter source: spec -> deterministic weights (the
@@ -147,8 +187,8 @@ class LLMServer:
                     fut.set_result(None)
             loop.call_soon_threadsafe(_resolve)
 
-        req = self._loop.submit(ids, max_new, on_finish=on_finish,
-                                model_id=model_id, slo_class=slo)
+        req = self._submit(ids, max_new, on_finish=on_finish,
+                           model_id=model_id, slo_class=slo)
         try:
             await fut
         except asyncio.CancelledError:
@@ -174,9 +214,9 @@ class LLMServer:
         def on_finish(req):
             loop.call_soon_threadsafe(queue.put_nowait, ("end", req))
 
-        req = self._loop.submit(ids, max_new, on_token=on_token,
-                                on_finish=on_finish, model_id=model_id,
-                                slo_class=slo)
+        req = self._submit(ids, max_new, on_token=on_token,
+                           on_finish=on_finish, model_id=model_id,
+                           slo_class=slo)
         try:
             while True:
                 kind, item = await queue.get()
@@ -216,4 +256,5 @@ class LLMServer:
         return out
 
     def __serve_shutdown__(self) -> None:
-        self._loop.stop()
+        if self._loop is not None:
+            self._loop.stop()

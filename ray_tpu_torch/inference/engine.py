@@ -46,6 +46,15 @@ of the actor runtime.
 (gang admission, batch drains at the speed of its longest member, results
 delivered only when the whole gang finishes) through the same compute
 path.
+
+Tensor-parallel serving (`mesh` with a "tp" axis) is a lockstep engine:
+every tp rank builds one on its shards (the model's heads, MLP and vocab,
+the arenas' KV heads, the LoRA bank's `ao`), the rank at tp coordinate 0
+schedules and takes requests, and before each program call it sends the
+step's record to the others, whose `follow()` runs the same program on
+theirs (`lockstep.py`). The greedy pick gathers the vocab shards' best
+(`vocab_parallel_argmax`), so every rank gets the same tokens and none
+crosses back.
 """
 
 from __future__ import annotations
@@ -61,8 +70,10 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._torch_env import same_device
+from ray_tpu_torch.inference import lockstep
 from ray_tpu_torch.inference.kv_cache import BlockManager, RadixPrefixCache
 from ray_tpu_torch.observability import tracing as _tracing
+from ray_tpu_torch.parallel.tensor_parallel import vocab_parallel_argmax
 
 logger = logging.getLogger(__name__)
 
@@ -163,27 +174,54 @@ class InferenceEngine:
     dense weights cast to the compute dtype once, here (the same values the
     reference's per-call cast gives). `draft_model` is the speculative
     draft (default: the target's first n_layer // 2 layers, sharing its
-    weights). `mesh` (tensor-parallel serving, every tp rank's engine
-    stepping in lockstep with rank 0's schedule) is ROADMAP M8b's serving
-    half, queue 1's first item: it raises until then.
+    weights).
+
+    `mesh` (a DeviceMesh whose axes other than "tp" have size 1) serves
+    tensor-parallel: `model` and `draft_model` are None or placed on that
+    mesh (`Llama(mesh=)`), a model on a mesh is served only with it, the
+    truncated draft shares the target's shards, the arenas hold this
+    rank's KV heads and the adapter banks its slice of `ao`. Every rank of the
+    process group builds its engine on the same mesh at the same time. The
+    rank at tp coordinate 0 (`is_leader`) schedules, takes the requests and
+    sends each step's record; every other rank runs `follow()`, on a
+    thread of its own, until the leader's `stop_followers()`.
     """
 
     def __init__(self, config: EngineConfig, model=None,
                  device: Optional[Union[str, torch.device]] = None,
                  mesh=None, draft_model=None):
         from ray_tpu_torch.core.config import GLOBAL_CONFIG
-        from ray_tpu_torch.models.llama import Llama, LlamaConfig
+        from ray_tpu_torch.models.llama import Llama
 
         cfg = config
         if cfg.scheduling not in ("continuous", "static"):
             raise ValueError(f"unknown scheduling {cfg.scheduling!r}")
         if cfg.max_blocks_per_seq * cfg.block_size < cfg.prefill_chunk:
             raise ValueError("prefill_chunk exceeds the per-seq context")
+        self._mesh = mesh
+        self._tp = 1
+        self._lockstep = None
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: tensor-parallel serving (the lockstep engine) is "
-                "ROADMAP M8b's serving half, not yet ported; M8b's "
-                "training half (Llama(mesh=), make_train_step(mesh=)) is")
+            from ray_tpu_torch.models.llama import validate_tp
+            from ray_tpu_torch.parallel.mesh import axis_size, mesh_shape_summary
+
+            other = {name: n for name, n in mesh_shape_summary(mesh).items()
+                     if name != "tp" and n > 1}
+            if other:
+                raise ValueError(f"serving shards over tp alone; the mesh "
+                                 f"also has {other}")
+            self._tp = axis_size(mesh, "tp")
+            validate_tp(model.config if model is not None else
+                        self._preset(cfg), self._tp)
+        for m in (model, draft_model):
+            if m is not None and (m.mesh_ctx.mesh if m.mesh_ctx is not None
+                                  else None) is not mesh:
+                raise ValueError("a model served on a mesh is placed on "
+                                 "that mesh first (Llama(mesh=)), and one "
+                                 "placed on a mesh is served with it "
+                                 "(mesh=)")
+        if mesh is not None:
+            self._lockstep = lockstep.Lockstep(mesh)
         self.config = cfg
         # Explicit config wins, else the global flag table.
         self._draft_len = int(
@@ -205,10 +243,8 @@ class InferenceEngine:
             cfg.prefix_cache_enabled if cfg.prefix_cache_enabled is not None
             else bool(GLOBAL_CONFIG.prefix_cache_enabled))
         if model is None:
-            mc = {"tiny": LlamaConfig.tiny(seq=cfg.max_model_len),
-                  "small": LlamaConfig.small(),
-                  "7b": LlamaConfig.llama7b()}[cfg.model_size]
-            model = Llama(mc, device=device, seed=0)
+            model = Llama(self._preset(cfg), device=device, seed=0,
+                          mesh=mesh)
         elif device is not None and not same_device(torch.device(device),
                                                     model.device):
             raise ValueError(f"the model lies on {model.device}; the "
@@ -246,7 +282,7 @@ class InferenceEngine:
                          if not name.startswith("layers.")
                          or name.startswith(keep)}
                 self._draft_model = Llama(dcfg, device=self._device,
-                                          state=state)
+                                          state=state, mesh=mesh)
             else:
                 if not same_device(self._device, draft_model.device):
                     raise ValueError("the draft model lies on another "
@@ -262,7 +298,7 @@ class InferenceEngine:
             from ray_tpu_torch.inference.adapters import AdapterManager
 
             self._adapters = AdapterManager(model.config, cfg.max_adapters,
-                                            cfg.lora_rank,
+                                            cfg.lora_rank, mesh=mesh,
                                             device=self._device)
         self._slots: List[Optional[Request]] = [None] * cfg.batch_slots
         self._waiting: List[Request] = []     # kept sorted by arrival
@@ -295,11 +331,26 @@ class InferenceEngine:
                                   verify=self._verify_fn)
         self._last_stats = self._stats_locked()
 
+    @staticmethod
+    def _preset(cfg: EngineConfig):
+        from ray_tpu_torch.models.llama import LlamaConfig
+
+        return {"tiny": LlamaConfig.tiny(seq=cfg.max_model_len),
+                "small": LlamaConfig.small(),
+                "7b": LlamaConfig.llama7b()}[cfg.model_size]
+
     def _new_arenas(self, model):
         from ray_tpu_torch.models.llama import make_paged_arena
 
         return make_paged_arena(model.config, self.config.num_blocks,
-                                self.config.block_size, device=self._device)
+                                self.config.block_size, device=self._device,
+                                mesh=self._mesh)
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this engine schedules: always without a mesh, the rank
+        at tp coordinate 0 on one."""
+        return self._lockstep is None or self._lockstep.is_leader
 
     # ----------------------------------------------------------- programs
     #
@@ -313,21 +364,26 @@ class InferenceEngine:
             return None, None
         return self._adapters.device_banks(), aidx
 
+    def _pick(self, logits):
+        """Greedy tokens of `logits` [..., vocab] (this rank's vocab shard
+        on a mesh: the same tokens on every rank)."""
+        return vocab_parallel_argmax(logits, self._model.mesh_ctx)
+
     def _prefill_fn(self, arenas, ids, bt, pos, wmask, last_idx, aidx=None):
         logits, _ = self._model.decode_paged(ids, arenas, bt, pos, wmask,
                                              *self._lora(aidx))
         rows = torch.arange(ids.shape[0], device=ids.device)
-        return logits[rows, last_idx].argmax(dim=-1)
+        return self._pick(logits[rows, last_idx])
 
     def _decode_fn(self, arenas, toks, bt, pos, wmask, aidx=None):
         logits, _ = self._model.decode_paged(toks, arenas, bt, pos, wmask,
                                              *self._lora(aidx))
-        return logits[:, -1].argmax(dim=-1)
+        return self._pick(logits[:, -1])
 
     def _verify_fn(self, arenas, toks, bt, pos, wmask, aidx=None):
         logits, _ = self._model.decode_paged(toks, arenas, bt, pos, wmask,
                                              *self._lora(aidx))
-        return logits.argmax(dim=-1)                  # [B, k+1]
+        return self._pick(logits)                     # [B, k+1]
 
     def _draft_prefill_fn(self, darenas, ids, bt, pos, wmask):
         # Keeps the draft's KV in lockstep with the target's.
@@ -346,7 +402,7 @@ class InferenceEngine:
         for wm in wmask_seq:
             logits, _ = self._draft_model.decode_paged(tok, darenas, bt, p,
                                                        wm)
-            nxt = logits[:, -1].argmax(dim=-1)
+            nxt = self._pick(logits[:, -1])
             props.append(nxt)
             tok, p = nxt[:, None], p + 1
         return torch.stack(props, dim=1)
@@ -396,6 +452,9 @@ class InferenceEngine:
                     model_id: Optional[str] = None,
                     slo_class: Optional[str] = None) -> Request:
         cfg = self.config
+        if not self.is_leader:
+            raise RuntimeError("a tp follower takes no requests: the rank "
+                               "at tp coordinate 0 schedules them")
         prompt = [int(t) for t in prompt] or [0]
         max_new_tokens = max(1, int(max_new_tokens))
         slo = slo_class if slo_class is not None else self._slo_default
@@ -788,10 +847,91 @@ class InferenceEngine:
                             for r in rows], np.int32),)
 
     def _call(self, name: str, fn, arenas, *args):
-        """Run one program: record its argument shapes, move the host
-        arrays to the device in one copy, and call it on the arenas."""
+        """Run one program: on a mesh, send its record to the followers
+        first; record its argument shapes, move the host arrays to the
+        device in one copy, and call it on the arenas. On a mesh a program
+        that fails breaks the lockstep (`lockstep.Lockstep.fail`)."""
+        if self._lockstep is None:
+            return self._run(name, fn, arenas, args)
+        self._send(program=name, args=args)
+        try:
+            return self._run(name, fn, arenas, args)
+        except BaseException as e:
+            self._lockstep.fail(e)
+            raise
+
+    def _run(self, name: str, fn, arenas, args):
         self._shapes[name].add(tuple(a.shape for a in args))
         return fn(arenas, *self._upload(args))
+
+    # ------------------------------------------------------------ lockstep
+
+    def _send(self, **record) -> None:
+        if self._adapters is not None:
+            record["adapters"] = self._adapters.take_changes()
+        self._lockstep.send(record)
+
+    def follow(self) -> int:
+        """A follower's loop: receive each record of the leader's, apply
+        it (adapter rows, an arena reset) and run its program on this
+        rank's shards, until the stop record. Returns the records applied.
+        An exception ends the loop (the leader's step then fails on the
+        mesh group's timeout)."""
+        if self.is_leader:
+            raise RuntimeError("the leader schedules; only a tp follower "
+                               "follows")
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
+        applied = 0
+        while True:
+            record = self._lockstep.recv()
+            if record.get("stop"):
+                return applied
+            with self._lock:
+                if record.get("adapters"):
+                    self._adapters.apply_changes(record["adapters"])
+                if record.get("reset"):
+                    self._reset_arenas()
+                name = record.get("program")
+                if name is not None:
+                    arenas = (self._draft_arenas
+                              if name in ("draft_prefill", "propose")
+                              else self._arenas)
+                    self._run(name, self._programs[name], arenas,
+                              record["args"])
+            applied += 1
+
+    def _sends(self) -> bool:
+        """Whether this engine still sends records: the leader of a mesh
+        whose lockstep is neither stopped nor broken."""
+        ls = self._lockstep
+        return (ls is not None and ls.is_leader and not ls.stopped
+                and ls.broken is None)
+
+    def stop_followers(self) -> None:
+        """Send the stop record (the leader of a mesh; once): every
+        follower's `follow()` returns. Sends nothing once the lockstep is
+        broken: the followers' waits run out instead."""
+        with self._lock:
+            if not self._sends():
+                return
+            self._lockstep.stopped = True
+            self._send(stop=True)
+
+    def heartbeat(self) -> None:
+        """Send an empty record when the leader has sent none for the
+        lockstep's `heartbeat_s`, so an idle follower's wait never reaches
+        its limit. A send that fails breaks the lockstep and is logged."""
+        if not self._sends():
+            return
+        if time.monotonic() - self._lockstep.last_sent \
+                >= self._lockstep.heartbeat_s:
+            with self._lock:
+                try:
+                    self._send()
+                except Exception:  # noqa: BLE001 — the next step fails
+                    logger.exception("lockstep: the heartbeat record was "
+                                     "not sent")
 
     def _upload(self, arrays) -> List[torch.Tensor]:
         """Host arrays -> int64 (bool for masks) device tensors, through
@@ -915,24 +1055,33 @@ class InferenceEngine:
                 self._live.pop(req.request_id, None)
                 self._fire(req, ("finish", None), emissions)
             self._waiting.clear()
-            # Rebuild the arenas: a step that failed mid-execution may have
-            # left a chunk half written. The old arenas are released
-            # BEFORE the new ones are made, so at no point are two alive.
-            self._arenas = None
-            self._arenas = self._new_arenas(self._model)
-            if self._draft_arenas is not None:
-                self._draft_arenas = None
-                self._draft_arenas = self._new_arenas(self._draft_model)
+            self._reset_arenas()
             # Fresh arenas invalidate every cached block's contents: a
             # warm radix tree pointing at zeroed KV would serve garbage.
             if self._prefix is not None:
                 self._prefix.clear()
+            if self._sends():
+                try:
+                    self._send(reset=True)
+                except Exception:  # noqa: BLE001 — a follower gone: the
+                    logger.exception("lockstep: the arena reset record "
+                                     "was not sent")   # requests still fail
         for fn, args in emissions:
             try:
                 fn(*args)
             except Exception:  # noqa: BLE001
                 pass
         return failed
+
+    def _reset_arenas(self) -> None:
+        """Rebuild the arenas: a step that failed mid-execution may have
+        left a chunk half written. The old arenas are released BEFORE the
+        new ones are made, so at no point are two alive."""
+        self._arenas = None
+        self._arenas = self._new_arenas(self._model)
+        if self._draft_arenas is not None:
+            self._draft_arenas = None
+            self._draft_arenas = self._new_arenas(self._draft_model)
 
     def _release_static_gang(self, emissions):
         if self.config.scheduling != "static":
@@ -1016,7 +1165,7 @@ class InferenceEngine:
         return {
             "queue_depth": len(self._waiting),
             "running": len(running),
-            "tp": 1,
+            "tp": self._tp,
             "batch_slots": self.config.batch_slots,
             "tokens_emitted": self._tokens_emitted,
             "tokens_per_sec": (window_tokens / span) if span > 0 else 0.0,
@@ -1088,7 +1237,9 @@ class EngineLoop:
 
     Submissions from any thread; an asyncio loop talks to it through
     thread-safe callbacks. The thread makes the engine's card its current
-    device before its first step."""
+    device before its first step. On a mesh it drives the leader: while
+    idle it keeps the followers' wait alive (`heartbeat`), and `stop`
+    sends them the stop record."""
 
     def __init__(self, engine: InferenceEngine):
         self.engine = engine
@@ -1124,10 +1275,12 @@ class EngineLoop:
             with self._cv:
                 while not self._stopped and not self.engine.has_work():
                     self._cv.wait(timeout=0.05)
+                    self.engine.heartbeat()
                 if self._stopped:
                     return
             try:
                 self.engine.step()
+                self.engine.heartbeat()
                 failures = 0
             except Exception as e:  # noqa: BLE001 — scheduler survives a
                 failures += 1       # bad step; circuit-break if persistent
@@ -1149,3 +1302,4 @@ class EngineLoop:
         # Anything still parked (a request that slipped in as we stopped)
         # must fail fast, not hang its caller.
         self.engine.fail_all("engine loop stopped")
+        self.engine.stop_followers()

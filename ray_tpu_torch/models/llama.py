@@ -39,8 +39,16 @@ wv, w_gate and w_up column-parallel, wo and w_down row-parallel, the
 embedding and the head vocab-parallel, each rank holding n_head / tp query
 heads and n_kv_head / tp KV heads (RoPE and the GQA repeat on its local
 heads), its parameters DTensors; FSDP2 over fsdp and the ring over sp as
-in GPT-2. The cache paths stay single-card (tensor-parallel serving is the
-serving half of ROADMAP M8b).
+in GPT-2. On a tp mesh the two cache paths run on the same local heads:
+each rank's cache or arena holds its n_kv_head / tp KV heads
+(`make_cache`, `make_paged_arena` with `mesh`; `arena_sharding` names the
+split), wo and w_down reduce over tp, the embedding stays vocab-parallel,
+and `decode` and `decode_paged` return this rank's vocab shard of the
+logits (`vocab_parallel_argmax` picks over them). The LoRA banks' `ao`
+reads the local heads' flattened output (`lora_bank_shardings`): its
+rank-dim partial sum is reduced over tp before `bo`. Placing a model on a
+mesh from a seed draws the whole model's parameters one at a time and
+keeps each one's shard, so a rank never holds the whole model.
 """
 
 from __future__ import annotations
@@ -62,9 +70,12 @@ from ray_tpu_torch.ops.ring_attention import (ring_attention,
 from ray_tpu_torch.parallel.mesh import axis_size
 from ray_tpu_torch.parallel.sharding import (PartitionSpec,
                                              match_partition_rules,
-                                             named_sharding, shard_params)
+                                             named_sharding, placements_for,
+                                             shard_params)
 from ray_tpu_torch.parallel.tensor_parallel import (MeshContext, local,
                                                     place_module,
+                                                    shard_local,
+                                                    tp_placements,
                                                     vocab_parallel_embedding)
 
 _NEG_INF = -1e30
@@ -284,13 +295,14 @@ class LlamaBlock(nn.Module):
         output (ao/bo), per batch row's bank row (row 0 the zero identity).
         It is RETURNED, never added to x, so every layer's K/V stays the
         base model's whichever adapter ran (the arena is
-        adapter-invariant)."""
+        adapter-invariant).
+
+        On a mesh every head count is this rank's (n_head / tp, n_kv_head
+        / tp, and the cache's too), `ao` holds the rows of the local heads'
+        flattened output, and its rank-dim partial sum is reduced over tp
+        before `bo`."""
         cfg, ctx = self.cfg, self.mesh_ctx
         b, s, _ = x.shape
-        if ctx is not None and (cache is not None or lora is not None):
-            raise NotImplementedError(
-                "a block placed on a mesh runs the training forward only: "
-                "tensor-parallel serving is the serving half of ROADMAP M8b")
         h = self.attn_norm(x)
         if ctx is not None:
             h = ctx.copy_in(h)
@@ -321,10 +333,10 @@ class LlamaBlock(nn.Module):
             s_in = torch.einsum("bsr,bre->bse",
                                 torch.einsum("bse,ber->bsr", h, aq[aidx]),
                                 bq[aidx])
-            s_attn = torch.einsum("bsr,bre->bse",
-                                  torch.einsum("bsf,bfr->bsr", attn,
-                                               ao[aidx]),
-                                  bo[aidx])
+            s_attn = torch.einsum("bsf,bfr->bsr", attn, ao[aidx])
+            if ctx is not None:
+                s_attn = ctx.reduce_out(s_attn)
+            s_attn = torch.einsum("bsr,bre->bse", s_attn, bo[aidx])
             side = (s_in + s_attn).to(cfg.dtype)
         x = x + out
 
@@ -349,8 +361,10 @@ class Llama(nn.Module):
 
     With `mesh`, the model lives on the mesh's device type and is placed
     on it (module docstring), its shards copied out of the seeded weights
-    or `state`; `forward` takes this rank's shard of the ids and returns
-    its vocab-sharded logits. Every rank passes the same seed or state."""
+    (each parameter drawn whole and cut at once) or `state` (DTensors in
+    `state` are taken as they are); `forward` takes this rank's shard of
+    the ids and returns its vocab-sharded logits. Every rank passes the
+    same seed or state."""
 
     def __init__(self, config: LlamaConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -373,7 +387,7 @@ class Llama(nn.Module):
             self.lm_head = Dense(config.n_embd, config.vocab_size,
                                  config.dtype)
         if state is None:
-            self._init_weights(seed, dev)
+            self._init_weights(seed, dev, _tp_cutter(self, mesh))
         else:
             for name, t in state.items():
                 if not same_device(dev, t.device):
@@ -384,7 +398,9 @@ class Llama(nn.Module):
             self.mesh_ctx = _place_on_mesh(self, mesh, list(self.layers))
 
     @torch.no_grad()
-    def _init_weights(self, seed: int, dev: torch.device):
+    def _init_weights(self, seed: int, dev: torch.device, cut=None):
+        """Draw every parameter in order; `cut(name, whole)` (on a tp mesh)
+        keeps only this rank's shard of each as it is drawn."""
         gen = torch.Generator(device=dev).manual_seed(seed)
         dt = self.config.param_dtype
         for name, p in list(self.named_parameters()):
@@ -393,7 +409,7 @@ class Llama(nn.Module):
                 init.fill_(1.0)
             else:
                 init.normal_(0.0, 0.02, generator=gen)
-            _set_param(self, name, init)
+            _set_param(self, name, init if cut is None else cut(name, init))
 
     @property
     def device(self) -> torch.device:
@@ -403,40 +419,48 @@ class Llama(nn.Module):
         """This model with its dense kernels and embedding as `dtype`
         copies (norm scales shared): numerically the same model, since each
         call would cast them to `dtype` anyway, without re-reading the
-        `param_dtype` weights at every call. The serving engine's weights."""
+        `param_dtype` weights at every call. The serving engine's weights.
+        On a mesh the copy is on the same mesh, cast shard by shard."""
         dt = self.config.dtype
         state = {name: t if name.endswith("norm.weight") else t.to(dt)
                  for name, t in self.state_dict().items()}
-        return Llama(self.config, device=self.device, state=state)
+        return Llama(self.config, device=self.device, state=state,
+                     mesh=self.mesh_ctx.mesh if self.mesh_ctx else None)
 
     def _embed(self, input_ids):
-        return self.embed.to(self.config.dtype)[input_ids]
+        return vocab_parallel_embedding(
+            input_ids, local(self.embed).to(self.config.dtype), self.mesh_ctx)
+
+    def _head(self, x):
+        """Logits of the final-normed `x`: this rank's vocab shard on a
+        mesh."""
+        ctx = self.mesh_ctx
+        return self.lm_head(ctx.copy_in(x) if ctx is not None else x)
 
     def forward(self, input_ids):
         ctx = self.mesh_ctx
-        x = vocab_parallel_embedding(
-            input_ids, local(self.embed).to(self.config.dtype), ctx)
+        x = self._embed(input_ids)
         positions = _positions(input_ids.shape[1], input_ids.device, ctx)
         for blk in self.layers:
             if self.config.remat:
                 x, _, _ = checkpoint(blk, x, positions, use_reentrant=False)
             else:
                 x, _, _ = blk(x, positions)
-        x = self.final_norm(x)
-        return self.lm_head(ctx.copy_in(x) if ctx is not None else x)
+        return self._head(self.final_norm(x))
 
     @torch.no_grad()
     def decode(self, input_ids, cache, row_pos):
         """Incremental forward: each row writes K/V at its own offset
         (`row_pos` [b]) and gets logits for its s tokens. Returns (logits,
-        cache), the cache updated in place."""
+        cache), the cache updated in place; on a mesh the cache holds this
+        rank's KV heads and the logits are its vocab shard."""
         b, s = input_ids.shape
         x = self._embed(input_ids)
         positions = row_pos[:, None] + torch.arange(
             s, device=input_ids.device)[None, :]
         for blk, layer_cache in zip(self.layers, cache):
             x, _, _ = blk(x, positions, cache=layer_cache)
-        return self.lm_head(self.final_norm(x)), cache
+        return self._head(self.final_norm(x)), cache
 
     @torch.no_grad()
     def decode_paged(self, input_ids, arenas, block_tables, row_pos,
@@ -450,7 +474,11 @@ class Llama(nn.Module):
 
         `lora_banks` (per-layer [(aq, bq, ao, bo)]) + `adapter_idx` [b]:
         each layer's side term is summed and merged into the hidden state
-        ONCE, before the final norm."""
+        ONCE, before the final norm.
+
+        On a mesh the arenas and `ao` are this rank's shards
+        (`make_paged_arena(mesh=)`, `lora_bank_shardings`) and the logits
+        its vocab shard [b, s, vocab / tp]."""
         b, s = input_ids.shape
         x = self._embed(input_ids)
         positions = row_pos[:, None] + torch.arange(
@@ -468,7 +496,7 @@ class Llama(nn.Module):
                 side_sum = side if side_sum is None else side_sum + side
         if side_sum is not None:
             x = x + side_sum.to(x.dtype)
-        return self.lm_head(self.final_norm(x)), arenas
+        return self._head(self.final_norm(x)), arenas
 
 
 def _set_param(module: nn.Module, name: str, value: torch.Tensor) -> None:
@@ -485,6 +513,26 @@ def _positions(s: int, device, ctx: Optional[MeshContext]) -> torch.Tensor:
     return torch.arange(start, start + s, device=device)
 
 
+def _tp_dims(module: nn.Module) -> Dict[str, Optional[int]]:
+    """Parameter name -> the dim LLAMA_PARTITION_RULES split over tp
+    (None: replicated)."""
+    specs = match_partition_rules(LLAMA_PARTITION_RULES,
+                                  dict(module.named_parameters()))
+    return {n: next((d for d, a in enumerate(spec) if a == "tp"), None)
+            for n, spec in specs.items()}
+
+
+def _tp_cutter(module: nn.Module, mesh):
+    """(name, whole parameter) -> this rank's tp shard of it as a DTensor,
+    for drawing a model on a mesh one parameter at a time; None where there
+    is no mesh or no tp axis."""
+    if mesh is None or "tp" not in mesh.mesh_dim_names:
+        return None
+    validate_tp(module.config, axis_size(mesh, "tp"))
+    dims, tp_mesh = _tp_dims(module), mesh["tp"]
+    return lambda name, t: shard_local(t, tp_mesh, tp_placements(dims[name]))
+
+
 def _place_on_mesh(module: nn.Module, mesh, blocks) -> MeshContext:
     """Place a `Llama` or `LlamaStage` on `mesh` (`place_module`): tp
     shards by LLAMA_PARTITION_RULES, FSDP2 on each parameter's "embed" dim
@@ -492,10 +540,7 @@ def _place_on_mesh(module: nn.Module, mesh, blocks) -> MeshContext:
     cfg = module.config
     validate_tp(cfg, axis_size(mesh, "tp"))
     names = [n for n, _ in module.named_parameters()]
-    tp_specs = match_partition_rules(LLAMA_PARTITION_RULES,
-                                     dict(module.named_parameters()))
-    tp_dims = {n: next((d for d, a in enumerate(tp_specs[n]) if a == "tp"),
-                       None) for n in names}
+    tp_dims = _tp_dims(module)
     axes = _logical_axes(names)
     fsdp_dims = {n: axes[n].index("embed") if "embed" in axes[n] else 0
                  for n in names}
@@ -511,28 +556,48 @@ def _place_on_mesh(module: nn.Module, mesh, blocks) -> MeshContext:
 # --------------------------------------------------------------------------- #
 
 
+def arena_sharding(cfg: LlamaConfig, mesh):
+    """(mesh, placements) of the paged KV arena [num_blocks, block_size,
+    kv_heads, head_dim] on `mesh`: the kv-head dim over "tp", the split of
+    the attention heads that read it (the reference's
+    `PartitionSpec(None, None, "tp")`), after `validate_tp`."""
+    validate_tp(cfg, _mesh_tp(mesh))
+    return mesh, placements_for(PartitionSpec(None, None, "tp"),
+                                mesh.mesh_dim_names)
+
+
+def _kv_heads(cfg: LlamaConfig, mesh) -> int:
+    """The KV heads a rank's cache holds: all of them, or its tp share."""
+    if mesh is None:
+        return cfg.n_kv_head
+    arena_sharding(cfg, mesh)
+    return cfg.n_kv_head // _mesh_tp(mesh)
+
+
 def make_paged_arena(cfg: LlamaConfig, num_blocks: int, block_size: int,
-                     device: Optional[Union[str, torch.device]] = None
-                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+                     device: Optional[Union[str, torch.device]] = None,
+                     mesh=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Preallocated per-layer (k, v) paged arena [num_blocks, block_size,
     kv_heads, head_dim] in `dtype`. Block 0 is the trash block (never
     allocated to a sequence): masked writes land there and nothing ever
-    reads it. Sharding it over a mesh (`arena_sharding`) is the serving
-    half of ROADMAP M8b."""
+    reads it. With `mesh`, only this rank's shard (`arena_sharding`) is
+    allocated, [num_blocks, block_size, n_kv_head / tp, head_dim], never
+    the whole arena."""
     dev = resolve_device(device)
-    shape = (num_blocks, block_size, cfg.n_kv_head, cfg.head_dim)
+    shape = (num_blocks, block_size, _kv_heads(cfg, mesh), cfg.head_dim)
     return [(torch.zeros(shape, dtype=cfg.dtype, device=dev),
              torch.zeros(shape, dtype=cfg.dtype, device=dev))
             for _ in range(cfg.n_layer)]
 
 
 def make_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               device: Optional[Union[str, torch.device]] = None
-               ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+               device: Optional[Union[str, torch.device]] = None,
+               mesh=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Preallocated per-layer (k, v) cache [b, max_len, kv_heads, head_dim]
-    (length-major so per-row writes are a single advanced-index set)."""
+    (length-major so per-row writes are a single advanced-index set); with
+    `mesh`, this rank's n_kv_head / tp heads."""
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_head, cfg.head_dim)
+    shape = (batch, max_len, _kv_heads(cfg, mesh), cfg.head_dim)
     return [(torch.zeros(shape, dtype=cfg.dtype, device=dev),
              torch.zeros(shape, dtype=cfg.dtype, device=dev))
             for _ in range(cfg.n_layer)]
@@ -547,6 +612,19 @@ def lora_bank_shapes(cfg: LlamaConfig, n_rows: int, rank: int):
             (n_rows, rank, cfg.n_embd),
             (n_rows, cfg.n_head * cfg.head_dim, rank),
             (n_rows, rank, cfg.n_embd))
+
+
+def lora_bank_shardings(cfg: LlamaConfig, mesh):
+    """(mesh, placements) of one layer's (aq, bq, ao, bo) banks on `mesh`:
+    ao's input dim splits over "tp" with the flattened heads it reads (its
+    rank-dim partial sums are reduced over tp, where wo's are); aq, bq and
+    bo are replicated. The reference's `lora_bank_shardings`, after
+    `validate_tp`."""
+    validate_tp(cfg, _mesh_tp(mesh))
+    names = mesh.mesh_dim_names
+    rep = (mesh, placements_for(PartitionSpec(), names))
+    return rep, rep, (mesh, placements_for(PartitionSpec(None, "tp"),
+                                           names)), rep
 
 
 def make_adapter_weights(cfg: LlamaConfig, rank: int, seed: int,

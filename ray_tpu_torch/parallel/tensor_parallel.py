@@ -11,7 +11,9 @@ hand, one process a rank:
   attention block and each MLP costs one all-reduce over tp forward and one
   backward. The embedding and the tied or untied head are vocab-parallel:
   the lookup is masked to the rank's rows and all-reduced, the logits stay
-  vocab-sharded, and `vocab_parallel_nll` takes a max and a sum over tp.
+  vocab-sharded, `vocab_parallel_nll` takes a max and a sum over tp, and
+  `vocab_parallel_argmax` (the serving engine's greedy pick) gathers each
+  rank's best.
 - fsdp is FSDP2 (`fully_shard`) over the mesh's fsdp axis, each parameter
   sharded on its "embed" dim where it has one (the reference's rule);
   gradients are reduce-scattered.
@@ -182,6 +184,29 @@ def vocab_parallel_embedding(ids, weight, ctx: Optional[MeshContext]):
     return ctx.reduce_out(rows)
 
 
+def vocab_parallel_argmax(logits, ctx: Optional[MeshContext]):
+    """The greedy pick, `logits.argmax(dim=-1)` over the whole vocab, of
+    logits [..., vocab / tp] split on the last dim over tp: each rank takes
+    its best column (the first of equal ones) and its value, offset to the
+    global index, one all-gather brings every rank's, and the largest value
+    wins, the lowest rank on a tie. So a tie goes to the lowest global
+    index, as `torch.argmax` and `jnp.argmax` break it, and every rank gets
+    the same indices. Without tp, the plain argmax."""
+    if ctx is None or ctx.tp_group is None:
+        return logits.argmax(dim=-1)
+    idx = logits.argmax(dim=-1, keepdim=True)
+    # Values and indices in one float64 tensor, both exact there (a 16-bit
+    # or float32 logit, an index below 2^53): one exchange, not two.
+    mine = torch.stack([logits.gather(-1, idx).squeeze(-1).double(),
+                        (idx.squeeze(-1) + ctx.tp_rank * logits.shape[-1])
+                        .double()])
+    every = mine.new_empty((ctx.tp_size * 2, *mine.shape[1:]))
+    dist.all_gather_into_tensor(every, mine, group=ctx.tp_group)
+    every = every.view(ctx.tp_size, *mine.shape)
+    best = every[:, 0].argmax(dim=0, keepdim=True)
+    return every[:, 1].gather(0, best).squeeze(0).long()
+
+
 class _VocabParallelNLL(torch.autograd.Function):
     """-log softmax(logits)[target] over logits split on the last dim over
     `group` (this rank's columns from `start`), in float32: the max and
@@ -288,21 +313,38 @@ def _set_param(module: nn.Module, name: str, value) -> None:
     setattr(module, leaf, nn.Parameter(value))
 
 
-def _shard_local(t: torch.Tensor, mesh, placements):
+def local_piece(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's piece of the whole tensor `t` (a view) in the layout
+    `placements` give on `mesh`: contiguous chunks along each sharded
+    dim, DTensor's own split."""
+    from torch.distributed.tensor import Shard
+
+    for mesh_dim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            t = t.chunk(mesh.size(mesh_dim), dim=pl.dim)[
+                mesh.get_local_rank(mesh_dim)]
+    return t
+
+
+def shard_local(t: torch.Tensor, mesh, placements):
     """A DTensor over `mesh` whose local shard each rank copies out of
     the whole `t` (every rank holds the same values): no communication,
     and no storage shared with `t`."""
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor
 
-    piece = t
-    for mesh_dim, pl in enumerate(placements):
-        if isinstance(pl, Shard):
-            piece = piece.chunk(mesh.size(mesh_dim), dim=pl.dim)[
-                mesh.get_local_rank(mesh_dim)]
+    piece = local_piece(t, mesh, placements)
     return DTensor.from_local(piece.clone(memory_format=torch.contiguous_format),
                               mesh, placements,
                               run_check=False, shape=t.shape,
                               stride=t.contiguous().stride())
+
+
+def tp_placements(dim: Optional[int]) -> tuple:
+    """The placement on a tp sub-mesh of a parameter split on `dim` (None:
+    replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return (Replicate(),) if dim is None else (Shard(dim),)
 
 
 def place_module(module: nn.Module, ctx: MeshContext,
@@ -311,17 +353,19 @@ def place_module(module: nn.Module, ctx: MeshContext,
                  blocks: Sequence[nn.Module] = ()) -> None:
     """Make `module`'s parameters DTensors on the mesh, in place: each
     whole parameter (every rank holds the same values) keeps its tp shard,
-    dim `tp_dims[name]` (None: replicated), on the tp sub-mesh; then, where
-    the mesh has fsdp, FSDP2 shards each of `blocks` and the module over
-    fsdp, parameter `name` on dim `fsdp_dims[name]`."""
-    from torch.distributed.tensor import Replicate, Shard
+    dim `tp_dims[name]` (None: replicated), on the tp sub-mesh, and a
+    parameter that is a DTensor already stays as it is; then, where the
+    mesh has fsdp, FSDP2 shards each of `blocks` and the module over fsdp,
+    parameter `name` on dim `fsdp_dims[name]`."""
+    from torch.distributed.tensor import Shard
 
     tp_mesh = ctx.tp_mesh
     if tp_mesh is not None:
         for name, p in list(module.named_parameters()):
-            dim = tp_dims[name]
-            pl = (Replicate(),) if dim is None else (Shard(dim),)
-            _set_param(module, name, _shard_local(p.detach(), tp_mesh, pl))
+            if not hasattr(p, "device_mesh"):
+                _set_param(module, name,
+                           shard_local(p.detach(), tp_mesh,
+                                       tp_placements(tp_dims[name])))
     if not ctx.fsdp:
         return
     from torch.distributed.fsdp import fully_shard
@@ -394,6 +438,7 @@ def place_like(t: torch.Tensor, like):
 
 __all__ = [
     "MeshContext", "local", "vocab_parallel_embedding", "vocab_parallel_nll",
+    "vocab_parallel_argmax", "local_piece", "shard_local", "tp_placements",
     "next_token_targets", "next_token_loss_parts", "global_sum",
     "place_module", "sync_gradients", "full_state",
     "place_like",

@@ -57,10 +57,11 @@ class DeploymentConfig:
     # Sharded replica groups (docs/SHARDED.md): when set, every "replica"
     # of this deployment is a gang of shard_spec.world_size rank actors on
     # one placement group, joined by one torch.distributed group (tp > 1
-    # builds the gang's mesh; serving on it is ROADMAP M8b's serving
-    # half). The router still sees ONE handle per
-    # replica (rank 0); autoscaling / scale-to-zero operate on whole
-    # groups, and any rank death kills and restarts the group as a unit.
+    # builds the gang's mesh, on which LLMServer serves tensor-parallel:
+    # rank 0 schedules, the other ranks follow). The router still sees
+    # ONE handle per replica (rank 0); autoscaling / scale-to-zero operate
+    # on whole groups, and any rank death kills and restarts the group as
+    # a unit.
     shard_spec: Optional[ShardSpec] = None
     # Multi-tenancy (docs/MULTITENANCY.md): the registered tenant that
     # owns this deployment. Its QoS (tier/weight/rps/in-flight quotas)

@@ -156,8 +156,12 @@ class ReplicaGroup:
 
         self._dead = True
         if graceful_timeout_s > 0:
+            # Rank 0 drains first (a tp serving gang's leader then sends
+            # its followers the stop record), for a bounded wait.
             try:
-                self.handle.prepare_shutdown.remote(graceful_timeout_s)
+                ray_tpu_torch.wait(
+                    [self.handle.prepare_shutdown.remote(graceful_timeout_s)],
+                    timeout=graceful_timeout_s + 1.0)
             except Exception:  # noqa: BLE001 — rank 0 already dead
                 pass
         for handle in self.ranks:

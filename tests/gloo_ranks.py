@@ -4,9 +4,12 @@
 each running the functions it is sent. A test module makes one pool and
 reuses it; the functions it sends live at module level of a test file,
 which every rank imports (so such files import JAX only inside fixtures:
-the ranks start in half the time without it).
+the ranks start in half the time without it). `fake_tp_mesh` is a tp mesh
+of a fake process group in the test process, for checks that need no
+peers.
 """
 
+import contextlib
 import importlib
 import multiprocessing
 import socket
@@ -15,6 +18,22 @@ import traceback
 import torch
 
 from ray_tpu_torch.parallel import distributed as tdist
+
+
+@contextlib.contextmanager
+def fake_tp_mesh(tp: int):
+    """A ("tp",) CPU mesh over `tp` ranks of a fake process group: this
+    process is rank 0, and every collective is a no-op."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=tp)
+    try:
+        yield build_mesh(MeshSpec({"tp": tp}), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def _free_port() -> int:

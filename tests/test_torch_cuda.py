@@ -2,7 +2,8 @@
 GQA training backward too), the serving engine, RLlib's learner update and
 V-trace, TorchPredictor against the CPU's, the accelerator registry's
 name for the card, ring attention's mesh and chunk steps, the pipeline
-stage trainer and GPipe, and GPT-2's mesh step, on a card.
+stage trainer and GPipe, GPT-2's mesh step and the serving engine at tp 2,
+on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -339,13 +340,13 @@ def test_flash_attention_autograd_on_card_matches_mha_reference(card, causal):
 # --------------------------------------------------------------------------- #
 
 
-def _tiny_llama(device, **changes):
+def _tiny_llama(device, mesh=None, **changes):
     import dataclasses
 
     from ray_tpu_torch.models import llama
 
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(seq=256), **changes)
-    return llama.Llama(cfg, device=device, seed=0)
+    return llama.Llama(cfg, device=device, seed=0, mesh=mesh)
 
 
 @pytest.mark.cuda
@@ -496,6 +497,48 @@ def test_fail_all_never_holds_two_arenas_on_card(card):
     assert torch.cuda.max_memory_allocated() < before + arena_bytes / 2
     assert torch.cuda.memory_allocated() <= before
     engine.check_no_leaks()
+
+
+def tp2_engine_on_card(rank):
+    """A rank of the tiny engine at tp 2 on card 0 (two processes over
+    gloo, as chip_smoke's phase 7c runs): rank 0 serves, then the same
+    requests at tp 1; rank 1 follows. float32, so the tokens agree."""
+    from ray_tpu_torch.inference import EngineConfig, InferenceEngine
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    torch.cuda.set_device(0)
+    mesh = build_mesh(MeshSpec({"tp": 2}))
+    config = EngineConfig(batch_slots=3, block_size=4, num_blocks=64,
+                          max_blocks_per_seq=16, prefill_chunk=8)
+    engine = InferenceEngine(config, model=_tiny_llama(
+        "cuda", mesh=mesh, dtype=torch.float32), mesh=mesh)
+    if rank == 1:
+        engine.follow()
+        return tuple(engine._arenas[0][0].shape)
+    outs = []
+    for eng in (engine, InferenceEngine(config, model=_tiny_llama(
+            "cuda", dtype=torch.float32))):
+        reqs = [eng.add_request([1 + i, 2 + i, 3 + i] * (i + 1),
+                                max_new_tokens=6 + i) for i in range(5)]
+        eng.run_until_idle()
+        eng.check_no_leaks()
+        assert eng.stats()["decode_compiles"] == 1
+        outs.append([r.generated for r in reqs])
+    engine.stop_followers()
+    return outs
+
+
+@pytest.mark.cuda
+def test_tp2_engine_on_card_emits_the_tp1_engines_tokens(card):
+    from gloo_ranks import GlooRanks
+
+    pool = GlooRanks(2, timeout_s=300)
+    try:
+        (tp2, tp1), arena = pool.run(tp2_engine_on_card)
+    finally:
+        pool.close()
+    assert tp2 == tp1
+    assert arena[2] == _tiny_llama("cpu").config.n_kv_head // 2
 
 
 def _ppo_image_batch(n, seed=0):

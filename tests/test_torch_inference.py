@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from conftest import assert_compiles_once
+from gloo_ranks import fake_tp_mesh
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
 from ray_tpu_torch.inference import EngineConfig, EngineLoop, InferenceEngine
 from ray_tpu_torch.inference.kv_cache import TRASH_BLOCK, BlockManager
@@ -680,8 +681,12 @@ def test_flags_from_the_environment_and_unported_options(monkeypatch,
         "slo_default_class": "interactive",
         "slo_interactive_reserved_slots": 0}
     assert not hasattr(EngineConfig(), "use_jit")
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        InferenceEngine(EngineConfig(), model=tiny_llama, mesh=object())
+    # A tp that does not divide the KV heads (2 in tiny) is refused, as
+    # the reference's `validate_tp` refuses it (a fake group of 4 ranks:
+    # the refusal comes before any collective).
+    with fake_tp_mesh(4) as mesh, pytest.raises(ValueError,
+                                                match="n_kv_head"):
+        InferenceEngine(EngineConfig(), model=tiny_llama, mesh=mesh)
     with pytest.raises(ValueError, match="lies on cpu"):
         InferenceEngine(EngineConfig(), model=tiny_llama, device="cuda:0")
 

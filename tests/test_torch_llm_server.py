@@ -10,7 +10,8 @@ the token parity of the two engines on carried weights is
 tests/test_torch_inference.py's). Adapters route as tests/test_multiplex.py's
 LLMServer case does. The samplers equal plain greedy loops over the
 port's models. The shardgroup tests form real gangs: their ranks join one
-gloo group.
+gloo group, and a tp 2 gang serves `LLMServer` (rank 0 schedules, rank 1
+follows) with the plain deployment's and the JAX engine's ids.
 
 One module-scoped port cluster; the deployments stay up for the module
 (one `serve.shutdown()` at its end). Replicas run torch on one thread.
@@ -185,6 +186,70 @@ def test_llm_server_adapters_route_like_the_reference():
     rid = next(iter(entry["adapters"]))
     choice = router._pick(entry, model_id="m-a")
     assert choice is not None and choice[0] == rid
+
+
+def _flax_params(state):
+    """The port's Llama state dict as the JAX package's flax tree (the
+    inverse of `params_from_jax`): dense weights [out, in] become kernels
+    [in, out], norm weights scales."""
+    import numpy as np
+
+    def a(name, t=False):
+        x = state[name].detach().float().numpy()
+        return np.ascontiguousarray(x.T) if t else x
+
+    tree = {"embed": a("embed"),
+            "final_norm": {"scale": a("final_norm.weight")},
+            "lm_head": {"kernel": a("lm_head.weight", True)}}
+    n_layer = 1 + max(int(k.split(".")[1]) for k in state
+                      if k.startswith("layers."))
+    for i in range(n_layer):
+        blk = {norm: {"scale": a(f"layers.{i}.{norm}.weight")}
+               for norm in ("attn_norm", "mlp_norm")}
+        for dense in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            blk[dense] = {"kernel": a(f"layers.{i}.{dense}.weight", True)}
+        tree[f"layer_{i}"] = blk
+    return {"params": tree}
+
+
+def test_sharded_llm_server_http_parity(llm):
+    # test_shardgroup.py::test_sharded_llama_http_parity: a tp 2 gang
+    # (two CPU ranks over gloo, rank 0 schedules, rank 1 follows) answers
+    # over HTTP with the ids of the plain deployment (the same seed: the
+    # mesh is the only difference) and of the JAX package's engine on the
+    # same weights.
+    from ray_tpu.inference import EngineConfig as JaxEngineConfig
+    from ray_tpu.inference import InferenceEngine as JaxInferenceEngine
+    from ray_tpu.models import llama as jllama
+
+    prompt, n = PROMPT, 8
+    sharded = LLMServer.options(
+        name="LLMShard", ray_actor_options=ONE_THREAD,
+        shard_spec=serve.ShardSpec(tp=2, world_size=2))
+    serve.run(sharded.bind("tiny", 128, 6, engine_config=ENGINE,
+                           device="cpu"), timeout_s=120)
+    port = serve.http_port()
+    payload = {"ids": prompt, "max_new_tokens": n}
+    [got_plain] = _post(port, "/LLMServer", payload)
+    [got_sharded] = _post(port, "/LLMShard", payload)
+    ids = got_plain["result"]["ids"]
+    assert ids[:len(prompt)] == prompt and len(ids) == len(prompt) + n
+    assert got_sharded["result"]["ids"] == ids
+    # The JAX package's engine on the port's seed-0 weights.
+    model = Llama(LlamaConfig.tiny(seq=128), device="cpu", seed=0)
+    jeng = JaxInferenceEngine(
+        JaxEngineConfig(model_size="tiny", max_model_len=128, **ENGINE),
+        model=jllama.Llama(jllama.LlamaConfig.tiny(seq=128)),
+        params=_flax_params(model.state_dict()))
+    req = jeng.add_request(prompt, max_new_tokens=n)
+    jeng.run_until_idle()
+    assert prompt + [int(t) for t in req.generated] == ids
+    # The gang's rank 0 answered, with its shard context active at tp 2.
+    stats = ray_tpu_torch.get(ray_tpu_torch.get_actor(
+        "SERVE_REPLICA::LLMShard#0", namespace="serve").stats.remote())
+    assert stats["shard"]["tp"] == 2 and stats["shard"]["world_size"] == 2
+    assert stats["user"]["queue_depth"] == 0
+    serve.delete("LLMShard")
 
 
 def test_serving_without_a_card_or_cpu_raises(monkeypatch):

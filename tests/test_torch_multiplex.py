@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from conftest import assert_compiles_once
+from gloo_ranks import fake_tp_mesh
 from ray_tpu_torch.inference import (AdapterLoadError, AdapterManager,
                                      EngineConfig, InferenceEngine)
 from ray_tpu_torch.models.llama import (Llama, LlamaConfig,
@@ -161,8 +162,11 @@ def test_adapter_manager_banks_and_rows():
         mgr.ensure("bad", lambda _: make_adapter_weights(cfg, 4, 0))
     # The failed load leaked no row: both rows are free for new adapters.
     assert mgr.resident() == ["m-a"] and mgr.ensure("m-b", load) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        AdapterManager(cfg, 1, 8, mesh=object(), device="cpu")
+    # A tp that does not divide the KV heads (2 in tiny) is refused, as
+    # the reference's `lora_bank_shardings` refuses it.
+    with fake_tp_mesh(4) as mesh, pytest.raises(ValueError,
+                                                match="n_kv_head"):
+        AdapterManager(cfg, 1, 8, mesh=mesh, device="cpu")
 
 
 def test_port_multiplexed_engine_emits_the_jax_engines_tokens():
