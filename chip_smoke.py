@@ -171,12 +171,28 @@ failed phase, with no phase caught.
    step and at least 90% of them within lr / 10 (each rank holds its own
    shards against the same slices of (a)'s whole tensors: DTensor's
    `full_tensor()` does not return over gloo on CUDA tensors), K1 at bh 144
-   12 times; 3 more steps timed (ms a step, peak memory) and the c_attn
+   12 times; 1 more step timed (ms a step, peak memory) and the c_attn
    exchange of a step timed alone; then Llama-small at tp 2 (6/2 heads a
    rank), batch 4, seq 2048, one step, held the same way against the same
    step at tp 1.
    Prints the `{"tensor_parallel": {...}}` line in phase 12. NCCL at tp >
    1 needs more than one card and is not run here.
+4j. Expert parallelism (after 4i): MoE-small (`MoEConfig.small()`: 8 x
+   1024, 8 experts, top-2, capacity 1.25; batch 4, seq 2048, seed 0, bf16
+   on float32 parameters, AdamW 3e-4) at ep 2 as two processes sharing
+   card 0 over a gloo group this script forms (NCCL takes no two ranks on
+   one device), each rank 4 experts (`MoE(mesh=)`,
+   `make_moe_train_step(mesh=)`). One checked step, then EP_TIMED timed
+   steps, counted (collectives a step, host ms inside them); then each
+   rank in turn runs the plain one-card step on the same weights and
+   batch, the yardstick. The checked step's loss must be within 2^-7
+   relative of the plain step's, every parameter shard after it within 2
+   lr with at least 0.9 of its elements moved alike (held shard by shard:
+   DTensor's `full_tensor()` over gloo on CUDA tensors does not return),
+   layer 0's slots used per expert equal the plain step's (its inputs are
+   bit-equal), and K1, K2 and K3 launch 8 times a step on each rank.
+   Prints how many routing choices agree in every layer, ms a step, peak
+   memory a rank and the `{"expert_parallel": ...}` line in phase 12.
 4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
    seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
    goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
@@ -258,7 +274,7 @@ failed phase, with no phase caught.
    `follow()`. (a) Phase 7's engine configuration (each rank's arena half
    of the 2 GiB, 4 of the 8 KV heads) serves 8 of phase 7's requests (4
    sharing its prefix), 32 new tokens each, all at once; (b) a
-   speculative leg on the same shards, draft length 4, 2 requests of 32
+   speculative leg on the same shards, draft length 4, 2 requests of 8
    tokens; (c) the same shards computing in float32 serve phase 7's
    float32 requests, whose tokens must equal phase 7's dense-cache
    float32 loop up to its first near tie (phase 7's references, not run
@@ -294,7 +310,7 @@ failed phase, with no phase caught.
    K2 and K3 12 times a step.
 11. MoE-small training (`MoEConfig.small()`, 8 experts, top-2, capacity
    1.25): `TorchTrainer.fit` with `make_moe_train_step`, batch 4, seq
-   2048, 2 + 5 steps; falling cross-entropy, a finite router loss, K1, K2
+   2048, 2 + 3 steps; falling cross-entropy, a finite router loss, K1, K2
    and K3 8 times a step; prints layer 0's slots used per expert and the
    share of routing choices dropped at capacity in the last step.
 11b. RLlib on the card, at the width of the reference's Atari PPO
@@ -327,10 +343,11 @@ failed phase, with no phase caught.
    `{"tune": {...}}` line (phase 4e), the `{"jobs": {...}}` line (phase
    4f), the `{"mesh": {...}}` line (phase 4g), the `{"pipeline": {...}}`
    line (phase 4h), the `{"tensor_parallel": {...}}` line (phase 4i), the
-   `{"tp_serving": {...}}` line (phase 7c), the `{"rllib": {...}}` line,
-   the
+   `{"expert_parallel": {...}}` line (phase 4j, beside phase 11's peak
+   memory), the `{"tp_serving": {...}}` line (phase 7c), the
+   `{"rllib": {...}}` line, the
    `{"kernels": [...]}` line (launches summed over the paths of phases 4,
-   4e, 4f, 4g, 4h, 4i, 4c, 4d, 6, 7, 7b, 7c, 8, 10, 11, 11b and 11c;
+   4e, 4f, 4g, 4h, 4i, 4j, 4c, 4d, 6, 7, 7b, 7c, 8, 10, 11, 11b and 11c;
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
@@ -342,10 +359,15 @@ failed phase, with no phase caught.
    instance of phase 2), then the device line last.
 
 Phases 4c, 4e, 4f, 4g, 4i, 8, 10 and 11 also train in worker actors
-through `TorchTrainer`, phase 4h through `BackendExecutor`, and phase 4i
-(b) in two processes of its own, as phase 7c serves. Each phase frees
-what it allocated before the next starts, and the script shuts the
+through `TorchTrainer`, phase 4h through `BackendExecutor`, and phases 4i
+(b) and 4j in two processes of their own, as phase 7c serves. Each phase
+frees what it allocated before the next starts, and the script shuts the
 runtime and its worker template down before it exits.
+
+Depth cut to pay for phase 4j: phase 4i (b) times 1 step after its
+checked one (3 before), phase 7c's speculative leg serves 8 new tokens a
+request (32 before), phase 11 times 3 steps after its 2 warm-up ones (5
+before).
 
 Depth cut to pay for phase 7c (79.1 s; PERF.md §6): phase 7's requests
 take 32 new tokens (128 before), its speculative legs 16 (32 before), so
@@ -2585,7 +2607,9 @@ def gpipe_leg(attn) -> dict:
 # itself (NCCL takes no two ranks on one device), then Llama-small's tp 2
 # step against its tp 1 step. NCCL at tp > 1 needs more than one card.
 TP_STEPS = 5                  # (a): 2 warm-up + 3 timed steps a leg
-TP_TIMED = 3                  # (b): steps timed after the checked one
+TP_TIMED = 3                  # (a): the last steps, timed
+TP_RANK_TIMED = 1             # (b): steps timed after the checked one
+                              # (3 before phase 4j came: the script's time)
 TP_LLAMA_BATCH = 4            # (b)'s Llama-small: batch 4, seq 2048
 # A bf16 model split over tp rounds its row products' partial sums to bf16
 # before the all-reduce: the loss is held within two bf16 ulps (2^-7
@@ -2680,8 +2704,8 @@ def tp_rank(rank: int, port: int, first_step: str, result_queue) -> None:
     """Phase 4i (b): one of two tp ranks sharing card 0, over a gloo group
     on CUDA tensors. GPT-2-small at dp 1 x tp 2 takes one AdamW step on
     (a)'s batch (K1 at bh 24 x 6 = 144), held against (a)'s first step,
-    then TP_TIMED more, timed; the c_attn exchange is timed alone; then
-    Llama-small (12/4 heads, 6/2 a rank) takes one step at tp 2, held
+    then TP_RANK_TIMED more, timed; the c_attn exchange is timed alone;
+    then Llama-small (12/4 heads, 6/2 a rank) takes one step at tp 2, held
     against the same step at tp 1. Parameters are held shard by shard
     (no gather: DTensor's `full_tensor()` does not return over gloo on CUDA
     tensors). Puts (rank, error, record)."""
@@ -2737,12 +2761,13 @@ def tp_rank(rank: int, port: int, first_step: str, result_queue) -> None:
         say("parameters held against (a)'s")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(TP_TIMED):
+        for _ in range(TP_RANK_TIMED):
             loss = step(batch)
         loss.item()
-        rec["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / TP_TIMED
+        rec["ms_per_step"] = (1e3 * (time.perf_counter() - t0)
+                              / TP_RANK_TIMED)
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        say(f"{TP_TIMED} steps timed")
+        say(f"{TP_RANK_TIMED} steps timed")
         # The c_attn exchange of one layer alone, forward (gather) and
         # backward (reduce-scatter), weight and bias: n_layer of them a step.
         ctx, c_attn = model.mesh_ctx, model.h[0].c_attn
@@ -2948,6 +2973,248 @@ def tensor_parallel_phase(attn, card: str, workdir: str, plain: dict
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+# Phase 4j: expert parallelism. MoE-small at ep 2 as two processes sharing
+# card 0 over a gloo group (each rank 4 of the 8 experts), held against the
+# plain one-card step on the same weights and batch. The limits are phase
+# 4i (b)'s: the bf16 model's expert sums are closed in another order.
+EP_TIMED = 2                  # steps timed after the checked one
+
+
+def _routing_hooks(model, record: dict):
+    """Forward hooks on every layer's experts that, while record["on"],
+    keep each layer's routing choices [T, k] (the router's top-k on the
+    experts' input, as the layer computes them) and slots used per expert
+    (this rank's experts on a mesh) under record[i]."""
+    from ray_tpu_torch.parallel.tensor_parallel import local
+
+    def keep(i):
+        def hook(module, inputs, out):
+            if not record["on"]:
+                return
+            h = inputs[0]
+            logits = h.reshape(-1, h.shape[-1]).float() @ local(
+                module.router).float()
+            record[i] = {"choices": torch.topk(torch.softmax(logits, -1),
+                                               module.cfg.top_k).indices,
+                         "slots": out[2].sum(dim=(0, 2)).long()}
+        return hook
+
+    for i, blk in enumerate(model.layers):
+        blk.moe.register_forward_hook(keep(i))
+
+
+def _ep_param_limits(got: dict, want: dict, experts, lr: float,
+                     ep_rank: int, ep: int) -> dict:
+    """`_param_limits` for an ep model of plain tensors, `got` its
+    parameters by name: each expert weight (this rank's slice of the
+    experts) against the same slice of the whole one in `want`, every other
+    parameter whole."""
+    worst, alike, total = 0.0, 0, 0
+    with torch.no_grad():
+        for name, p in got.items():
+            w = want[name]
+            if name in experts:
+                w = w.chunk(ep)[ep_rank]
+            d = (p.float() - w.float()).abs()
+            worst = max(worst, d.max().item())
+            alike += (d <= lr / 10).sum().item()
+            total += d.numel()
+    return {"max_abs_diff": worst, "limit": 2 * lr + 1e-6,
+            "moved_alike_share": alike / total,
+            "ok": worst <= 2 * lr + 1e-6 and alike / total >= TP_ALIKE}
+
+
+def ep_rank(rank: int, port: int, result_queue) -> None:
+    """Phase 4j: one of two ep ranks of MoE-small on card 0, over a gloo
+    group on CUDA tensors: one checked AdamW step (routing kept), EP_TIMED
+    more, timed with their collectives counted; then, one rank at a time,
+    the plain one-card step from the same seed and batch, against which
+    this rank holds its loss, its parameter shards and its experts' slots
+    in layer 0. Puts (rank, error, record)."""
+    import traceback
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    t_start = time.perf_counter()
+
+    def say(what: str) -> None:
+        print(f"  ep rank {rank}: {what} "
+              f"({time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    try:
+        import torch.distributed as dist
+
+        from ray_tpu_torch.models import gpt2, moe
+        from ray_tpu_torch.ops import attention as attn
+        from ray_tpu_torch.parallel import MeshSpec, build_mesh
+        from ray_tpu_torch.parallel.sharding import shard_batch
+        from ray_tpu_torch.profile_train_step import MODELS
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=2)
+        mesh = build_mesh(MeshSpec({"ep": 2}))
+        rec = {"mesh": str(mesh), "backend": dist.get_backend()}
+        cfg, leg = moe.MoEConfig.small(), MODELS["moe-small"]
+        ids = torch.randint(0, cfg.vocab_size, (leg.batch, leg.seq),
+                            generator=torch.Generator().manual_seed(0)
+                            ).cuda()
+        batch = {"input_ids": ids, "labels": ids}
+        torch.cuda.reset_peak_memory_stats()
+        model = moe.MoE(cfg, mesh=mesh, seed=0)
+        ctx = model.mesh_ctx
+        rec["experts"] = [ctx.ep_rank * model.layers[0].moe.w_gate.shape[0],
+                          model.layers[0].moe.w_gate.shape[0]]
+        step = moe.make_moe_train_step(model, gpt2.adamw(model, TP_LR),
+                                       mesh=mesh)
+        routing = {"on": True}
+        _routing_hooks(model, routing)
+        local_batch = shard_batch(batch, mesh)
+        attn.reset_kernel_launches()
+        rec["loss"] = step(local_batch).item()
+        routing["on"] = False
+        say(f"MoE-small's checked step at ep 2, loss {rec['loss']:.6f}")
+        after = {k: v.detach().clone() for k, v in model.named_parameters()}
+        experts = set(moe.expert_param_names(model))
+        exchanges = count_exchanges(dist)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EP_TIMED):
+            loss = step(local_batch)
+        loss.item()
+        rec["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / EP_TIMED
+        rec["collectives_per_step"] = {
+            k: v / EP_TIMED for k, v in exchanges.items() if k != "host_s"}
+        rec["host_ms_in_collectives_per_step"] = \
+            1e3 * exchanges["host_s"] / EP_TIMED
+        rec["launches"] = attn.kernel_launches()
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        say(f"{EP_TIMED} steps timed, {rec['ms_per_step']:.1f} ms a step")
+        del model, step, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The yardstick, one rank at a time (each holds a whole model).
+        for turn in range(2):
+            if turn == rank:
+                one = moe.MoE(cfg, device="cuda", seed=0)
+                plain = {"on": True}
+                _routing_hooks(one, plain)
+                rec["plain_loss"] = moe.make_moe_train_step(
+                    one, gpt2.adamw(one, TP_LR))(batch).item()
+                rec["params"] = _ep_param_limits(
+                    after, dict(one.named_parameters()), experts, TP_LR,
+                    ctx.ep_rank, ctx.ep_size)
+                first, n = rec["experts"]
+                rec["layer0_slots"] = routing[0]["slots"].tolist()
+                rec["plain_layer0_slots"] = \
+                    plain[0]["slots"][first:first + n].tolist()
+                rec["plain_layer0_kept"] = plain[0]["slots"].sum().item()
+                rec["choices_agree"] = [
+                    (routing[i]["choices"] == plain[i]["choices"]).sum()
+                    .item() for i in range(cfg.n_layer)]
+                rec["choices"] = routing[0]["choices"].numel()
+                say(f"plain one-card step, loss {rec['plain_loss']:.6f}")
+                del one
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        dist.destroy_process_group()
+        result_queue.put((rank, None, rec))
+    except BaseException:  # noqa: BLE001 — the phase fails on it
+        result_queue.put((rank, traceback.format_exc(), None))
+
+
+def expert_parallel_phase(attn, card: str) -> dict:
+    """Phase 4j: MoE-small at ep 2 in two processes on the card
+    (`ep_rank`), held against the plain one-card step. Returns the phase's
+    record with the launches of its path (both ranks' ep steps); the plain
+    steps' launches are not counted."""
+    import multiprocessing
+    import socket
+
+    from ray_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig.small()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp = multiprocessing.get_context("spawn")
+    queue = mp.Queue()
+    procs = [mp.Process(target=ep_rank, args=(r, port, queue))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        outs = {}
+        deadline = time.monotonic() + 600
+        while len(outs) < len(procs):
+            try:
+                rank, error, value = queue.get(timeout=5)
+            except Exception:  # queue.Empty: is every rank still alive?
+                dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if p.exitcode is not None and r not in outs]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"4j: ep ranks ended without a "
+                                         f"result (rank, exit code): {dead}")
+                continue
+            if error is not None:
+                raise AssertionError(f"4j: ep rank {rank} failed:\n{error}")
+            outs[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    launches = collections.Counter()
+    want_launches = dict.fromkeys(attn.KERNELS, cfg.n_layer * (1 + EP_TIMED))
+    for r in (0, 1):
+        o = outs[r]
+        lrel = abs(o["loss"] - o["plain_loss"]) / abs(o["plain_loss"])
+        first, n = o["experts"]
+        print(f"  ep rank {r}: {o['mesh']} over {o['backend']} on CUDA "
+              f"tensors, experts {first}-{first + n - 1}; loss "
+              f"{o['loss']:.6f} against the plain step's "
+              f"{o['plain_loss']:.6f} (relative {lrel:.3e}, limit "
+              f"{TP_LOSS_RTOL:.3e}); parameters after the step: max |diff| "
+              f"{o['params']['max_abs_diff']:.3e} (limit "
+              f"{o['params']['limit']:.3e}), moved alike "
+              f"{o['params']['moved_alike_share']:.4f}")
+        print(f"  ep rank {r}: layer 0 slots used by its experts "
+              f"{o['layer0_slots']} (plain step {o['plain_layer0_slots']}); "
+              f"routing choices agreeing with the plain step's by layer "
+              f"{o['choices_agree']} of {o['choices']}")
+        print(f"  ep rank {r}: {o['ms_per_step']:.3f} ms a step (2 processes "
+              f"sharing the card, gloo through the host), collectives a step "
+              f"{o['collectives_per_step']}, host ms inside them "
+              f"{o['host_ms_in_collectives_per_step']:.3f}, peak "
+              f"{o['peak_gib']:.2f} GiB; launches {o['launches']}; {card}")
+        if not (lrel <= TP_LOSS_RTOL and o["params"]["ok"]
+                and o["layer0_slots"] == o["plain_layer0_slots"]
+                and o["launches"] == want_launches):
+            raise AssertionError(f"4j: ep rank {r}: {o}")
+        launches.update(o["launches"])
+    kept = sum(sum(outs[r]["layer0_slots"]) for r in (0, 1))
+    choices = outs[0]["choices"]
+    print(f"  layer 0: {choices - kept} of {choices} routing choices dropped "
+          f"at capacity over both ranks, the plain step "
+          f"{choices - outs[0]['plain_layer0_kept']}")
+    if kept != outs[0]["plain_layer0_kept"]:
+        raise AssertionError(f"4j: layer 0 kept {kept} choices, the plain "
+                             f"step {outs[0]['plain_layer0_kept']}")
+    print(f"  4j took {wall:.1f} s")
+    keep = ("loss", "plain_loss", "params", "layer0_slots",
+            "plain_layer0_slots", "choices_agree", "choices", "ms_per_step",
+            "collectives_per_step", "host_ms_in_collectives_per_step",
+            "peak_gib", "launches", "experts")
+    return {"card": card, "ranks": {r: {k: outs[r][k] for k in keep}
+                                    for r in (0, 1)},
+            "layer0_dropped": choices - kept, "wall_s": wall,
+            "launches": {name: launches[name] for name in attn.KERNELS}}
 
 
 # Phases 4c and 4d: the Data-fed path. The corpus is the nanoGPT layout,
@@ -3948,7 +4215,7 @@ def serve_llama(inference, llama, model, card: str) -> dict:
 # with TP_SPEC_TOKENS; the float32 leg phase 7's float32 requests
 # (`check_float32`'s budgets).
 TP_REQUESTS, TP_TOKENS = 8, 32
-TP_SPEC_REQUESTS, TP_SPEC_TOKENS = 2, 32
+TP_SPEC_REQUESTS, TP_SPEC_TOKENS = 2, 8   # 32 before phase 4j came
 # The phase's time budget, printed beside its time and not enforced: it is
 # not met on every host yet (ROADMAP, open items). Every collective of the
 # two ranks crosses loopback TCP, and the phase prints the host time spent
@@ -5306,6 +5573,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         tensor_par = tensor_parallel_phase(attn, card, d, main_leg)
 
+    phase(started, "4j. expert parallelism: MoE-small at ep 2, two processes "
+          "on the card over gloo")
+    expert_par = expert_parallel_phase(attn, card)
+
     phase(started, "4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
           "small on a shuffled token corpus")
     small = gpt2.GPT2Config.small()
@@ -5427,10 +5698,12 @@ def main() -> int:
     print(json.dumps({"mesh": meshes}))
     print(json.dumps({"pipeline": pipes}))
     print(json.dumps({"tensor_parallel": tensor_par}))
+    print(json.dumps({"expert_parallel": dict(
+        expert_par, phase11_peak_gib=legs["moe-small"]["peak_gib"])}))
     print(json.dumps({"tp_serving": tp_serving}))
     paths = [launches, sweep["launches"], jobs["launches"],
              meshes["launches"], pipes["launches"], tensor_par["launches"],
-             tp_serving["launches"],
+             expert_par["launches"], tp_serving["launches"],
              data_leg["launches"],
              scoring["launches"],
              llama_launches, serve_launches,

@@ -19,6 +19,12 @@ hand, one process a rank:
   gradients are reduce-scattered.
 - dp, dcn_dp and sp all-reduce the gradients of the replicated parameters
   (`sync_gradients`).
+- ep (MoE's expert parallelism, `models/moe.py`) holds E / ep of the
+  experts a rank. Tokens are replicated over ep as over tp, so the
+  experts' partial sums close over ep and tp together: `expert_copy_in`
+  and `expert_reduce_out` are `copy_in` and `reduce_out` over both
+  groups. An expert weight's gradient is its rank's alone, and ep is never
+  among the groups a gradient is summed over.
 
 Parameters are DTensors: their tp placement on the mesh's tp sub-mesh,
 which FSDP2 extends over (fsdp, tp). The flash kernels never see one: a
@@ -52,8 +58,9 @@ def local(t):
 
 @dataclass
 class MeshContext:
-    """A rank's view of a training mesh: its tp and sp lines, the groups
-    that sum losses and gradients, and whether FSDP2 shards over fsdp.
+    """A rank's view of a training mesh: its tp, sp and ep lines, the
+    groups that sum losses and gradients, and whether FSDP2 shards over
+    fsdp.
 
     tp and sp collectives run on every mesh that has the axis, at size 1
     too (the sharded code path is the one that runs); gradient all-reduces
@@ -66,6 +73,9 @@ class MeshContext:
     sp_group: Any = None
     sp_size: int = 1
     sp_rank: int = 0
+    ep_group: Any = None
+    ep_size: int = 1
+    ep_rank: int = 0
     fsdp: bool = False
     # The groups of the axes of size > 1 that a loss is summed over (data
     # and sp) and that replicated gradients are summed over (the data axes
@@ -81,7 +91,9 @@ class MeshContext:
                   tp_group=axis_group(mesh, "tp"),
                   tp_size=axis_size(mesh, "tp"), tp_rank=axis_rank(mesh, "tp"),
                   sp_group=axis_group(mesh, "sp"),
-                  sp_size=axis_size(mesh, "sp"), sp_rank=axis_rank(mesh, "sp"))
+                  sp_size=axis_size(mesh, "sp"), sp_rank=axis_rank(mesh, "sp"),
+                  ep_group=axis_group(mesh, "ep"),
+                  ep_size=axis_size(mesh, "ep"), ep_rank=axis_rank(mesh, "ep"))
         for name in (*DATA_AXES, "sp"):
             if name in names and axis_size(mesh, name) > 1:
                 group = mesh.get_group(name)
@@ -103,14 +115,35 @@ class MeshContext:
     def copy_in(self, x):
         """A replicated activation entering column products: identity
         forward, its gradient all-reduced over tp."""
-        return _CopyIn.apply(x, self.tp_group) if self.tp_group is not None \
-            else x
+        return _CopyIn.apply(x, (self.tp_group,)) \
+            if self.tp_group is not None else x
 
     def reduce_out(self, x):
         """Partial sums of row products (or of a masked lookup): all-reduced
         over tp forward, the gradient passed through."""
-        return _ReduceOut.apply(x, self.tp_group) \
+        return _ReduceOut.apply(x, (self.tp_group,)) \
             if self.tp_group is not None else x
+
+    @property
+    def expert_groups(self) -> tuple:
+        """The groups that hold one token shard's experts between them: ep
+        (each rank E / ep experts) and tp (each expert's hidden columns
+        split), those the mesh has."""
+        return tuple(g for g in (self.ep_group, self.tp_group)
+                     if g is not None)
+
+    def expert_copy_in(self, x):
+        """A replicated tensor entering this rank's experts: identity
+        forward, its gradient (this rank's experts' part) all-reduced over
+        ep and tp."""
+        groups = self.expert_groups
+        return _CopyIn.apply(x, groups) if groups else x
+
+    def expert_reduce_out(self, x):
+        """This rank's experts' partial sum: all-reduced over ep and tp
+        forward, the gradient passed through."""
+        groups = self.expert_groups
+        return _ReduceOut.apply(x, groups) if groups else x
 
     def gather_rows(self, x):
         """This rank's contiguous dim-0 shard of a tp-sharded tensor
@@ -121,23 +154,29 @@ class MeshContext:
 
 
 class _CopyIn(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over each of `groups`."""
+
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, groups):
+        ctx.groups = groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
         return g, None
 
 
 class _ReduceOut(torch.autograd.Function):
+    """All-reduced over each of `groups` forward; identity backward."""
+
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, groups):
         x = x.contiguous().clone()
-        dist.all_reduce(x, group=group)
+        for group in groups:
+            dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
@@ -384,7 +423,9 @@ def place_module(module: nn.Module, ctx: MeshContext,
 def sync_gradients(params: Iterable[torch.Tensor], ctx: MeshContext) -> None:
     """Sum the gradients of `params` over the axes that replicate them and
     that FSDP2 does not reduce (dp, dcn_dp, sp; fsdp on a mesh without
-    FSDP2), in place, one flat all-reduce a group."""
+    FSDP2), in place, one flat all-reduce a group. Never over ep: a
+    parameter replicated there gets its whole gradient on every ep rank
+    (`expert_copy_in`), and an expert weight is its rank's own."""
     if not ctx.grad_groups:
         return
     grads = [local(p.grad) for p in params if p.grad is not None]

@@ -55,7 +55,7 @@ MODELS = {
     "gpt2": Leg(24, 1024, 2, 10),       # chip_smoke.py phase 4
     "gpt2-long": Leg(4, 8192, 2, 5),    # phase 8: bench_gpt2_long's rung
     "llama-small": Leg(8, 2048, 2, 10),  # phase 10
-    "moe-small": Leg(4, 2048, 2, 5),    # phase 11
+    "moe-small": Leg(4, 2048, 2, 3),    # phase 11 (5 timed before 4j came)
     # phase 4h: Llama-small through LocalPipelineTrainer, m 4, at pp 1-4
     **{f"llama-small-pp{pp}": Leg(8, 2048, 1, 2) for pp in (1, 2, 4)},
     "gpt2-mesh": Leg(24, 1024, 2, 3),   # phase 4i (a)

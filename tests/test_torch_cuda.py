@@ -2,8 +2,8 @@
 GQA training backward too), the serving engine, RLlib's learner update and
 V-trace, TorchPredictor against the CPU's, the accelerator registry's
 name for the card, ring attention's mesh and chunk steps, the pipeline
-stage trainer and GPipe, GPT-2's mesh step and the serving engine at tp 2,
-on a card.
+stage trainer and GPipe, GPT-2's and MoE's mesh steps and the serving
+engine at tp 2, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -859,6 +859,50 @@ def test_gpt2_mesh_step_on_card_matches_one_device(nccl_of_one):
             tattn.KERNELS, 5 * cfg.n_layer)
     got, want = losses["mesh"], losses["no_mesh"]
     assert all(np.isfinite(got)) and got[-1] < got[0]
+    assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_moe_mesh_step_on_card_matches_one_device(nccl_of_one):
+    """chip_smoke.py phase 4j at tiny width: MoE on a (dp 1, tp 1, ep 1)
+    DeviceMesh over a one-rank NCCL group (the global queue's count
+    gather, the experts' copy-in and reduce over ep and tp, the
+    vocab-parallel head and loss, all at size 1), bf16 on float32
+    parameters, the flash kernels, 3 AdamW steps from the weights of the
+    plain `make_moe_train_step`: losses within 1e-3 relative of its, K1, K2
+    and K3 once a layer a step."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt2, moe
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import shard_batch
+
+    mesh = build_mesh(MeshSpec({"dp": 1, "tp": 1, "ep": 1}))
+    cfg = dataclasses.replace(moe.MoEConfig.tiny(seq=128), use_flash=True)
+    ids = torch.randint(0, cfg.vocab_size, (4, 128), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    batch = {"input_ids": ids, "labels": ids}
+    plain = moe.MoE(cfg, device="cuda", seed=0)
+    state = {k: v.detach().clone() for k, v in plain.state_dict().items()}
+    losses = {}
+    for name in ("mesh", "no_mesh"):
+        if name == "mesh":
+            model = moe.MoE(cfg, mesh=mesh, state=state)
+            step = moe.make_moe_train_step(model, gpt2.adamw(model),
+                                           mesh=mesh)
+            b = shard_batch(batch, mesh)
+            assert type(model.embed).__name__ == "DTensor"
+        else:
+            model = plain
+            step = moe.make_moe_train_step(model, gpt2.adamw(model))
+            b = batch
+        before = tattn.kernel_launches()
+        losses[name] = [step(b).item() for _ in range(3)]
+        after = tattn.kernel_launches()
+        assert {k: after[k] - before[k] for k in after} == dict.fromkeys(
+            tattn.KERNELS, 3 * cfg.n_layer)
+    got, want = losses["mesh"], losses["no_mesh"]
+    assert all(np.isfinite(got))
     assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-3
 
 

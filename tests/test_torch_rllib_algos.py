@@ -8,6 +8,8 @@ runs with `device="cpu"`, tiny widths and a few iterations. Workers fork
 from a template that preimports torch.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from ray_tpu_torch.rllib import (APPO, BC, DQN, IMPALA, PPO, APPOConfig,
                                  atari_connectors, read_batches,
                                  rows_to_batch, write_batches)
 from ray_tpu_torch.rllib.connectors import FrameStack
+from ray_tpu_torch.rllib.dqn import DQNLearner, QModule
 from ray_tpu_torch.rllib.learner import LearnerGroup
 from ray_tpu_torch.rllib.ppo import PPOLearner
 from ray_tpu_torch.rllib.rl_module import DiscretePolicyModule, SpecDict
@@ -207,6 +210,63 @@ def test_two_gloo_learners_equal_one(algo):
                                        v.numpy(), rtol=0, atol=1e-6,
                                        err_msg=k)
         # Both ranks hold the same weights after the updates.
+        ranks = group._sharded_group.call_all("get_weights")
+        for k in ranks[0]:
+            assert torch.equal(ranks[0][k], ranks[1][k]), k
+    finally:
+        group.shutdown()
+
+
+def _dqn_learner(weights):
+    """The port's DQN learner on `weights` (the reference's, carried), its
+    target network synced to them as the reference's starts."""
+    learner = DQNLearner(QModule(SpecDict(4, 2), hidden=(16, 16)),
+                         DQNConfig(device="cpu"), seed=0)
+    learner.set_weights(weights)
+    learner.sync_target()
+    return learner
+
+
+def test_two_gloo_dqn_learners_equal_the_reference():
+    """`update_dqn` over a sharded group of 2 gloo learners against the
+    reference's `DQNLearner(num_devices=1)` on the same batch and weights,
+    as tests/test_rllib_learner_dp.py::test_dqn_learner_dp_parity holds
+    its dp 4 learner: td_loss within 1e-4, the |TD| rows (concatenated
+    back in rank order) and the weights within rtol 1e-4 / atol 1e-5."""
+    import flax.linen as fnn
+    import jax
+
+    from ray_tpu.rllib import dqn as j_dqn
+    from ray_tpu.rllib.rl_module import SpecDict as JSpecDict
+
+    n, obs = 32, 4
+    rng = np.random.default_rng(5)
+    batch = {
+        "obs": rng.standard_normal((n, obs)).astype(np.float32),
+        "next_obs": rng.standard_normal((n, obs)).astype(np.float32),
+        "actions": rng.integers(0, 2, n).astype(np.int32),
+        "rewards": rng.standard_normal(n).astype(np.float32),
+        "dones": (rng.random(n) < 0.1).astype(np.float32),
+    }
+    jl = j_dqn.DQNLearner(j_dqn.QModule(JSpecDict(obs, 2), hidden=(16, 16)),
+                          j_dqn.DQNConfig(), seed=0, num_devices=1)
+    weights = QModule.params_from_jax(
+        jax.tree.map(np.asarray, fnn.meta.unbox(jl.params)))
+    group = LearnerGroup(functools.partial(_dqn_learner, weights),
+                         mode="remote", num_learners=2)
+    try:
+        want, want_td = jl.update_dqn(batch)
+        got, got_td = group.call("update_dqn", batch)
+        assert abs(got["td_loss"] - want["td_loss"]) < 1e-4
+        np.testing.assert_allclose(got_td, np.asarray(want_td), rtol=1e-4,
+                                   atol=1e-5)
+        want_w = QModule.params_from_jax(
+            jax.tree.map(np.asarray, fnn.meta.unbox(jl.params)))
+        got_w = group.get_weights()
+        assert got_w.keys() == want_w.keys()
+        for k, w in want_w.items():
+            np.testing.assert_allclose(got_w[k].numpy(), w.numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=k)
         ranks = group._sharded_group.call_all("get_weights")
         for k in ranks[0]:
             assert torch.equal(ranks[0][k], ranks[1][k]), k
