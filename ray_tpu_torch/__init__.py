@@ -83,11 +83,16 @@ def init(
             # inherit the cluster address from the environment.
             address = os.environ.get("RAY_TPU_TORCH_ADDRESS") or None
         if address == "auto":
-            # The reference reads the address the cluster CLI left
-            # (`scripts/cluster_cli.py`), which is not ported yet.
-            raise NotImplementedError(
-                'init(address="auto") needs the cluster CLI, not ported yet '
-                "(ROADMAP M11)")
+            # Connect to the cluster `python -m ray_tpu_torch start --head`
+            # left running on this machine (reference:
+            # /tmp/ray/ray_current_cluster).
+            from ray_tpu_torch.scripts.cluster_cli import read_cluster_address
+
+            address = read_cluster_address()
+            if address is None:
+                raise RaySystemError(
+                    'init(address="auto"): no running cluster found — start '
+                    "one with `python -m ray_tpu_torch start --head`")
         # Env vars set since the last session must be observed (the
         # memoized read cache is per-process; explicit sets persist).
         GLOBAL_CONFIG.refresh()

@@ -89,8 +89,9 @@ class RemoteFunction:
     def bind(self, *args, **kwargs):
         """Build a lazy DAG node instead of submitting (reference
         `ray.dag`): compose with other bound nodes, run via execute()."""
-        raise NotImplementedError(
-            "bind() needs ray_tpu_torch.dag, not ported yet (ROADMAP M11)")
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs):
         import ray_tpu_torch

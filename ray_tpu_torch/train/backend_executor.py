@@ -100,11 +100,9 @@ class BackendExecutor:
         if self.worker_group is None:
             self.start()
             return
-        try:
-            self.backend.on_shutdown(self.worker_group, self.backend_config)
-        except Exception:  # noqa: BLE001 — dead ranks can't shut down
-            logger.debug("backend on_shutdown during restart failed",
-                         exc_info=True)
+        # No backend teardown: `restart` kills every rank, and a survivor's
+        # `destroy_process_group` blocks ~10 s on the TCPStore of a dead
+        # rank 0 before it gives up.
         target = None
         if self.elastic_world_fn is not None:
             target = self.elastic_world_fn(len(self.restarts) + 1,

@@ -2,8 +2,9 @@
 GQA training backward too), the serving engine, RLlib's learner update and
 V-trace, TorchPredictor against the CPU's, the accelerator registry's
 name for the card, ring attention's mesh and chunk steps, the pipeline
-stage trainer and GPipe, GPT-2's and MoE's mesh steps and the serving
-engine at tp 2, on a card.
+stage trainer and GPipe, GPT-2's and MoE's mesh steps, the serving
+engine at tp 2, and a GPU actor's worker killed by the chaos plane whose
+card goes to the next grant, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -904,6 +905,61 @@ def test_moe_mesh_step_on_card_matches_one_device(nccl_of_one):
     got, want = losses["mesh"], losses["no_mesh"]
     assert all(np.isfinite(got))
     assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_sigkilled_gpu_actor_gives_the_card_to_the_next(card):
+    """A GPU-granted actor's worker is SIGKILLed by the chaos plane's
+    worker_kill; once its pid is gone, a second actor is granted the card
+    in a fresh worker and allocates 1 GiB there."""
+    import os
+    import time
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.chaos import (ChaosRunner, WorkerKillInjector,
+                                     single_event_schedule)
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    @rt.remote(num_gpus=1)
+    class Holder:
+        def hold(self, gib):
+            import torch
+
+            x = torch.ones(gib << 28, device="cuda")   # 4-byte elements
+            torch.cuda.synchronize()
+            return (os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    x.numel() * 4 >> 30)
+
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 1})
+    cluster.add_node(num_cpus=1, num_gpus=torch.cuda.device_count())
+    cluster.wait_for_nodes()
+    cluster.connect()
+    try:
+        first = Holder.remote()
+        pid, cards, gib = rt.get(first.hold.remote(1), timeout=120)
+        assert cards == "0" and gib == 1
+        runner = ChaosRunner(
+            cluster, single_event_schedule(5, "worker_kill", at_s=0.01),
+            {"worker_kill": WorkerKillInjector(cluster, actors_only=True)},
+            recovery_deadline_s=60)
+        with runner:
+            assert runner.wait(timeout=90)
+        runner.assert_recovered()
+        assert runner.records[0].detail == {"pid": pid, "actor": True}
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            try:
+                os.kill(pid, 0)
+                time.sleep(0.05)
+            except ProcessLookupError:
+                break
+        else:
+            pytest.fail(f"the killed worker {pid} outlived 60 s")
+        second = Holder.remote()
+        pid2, cards2, gib2 = rt.get(second.hold.remote(1), timeout=120)
+        assert pid2 != pid and cards2 == "0" and gib2 == 1
+    finally:
+        cluster.shutdown()
 
 
 def test_engine_defaults_to_the_card():
