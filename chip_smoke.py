@@ -227,6 +227,36 @@ failed phase, with no phase caught.
    node boot and worker start (and when the node joined), idle to delete,
    and `status`'s `resources_total` before, with the node and after. The
    phase's budget of 60 s is printed.
+4l. The rest of the platform (after 4k, on the runtime it brought back):
+   (a) an actor asking for `num_gpus=1, resources={"scorer": 1}` must stay
+   PENDING_CREATION until `experimental.set_resource("scorer", 1)` makes
+   the resource on the head node; it builds GPT-2-small (seed 0, drawn on
+   the CPU, moved to the card) and puts its pid, CUDA_VISIBLE_DEVICES and
+   parameter count in `internal_kv`, which this process reads back: another
+   process, card "0", GPT-2-small's count. A second `set_resource` while
+   the actor holds the card must leave the GPU's availability at 0. (b)
+   128 windows of 1024 seeded tokens (phase 4d's size) are scored in 8
+   batches of 16, each window's mean next-token NLL through K1, through
+   `ActorPool([scorer])`: once with `map` (the batches in order) and once
+   with `map_unordered` (the same set); both must equal the same windows
+   scored in this process on the card by the same model built the same
+   way (bit-equal expected, else within 1e-6 relative, the largest gap
+   printed), and K1 must launch 12 times a batch in the actor (192, counted
+   there), K2 and K3 never. (c) During `map` the actor puts each batch's
+   (index, mean NLL) on a `util.queue.Queue`, drained here and held to the
+   pool's results, and each pass's `experimental.tqdm_ray.tqdm` bar's final
+   line (8/8) must reach this process's log stream. (d) `cpp/examples/
+   smoke.cc`, unchanged, built by g++ into `build/xlang/` while the phase
+   starts, runs against the port's `xlang` gateway (a named
+   `xlang-counter` actor, `tests/xlang_mod.py` by name) while the scorer
+   holds the card and must print SMOKE OK; its put is read back here and
+   its KV write seen (host-side: this leg bypasses the card). (e) Where
+   `transformers`, `xgboost` or `lightgbm` is absent, constructing its
+   trainer must raise the ImportError naming it (a present one is reported
+   as skipped). The actor is killed and its pid waited on. Prints the
+   actor's cold start (ask to ready, and from `set_resource`), its build
+   seconds and tokens/s through the pool beside this process's own loop;
+   the phase's budget of 30 s is printed.
 4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
    seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
    goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
@@ -379,11 +409,12 @@ failed phase, with no phase caught.
    line (phase 4h), the `{"tensor_parallel": {...}}` line (phase 4i), the
    `{"expert_parallel": {...}}` line (phase 4j, beside phase 11's peak
    memory), the `{"tp_serving": {...}}` line (phase 7c), the
-   `{"cluster": {...}}` line (phase 4k), the
+   `{"cluster": {...}}` line (phase 4k), the `{"platform": {...}}` line
+   (phase 4l), the
    `{"rllib": {...}}` line, the
    `{"kernels": [...]}` line (launches summed over the paths of phases 4,
-   4e, 4f, 4g, 4h, 4i, 4j, 4k, 4c, 4d, 6, 7, 7b, 7c, 8, 10, 11, 11b and
-   11c;
+   4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4c, 4d, 6, 7, 7b, 7c, 8, 10, 11, 11b
+   and 11c;
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
@@ -3762,6 +3793,413 @@ def cluster_phase(card: str, workdir: str) -> dict:
             "launches": gang["launches"]}
 
 
+# Phase 4l: the rest of the platform. One actor granted the card (and the
+# dynamic resource "scorer") holds GPT-2-small from seed 0 and scores
+# PLATFORM_WINDOWS windows of WINDOW seeded tokens, PLATFORM_BATCH at a
+# time (phase 4d's size), through an ActorPool, twice. Its scores are held
+# against the same windows scored in this process by the same model built
+# the same way: the same kernels on the same inputs, so bit-equal is
+# expected; were cuBLAS to pick another algorithm in the other process, a
+# window's mean NLL (~10.8 nats) would move by its bf16 logits' rounding
+# averaged over 1023 tokens, ~1e-5 of it. 1e-6 (relative) holds them
+# tighter than that: a miss is printed with the largest gap.
+PLATFORM_WINDOWS, PLATFORM_BATCH = 128, 16
+PLATFORM_TOL = 1e-6
+PLATFORM_BUDGET_S = 30.0
+PLATFORM_KV_NS, PLATFORM_KV_KEY = "chip_smoke", "4l/scorer"
+HERE = os.path.dirname(os.path.abspath(__file__))
+XLANG_BUILD = os.path.join(HERE, "build", "xlang")
+
+
+def mean_window_nll(model, ids):
+    """Each window's mean next-token NLL, in float32, where the ids [b, s]
+    (int64) are."""
+    with torch.no_grad():
+        return window_nll(model(ids)[:, :-1], ids[:, 1:]) / (ids.shape[1] - 1)
+
+
+def batch_mean(nll) -> float:
+    """A batch's mean of its windows' NLLs (float32 on the CPU), in
+    float64: the record the scorer puts on the Queue."""
+    return float(nll.double().mean())
+
+
+def platform_config(device: str):
+    """Phase 4l's model: GPT-2-small on the card, `tiny` at the windows'
+    length where the phase is tried on the CPU."""
+    from ray_tpu_torch.models import gpt2
+
+    return gpt2.GPT2Config.small() if device == "cuda" \
+        else gpt2.GPT2Config.tiny(seq=WINDOW)
+
+
+class PlatformScorer:
+    """Phase 4l's actor: GPT-2-small (`GPT2(small, device="cuda", seed=0)`:
+    drawn on the CPU, moved to the card), its pid, CUDA_VISIBLE_DEVICES
+    and parameter count put in the internal KV; `score` returns a batch's
+    mean NLLs, adds to a `tqdm_ray` bar and puts (index, the batch's mean)
+    on the pass's Queue where it has one."""
+
+    def __init__(self, device: str = "cuda"):
+        from ray_tpu_torch.experimental import internal_kv
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.ops import attention
+
+        t0 = time.perf_counter()
+        self.device = device
+        self.model = gpt2.GPT2(platform_config(device), device=device,
+                               seed=0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+        internal_kv._internal_kv_put(PLATFORM_KV_KEY, json.dumps({
+            "pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "params": gpt2.count_params(self.model)}).encode(),
+            namespace=PLATFORM_KV_NS)
+        attention.reset_kernel_launches()
+        self.bar = self.queue = None
+        self.ready_at = time.time()
+
+    def ready(self) -> dict:
+        return {"pid": os.getpid(), "build_s": self.build_s,
+                "ready_at": self.ready_at}
+
+    def begin(self, desc: str, total: int, queue=None) -> None:
+        from ray_tpu_torch.experimental import tqdm_ray
+
+        self.bar = tqdm_ray.tqdm(total=total, desc=desc)
+        self.queue = queue
+
+    def score(self, index: int, ids: np.ndarray):
+        nll = mean_window_nll(
+            self.model, torch.from_numpy(ids).to(self.device).long()).cpu()
+        if self.queue is not None:
+            self.queue.put((index, batch_mean(nll)))
+        self.bar.update(1)
+        if self.bar.n == self.bar.total:
+            self.bar.close()
+        return index, nll.numpy()
+
+    def launches(self) -> dict:
+        from ray_tpu_torch.ops import attention
+
+        return attention.kernel_launches()
+
+
+class XlangCounter:
+    """The named actor `cpp/examples/smoke.cc` drives."""
+
+    def __init__(self):
+        self.x = 0
+
+    def inc(self, n):
+        self.x += n
+        return self.x
+
+
+class _StderrTee:
+    """sys.stderr that also keeps its lines: the driver prints the
+    workers' streamed lines there."""
+
+    def __init__(self, base):
+        self.base, self.lines, self._part = base, [], ""
+
+    def write(self, s):
+        parts = (self._part + s).split("\n")
+        self._part = parts.pop()
+        self.lines.extend(parts)
+        return self.base.write(s)
+
+    def flush(self):
+        self.base.flush()
+
+    def __getattr__(self, attr):
+        return getattr(self.base, attr)
+
+
+def build_smoke_client() -> subprocess.Popen:
+    """g++ of the unchanged `cpp/examples/smoke.cc` into XLANG_BUILD,
+    started now and waited on when the client runs."""
+    os.makedirs(XLANG_BUILD, exist_ok=True)
+    return subprocess.Popen(
+        ["g++", "-std=c++17", "-O1", "-I", os.path.join(HERE, "cpp", "include"),
+         os.path.join(HERE, "cpp", "examples", "smoke.cc"), "-o",
+         os.path.join(XLANG_BUILD, "smoke")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def xlang_leg(gxx: subprocess.Popen) -> dict:
+    """Phase 4l (d): the C++ smoke client against the port's gateway."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import xlang
+    from ray_tpu_torch.core.ids import ObjectID
+
+    tests = os.path.join(HERE, "tests")   # the gateway imports xlang_mod
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    t0 = time.perf_counter()
+    out, _ = gxx.communicate(timeout=120)
+    if gxx.returncode != 0:
+        raise AssertionError(f"g++ of cpp/examples/smoke.cc failed: {out}")
+    build_wait_s = time.perf_counter() - t0
+    address = xlang.start_gateway()
+    counter = rt.remote(XlangCounter).options(name="xlang-counter").remote()
+    try:
+        if rt.get(counter.inc.remote(0), timeout=60) != 0:
+            raise AssertionError("xlang-counter did not start at 0")
+        py_ref = rt.put({"greeting": "from-python"})
+        t1 = time.perf_counter()
+        proc = subprocess.run([os.path.join(XLANG_BUILD, "smoke"), address,
+                               py_ref.hex()], capture_output=True,
+                              text=True, timeout=60)
+        client_s = time.perf_counter() - t1
+        if proc.returncode != 0 or "SMOKE OK" not in proc.stdout:
+            raise AssertionError(f"smoke client: rc {proc.returncode}, "
+                                 f"{proc.stdout!r} {proc.stderr[-2000:]!r}")
+        runtime = rt._require_runtime()
+        put_id = next(line.split()[1] for line in proc.stdout.splitlines()
+                      if line.startswith("PUT_ID "))
+        value = runtime.get([ObjectID.from_hex(put_id)], timeout=30)[0]
+        kv = runtime.gcs.call("kv_get", {"namespace": "xlang-user",
+                                         "key": b"cpp-key"})["value"]
+        published = runtime.gcs.call("kv_get", {
+            "namespace": xlang.GATEWAY_KV_NS,
+            "key": xlang.GATEWAY_KV_KEY})["value"].decode()
+        if value != {"kind": "from-cpp", "nums": [1, 2, 3], "pi": 3.5} \
+                or kv != b"cpp-value" or published != address:
+            raise AssertionError(f"C++ put read back {value!r}, KV {kv!r}, "
+                                 f"gateway published {published!r}")
+    finally:
+        rt.kill(counter)
+        xlang.stop_gateway()
+    print(f"  (d) xlang: cpp/examples/smoke.cc built by g++ ({build_wait_s:.2f}"
+          f" s waited on it here), run against the port's gateway at "
+          f"{address}: SMOKE OK in {client_s:.2f} s; its put read back in "
+          f"Python {value}, its KV write {kv!r} (host-side: the card is "
+          "not on this leg)")
+    return {"smoke_ok": True, "client_s": client_s,
+            "build_wait_s": build_wait_s}
+
+
+def trainer_gate_leg() -> dict:
+    """Phase 4l (e): each framework trainer raises an ImportError naming
+    its library where the library is absent."""
+    import importlib.util
+
+    from ray_tpu_torch import train
+
+    out = {}
+    for name, pkg, make in (
+            ("TransformersTrainer", "transformers",
+             lambda: train.TransformersTrainer(
+                 lambda config: None,
+                 scaling_config=train.ScalingConfig(num_workers=1))),
+            ("XGBoostTrainer", "xgboost",
+             lambda: train.XGBoostTrainer(params={})),
+            ("LightGBMTrainer", "lightgbm",
+             lambda: train.LightGBMTrainer(params={}))):
+        if importlib.util.find_spec(pkg) is not None:
+            out[name] = "skipped: installed"
+            print(f"  (e) {name}: {pkg} is installed here, so the gate was "
+                  "not checked")
+            continue
+        try:
+            make()
+        except ImportError as e:
+            if pkg not in str(e):
+                raise AssertionError(f"{name}'s ImportError does not name "
+                                     f"{pkg}: {e}") from e
+            out[name] = str(e)
+            print(f"  (e) {name}: ImportError: {e}")
+        else:
+            raise AssertionError(f"{name} was made without {pkg}")
+    return out
+
+
+def platform_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 4l, on the runtime phase 4k brought back: (a) the scorer is
+    granted only once `set_resource` has made "scorer"; its pid, card and
+    parameter count come back through the internal KV; (b) two ActorPool
+    passes score the windows, held against this process; (c) a Queue and a
+    tqdm_ray bar from the actor; (d) the C++ client against the xlang
+    gateway; (e) the framework trainers' gate. The actor is freed and its
+    pid waited on. Returns the phase's numbers and the actor's launches.
+    `device="cpu"` tries it on the CPU (GPT-2 `tiny`, a runtime with a
+    granted-only GPU; no kernel launches)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import experimental, state
+    from ray_tpu_torch.experimental import internal_kv
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.util.actor_pool import ActorPool
+    from ray_tpu_torch.util.queue import Queue
+
+    t_phase = time.perf_counter()
+    gxx = build_smoke_client()
+    cfg = platform_config(device)
+    ids = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (PLATFORM_WINDOWS, WINDOW), dtype=np.int32)
+    batches = [(i, ids[i * PLATFORM_BATCH:(i + 1) * PLATFORM_BATCH])
+               for i in range(PLATFORM_WINDOWS // PLATFORM_BATCH)]
+
+    # (a) Asked for before the resource exists: not granted until it does
+    # (a method call would wait for the actor, so its state is read).
+    asked = time.time()
+    scorer = rt.remote(num_gpus=1, resources={"scorer": 1})(
+        PlatformScorer).remote(device)
+    time.sleep(0.5)
+    pending = [a["State"] for a in state.list_actors(
+        [("ActorID", "=", scorer._actor_id.hex())])]
+    if pending != ["PENDING_CREATION"]:
+        raise AssertionError(f"the scorer is {pending} before 'scorer' "
+                             "exists")
+    experimental.set_resource("scorer", 1)
+    granted_from = time.time()
+
+    # While the actor starts: the same model and windows in this process.
+    model = gpt2.GPT2(cfg, device=device, seed=0)
+    n_params = gpt2.count_params(model)
+    dev_ids = torch.from_numpy(ids).to(device).long()
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        passes.append(torch.cat([
+            mean_window_nll(model, dev_ids[i:i + PLATFORM_BATCH])
+            for i in range(0, PLATFORM_WINDOWS, PLATFORM_BATCH)]).cpu())
+        driver_s = time.perf_counter() - t0   # the second pass's
+    want = passes[0].numpy()
+    if not np.array_equal(want, passes[1].numpy()):
+        raise AssertionError("this process's two passes differ")
+    del model, dev_ids, passes
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    ready = rt.get(scorer.ready.remote(), timeout=180)
+    ready_s = ready["ready_at"] - asked         # the actor's own clock
+    grant_s = ready["ready_at"] - granted_from
+    seen = json.loads(internal_kv._internal_kv_get(
+        PLATFORM_KV_KEY, namespace=PLATFORM_KV_NS))
+    print(f"  (a) set_resource('scorer', 1) after the ask (the actor "
+          f"{pending[0]} 0.5 s after it); the actor ready {ready_s:.2f} s after "
+          f"the ask ({grant_s:.2f} s after set_resource; its model built in "
+          f"{ready['build_s']:.2f} s); through internal_kv: pid "
+          f"{seen['pid']} (this process {os.getpid()}), CUDA_VISIBLE_DEVICES "
+          f"{seen['cuda_visible_devices']!r}, {seen['params']:,} parameters")
+    if seen["pid"] == os.getpid() or seen["pid"] != ready["pid"] \
+            or seen["cuda_visible_devices"] != "0" \
+            or seen["params"] != n_params:
+        raise AssertionError(f"the scorer is not another process on card 0 "
+                             f"holding GPT-2-small: {seen}, {n_params:,} "
+                             "parameters here")
+    # A second set_resource while the card is granted: the GPU stays held.
+    experimental.set_resource("scorer", 2)
+    deadline = time.monotonic() + 30
+    while rt.cluster_resources().get("scorer") != 2:
+        if time.monotonic() > deadline:
+            raise AssertionError("set_resource('scorer', 2) not seen")
+        time.sleep(0.05)
+    gpu_free = rt.available_resources().get("GPU", 0.0)
+    if gpu_free != 0.0:
+        raise AssertionError(f"set_resource reset the card's grant: GPU "
+                             f"{gpu_free} available while the scorer holds it")
+
+    # (b), (c) Two passes through the pool, each with its bar; the first
+    # also puts each batch's mean on a Queue.
+    tee = _StderrTee(sys.stderr)
+    sys.stderr = tee
+    queue = Queue()
+    try:
+        pool = ActorPool([scorer])
+        rt.get(scorer.begin.remote("4l map", len(batches), queue))
+        t0 = time.perf_counter()
+        ordered = list(pool.map(lambda a, b: a.score.remote(*b), batches))
+        map_s = time.perf_counter() - t0
+        records = [queue.get(timeout=30) for _ in batches]
+        leftover = queue.qsize()
+        rt.get(scorer.begin.remote("4l unordered", len(batches)))
+        t0 = time.perf_counter()
+        unordered = list(pool.map_unordered(lambda a, b: a.score.remote(*b),
+                                            batches))
+        unordered_s = time.perf_counter() - t0
+        launches = rt.get(scorer.launches.remote())
+        finals = {}
+        deadline = time.monotonic() + 20
+        while len(finals) < 2 and time.monotonic() < deadline:
+            for line in tee.lines:
+                for desc in ("4l map", "4l unordered"):
+                    if f"[{desc} pid={ready['pid']}] {len(batches)}/" \
+                            f"{len(batches)} (100%)" in line \
+                            and line.endswith(" done"):
+                        finals[desc] = line
+            time.sleep(0.05)
+    finally:
+        sys.stderr = tee.base
+        queue.shutdown()
+    if len(finals) < 2:
+        raise AssertionError(f"the bars' final lines did not reach this "
+                             f"process's log stream: {finals}")
+    order = [i for i, _ in ordered]
+    got = np.concatenate([nll for _, nll in ordered])
+    if order != list(range(len(batches))):
+        raise AssertionError(f"map returned batches in order {order}")
+    if sorted(i for i, _ in unordered) != order or any(
+            not np.array_equal(nll, ordered[i][1]) for i, nll in unordered):
+        raise AssertionError("map_unordered's batches differ from map's")
+    bit_equal = bool(np.array_equal(got, want))
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    want_records = [(i, batch_mean(torch.from_numpy(nll)))
+                    for i, nll in ordered]
+    print(f"  (b) {PLATFORM_WINDOWS} windows of {WINDOW} tokens in "
+          f"{len(batches)} batches of {PLATFORM_BATCH}: map in order "
+          f"{order}, map_unordered returned {[i for i, _ in unordered]}; "
+          f"against this process: bit-equal {bit_equal}, largest relative "
+          f"gap {rel:.3e} (tol {PLATFORM_TOL}); mean NLL {want.mean():.4f}")
+    tokens = PLATFORM_WINDOWS * WINDOW
+    res = {"card": card, "windows": PLATFORM_WINDOWS,
+           "batch": PLATFORM_BATCH, "bit_equal": bit_equal,
+           "max_rel_err": rel, "mean_nll": float(want.mean()),
+           "actor_ready_s": ready_s, "grant_to_ready_s": grant_s,
+           "actor_build_s": ready["build_s"],
+           "pool_map_tokens_per_sec": tokens / map_s,
+           "pool_unordered_tokens_per_sec": tokens / unordered_s,
+           "driver_tokens_per_sec": tokens / driver_s,
+           "launches": {k: int(launches[k]) for k in launches},
+           "pid": ready["pid"], "params": n_params}
+    print(f"  tokens/s through the pool: map {res['pool_map_tokens_per_sec']:.1f}"
+          f" (the actor's first pass), map_unordered "
+          f"{res['pool_unordered_tokens_per_sec']:.1f}; this process's own "
+          f"loop {res['driver_tokens_per_sec']:.1f} (its second pass); "
+          f"launches in the actor {res['launches']}, card {card}")
+    print(f"  (c) the Queue held {len(records)} records ({leftover} left), "
+          f"{records[:2]}...; the bars' last lines here: "
+          + "; ".join(finals.values()))
+    if not (np.all(np.isfinite(got)) and (bit_equal or rel <= PLATFORM_TOL)):
+        raise AssertionError("the pool's scores differ from this process's")
+    if sorted(records) != want_records or leftover:
+        raise AssertionError(f"the Queue's records {records} are not the "
+                             f"pool's {want_records}")
+    want_k1 = 2 * len(batches) * cfg.n_layer if device == "cuda" else 0
+    if res["launches"] != {"flash_fwd": want_k1, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}:
+        raise AssertionError(f"expected K1 {want_k1} times in the actor "
+                             f"and no backward kernel: {res['launches']}")
+
+    # (d) The C++ client while the scorer still holds the card; (e).
+    res["xlang"] = xlang_leg(gxx)
+    res["trainer_gate"] = trainer_gate_leg()
+
+    rt.kill(scorer)
+    res["exit_wait_s"] = wait_exited(ready["pid"], "the scorer actor")
+    experimental.set_resource("scorer", 0)
+    internal_kv._internal_kv_del(PLATFORM_KV_KEY, namespace=PLATFORM_KV_NS)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"  the scorer's pid gone {res['exit_wait_s']:.2f} s after the "
+          f"kill; phase 4l took {res['wall_s']:.1f} s (budget "
+          f"{PLATFORM_BUDGET_S:.0f} s)")
+    return res
+
+
 # Phases 4c and 4d: the Data-fed path. The corpus is the nanoGPT layout,
 # flat int32 token shards, each stored as one `.npz` row (`read_numpy`
 # reads an archive's arrays as columns): `tokens` [1, SHARD_TOKENS] and
@@ -6030,6 +6468,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # Phase 4l's C++ client calls `xlang_mod:add` by name: the workers
+    # import it from tests/ (every worker, so none started earlier lacks it).
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(HERE, "tests"), os.environ.get("PYTHONPATH"))
+        if p)
 
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.ops import _build
@@ -6128,6 +6571,11 @@ def main() -> int:
           "CLI")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         cluster = cluster_phase(card, d)
+
+    phase(started, "4l. the rest of the platform: GPT-2-small scored "
+          "through an ActorPool in an actor granted the card and a dynamic "
+          "resource; Queue, tqdm_ray, internal_kv, the C++ client")
+    platform = platform_phase(card)
 
     phase(started, "4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
           "small on a shuffled token corpus")
@@ -6254,10 +6702,11 @@ def main() -> int:
         expert_par, phase11_peak_gib=legs["moe-small"]["peak_gib"])}))
     print(json.dumps({"tp_serving": tp_serving}))
     print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"platform": platform}))
     paths = [launches, sweep["launches"], jobs["launches"],
              meshes["launches"], pipes["launches"], tensor_par["launches"],
              expert_par["launches"], cluster["launches"],
-             tp_serving["launches"],
+             platform["launches"], tp_serving["launches"],
              data_leg["launches"],
              scoring["launches"],
              llama_launches, serve_launches,

@@ -211,9 +211,10 @@ class StandardAutoscaler:
         live_keys = {self._node_key(h) for h in live}
         for stale in [k for k in self._last_busy if k not in live_keys]:
             self._last_busy.pop(stale, None)  # provider dropped the node
+        demand = resp.get("demand", [])
         for handle in live:
             hid = self._node_key(handle)
-            idle = self._node_is_idle(handle, view)
+            idle = self._node_is_idle(handle, view, demand)
             if not idle:
                 self._last_busy[hid] = now
                 continue
@@ -248,7 +249,7 @@ class StandardAutoscaler:
             node_hex = self.provider.resolve_node_id(handle, view)
         return node_hex
 
-    def _node_is_idle(self, handle, view) -> bool:
+    def _node_is_idle(self, handle, view, demand) -> bool:
         # Cloud providers map VM -> ray node lazily (label lookup).
         node_hex = self._node_hex(handle, view)
         if node_hex is None:
@@ -256,6 +257,14 @@ class StandardAutoscaler:
         entry = view.get(node_hex)
         if entry is None or not entry.get("alive"):
             return True  # dead managed node: reap it
+        if any(_fits(entry["total"], shape) for shape in demand):
+            # Queued work that this node could run keeps it: a lease
+            # waiting for its worker to start holds no resources, so the
+            # node only looks idle (a GPU worker is a cold start of
+            # seconds, and reaping the node kills the task it was about to
+            # run), and a node passed over by tasks queued elsewhere would
+            # be launched again for them at once.
+            return False
         return entry["available"] == entry["total"]
 
     def _launch(self):

@@ -607,6 +607,8 @@ class GcsServer:
             info.resources_available = data["resources_available"]
             info.resources_total = data.get("resources_total",
                                             info.resources_total)
+            if "pending_demand" in data:
+                self.node_demand[node_id] = data["pending_demand"]
             entry = self._view_entry_locked(node_id, info)
         self.pubsub.publish(CH_RESOURCES, b"*",
                             {"delta": {node_id.hex(): entry}})

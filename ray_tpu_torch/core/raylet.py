@@ -1231,7 +1231,8 @@ class Raylet:
                     {"node_id": self.node_id,
                      "resources_available": avail,
                      "resources_total": total,
-                     "version": self._resource_version})
+                     "version": self._resource_version,
+                     "pending_demand": self._pending_demand()})
             except Exception:  # noqa: BLE001 — heartbeat is the backstop
                 pass
 
@@ -1442,6 +1443,10 @@ class Raylet:
                         lease_req_id=data["req_id"])
         with self._lock:
             self._queue.append(qt)
+        # The queued shape reaches the GCS with the next delta, not the
+        # next heartbeat: a node whose worker is still starting holds no
+        # resources, and the autoscaler must see its queue to keep it.
+        self._mark_resources_dirty()
         self._dispatch_event.set()
         return {"status": "pending"}
 
@@ -1647,6 +1652,7 @@ class Raylet:
                     qt.deps_remaining.add(dep)
                     self._waiting_deps[dep].append(qt)
             self._queue.append(qt)
+        self._mark_resources_dirty()
         for dep in list(qt.deps_remaining):
             self._start_pull(dep)
         self._dispatch_event.set()

@@ -15,9 +15,8 @@ Commands:
     timeline --output FILE         chrome://tracing JSON
     metrics                        Prometheus text from the GCS
     serve deploy|status|shutdown|build   Serve's config-file commands
-    debug [--list] [--index N]     attach to a worker's breakpoint (needs
-                                   util/rpdb.py, which the port does not
-                                   have yet: the command says so)
+    debug [--list] [--index N]     attach to a worker's breakpoint
+                                   (util/rpdb.py)
 """
 
 from __future__ import annotations
@@ -84,13 +83,6 @@ def main(argv=None):
     if args.cmd == "stop":
         raise SystemExit(cluster_cli.cmd_stop(args))
 
-    if args.cmd == "debug":
-        try:
-            from ray_tpu_torch.util import rpdb
-        except ImportError:
-            print("error: `debug` needs ray_tpu_torch/util/rpdb.py, which "
-                  "is not ported yet", file=sys.stderr)
-            raise SystemExit(2) from None
     rt, owns_runtime = _connect(args.address)
     from ray_tpu_torch import state
 
@@ -133,6 +125,8 @@ def main(argv=None):
             else:
                 print(text)
     elif args.cmd == "debug":
+        from ray_tpu_torch.util import rpdb
+
         entries = rpdb.list_breakpoints()
         if args.list_only or not entries:
             _dump(entries or {"breakpoints": []})

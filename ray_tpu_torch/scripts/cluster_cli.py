@@ -29,7 +29,6 @@ from __future__ import annotations
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -110,26 +109,9 @@ def resolve_bind_host(host: str) -> str:
     throughout (NodeInfo.address, the cluster file, lease replies)."""
     if host not in ("auto", "0.0.0.0"):
         return host
+    from ray_tpu_torch.util.net import primary_ip
+
     return primary_ip()
-
-
-def primary_ip() -> str:
-    """This machine's primary interface IP — the address peers can dial
-    (a copy of the JAX package's `util/net.py`): a UDP-connect route
-    lookup (no packet is sent), with hostname-resolution and loopback
-    fallbacks for isolated machines."""
-    try:
-        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        try:
-            s.connect(("8.8.8.8", 80))
-            return s.getsockname()[0]
-        finally:
-            s.close()
-    except OSError:
-        try:
-            return socket.gethostbyname(socket.gethostname())
-        except OSError:
-            return "127.0.0.1"
 
 
 def _daemon_record_path(pid: int) -> str:

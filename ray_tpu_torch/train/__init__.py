@@ -45,6 +45,12 @@ from ray_tpu_torch.train.trainer import (
     Result,
     TorchTrainer,
 )
+from ray_tpu_torch.train.integrations import (
+    LightGBMTrainer,
+    TransformersTrainer,
+    XGBoostTrainer,
+    prepare_trainer,
+)
 from ray_tpu_torch.train.worker_group import TrainWorker, WorkerGroup
 
 __all__ = [
@@ -57,4 +63,6 @@ __all__ = [
     "get_checkpoint", "get_collective", "get_context", "get_dataset_shard",
     "get_device", "get_ingest_stats", "get_local_rank", "get_mesh",
     "get_world_rank", "get_world_size", "report", "sync_gradients",
+    "TransformersTrainer", "XGBoostTrainer", "LightGBMTrainer",
+    "prepare_trainer",
 ]

@@ -309,6 +309,36 @@ def test_decisions_equal_the_reference_on_a_script(monkeypatch):
         ([launch("6")], 6, 4)]    # one request unmet; CPU 8 fits no node
 
 
+def test_queued_demand_that_fits_keeps_an_idle_looking_node(monkeypatch):
+    """A node whose lease waits for its GPU worker to start holds no
+    resources, so it looks idle; while queued demand fits it, the port's
+    autoscaler keeps it, and reaps it once the demand is gone. (The JAX
+    package's reaps it at the idle timeout: F7.)"""
+    world = _World()
+    monkeypatch.setattr(port_autoscaler, "time", world)
+    monkeypatch.setattr(port_autoscaler, "RpcClient",
+                        lambda addr, name: _ScriptedGcs(world))
+    a = port_autoscaler.StandardAutoscaler(
+        "unused:0", world, port_autoscaler.AutoscalerConfig(
+            min_workers=0, max_workers=2, node_resources=dict(_World.SHAPE),
+            idle_timeout_s=1.0, launch_grace_s=0.0, update_period_s=0.2))
+    world.demand = [{"GPU": 1.0}]
+    a.update()                                   # launches node 1
+    world.joined = {"1"}
+    trace = []
+    for dt, demand in [(0.5, [{"GPU": 1.0}]), (2.0, [{"GPU": 1.0}]),
+                       (2.0, [{"CPU": 8.0}]), (2.0, [])]:
+        world.now += dt
+        world.demand = demand
+        world.trace = []
+        a.update()
+        trace.append(list(world.trace))
+    # Kept while a GPU shape is queued, though idle past the timeout; a
+    # shape no node fits keeps nothing.
+    assert trace == [[], [], [("terminate", "1")], []]
+    assert (a.num_launches, a.num_terminations) == (1, 1)
+
+
 def _local_provider_trace(pkg, cluster_mod, autoscaler_mod):
     """LocalNodeProvider on a real cluster of `pkg`, ticked by hand with a
     sequence of request_resources floors; returns each tick's
@@ -390,9 +420,11 @@ def test_fake_cloud_autoscaler_end_to_end():
         assert all(c["body"]["guestAccelerators"][0]["acceleratorCount"] == 1
                    for c in creates)
 
+        # Reaped means the autoscaler has recorded each termination: the
+        # provider forgets a VM before the loop's thread counts it.
         deadline = time.monotonic() + 30
-        while provider.non_terminated_nodes() and \
-                time.monotonic() < deadline:
+        while (provider.non_terminated_nodes() or autoscaler.num_terminations
+               < autoscaler.num_launches) and time.monotonic() < deadline:
             time.sleep(0.1)
         assert not provider.non_terminated_nodes(), "idle GPU VMs not reaped"
         deletes = [c for c in transport.calls if c["method"] == "DELETE"]

@@ -3,8 +3,9 @@ GQA training backward too), the serving engine, RLlib's learner update and
 V-trace, TorchPredictor against the CPU's, the accelerator registry's
 name for the card, ring attention's mesh and chunk steps, the pipeline
 stage trainer and GPipe, GPT-2's and MoE's mesh steps, the serving
-engine at tp 2, and a GPU actor's worker killed by the chaos plane whose
-card goes to the next grant, on a card.
+engine at tp 2, a GPU actor's worker killed by the chaos plane whose
+card goes to the next grant, and an ActorPool scorer granted the card and a
+dynamic resource, on a card.
 
 Needs a CUDA card, `nvcc` and no JAX:
 
@@ -960,6 +961,76 @@ def test_sigkilled_gpu_actor_gives_the_card_to_the_next(card):
         assert pid2 != pid and cards2 == "0" and gib2 == 1
     finally:
         cluster.shutdown()
+
+
+class _PoolScorer:
+    """A GPU actor holding a tiny bf16 GPT-2 from seed 0: each batch's mean
+    next-token NLLs, and its (index, mean) on a Queue."""
+
+    def __init__(self, queue):
+        from ray_tpu_torch.models import gpt2
+
+        tattn.reset_kernel_launches()
+        self.cfg = gpt2.GPT2Config.tiny(seq=256)
+        self.model = gpt2.GPT2(self.cfg, device="cuda", seed=0)
+        self.queue = queue
+
+    def score(self, index, ids):
+        nll = _mean_nll(self.model, torch.from_numpy(ids).cuda().long())
+        self.queue.put((index, float(nll.double().mean())))
+        return index, nll.numpy()
+
+    def launches(self):
+        import os
+
+        return tattn.kernel_launches(), os.environ["CUDA_VISIBLE_DEVICES"]
+
+
+def _mean_nll(model, ids):
+    with torch.no_grad():
+        logits = model(ids)[:, :-1].float()
+        tgt = torch.gather(logits, -1, ids[:, 1:, None]).squeeze(-1)
+        return (torch.logsumexp(logits, -1) - tgt).mean(-1).cpu()
+
+
+@pytest.mark.cuda
+def test_actor_pool_scorer_on_card_is_the_driver_bitwise(card):
+    """chip_smoke's phase 4l at a small size: an actor granted the card and
+    a dynamic resource scores batches through an ActorPool, a Queue
+    carries its records; its scores equal this process's on the card bit
+    for bit, and K1 launches once a layer a batch in the actor."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import experimental
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.util.actor_pool import ActorPool
+    from ray_tpu_torch.util.queue import Queue
+
+    rt.init(num_cpus=2)
+    try:
+        experimental.set_resource("scorer", 1)
+        queue = Queue()
+        actor = rt.remote(num_gpus=1, resources={"scorer": 1})(
+            _PoolScorer).remote(queue)
+        ids = np.random.default_rng(0).integers(0, 512, (16, 256),
+                                                dtype=np.int32)
+        batches = [(i, ids[4 * i:4 * i + 4]) for i in range(4)]
+        out = list(ActorPool([actor]).map(lambda a, b: a.score.remote(*b),
+                                          batches))
+        records = sorted(queue.get(timeout=30) for _ in batches)
+        launches, cards = rt.get(actor.launches.remote())
+        model = gpt2.GPT2(gpt2.GPT2Config.tiny(seq=256), device="cuda",
+                          seed=0)
+        want = [_mean_nll(model, torch.from_numpy(b).cuda().long()).numpy()
+                for _, b in batches]
+        assert [i for i, _ in out] == [0, 1, 2, 3] and cards == "0"
+        for (_, got), w in zip(out, want):
+            assert np.array_equal(got, w)
+        assert records == [(i, float(torch.from_numpy(w).double().mean()))
+                           for i, w in enumerate(want)]
+        assert launches == {"flash_fwd": 4 * model.config.n_layer,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    finally:
+        rt.shutdown()
 
 
 def test_engine_defaults_to_the_card():
