@@ -257,6 +257,25 @@ failed phase, with no phase caught.
    actor's cold start (ask to ready, and from `set_resource`), its build
    seconds and tokens/s through the pool beside this process's own loop;
    the phase's budget of 30 s is printed.
+4m. raylint on the chip machine (after 4l; it starts no GPU worker and
+   launches no kernel of the port: its counts must stay 0): (a) `python -m
+   ray_tpu_torch.analysis ray_tpu_torch/` in a subprocess must exit 0 with
+   no finding (this machine has no JAX, so the run also shows the
+   linter's imports are clean); its wall time is printed. (b) The RL020
+   and RL021 twins of `tests/torch_lint_fixtures.py` are linted here: each
+   known-bad one must draw its rule, each known-good one nothing; then a
+   fresh process runs them on CUDA tensors under
+   `torch.cuda.set_sync_debug_mode("error")`: each bad twin must raise the
+   synchronizing-operation error, each good one must run through (RL021's
+   good twin waits once, on an event after a non-blocking copy into pinned
+   memory, which the mode does not count), and the mode is reset in a
+   `finally` and read back. (c) RL024's twins, linted the same way, run in
+   that process: the bad one initialises CUDA and forks a child, whose
+   first CUDA call must fail with "Cannot re-initialize CUDA in forked
+   subprocess"; the good one spawns its child, which must use the card.
+   (a) runs beside (b) and (c). Prints `{"analysis": {...}}` in phase 12:
+   the lint's seconds and findings, each check, the phase's seconds
+   (predicted 20-40 s; its budget of 45 s is printed, not enforced).
 4c. Data-fed training: a corpus of 16 shards of 2^20 int32 tokens from
    seed 0 (the nanoGPT layout; each an `.npz` row with the shard's index)
    goes through `read_numpy`, a `map_batches` that cuts windows of 1,025
@@ -410,11 +429,11 @@ failed phase, with no phase caught.
    `{"expert_parallel": {...}}` line (phase 4j, beside phase 11's peak
    memory), the `{"tp_serving": {...}}` line (phase 7c), the
    `{"cluster": {...}}` line (phase 4k), the `{"platform": {...}}` line
-   (phase 4l), the
+   (phase 4l), the `{"analysis": {...}}` line (phase 4m), the
    `{"rllib": {...}}` line, the
    `{"kernels": [...]}` line (launches summed over the paths of phases 4,
-   4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4c, 4d, 6, 7, 7b, 7c, 8, 10, 11, 11b
-   and 11c;
+   4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4c, 4d, 6, 7, 7b, 7c, 8, 10, 11,
+   11b and 11c;
    each record also holds its time at the long-context shape under
    `gpt2_long`, K1's at the Llama-7B shape under `llama7b_prefill`, and
    each head-dim and float16 instance
@@ -467,6 +486,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 
 import numpy as np
@@ -4224,6 +4244,133 @@ SCORE_TOL = 1e-4          # relative
 BC_BATCHES, BC_ROWS = 4, 200
 
 
+# Phase 4m: raylint on the chip machine. Its budget (printed): the port's
+# lint takes 13-15 s of one CPU core, and the fresh process that runs the
+# twins (torch, CUDA, a forked and a spawned child) ~10-20 s beside it.
+ANALYSIS_BUDGET_S = 45.0
+SYNC_ERROR = "called a synchronizing CUDA operation"
+FORK_ERROR = "Cannot re-initialize CUDA in forked subprocess"
+
+
+def _twins():
+    """tests/torch_lint_fixtures.py, the hazard rules' runnable twins."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_lint_fixtures",
+        os.path.join(HERE, "tests", "torch_lint_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_twins(twin_dir: str) -> None:
+    """Phase 4m's fresh process (`python -c`, with `twin_dir` on sys.path,
+    where each twin is the module `twin_<name>`): the RL020/RL021 twins on
+    CUDA tensors under sync debug mode "error", then RL024's fork and spawn.
+    Prints one JSON object: each twin's outcome."""
+    import importlib
+
+    out = {}
+    fx = _twins()
+    x = torch.randn(4096, device="cuda")
+    logits = torch.randn(8, 512, device="cuda")
+    args = {"RL020": (x,), "RL021": (logits, list(range(8)))}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, (rid, entry) in fx.ENTRY.items():
+            if rid not in args:
+                continue
+            fn = getattr(importlib.import_module(f"twin_{name.lower()}"),
+                         entry)
+            try:
+                fn(*args[rid])
+                out[name] = "ran"
+            except RuntimeError as e:
+                out[name] = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("sync debug mode was not reset")
+    for name in ("RL024_BAD", "RL024_GOOD"):
+        status, what = importlib.import_module(
+            f"twin_{name.lower()}").launch()
+        out[name] = f"{status}: {what}"
+    print(json.dumps(out))
+
+
+def analysis_phase() -> dict:
+    """Phase 4m (see the module docstring): the port's lint, and the torch
+    hazard rules' twins linted and then run on the card."""
+    from ray_tpu_torch.analysis import lint_paths_full
+    from ray_tpu_torch.ops import attention as attn
+
+    attn.reset_kernel_launches()
+    started = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.analysis", "ray_tpu_torch/",
+         "--json"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    fx = _twins()
+    twin_dir = tempfile.mkdtemp(prefix="chip_smoke_twins_")
+    try:
+        drawn = {}
+        for name, (rid, _entry) in fx.ENTRY.items():
+            path = os.path.join(twin_dir, f"twin_{name.lower()}.py")
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(textwrap.dedent(getattr(fx, name)))
+            drawn[name] = [f.rule for f in lint_paths_full([path]).findings]
+            want = [rid] if name.endswith("_BAD") else []
+            if drawn[name] != want:
+                raise AssertionError(f"the lint of twin {name} drew "
+                                     f"{drawn[name]}, not {want}")
+        code = (f"import sys; sys.path[:0] = [{HERE!r}, {twin_dir!r}]; "
+                "import chip_smoke; chip_smoke.run_twins(sys.path[1])")
+        child = subprocess.run([sys.executable, "-c", code], cwd=twin_dir,
+                               capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"the twins' process failed:\n"
+                                 f"{child.stdout}{child.stderr}")
+        ran = json.loads(child.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(twin_dir, ignore_errors=True)
+    lint_out, lint_err = lint.communicate(timeout=300)
+    lint_s = time.perf_counter() - started
+    findings = json.loads(lint_out) if lint_out.strip() else None
+    print(f"  (a) python -m ray_tpu_torch.analysis ray_tpu_torch/: exit "
+          f"{lint.returncode}, {len(findings or [])} finding(s), "
+          f"{lint_s:.1f} s wall (run beside (b) and (c))")
+    if lint.returncode != 0 or findings != []:
+        raise AssertionError(f"the port's lint is not clean here:\n"
+                             f"{lint_out}{lint_err}")
+    checks = {}
+    for name, outcome in ran.items():
+        if name.startswith("RL024"):
+            want = (f"error: {FORK_ERROR}" if name.endswith("_BAD")
+                    else "ok: 2.0")
+            held = outcome.startswith(want)
+        else:
+            held = (SYNC_ERROR in outcome if name.endswith("_BAD")
+                    else outcome == "ran")
+        checks[name] = {"lint": drawn[name], "run": outcome, "held": held}
+        print(f"  {name}: lint {drawn[name] or 'quiet'}; on the card: "
+              f"{outcome} -> {'held' if held else 'FAILED'}")
+    failed = [n for n, c in checks.items() if not c["held"]]
+    if failed or set(ran) != set(fx.ENTRY):
+        raise AssertionError(f"phase 4m checks failed: {failed or ran}")
+    seconds = time.perf_counter() - started
+    launches = attn.kernel_launches()
+    over = "" if seconds <= ANALYSIS_BUDGET_S else ": OVER its budget"
+    print(f"  phase 4m: {seconds:.1f} s (budget {ANALYSIS_BUDGET_S:.0f} s"
+          f"{over}); launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 4m launched kernels: {launches}")
+    return {"lint_s": lint_s, "lint_findings": len(findings),
+            "checks": checks, "seconds": seconds,
+            "within_budget": not over, "launches": launches}
+
+
 def write_corpus(path: str, vocab: int) -> list:
     """CORPUS_SHARDS files of SHARD_TOKENS int32 tokens each, from seed
     0."""
@@ -6577,6 +6724,10 @@ def main() -> int:
           "resource; Queue, tqdm_ray, internal_kv, the C++ client")
     platform = platform_phase(card)
 
+    phase(started, "4m. raylint on the chip machine: the port's lint, the "
+          "torch hazard rules' twins on the card")
+    analysis = analysis_phase()
+
     phase(started, "4c. Data-fed training: TorchTrainer.fit(datasets=), GPT-2-"
           "small on a shuffled token corpus")
     small = gpt2.GPT2Config.small()
@@ -6703,10 +6854,12 @@ def main() -> int:
     print(json.dumps({"tp_serving": tp_serving}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"platform": platform}))
+    print(json.dumps({"analysis": analysis}))
     paths = [launches, sweep["launches"], jobs["launches"],
              meshes["launches"], pipes["launches"], tensor_par["launches"],
              expert_par["launches"], cluster["launches"],
-             platform["launches"], tp_serving["launches"],
+             platform["launches"], analysis["launches"],
+             tp_serving["launches"],
              data_leg["launches"],
              scoring["launches"],
              llama_launches, serve_launches,

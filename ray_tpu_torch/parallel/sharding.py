@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 # cross-host data-parallel axis of a multi-host mesh (laid out
 # slowest-varying by MeshSpec.dcn_axes).
 DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
+    # raylint: disable=RL023 — dcn_dp is declared by multi-host callers (MeshSpec(dcn_axes=...)); single-host meshes prune it
     ("batch", ("dcn_dp", "dp", "fsdp")),
     ("seq", "sp"),
     ("embed", "fsdp"),
@@ -28,7 +29,7 @@ DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
     ("heads", "tp"),
     ("kv", None),
     ("vocab", "tp"),
-    ("expert", "ep"),
+    ("expert", "ep"),  # raylint: disable=RL023 — MoE callers declare ep (MeshSpec({"ep": n, ...}))
     ("stage", "pp"),
     ("norm", None),
 )

@@ -329,11 +329,12 @@ class DQN:
                 "buffer_size": len(self.buffer), **metrics}
 
     def _learner_update(self, batch):
-        # LearnerGroup.call dispatches a learner METHOD by name.
-        return self.learner_group.call("update_dqn", batch)
+        # LearnerGroup.call is an actor-group fan-out, not an RpcClient:
+        # "update_dqn" names a learner METHOD dispatched via getattr.
+        return self.learner_group.call("update_dqn", batch)  # raylint: disable=RL014
 
     def _learner_sync_target(self):
-        self.learner_group.call("sync_target")
+        self.learner_group.call("sync_target")  # raylint: disable=RL014 — actor-group call
 
     def train(self) -> Dict[str, Any]:
         self.iteration += 1

@@ -89,7 +89,7 @@ class RolloutWorker:
             out = self.module.forward_exploration(self.net, obs, self._gen)
             # The env needs host actions every step: this copy IS the
             # rollout contract.
-            host = {k: v.cpu().numpy() for k, v in out.items()}
+            host = {k: v.cpu().numpy() for k, v in out.items()}  # raylint: disable=RL021 — per-step sync is the env-step contract
             actions = host["actions"]
             next_obs, rewards, dones, infos = self.env.step(actions)
             obs_buf[t] = obs
